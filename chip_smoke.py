@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Smoke run of kissabc_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``kissabc_tpu_torch/csrc/`` with nvcc, holds
+each kernel against its plain PyTorch version on the card, drives the
+port's main path — ``smc`` on the flagship README model at 1000 and at
+2**20 particles, and the fused flagship sweep at 131072 walkers — and
+checks the posterior against the reference's parity rule. Every phase
+prints one line with its result and seconds; any failed check raises
+and the script exits non-zero. The line before the last is one JSON
+object with every kernel's launches on the main path, its error against
+its plain version and its times; the last line is
+``{"ok": true, "device": {...}}``.
+
+Needs one CUDA card and nvcc; imports nothing of JAX. Without a card, or
+run from a directory without the package, it exits 1 and prints no result.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SCRIPT_LIMIT_S = 1000    # whole run, build included (the limit is 1200 s)
+FULL_SMC_LIMIT_S = 420   # the 2**20-particle smc run alone
+H100_F32_OPS = 67e12     # float32 outside the tensor cores, H100 SXM
+H100_BYTES = 3.35e12     # HBM3, H100 SXM
+EPSTOL = 0.011113        # README.md:84 of the reference
+
+
+class Timeout(Exception):
+    pass
+
+
+def _alarm(seconds):
+    def handler(signum, frame):
+        raise Timeout(f"wall-clock guard: over {seconds} s")
+    signal.signal(signal.SIGALRM, handler)
+    signal.alarm(seconds)
+
+
+def say(line):
+    print(line, flush=True)
+
+
+class Phase:
+    """Prints ``[phase] name: result (seconds)`` when the block ends;
+    an exception inside propagates and ends the run."""
+
+    def __init__(self, name):
+        self.name, self.result = name, ""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.perf_counter() - self.t0
+        status = "FAILED" if exc_type else "ok"
+        say(f"[phase] {self.name}: {status} {self.result} ({dt:.2f} s)")
+        return False
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def cuda_ms(torch, fn, reps, warmup=2):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(work):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate (integer operations are counted at
+    the float32 rate, which no slower integer unit can beat)."""
+    nbytes, ops = work
+    t_bytes, t_ops = nbytes / H100_BYTES, ops / H100_F32_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def assert_close(torch, got, want, what, rtol=2e-4, atol=2e-5):
+    """The JAX golden tolerance of tests/test_pallas.py:104."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    ok = torch.isclose(got, want, rtol=rtol, atol=atol)
+    check(bool(ok.all()), f"{what}: {int((~ok).sum())} values outside "
+          f"rtol={rtol}, atol={atol}; max abs err {max_err(got, want)}")
+    return max_err(got, want)
+
+
+def compare_sweeps(torch, got, want, eps, what):
+    """Kernel vs plain fused sweep on the same inputs: commit masks equal
+    except where the cost lies within 1e-5 of eps; committed values
+    within the golden tolerance. Returns (max abs err, borderline)."""
+    gmu, gsg, gxs, glps, gcm = got
+    wmu, wsg, wxs, wlps, wcm = want
+    border = (wxs - eps).abs() < 1e-5
+    differ = gcm != wcm
+    check(bool((~differ | border).all()),
+          f"{what}: commit masks differ on {int((differ & ~border).sum())}"
+          " walkers away from eps")
+    both = gcm & wcm
+    err = 0.0
+    for g, w, name in ((gmu, wmu, "mu"), (gsg, wsg, "sigma"),
+                       (gxs, wxs, "cost"), (glps, wlps, "lp")):
+        err = max(err, assert_close(torch, g[both], w[both],
+                                    f"{what} committed {name}"))
+    return err, int(differ.sum())
+
+
+def check_untouched(torch, inputs, outs, commit, what):
+    """Walkers that do not commit keep their inputs bit for bit."""
+    keep = ~commit
+    for x, o, name in zip(inputs, outs, ("mu", "sigma", "xs", "lps")):
+        check(bool(torch.equal(x[keep], o[keep])),
+              f"{what}: uncommitted {name} changed")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.exists(os.path.join(HERE, "kissabc_tpu_torch", "csrc",
+                                       "flagship.cu")):
+        print("chip_smoke: kissabc_tpu_torch not found beside the script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    _alarm(SCRIPT_LIMIT_S)
+    t_start = time.perf_counter()
+
+    import kissabc_tpu_torch as kt
+    from kissabc_tpu_torch.ops import _build
+    from kissabc_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+
+    with Phase("device") as ph:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.stdout else "n/a"
+        say(card)
+        ph.result = (f"{kind}, {count} device(s), torch {torch.__version__},"
+                     f" CUDA {torch.version.cuda}")
+
+    with Phase("build") as ph:
+        lib_path, build_s, log = _build.build()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas: {line.strip()}")
+        _build.load()
+        ph.result = f"{lib_path.name} compiled in {build_s:.2f} s"
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def uniform(n, lo, hi):
+        return torch.rand(n, generator=gen, device=dev) * (hi - lo) + lo
+
+    # ---- 3: kernels vs their plain versions on the stub stream ----------
+    with Phase("kernel-vs-plain-stub") as ph:
+        n, nd = 65536, 1000
+        mu, sg = uniform(n, 1.0, 3.0), uniform(n, 0.01, 0.1)
+        errs = []
+        for nn in (n, 1000):
+            kw = dict(ndraws=nd, bits="stub", block=1024, chunk=512,
+                      walker_tiles=8)
+            got = K.normal_summary_cost(mu[:nn], sg[:nn], 42, **kw)
+            want = K.normal_summary_cost_plain(mu[:nn], sg[:nn], 42, **kw)
+            errs.append(assert_close(torch, got, want,
+                                     f"normal_summary_cost stub n={nn}"))
+        dmu, dsg = uniform(n, -0.5, 0.5), uniform(n, -0.02, 0.02)
+        xs = torch.ones(n, device=dev)
+        lps = torch.full((n,), -3.0, device=dev)
+        skw = dict(ndraws=nd, bits="stub", block=2048, chunk=512)
+        got = K.fused_sweep(mu, sg, dmu, dsg, xs, lps, 0.5, 7, **skw)
+        consts = K.fused_sweep_constants(
+            max_stretch=2.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05, sg_lo=0.0,
+            sg_hi=100.0)
+        want = K.fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, 0.5, 7,
+                                   consts=consts, target_mu=2.0,
+                                   target_sd=0.04, sd_weight=50.0, **skw)
+        err, border = compare_sweeps(torch, got, want, 0.5,
+                                     "fused_sweep stub")
+        check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
+                        "fused_sweep stub")
+        acc = int(got[4].sum())
+        check(0 < acc < n, f"fused_sweep stub accepted {acc} of {n}")
+        ph.result = (f"cost max|err| {max(errs):.3g}; sweep max|err| "
+                     f"{err:.3g}, {acc} commits, {border} borderline")
+
+    with Phase("no-write-past-n") as ph:
+        # buffers longer than n, filled with sentinels: a launch over n
+        # walkers must leave everything past n as it was
+        n, extra = 1000, 1024
+
+        def buf(value, dtype=torch.float32):
+            return torch.full((n + extra,), value, dtype=dtype, device=dev)
+
+        seed = torch.tensor([5], dtype=torch.int64, device=dev)
+        out = buf(float("nan"))
+        K.launch_normal_summary_cost(
+            n, buf(2.0), buf(0.04), seed, out, ndraws=nd, target_mu=2.0,
+            target_sd=0.04, sd_weight=50.0, block=1024, chunk=512,
+            bits="hw", walker_tiles=8)
+        outs = [buf(float("nan")) for _ in range(4)] + [buf(7, torch.uint8)]
+        K.launch_fused_sweep(
+            n, (buf(2.0), buf(0.04), buf(0.01), buf(0.001), buf(1.0),
+                buf(0.0)), outs, torch.tensor([0.5], device=dev), seed,
+            consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
+            sd_weight=50.0, block=2048, chunk=512, bits="hw")
+        torch.cuda.synchronize()
+        for o in [out] + outs[:4]:
+            check(bool(torch.isfinite(o[:n]).all()), "a walker < n unwritten")
+            check(bool(torch.isnan(o[n:]).all()), "a walker >= n written")
+        check(bool((outs[4][:n] <= 1).all() & (outs[4][n:] == 7).all()),
+              "commit mask written past n")
+        ph.result = f"n={n} in buffers of {n + extra}: tails untouched"
+
+    # ---- 4: Philox statistics ----------------------------------------------
+    with Phase("philox-statistics") as ph:
+        n = 131072
+        mu = torch.full((n,), 2.0, device=dev)
+        sg = torch.full((n,), 0.04, device=dev)
+        c3 = K.normal_summary_cost(mu, sg, 3)
+        c4 = K.normal_summary_cost(mu, sg, 4)
+        c3b = K.normal_summary_cost(mu, sg, 3)
+        m = float(c3.mean())
+        check(bool(torch.isfinite(c3).all()), "non-finite Philox costs")
+        # E[cost] = E hypot(N(0, 0.04/sqrt(1000)), 50 N(0, 0.04/sqrt(2000)))
+        check(abs(m - 0.0357) < 0.004, f"mean cost {m} not 0.0357 +- 0.004")
+        check(not torch.allclose(c3, c4), "seeds 3 and 4 gave equal costs")
+        check(bool(torch.equal(c3, c3b)), "seed 3 did not repeat")
+        ph.result = f"mean cost {m:.5f} at mu=2, sigma=0.04"
+
+    prior = kt.Factored(kt.Uniform(1, 3), kt.TruncatedNormal(0, 0.05, 0, 100))
+    cost = kt.make_flagship_cost_batched()
+
+    def run_smc(nparticles, **kw):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(prior, cost, cost_vectorized=True,
+                     nparticles=nparticles, epstol=EPSTOL, max_iters=2000,
+                     key=2, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = dict(K.launches)
+        mu_p, sg_p = res.P
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
+        check(launched["normal_summary_cost"] > 0,
+              "smc did not launch the normal_summary_cost kernel")
+        return res, wall, launched
+
+    # ---- 5/6: the main path ---------------------------------------------
+    with Phase("smc-parity") as ph:
+        res, wall, launched = run_smc(1000)
+        ph.result = (f"n=1000 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
+                     f" wall {wall:.3f} s launches {launched}")
+
+    with Phase("smc-full") as ph:
+        _alarm(FULL_SMC_LIMIT_S)
+        res, wall, launched = run_smc(1 << 20, min_r_ess=0.5)
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        smc_launches = launched["normal_summary_cost"]
+        ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
+                     f" wall {wall:.3f} s launches {launched}")
+
+    # ---- 7: the fused flagship sweep ------------------------------------
+    with Phase("fused-sweep") as ph:
+        n, steps = 131072, 100
+        step = kt.make_fused_flagship_sweep(n)
+        mu, sg = prior.sample_tree(gen, n)
+        xs = torch.ones(n, device=dev)
+        lps = torch.zeros(n, device=dev)
+        th, x_, lp = (mu, sg), xs, lps
+        th, x_, lp, _ = step(gen, th, x_, lp, 0.5)  # warm-up
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(steps):
+            th, x_, lp, acc = step(gen, th, x_, lp, 0.5)
+            accepted += acc
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sweep_launches = K.launches["fused_sweep"]
+        check(sweep_launches == steps, f"fused sweep launched "
+              f"{sweep_launches} kernels in {steps} steps")
+        check(bool(torch.isfinite(x_).all() & (x_ <= 1.0).all()),
+              "fused sweep costs not finite or above the start")
+        ph.result = (f"{steps} steps at n={n}: {n * steps / dt:.4g} "
+                     f"updates/s, accept fraction "
+                     f"{int(accepted) / (n * steps):.4f}")
+
+    # ---- timing and checks at the main-path shapes ----------------------
+    records = []
+    with Phase("kernel-times") as ph:
+        n, nd = 1 << 20, 1000
+        mu, sg = prior.sample_tree(gen, n)
+        seed = torch.tensor([11], dtype=torch.int64, device=dev)
+        got = K.normal_summary_cost(mu, sg, seed)
+        want = K.normal_summary_cost_plain(mu, sg, seed)
+        err1 = assert_close(torch, got, want, "normal_summary_cost n=2^20")
+        ms1 = cuda_ms(torch, lambda: K.normal_summary_cost(mu, sg, seed), 10)
+        plain1 = cuda_ms(torch, lambda: K.normal_summary_cost_plain(
+            mu, sg, seed), 1, warmup=0)
+        b1, by1 = bound(K.normal_summary_cost_work(n, nd))
+        records.append(dict(
+            name="normal_summary_cost", route="cuda",
+            source="kissabc_tpu_torch/csrc/flagship.cu",
+            replaces="kissabc_tpu/ops/pallas_kernels.py:134",
+            launches=smc_launches, max_abs_err=err1, matched=True,
+            ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+            library_ms=None))
+
+        n = 131072
+        mu, sg = prior.sample_tree(gen, n)
+        r1, r2 = 5, 77
+        dmu = torch.roll(mu, r2) - torch.roll(mu, r1)
+        dsg = torch.roll(sg, r2) - torch.roll(sg, r1)
+        xs = uniform(n, 0.0, 1.0)
+        lps = prior.logpdf(prior.push_tree((mu, sg)))
+        args = (mu, sg, dmu, dsg, xs, lps, 0.5, seed)
+        got = K.fused_sweep(*args)
+        want = K.fused_sweep_plain(*args, consts=consts, ndraws=nd,
+                                   target_mu=2.0, target_sd=0.04,
+                                   sd_weight=50.0, block=2048, chunk=512,
+                                   bits="hw")
+        err2, border = compare_sweeps(torch, got, want, 0.5,
+                                      "fused_sweep n=131072")
+        check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
+                        "fused_sweep n=131072")
+        ms2 = cuda_ms(torch, lambda: K.fused_sweep(*args), 50)
+        plain2 = cuda_ms(torch, lambda: K.fused_sweep_plain(
+            *args, consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
+            sd_weight=50.0, block=2048, chunk=512, bits="hw"), 2, warmup=1)
+        b2, by2 = bound(K.fused_sweep_work(n, nd))
+        records.append(dict(
+            name="fused_sweep", route="cuda",
+            source="kissabc_tpu_torch/csrc/flagship.cu",
+            replaces="kissabc_tpu/ops/pallas_kernels.py:295",
+            launches=sweep_launches, max_abs_err=err2, matched=True,
+            ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
+            library_ms=None))
+        ph.result = (f"normal_summary_cost {ms1:.3f} ms (bound {b1:.3f}); "
+                     f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}), "
+                     f"{border} borderline commits")
+
+    signal.alarm(0)
+    say(f"[total] {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"kernels": records}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

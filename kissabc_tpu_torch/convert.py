@@ -1,0 +1,61 @@
+"""Carry the JAX package's state across to the port, from plain numbers
+and numpy arrays only (the port imports nothing of the JAX package).
+
+- ``prior_from_numpy(spec)`` builds the port's prior from a nested spec
+  of family names and parameters, e.g. ``("Factored", [("Uniform",
+  {"a": 1, "b": 3}), ("Truncated", {"base": ("Normal", {"mu": 0,
+  "sigma": 0.05}), "lo": 0, "hi": 100})])``;
+- ``state_from_numpy(...)`` makes the port's ``_SMCState`` from the numpy
+  arrays of a JAX ``_SMCState``.
+
+Tests use both to run the two packages from one starting point.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import distributions as D
+from .core.smc import _SMCState
+from .utils.rng import as_generator
+
+_FAMILIES = {"Uniform": D.Uniform, "Normal": D.Normal,
+             "Truncated": D.Truncated}
+
+
+def prior_from_numpy(spec):
+    """``(family, params)``: ``params`` is a dict of numbers for a
+    univariate family, a list of specs for ``"Factored"``, and
+    ``"Truncated"`` takes its ``base`` as a spec."""
+    family, params = spec
+    if family == "Factored":
+        return D.Factored(*(prior_from_numpy(s) for s in params))
+    if family not in _FAMILIES:
+        raise NotImplementedError(
+            f"{family} is not ported yet (the port has "
+            f"{', '.join(sorted(_FAMILIES))} and Factored)")
+    params = dict(params)
+    if family == "Truncated":
+        params["base"] = prior_from_numpy(params["base"])
+    return _FAMILIES[family](**params)
+
+
+def state_from_numpy(thetas, xs, lps, alive, eps, logz, it, *, key=0,
+                     device="cpu") -> _SMCState:
+    """The port's smc state from numpy arrays: ``thetas`` a tuple of
+    ``[n]`` arrays (one per marginal), ``xs``/``lps`` ``[n]`` float32,
+    ``alive`` ``[n]`` bool, ``eps``/``logz`` float32 scalars, ``it`` an
+    int. ``key`` seeds the generator the next iteration draws from."""
+    dev = torch.device(device)
+
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), device=dev).to(dtype)
+
+    return _SMCState(
+        as_generator(key, dev),
+        tuple(t(x, torch.float32) for x in thetas),
+        t(xs, torch.float32), t(lps, torch.float32), t(alive, torch.bool),
+        t(eps, torch.float32), t(logz, torch.float32), t(it, torch.int64),
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev))

@@ -1,0 +1,333 @@
+// Hand-written CUDA kernels for the flagship README model on Hopper
+// (sm_90a): the batched simulator cost and the one-kernel smc sweep.
+//
+// They replace two Pallas TPU kernels of kissabc_tpu/ops/pallas_kernels.py:
+//   kt_normal_summary_cost <- normal_summary_cost (pallas_call at :275)
+//   kt_fused_sweep         <- _fused_sweep_call  (pallas_call at :427)
+//
+// Design. Both are one thread per walker. The TPU kernels tile walkers on
+// sublanes and draws on lanes because the VPU is a 2-D vector unit; on the
+// GPU the per-walker loop over draws is the natural shape: each thread
+// generates its own bits, runs Box-Muller and keeps the two z-moments in
+// registers, so a walker's 1000 draws never touch memory. A walker moves 12
+// bytes (kernel 1) or 41 bytes (kernel 2) against ~50 arithmetic operations
+// per draw, so both kernels are bound by arithmetic, not by memory: the
+// design keeps every draw in registers and uses no shared memory.
+//
+// Random bits. bits = 0 ("hw") uses Philox4x32-10 keyed by (seed, 0) with
+// counter (draw group, walker, stream, 0): one call gives four words, i.e.
+// two Box-Muller pairs. It is the counterpart of the TPU's hardware PRNG.
+// bits = 1 ("stub") reproduces the JAX package's multiply-xorshift test
+// stream (_stub_bits, pallas_kernels.py:76-110) at the exact (program,
+// counter, sublane, lane) coordinates the TPU kernels use, so the kernels
+// can be held against the JAX golden models bit for bit on the inputs.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+// -Xcompiler -fPIC. No --use_fast_math: log1pf and sqrtf must stay the
+// IEEE/libdevice versions the plain PyTorch versions use. Each entry point
+// launches on the caller's stream and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// Philox streams (third counter word): one per independent use.
+constexpr uint32_t kStreamCost = 0u;
+constexpr uint32_t kStreamSweepWalker = 1u;
+constexpr uint32_t kStreamSweepSim = 2u;
+
+// minimax sin(x)/x and cos(x) polynomials in z = x^2 on [0, pi/2)
+// (pallas_kernels.py:40-43)
+constexpr float kSin0 = 1.0f, kSin1 = -0.16666652f, kSin2 = 0.008332964f,
+                kSin3 = -0.00019804755f, kSin4 = 2.5981096e-06f;
+constexpr float kCos0 = 0.99999994f, kCos1 = -0.49999925f,
+                kCos2 = 0.04166409f, kCos3 = -0.0013857422f,
+                kCos4 = 2.3237642e-05f;
+constexpr float kHalfPi = 1.5707963705062866f;  // float32(pi / 2)
+
+// (cos(2 pi t), sin(2 pi t)) for t in [0, 1): quadrant reduction and the
+// degree-9/8 polynomials of _sincos_2pi (pallas_kernels.py:46-66).
+__device__ __forceinline__ void sincos_2pi(float t, float* c, float* s) {
+  float t4 = 4.0f * t;
+  float q = floorf(t4);
+  float x = (t4 - q) * kHalfPi;
+  float z = x * x;
+  float sp = kSin4;
+  sp = sp * z + kSin3;
+  sp = sp * z + kSin2;
+  sp = sp * z + kSin1;
+  sp = sp * z + kSin0;
+  sp = sp * x;
+  float cp = kCos4;
+  cp = cp * z + kCos3;
+  cp = cp * z + kCos2;
+  cp = cp * z + kCos1;
+  cp = cp * z + kCos0;
+  bool odd = (q == 1.0f) || (q == 3.0f);  // quadrants that swap sin/cos
+  bool neg_sin = q >= 2.0f;               // lower half-plane
+  float cv = odd ? sp : cp;
+  float sv = odd ? cp : sp;
+  *c = (odd != neg_sin) ? -cv : cv;
+  *s = neg_sin ? -sv : sv;
+}
+
+// The JAX package's stub stream (_stub_bits), every product in uint32.
+__device__ __forceinline__ uint32_t stub_bits(uint32_t pid, uint32_t seed,
+                                              uint32_t ctr, uint32_t sub,
+                                              uint32_t lane) {
+  uint32_t x = (sub * 0x9E3779B9u) ^ (lane * 0x85EBCA6Bu);
+  x ^= pid * 0xC2B2AE35u;
+  x ^= seed + ctr * 0x27D4EB2Fu;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 15;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 13;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 16;
+  return x;
+}
+
+struct Words4 {
+  uint32_t x0, x1, x2, x3;
+};
+
+// Philox4x32-10 (Salmon et al., SC'11): ten rounds of two 32x32->64
+// multiplies with a Weyl key schedule.
+__device__ __forceinline__ Words4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                                uint32_t c2, uint32_t c3,
+                                                uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return {c0, c1, c2, c3};
+}
+
+// uint32 -> U[0, 1) through the [1, 2) mantissa trick.
+__device__ __forceinline__ float to_unit(uint32_t b) {
+  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// Both halves of one Box-Muller pair.
+__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
+                                           float* za, float* zb) {
+  float r = sqrtf(-2.0f * log1pf(-to_unit(b1)));
+  float c, s;
+  sincos_2pi(to_unit(b2), &c, &s);
+  *za = r * c;
+  *zb = r * s;
+}
+
+// z-moment sums of ndraws N(0,1) draws from the stub stream, in the TPU
+// kernels' order: draw chunk j holds draws [2j*chunk, (2j+1)*chunk) (cos
+// half) and [(2j+1)*chunk, (2j+2)*chunk) (sin half) from the bit counters
+// ctr0 + 2j and ctr0 + 2j + 1; each half's chunk sum is added to the
+// running sums separately, as the TPU kernels do.
+__device__ void moments_stub(uint32_t pid, uint32_t seed, uint32_t ctr0,
+                             uint32_t sub, int ndraws, int chunk, float* s1,
+                             float* s2) {
+  int nchunks = (ndraws + 2 * chunk - 1) / (2 * chunk);
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int j = 0; j < nchunks; ++j) {
+    uint32_t ctr = ctr0 + 2u * (uint32_t)j;
+    int start_a = 2 * j * chunk, start_b = (2 * j + 1) * chunk;
+    float a1 = 0.0f, a2 = 0.0f, b1 = 0.0f, b2 = 0.0f;
+    for (int l = 0; l < chunk && start_a + l < ndraws; ++l) {
+      float za, zb;
+      box_muller(stub_bits(pid, seed, ctr, sub, (uint32_t)l),
+                 stub_bits(pid, seed, ctr + 1u, sub, (uint32_t)l), &za, &zb);
+      a1 += za;
+      a2 += za * za;
+      if (start_b + l < ndraws) {
+        b1 += zb;
+        b2 += zb * zb;
+      }
+    }
+    m1 += a1;
+    m1 += b1;
+    m2 += a2;
+    m2 += b2;
+  }
+  *s1 = m1;
+  *s2 = m2;
+}
+
+// z-moment sums of ndraws N(0,1) draws from Philox: group q gives draws
+// 4q .. 4q+3 (two Box-Muller pairs from one Philox call).
+__device__ void moments_philox(uint32_t seed, uint32_t stream,
+                               uint32_t walker, int ndraws, float* s1,
+                               float* s2) {
+  float m1 = 0.0f, m2 = 0.0f;
+  int ngroups = (ndraws + 3) / 4;
+  for (int q = 0; q < ngroups; ++q) {
+    Words4 b = philox4x32_10((uint32_t)q, walker, stream, 0u, seed, 0u);
+    float z[4];
+    box_muller(b.x0, b.x1, &z[0], &z[1]);
+    box_muller(b.x2, b.x3, &z[2], &z[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * q + k < ndraws) {
+        m1 += z[k];
+        m2 += z[k] * z[k];
+      }
+    }
+  }
+  *s1 = m1;
+  *s2 = m2;
+}
+
+// hypot(mu + sigma*mean_z - target_mu, (sigma*sd_z - target_sd) * w).
+__device__ __forceinline__ float summary_cost(float mu, float sg, float s1,
+                                              float s2, float inv_n,
+                                              float tmu, float tsd,
+                                              float sdw) {
+  float mz = s1 * inv_n;
+  float vz = s2 * inv_n - mz * mz;
+  float d1 = (mu + sg * mz) - tmu;
+  float d2 = (sg * sqrtf(fmaxf(vz, 0.0f)) - tsd) * sdw;
+  return sqrtf(d1 * d1 + d2 * d2);
+}
+
+__global__ void normal_summary_cost_kernel(
+    const float* __restrict__ mu, const float* __restrict__ sg,
+    const long long* __restrict__ seed_ptr, float* __restrict__ out, int n,
+    int ndraws, float inv_n, float tmu, float tsd, float sdw, int stub,
+    int block, int chunk, int wt) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  float s1, s2;
+  if (stub) {
+    // normal_summary_cost's grid: program = superblock of wt*block walkers,
+    // walker tile sb inside it, walker = sublane of the tile
+    int nchunks = (ndraws + 2 * chunk - 1) / (2 * chunk);
+    uint32_t pid = (uint32_t)(w / (wt * block));
+    uint32_t sb = (uint32_t)((w / block) % wt);
+    uint32_t sub = (uint32_t)(w % block);
+    moments_stub(pid, seed, 2u * sb * (uint32_t)nchunks, sub, ndraws, chunk,
+                 &s1, &s2);
+  } else {
+    moments_philox(seed, kStreamCost, (uint32_t)w, ndraws, &s1, &s2);
+  }
+  out[w] = summary_cost(mu[w], sg[w], s1, s2, inv_n, tmu, tsd, sdw);
+}
+
+__global__ void fused_sweep_kernel(
+    const float* __restrict__ mu_in, const float* __restrict__ sg_in,
+    const float* __restrict__ dmu, const float* __restrict__ dsg,
+    const float* __restrict__ xs, const float* __restrict__ lps,
+    const float* __restrict__ eps_ptr, const long long* __restrict__ seed_ptr,
+    float* __restrict__ omu, float* __restrict__ osg,
+    float* __restrict__ oxs, float* __restrict__ olps,
+    unsigned char* __restrict__ ocm, int n, int ndraws, float inv_n,
+    float tmu, float tsd, float sdw, float inv_sqrt_d, float mu_lo,
+    float mu_hi, float sg_lo, float sg_hi, float lp_const,
+    float half_inv_var, int stub, int block, int chunk) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;  // no padding walkers: nothing past n is written
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  uint32_t pid = (uint32_t)(w / block);
+
+  // per-walker randomness: proposal scale w ~ N(0,1), MH log-u
+  uint32_t bu1, bu2, bu3;
+  if (stub) {
+    // the TPU kernel's (block/128, 128) column view of the walker block
+    uint32_t csub = (uint32_t)((w % block) / 128), clane = (uint32_t)(w % 128);
+    bu1 = stub_bits(pid, seed, 10000u, csub, clane);
+    bu2 = stub_bits(pid, seed, 10001u, csub, clane);
+    bu3 = stub_bits(pid, seed, 10002u, csub, clane);
+  } else {
+    Words4 b = philox4x32_10(0u, (uint32_t)w, kStreamSweepWalker, 0u, seed,
+                             0u);
+    bu1 = b.x0;
+    bu2 = b.x1;
+    bu3 = b.x2;
+  }
+  float c, s;
+  sincos_2pi(to_unit(bu2), &c, &s);
+  float z = sqrtf(-2.0f * log1pf(-to_unit(bu1))) * c;
+  float wv = z * inv_sqrt_d;
+  float lprob = log1pf(-to_unit(bu3));  // log U(0,1]
+
+  float mu = mu_in[w], sg = sg_in[w];
+  float pmu = mu + dmu[w] * wv;
+  float psg = sg + dsg[w] * wv;
+  bool inside = (pmu >= mu_lo) && (pmu <= mu_hi) && (psg >= sg_lo) &&
+                (psg <= sg_hi);
+  float lpp = inside ? lp_const - psg * psg * half_inv_var
+                     : __int_as_float(0xff800000);  // -inf
+  float lp = lps[w];
+  float dl = lpp - lp;
+  float lm = (dl > 0.0f) ? 0.0f : dl;  // min(dl, 0), NaN propagates
+  bool gate1 = inside && (lprob < lm);
+
+  float s1, s2;
+  if (stub) {
+    moments_stub(pid, seed, 0u, (uint32_t)(w % block), ndraws, chunk, &s1,
+                 &s2);
+  } else {
+    moments_philox(seed, kStreamSweepSim, (uint32_t)w, ndraws, &s1, &s2);
+  }
+  float xp = summary_cost(pmu, psg, s1, s2, inv_n, tmu, tsd, sdw);
+
+  bool commit = gate1 && (xp < eps_ptr[0]);
+  omu[w] = commit ? pmu : mu;
+  osg[w] = commit ? psg : sg;
+  oxs[w] = commit ? xp : xs[w];
+  olps[w] = commit ? lpp : lp;
+  ocm[w] = commit ? 1 : 0;
+}
+
+inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int kt_normal_summary_cost(const float* mu, const float* sg,
+                                      const long long* seed, float* out,
+                                      int n, int ndraws, float inv_n,
+                                      float tmu, float tsd, float sdw,
+                                      int stub, int block, int chunk, int wt,
+                                      void* stream) {
+  if (n > 0) {
+    normal_summary_cost_kernel<<<grid_for(n), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        mu, sg, seed, out, n, ndraws, inv_n, tmu, tsd, sdw, stub, block,
+        chunk, wt);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kt_fused_sweep(const float* mu, const float* sg,
+                              const float* dmu, const float* dsg,
+                              const float* xs, const float* lps,
+                              const float* eps, const long long* seed,
+                              float* omu, float* osg, float* oxs, float* olps,
+                              unsigned char* ocm, int n, int ndraws,
+                              float inv_n, float tmu, float tsd, float sdw,
+                              float inv_sqrt_d, float mu_lo, float mu_hi,
+                              float sg_lo, float sg_hi, float lp_const,
+                              float half_inv_var, int stub, int block,
+                              int chunk, void* stream) {
+  if (n > 0) {
+    fused_sweep_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        mu, sg, dmu, dsg, xs, lps, eps, seed, omu, osg, oxs, olps, ocm, n,
+        ndraws, inv_n, tmu, tsd, sdw, inv_sqrt_d, mu_lo, mu_hi, sg_lo, sg_hi,
+        lp_const, half_inv_var, stub, block, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* kt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,102 @@
+"""Masked type-7 quantiles — the PyTorch counterpart of
+``kissabc_tpu/ops/quantile.py``.
+
+Both implementations take exact order statistics and interpolate with
+the same float32 formula as the JAX package, so on the same float32
+input they give the same bits (``tests/test_torch_ops.py``). Unsigned
+32-bit key arithmetic is carried in int64 tensors, whose values stay in
+``[0, 2**32)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_U32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def masked_quantile(x, mask, q):
+    """Type-7 quantile of ``x[mask]`` without dynamic shapes: masked-out
+    entries are sorted to the end as +inf."""
+    n = x.shape[0]
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    xs = torch.sort(torch.where(mask, x, inf)).values
+    m = mask.sum()
+    h = (m - 1).to(x.dtype) * q
+    lo = torch.floor(h).to(torch.int64)
+    hi = torch.minimum(lo + 1, m - 1)
+    lo = lo.clamp(0, n - 1)
+    hi = hi.clamp(0, n - 1)
+    frac = h - lo.to(x.dtype)
+    xlo = xs[lo]
+    xhi = xs[hi]
+    # if xlo is inf (all dead, or q beyond the mass) propagate it
+    return torch.where(torch.isfinite(xlo), xlo + frac * (xhi - xlo), xlo)
+
+
+def _f32_key(x):
+    """Monotone float32 -> uint32 key (held in int64): negatives are
+    bit-complemented, non-negatives get the sign bit set, so unsigned
+    order equals IEEE total order."""
+    b = x.to(torch.float32).view(torch.int32).to(torch.int64) & _U32
+    return torch.where((b >> 31) == 1, b ^ _U32, b | _SIGN)
+
+
+def _f32_unkey(u):
+    """Inverse of ``_f32_key``."""
+    b = torch.where((u >> 31) == 1, u ^ _SIGN, u ^ _U32)
+    b = torch.where(b >= _SIGN, b - (1 << 32), b)  # two's complement
+    return b.to(torch.int32).view(torch.float32)
+
+
+def _kth_smallest(x, mask, k, iters=33):
+    """Exact k-th (0-indexed) order statistic of ``x[mask]`` by
+    bisection on the uint32 bit pattern of the floats; infinite entries
+    are handled by rank bookkeeping."""
+    finite = mask & torch.isfinite(x)
+    n_neg = (mask & (x == float("-inf"))).sum()
+    n_fin = finite.sum()
+    kf = k - n_neg
+    keys = _f32_key(x)
+    lo = torch.where(finite, keys, torch.full_like(keys, _U32)).min()
+    hi = torch.where(finite, keys, torch.zeros_like(keys)).max()
+    for _ in range(iters):
+        mid = lo + (hi - lo) // 2
+        below = (finite & (keys <= mid)).sum() < kf + 1
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
+    return torch.where(k < n_neg, -inf,
+                       torch.where(kf < n_fin, _f32_unkey(hi), inf))
+
+
+def masked_quantile_bisect(x, mask, q):
+    """Type-7 masked quantile without sorting: exact order statistics by
+    value bisection and a duplicate-aware neighbour lookup. The same
+    results as ``masked_quantile``."""
+    m = mask.sum()
+    h = (m - 1).to(x.dtype) * q
+    k = torch.floor(h).to(torch.int64).clamp(min=0)
+    frac = h - k.to(x.dtype)
+    xlo = _kth_smallest(x, mask, k)
+    count_le = (mask & (x <= xlo)).sum()
+    above = mask & (x > xlo)
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    xhi_strict = torch.where(above, x, inf).min()
+    xhi = torch.where(count_le >= k + 2, xlo,
+                      torch.where(above.any(), xhi_strict, xlo))
+    return torch.where(torch.isfinite(xlo), xlo + frac * (xhi - xlo), xlo)
+
+
+def resolve_quantile_impl(impl, mesh, n=None):
+    """``'auto'`` picks the bisection when the population is sharded
+    over more than one device or ``n >= 2**18``, else the sort."""
+    if impl not in ("auto", "sort", "bisect"):
+        raise ValueError(
+            f"quantile_impl must be 'auto', 'sort' or 'bisect', "
+            f"got {impl!r}")
+    if impl == "auto":
+        sharded = mesh is not None and getattr(mesh, "size", 1) > 1
+        big = n is not None and n >= (1 << 18)
+        impl = "bisect" if (sharded or big) else "sort"
+    return impl
