@@ -3,14 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``kissabc_tpu_torch/csrc/`` with nvcc, holds
-each kernel against its plain PyTorch version on the card, drives the
-port's main path — ``smc`` on the flagship README model at 1000 and at
-2**20 particles, and the fused flagship sweep at 131072 walkers — and
-checks the posterior against the reference's parity rule. Every phase
-prints one line with its result and seconds; any failed check raises
-and the script exits non-zero. The line before the last is one JSON
-object with every kernel's launches on the main path, its error against
+Builds the CUDA kernels with nvcc — ``kissabc_tpu_torch/csrc/flagship.cu``
+and, one nvcc each and all at once, the generic kernels of
+``csrc/generic.cuh`` with the user models the script defines compiled
+into them — holds each kernel against its plain PyTorch version on the
+card, and drives the port's two paths:
+
+- slice 1: ``smc`` on the flagship README model through the flagship
+  cost kernel at 1000 and 2**20 particles, and the fused flagship sweep
+  at 131072 walkers;
+- slice 2: ``smc(..., sweep_fused=make_fused_smc_sweep(...))`` with
+  ``make_streaming_moment_cost`` on the same model written as a user
+  model, at 1000 and 2**20 particles (the JAX bench's ``smc-fused-generic``
+  and ``smc-1m`` rows), through the generic cost and sweep kernels;
+
+and checks each posterior against the reference's parity rule. Every
+phase prints one line with its result and seconds; any failed check
+raises and the script exits non-zero. The line before the last is one
+JSON object with every kernel's launches on its path, its error against
 its plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -109,24 +119,33 @@ def assert_close(torch, got, want, what, rtol=2e-4, atol=2e-5):
     return max_err(got, want)
 
 
-def compare_sweeps(torch, got, want, eps, what):
-    """Kernel vs plain fused sweep on the same inputs: commit masks equal
-    except where the cost lies within 1e-5 of eps; committed values
-    within the golden tolerance. Returns (max abs err, borderline)."""
-    gmu, gsg, gxs, glps, gcm = got
-    wmu, wsg, wxs, wlps, wcm = want
-    border = (wxs - eps).abs() < 1e-5
+def compare_sweeps(torch, got, want, eps, what, band=1e-5, cost_atol=2e-5):
+    """Kernel vs plain sweep on the same inputs, outputs (theta leaves,
+    xs, lps, commit): commit masks equal except where a cost lies within
+    ``band`` of eps (an uncommitted walker's xs is its input, so the
+    committing side's cost is the one looked at); committed leaves and
+    lps within the golden tolerance, costs within ``cost_atol``.
+    Returns (max abs err, borderline walkers)."""
+    gth, gxs, glps, gcm = got
+    wth, wxs, wlps, wcm = want
+    border = ((gxs - eps).abs() < band) | ((wxs - eps).abs() < band)
     differ = gcm != wcm
     check(bool((~differ | border).all()),
           f"{what}: commit masks differ on {int((differ & ~border).sum())}"
           " walkers away from eps")
     both = gcm & wcm
-    err = 0.0
-    for g, w, name in ((gmu, wmu, "mu"), (gsg, wsg, "sigma"),
-                       (gxs, wxs, "cost"), (glps, wlps, "lp")):
+    err = assert_close(torch, gxs[both], wxs[both], f"{what} committed cost",
+                       atol=cost_atol)
+    for k, (g, w) in enumerate(zip(list(gth) + [glps], list(wth) + [wlps])):
         err = max(err, assert_close(torch, g[both], w[both],
-                                    f"{what} committed {name}"))
+                                    f"{what} committed output {k}"))
     return err, int(differ.sum())
+
+
+def flagship_outputs(out):
+    """The fused flagship sweep's (mu, sigma, xs, lps, commit) in the
+    (theta leaves, xs, lps, commit) form of ``compare_sweeps``."""
+    return (out[:2],) + tuple(out[2:])
 
 
 def check_untouched(torch, inputs, outs, commit, what):
@@ -153,8 +172,18 @@ def main():
     t_start = time.perf_counter()
 
     import kissabc_tpu_torch as kt
+    from kissabc_tpu_torch import models
     from kissabc_tpu_torch.ops import _build
+    from kissabc_tpu_torch.ops import fused_smc as F
     from kissabc_tpu_torch.ops import kernels as K
+    from kissabc_tpu_torch.ops import streaming as S
+
+    def reset_counts():
+        for module in (K, S, F):
+            module.reset_launch_counts()
+
+    def counts():
+        return {**K.launches, **S.launches, **F.launches}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -170,13 +199,69 @@ def main():
         ph.result = (f"{kind}, {count} device(s), torch {torch.__version__},"
                      f" CUDA {torch.version.cuda}")
 
-    with Phase("build") as ph:
-        lib_path, build_s, log = _build.build()
+    # the user models of the generic kernels (traced and emitted here)
+    fprior, fdraw, freduce = models.flagship()
+    gprior, gdraw, greduce = models.g_and_k()
+
+    def linear_reduce(th, m):   # no cancellation, as the JAX golden test
+        return m[0] + 10.0 * m[1]
+
+    def ecdf(probes):
+        return [lambda x, t=t: (x < t).to(torch.float32) for t in probes]
+
+    def ecdf_reduce(th, m):
+        return (torch.square(m[0] - 0.25) + torch.square(m[1] - 0.5)
+                + torch.square(m[2] - 0.75))
+
+    costs = {   # name: (cost, theta structure)
+        "flagship": (kt.make_streaming_moment_cost(fdraw, freduce), 2),
+        "flagship-stub": (kt.make_streaming_moment_cost(
+            fdraw, freduce, bits="stub"), 2),
+        "ecdf-ragged-stub": (kt.make_streaming_moment_cost(
+            fdraw, lambda th, m: m[0],
+            stats=ecdf((1.95, 2.0, 2.05)) + [torch.ones_like], ndraws=700,
+            bits="stub"), 2),
+        "uniform-stub": (kt.make_streaming_moment_cost(
+            lambda th, u: -torch.log1p(-u) / th[0], lambda th, m: m[0],
+            noise="uniform", bits="stub"), 1),
+        "g-and-k": (kt.make_streaming_moment_cost(gdraw, greduce), 4),
+    }
+    sweeps = {
+        "flagship": kt.make_fused_smc_sweep(fprior, fdraw, freduce),
+        "linear-stub": kt.make_fused_smc_sweep(fprior, fdraw, linear_reduce,
+                                               bits="stub"),
+        "g-and-k-ecdf-stub": kt.make_fused_smc_sweep(
+            gprior, gdraw, ecdf_reduce, stats=ecdf((2.0, 3.0, 4.0)),
+            ndraws=700, bits="stub"),
+    }
+    units = {}   # generated source -> names (stub and hw share a unit)
+    for name, (c, k) in costs.items():
+        units.setdefault(c.unit(k).source, []).append(f"cost {name}")
+    for name, sw in sweeps.items():
+        units.setdefault(sw.unit.source, []).append(f"sweep {name}")
+
+    def ptxas_lines(log, prefix):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                say(f"  ptxas: {line.strip()}")
+                say(f"  ptxas {prefix}: {line.strip()}")
+
+    with Phase("build") as ph:
+        # every nvcc starts now: the flagship source and each generated unit
+        jobs = [_build.start()] + [_build.start(text) for text in units]
+        lib_path, build_s, log = jobs[0].wait()
+        ptxas_lines(log, "flagship")
         _build.load()
         ph.result = f"{lib_path.name} compiled in {build_s:.2f} s"
+
+    with Phase("build-generic") as ph:
+        slowest = 0.0
+        for (text, names), job in zip(units.items(), jobs[1:]):
+            path, secs, log = job.wait()
+            ptxas_lines(log, "/".join(names))
+            _build.load_generated(text)
+            slowest = max(slowest, secs)
+        ph.result = (f"{len(units)} generated units, the slowest compiled in "
+                     f"{slowest:.2f} s, in parallel with flagship.cu")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -207,7 +292,8 @@ def main():
         want = K.fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, 0.5, 7,
                                    consts=consts, target_mu=2.0,
                                    target_sd=0.04, sd_weight=50.0, **skw)
-        err, border = compare_sweeps(torch, got, want, 0.5,
+        err, border = compare_sweeps(torch, flagship_outputs(got),
+                                     flagship_outputs(want), 0.5,
                                      "fused_sweep stub")
         check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
                         "fused_sweep stub")
@@ -244,6 +330,73 @@ def main():
               "commit mask written past n")
         ph.result = f"n={n} in buffers of {n + extra}: tails untouched"
 
+    # ---- generic kernels vs their plain versions on the stub stream -------
+    with Phase("generic-vs-plain-stub") as ph:
+        n = 65536
+        fth = (uniform(n, 1.0, 3.0), uniform(n, 0.01, 0.1))
+        gth = gprior.sample_tree(gen, n)
+        errs = {}
+        for name, th in (("flagship-stub", fth), ("ecdf-ragged-stub", fth),
+                         ("uniform-stub", fth[:1]), ("g-and-k", gth)):
+            c = costs[name][0]
+            got, want = c.moments(th, 42), c.moments_plain(th, 42)
+            errs[f"cost {name}"] = max(
+                assert_close(torch, g, w, f"streaming cost {name} moment {p}")
+                for p, (g, w) in enumerate(zip(got, want)))
+            if name == "ecdf-ragged-stub":   # the boundary mask: E[1] = 1
+                check(bool((got[-1] == 1.0).all()), "E[1] != 1 (mask)")
+        commits = {}
+        for name, th in (("linear-stub", fth), ("g-and-k-ecdf-stub", gth)):
+            sw = sweeps[name]
+            th = [x.contiguous() for x in th]
+            lps = sw.prior.logpdf_tree(tuple(th))
+            xs = torch.full((n,), 1e6, device=dev)
+            alive = torch.rand(n, generator=gen, device=dev) < 0.9
+            r1, r2, seed = 5, n // 2 + 3, 12345
+            rs = torch.tensor([r1, r2, seed], dtype=torch.int64, device=dev)
+            probe = F.fused_smc_sweep_plain(
+                sw, th, xs, lps, torch.ones_like(alive), 1e6, False, r1, r2,
+                seed)
+            eps = float(probe[1][probe[3]].median())
+            got = sw.run(th, xs, lps, alive, eps, False, rs)
+            want = F.fused_smc_sweep_plain(sw, th, xs, lps, alive, eps,
+                                           False, r1, r2, seed)
+            errs[f"sweep {name}"], border = compare_sweeps(
+                torch, got, want, eps, f"fused_smc_sweep {name}")
+            check_untouched(torch, th + [xs, lps], list(got[0]) + list(
+                got[1:3]), got[3], f"fused_smc_sweep {name}")
+            acc = int(got[3].sum())
+            check(0 < acc < n, f"sweep {name} accepted {acc} of {n}")
+            check(not bool(got[3][~alive].any()), "a dead walker committed")
+            commits[name] = (acc, border)
+        ph.result = (f"max|err| {max(errs.values()):.3g} "
+                     f"({json.dumps(errs)}); commits, borderline {commits}")
+
+    with Phase("generic-no-write-past-n") as ph:
+        n, extra = 1000, 1024
+
+        def buf(value, dtype=torch.float32):
+            return torch.full((n + extra,), value, dtype=dtype, device=dev)
+
+        seed = torch.tensor([5], dtype=torch.int64, device=dev)
+        out = torch.full((2, n + extra), float("nan"), device=dev)
+        costs["flagship"][0].launch(n, [buf(2.0), buf(0.04)], seed, out,
+                                    n + extra, structure=2)
+        outs = ([buf(float("nan")), buf(float("nan"))], buf(float("nan")),
+                buf(float("nan")), buf(7, torch.uint8))
+        ins = (buf(1.0), buf(0.0), buf(True, torch.bool),
+               torch.tensor([0.5], device=dev),
+               torch.tensor([False], device=dev))
+        rs = torch.tensor([3, 17, 5], dtype=torch.int64, device=dev)
+        sweeps["flagship"].launch(n, [buf(2.0), buf(0.04)], ins, rs, outs)
+        torch.cuda.synchronize()
+        for o in list(out) + outs[0] + list(outs[1:3]):
+            check(bool(torch.isfinite(o[:n]).all()), "a walker < n unwritten")
+            check(bool(torch.isnan(o[n:]).all()), "a walker >= n written")
+        check(bool((outs[3][:n] <= 1).all() & (outs[3][n:] == 7).all()),
+              "commit mask written past n")
+        ph.result = f"n={n} in buffers of {n + extra}: tails untouched"
+
     # ---- 4: Philox statistics ----------------------------------------------
     with Phase("philox-statistics") as ph:
         n = 131072
@@ -264,7 +417,7 @@ def main():
     cost = kt.make_flagship_cost_batched()
 
     def run_smc(nparticles, **kw):
-        K.reset_launch_counts()
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = kt.smc(prior, cost, cost_vectorized=True,
@@ -272,13 +425,16 @@ def main():
                      key=2, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = dict(K.launches)
+        launched = counts()
         mu_p, sg_p = res.P
         check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
         check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
         check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
         check(launched["normal_summary_cost"] > 0,
               "smc did not launch the normal_summary_cost kernel")
+        check(launched["streaming_moment_cost"] == launched[
+            "fused_smc_sweep"] == 0, "the flagship path launched a generic "
+              "kernel")
         return res, wall, launched
 
     # ---- 5/6: the main path ---------------------------------------------
@@ -297,6 +453,55 @@ def main():
                      f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
                      f" wall {wall:.3f} s launches {launched}")
 
+    def run_generic_smc(nparticles, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(fprior, costs["flagship"][0], cost_vectorized=True,
+                     sweep_fused=sweeps["flagship"], nparticles=nparticles,
+                     epstol=EPSTOL, max_iters=2000, key=2, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        mu_p, sg_p = res.P
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
+        check(launched["streaming_moment_cost"] > 0,
+              "smc did not launch the streaming_moment_cost kernel")
+        check(launched["fused_smc_sweep"] > 0,
+              "smc did not launch the fused_smc_sweep kernel")
+        check(launched["normal_summary_cost"] == launched["fused_sweep"] == 0,
+              "the generic path launched a flagship kernel")
+        return res, wall, launched
+
+    with Phase("smc-fused-generic") as ph:
+        res, wall, launched = run_generic_smc(1000)
+        ph.result = (f"n=1000 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
+                     f" wall {wall:.3f} s launches {launched}")
+
+    with Phase("smc-1m-generic") as ph:
+        _alarm(FULL_SMC_LIMIT_S)
+        res, wall, launched = run_generic_smc(1 << 20, min_r_ess=0.5)
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        generic_launches = launched
+        ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
+                     f" wall {wall:.3f} s launches {launched}")
+
+    with Phase("streaming-gk") as ph:
+        n, nd = 131072, 1000
+        c = costs["g-and-k"][0]
+        th = gprior.sample_tree(gen, n)
+        seed = torch.tensor([7], dtype=torch.int64, device=dev)
+        got, want = c.moments(th, seed), c.moments_plain(th, seed)
+        err = max(assert_close(torch, g, w, f"g-and-k moment {p}")
+                  for p, (g, w) in enumerate(zip(got, want)))
+        ms = cuda_ms(torch, lambda: c.moments(th, seed), 10)
+        ph.result = (f"n={n} x {nd} draws: {ms:.3f} ms, "
+                     f"{n * nd / (ms / 1e3):.4g} draws/s, max|err| {err:.3g}")
+
     # ---- 7: the fused flagship sweep ------------------------------------
     with Phase("fused-sweep") as ph:
         n, steps = 131072, 100
@@ -306,7 +511,7 @@ def main():
         lps = torch.zeros(n, device=dev)
         th, x_, lp = (mu, sg), xs, lps
         th, x_, lp, _ = step(gen, th, x_, lp, 0.5)  # warm-up
-        K.reset_launch_counts()
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         accepted = torch.zeros((), dtype=torch.int64, device=dev)
@@ -358,7 +563,8 @@ def main():
                                    target_mu=2.0, target_sd=0.04,
                                    sd_weight=50.0, block=2048, chunk=512,
                                    bits="hw")
-        err2, border = compare_sweeps(torch, got, want, 0.5,
+        err2, border = compare_sweeps(torch, flagship_outputs(got),
+                                      flagship_outputs(want), 0.5,
                                       "fused_sweep n=131072")
         check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
                         "fused_sweep n=131072")
@@ -366,17 +572,82 @@ def main():
         plain2 = cuda_ms(torch, lambda: K.fused_sweep_plain(
             *args, consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
             sd_weight=50.0, block=2048, chunk=512, bits="hw"), 2, warmup=1)
-        b2, by2 = bound(K.fused_sweep_work(n, nd))
+        # the bound counts the simulator only for the walkers that pass
+        # gate 1: no other walker's outputs depend on it
+        nsim2 = int(K.fused_sweep_proposal_plain(
+            mu, sg, dmu, dsg, lps, seed, consts=consts, block=2048,
+            bits="hw")[3].sum())
+        b2, by2 = bound(K.fused_sweep_work(n, nd, nsim2))
         records.append(dict(
             name="fused_sweep", route="cuda",
             source="kissabc_tpu_torch/csrc/flagship.cu",
             replaces="kissabc_tpu/ops/pallas_kernels.py:295",
             launches=sweep_launches, max_abs_err=err2, matched=True,
             ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
-            library_ms=None))
+            library_ms=None, simulated_share=nsim2 / n))
+        # the generic kernels at the shapes of the 2**20 generic path. No
+        # single PyTorch call streams a user simulator per walker (or fuses
+        # a sweep around one), so library_ms is null for both.
+        n = 1 << 20
+        cost = costs["flagship"][0]
+        th = fprior.sample_tree(gen, n)
+        got, want = cost.moments(th, seed), cost.moments_plain(th, seed)
+        err3 = max(assert_close(torch, g, w, f"streaming moment {p} n=2^20")
+                   for p, (g, w) in enumerate(zip(got, want)))
+        ms3 = cuda_ms(torch, lambda: cost.moments(th, seed), 10)
+        plain3 = cuda_ms(torch, lambda: cost.moments_plain(th, seed), 1,
+                         warmup=0)
+        b3, by3 = bound(cost.work(n, 2))
+        records.append(dict(
+            name="streaming_moment_cost", route="cuda",
+            source="kissabc_tpu_torch/csrc/generic.cuh",
+            replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
+            launches=generic_launches["streaming_moment_cost"],
+            max_abs_err=err3, matched=True, ms=ms3, plain_ms=plain3,
+            bound_ms=b3, bound_by=by3, library_ms=None))
+
+        sw = sweeps["flagship"]
+        th = [x.contiguous() for x in th]
+        xs = uniform(n, 0.0, 1.0)
+        lps = fprior.logpdf_tree(tuple(th))
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        eps_t = torch.tensor(0.5, device=dev)
+        flag_t = torch.tensor(False, device=dev)
+        rs = torch.tensor([5, 77, 11], dtype=torch.int64, device=dev)
+        got = sw.run(th, xs, lps, alive, eps_t, flag_t, rs)
+        want = F.fused_smc_sweep_plain(sw, th, xs, lps, alive, eps_t,
+                                       flag_t, 5, 77, 11)
+        # the flagship reduce's var = m2 - m1^2 cancels (sigma down to
+        # ~0.003: var ~1e-5 against ulp(m2 ~ 4) = 4.8e-7), so one ulp of a
+        # moment moves the cost by up to ~4e-3; the kernel and the plain
+        # version sum in the same order without FMA (2.4e-7 measured), so
+        # the costs and the borderline band are held at 1e-4
+        err4, border4 = compare_sweeps(
+            torch, got, want, 0.5, "fused_smc_sweep n=2^20", band=1e-4,
+            cost_atol=1e-4)
+        check_untouched(torch, th + [xs, lps], list(got[0]) + list(got[1:3]),
+                        got[3], "fused_smc_sweep n=2^20")
+        ms4 = cuda_ms(torch, lambda: sw.run(th, xs, lps, alive, eps_t,
+                                            flag_t, rs), 20)
+        plain4 = cuda_ms(torch, lambda: F.fused_smc_sweep_plain(
+            sw, th, xs, lps, alive, eps_t, flag_t, 5, 77, 11), 1, warmup=0)
+        nsim = int(F.proposal_plain(sw, th, lps, alive, 5, 77, 11)[3].sum())
+        b4, by4 = bound(sw.work(n, nsim))
+        records.append(dict(
+            name="fused_smc_sweep", route="cuda",
+            source="kissabc_tpu_torch/csrc/generic.cuh",
+            replaces="kissabc_tpu/ops/pallas_kernels.py:2159",
+            launches=generic_launches["fused_smc_sweep"],
+            max_abs_err=err4, matched=True, ms=ms4, plain_ms=plain4,
+            bound_ms=b4, bound_by=by4, library_ms=None,
+            simulated_share=nsim / n))
         ph.result = (f"normal_summary_cost {ms1:.3f} ms (bound {b1:.3f}); "
-                     f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}), "
-                     f"{border} borderline commits")
+                     f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}, {nsim2} "
+                     f"of 131072 walkers pass gate 1), "
+                     f"{border} borderline commits; streaming_moment_cost "
+                     f"{ms3:.3f} ms (bound {b3:.3f}); fused_smc_sweep "
+                     f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
+                     f"pass gate 1), {border4} borderline")
 
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -75,8 +75,9 @@ class _SMCProgram:
     def __init__(self, prior, cost, *, nparticles, alpha, mcmc_retrys,
                  mcmc_tol, epstol, r_epstol, min_r_ess, max_stretch,
                  max_iters, resample, verbose, partner_scheme="auto",
-                 quantile_impl="auto", device="cpu"):
+                 quantile_impl="auto", sweep_fused=None, device="cpu"):
         self.prior, self.cost = prior, cost
+        self.sweep_fused = sweep_fused
         self.n = nparticles
         self.alpha, self.epstol, self.r_epstol = alpha, epstol, r_epstol
         self.min_r_ess, self.max_stretch = min_r_ess, max_stretch
@@ -105,6 +106,8 @@ class _SMCProgram:
     def mcmc_sweep(self, gen, thetas, xs, lps, alive, eps, flag):
         """One retry round of the rejuvenation sweep (smc.jl:159-191);
         proposals all read the pre-sweep snapshot."""
+        if self.sweep_fused is not None:
+            return self.sweep_fused(gen, thetas, xs, lps, alive, eps, flag)
         props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
                                       self.max_stretch,
                                       scheme=self.partner_scheme)
@@ -240,7 +243,11 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
 
     ``cost`` is a batched cost ``cost(pushed_thetas, gen) -> costs[n]``
     and needs ``cost_vectorized=True`` (for instance
-    ``make_flagship_cost_batched()``). ``key``: an int seed or a
+    ``make_flagship_cost_batched()`` or ``make_streaming_moment_cost``).
+    ``sweep_fused``: a one-kernel rejuvenation sweep
+    ``sweep(gen, thetas, xs, lps, alive, eps, flag) -> (thetas, xs, lps,
+    naccept)`` (``make_fused_smc_sweep``) that replaces the split sweep;
+    the init still runs ``cost``. ``key``: an int seed or a
     ``torch.Generator`` on the run's device. ``device``: ``None`` runs on
     CUDA (and raises without a card); pass ``"cpu"`` for the plain
     versions on the CPU. ``parallel`` is accepted for API parity."""
@@ -249,10 +256,6 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
             "smc(cost_vectorized=False): the per-walker cost form "
             "cost(theta, gen) comes in slice 2 of the port; pass a batched "
             "cost with cost_vectorized=True")
-    if sweep_fused is not None:
-        raise NotImplementedError(
-            "smc(sweep_fused=...): the generic fused smc sweep is not "
-            "ported yet")
     if mesh is not None:
         raise NotImplementedError(
             "smc(mesh=...): walker sharding is not ported yet")
@@ -269,7 +272,7 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
         r_epstol=r_epstol, min_r_ess=min_r_ess, max_stretch=max_stretch,
         max_iters=max_iters, resample=resample, verbose=verbose,
         partner_scheme=partner_scheme, quantile_impl=quantile_impl,
-        device=dev)
+        sweep_fused=sweep_fused, device=dev)
     state = program(as_generator(key, dev))
 
     if not bool(state.done):

@@ -12,7 +12,9 @@
 // registers, so a walker's 1000 draws never touch memory. A walker moves 12
 // bytes (kernel 1) or 41 bytes (kernel 2) against ~50 arithmetic operations
 // per draw, so both kernels are bound by arithmetic, not by memory: the
-// design keeps every draw in registers and uses no shared memory.
+// design keeps every draw in registers and uses no shared memory. Kernel 2
+// simulates only the walkers that pass its gate 1 (no other walker's
+// outputs depend on the simulation).
 //
 // Random bits. bits = 0 ("hw") uses Philox4x32-10 keyed by (seed, 0) with
 // counter (draw group, walker, stream, 0): one call gives four words, i.e.
@@ -22,13 +24,15 @@
 // counter, sublane, lane) coordinates the TPU kernels use, so the kernels
 // can be held against the JAX golden models bit for bit on the inputs.
 //
+// The device helpers (sincos, stub bits, Philox, Box-Muller) are in
+// common.cuh, shared with the generic kernels of generic.cuh.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC. No --use_fast_math: log1pf and sqrtf must stay the
 // IEEE/libdevice versions the plain PyTorch versions use. Each entry point
 // launches on the caller's stream and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -38,96 +42,6 @@ constexpr int kThreads = 128;
 constexpr uint32_t kStreamCost = 0u;
 constexpr uint32_t kStreamSweepWalker = 1u;
 constexpr uint32_t kStreamSweepSim = 2u;
-
-// minimax sin(x)/x and cos(x) polynomials in z = x^2 on [0, pi/2)
-// (pallas_kernels.py:40-43)
-constexpr float kSin0 = 1.0f, kSin1 = -0.16666652f, kSin2 = 0.008332964f,
-                kSin3 = -0.00019804755f, kSin4 = 2.5981096e-06f;
-constexpr float kCos0 = 0.99999994f, kCos1 = -0.49999925f,
-                kCos2 = 0.04166409f, kCos3 = -0.0013857422f,
-                kCos4 = 2.3237642e-05f;
-constexpr float kHalfPi = 1.5707963705062866f;  // float32(pi / 2)
-
-// (cos(2 pi t), sin(2 pi t)) for t in [0, 1): quadrant reduction and the
-// degree-9/8 polynomials of _sincos_2pi (pallas_kernels.py:46-66).
-__device__ __forceinline__ void sincos_2pi(float t, float* c, float* s) {
-  float t4 = 4.0f * t;
-  float q = floorf(t4);
-  float x = (t4 - q) * kHalfPi;
-  float z = x * x;
-  float sp = kSin4;
-  sp = sp * z + kSin3;
-  sp = sp * z + kSin2;
-  sp = sp * z + kSin1;
-  sp = sp * z + kSin0;
-  sp = sp * x;
-  float cp = kCos4;
-  cp = cp * z + kCos3;
-  cp = cp * z + kCos2;
-  cp = cp * z + kCos1;
-  cp = cp * z + kCos0;
-  bool odd = (q == 1.0f) || (q == 3.0f);  // quadrants that swap sin/cos
-  bool neg_sin = q >= 2.0f;               // lower half-plane
-  float cv = odd ? sp : cp;
-  float sv = odd ? cp : sp;
-  *c = (odd != neg_sin) ? -cv : cv;
-  *s = neg_sin ? -sv : sv;
-}
-
-// The JAX package's stub stream (_stub_bits), every product in uint32.
-__device__ __forceinline__ uint32_t stub_bits(uint32_t pid, uint32_t seed,
-                                              uint32_t ctr, uint32_t sub,
-                                              uint32_t lane) {
-  uint32_t x = (sub * 0x9E3779B9u) ^ (lane * 0x85EBCA6Bu);
-  x ^= pid * 0xC2B2AE35u;
-  x ^= seed + ctr * 0x27D4EB2Fu;
-  x *= 0x2C1B3C6Du;
-  x ^= x >> 15;
-  x *= 0x2C1B3C6Du;
-  x ^= x >> 13;
-  x *= 0x2C1B3C6Du;
-  x ^= x >> 16;
-  return x;
-}
-
-struct Words4 {
-  uint32_t x0, x1, x2, x3;
-};
-
-// Philox4x32-10 (Salmon et al., SC'11): ten rounds of two 32x32->64
-// multiplies with a Weyl key schedule.
-__device__ __forceinline__ Words4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                                uint32_t c2, uint32_t c3,
-                                                uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return {c0, c1, c2, c3};
-}
-
-// uint32 -> U[0, 1) through the [1, 2) mantissa trick.
-__device__ __forceinline__ float to_unit(uint32_t b) {
-  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
-}
-
-// Both halves of one Box-Muller pair.
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float* za, float* zb) {
-  float r = sqrtf(-2.0f * log1pf(-to_unit(b1)));
-  float c, s;
-  sincos_2pi(to_unit(b2), &c, &s);
-  *za = r * c;
-  *zb = r * s;
-}
 
 // z-moment sums of ndraws N(0,1) draws from the stub stream, in the TPU
 // kernels' order: draw chunk j holds draws [2j*chunk, (2j+1)*chunk) (cos
@@ -272,16 +186,20 @@ __global__ void fused_sweep_kernel(
   float lm = (dl > 0.0f) ? 0.0f : dl;  // min(dl, 0), NaN propagates
   bool gate1 = inside && (lprob < lm);
 
-  float s1, s2;
-  if (stub) {
-    moments_stub(pid, seed, 0u, (uint32_t)(w % block), ndraws, chunk, &s1,
-                 &s2);
-  } else {
-    moments_philox(seed, kStreamSweepSim, (uint32_t)w, ndraws, &s1, &s2);
+  // the outputs depend on the simulation only where gate 1 passes
+  bool commit = false;
+  float xp = 0.0f;
+  if (gate1) {
+    float s1, s2;
+    if (stub) {
+      moments_stub(pid, seed, 0u, (uint32_t)(w % block), ndraws, chunk, &s1,
+                   &s2);
+    } else {
+      moments_philox(seed, kStreamSweepSim, (uint32_t)w, ndraws, &s1, &s2);
+    }
+    xp = summary_cost(pmu, psg, s1, s2, inv_n, tmu, tsd, sdw);
+    commit = xp < eps_ptr[0];
   }
-  float xp = summary_cost(pmu, psg, s1, s2, inv_n, tmu, tsd, sdw);
-
-  bool commit = gate1 && (xp < eps_ptr[0]);
   omu[w] = commit ? pmu : mu;
   osg[w] = commit ? psg : sg;
   oxs[w] = commit ? xp : xs[w];

@@ -1,0 +1,279 @@
+// Hand-written CUDA kernels for user models on Hopper (sm_90a): the
+// generic streaming simulator cost and the generic fused smc sweep.
+//
+// They replace two Pallas TPU kernels of kissabc_tpu/ops/pallas_kernels.py:
+//   kt_streaming_moment_cost <- make_streaming_moment_cost (pallas_call :2742)
+//   kt_fused_smc_sweep       <- make_fused_smc_sweep       (pallas_call :2391)
+//
+// This file is a template. kissabc_tpu_torch/ops/codegen.py traces the
+// user's PyTorch callables and writes a translation unit that defines
+//   KT_NPARAMS (theta leaves K), KT_NSTATS, KT_NOISE_NORMAL, KT_HAS_SWEEP
+//   float draw(const float* th, float e)        one simulated value
+//   void  stats_of(float x, float* g)           the KT_NSTATS summaries
+//   float reduce_cost(const float* th, const float* m)   (sweep only)
+//   float prior_logpdf(const float* th)                  (sweep only)
+// and then includes this file; ops/_build.py compiles it with nvcc.
+//
+// Design. One thread per walker loops over its draws, as the flagship
+// kernels do: the summaries stay in registers, a walker's draws never
+// touch memory, and a walker moves (K + KT_NSTATS) * 4 bytes (cost) or
+// about (2K + 6) * 4 bytes (sweep) against ~50 operations per draw, so
+// both kernels are bound by arithmetic. The sweep simulates only the
+// walkers that pass gate 1 (no other walker's outputs depend on it); a
+// warp still runs the draw loop while any of its walkers needs it. Draws
+// keep the TPU kernels'
+// chunk structure: chunk pair j holds draws [2j*chunk, (2j+1)*chunk)
+// (half a, first noise of each pair) and [(2j+1)*chunk, (2j+2)*chunk)
+// (half b); each half is summed on its own and added to the running
+// totals, a first and then b. Partial sums of <= chunk draws keep the
+// raw moments accurate enough for reduce_cost's m2 - m1^2.
+//
+// Random bits. stub = 1 replays the JAX package's _stub_bits at the TPU
+// kernels' coordinates (walkers on lanes: program w / (wt*block), row
+// (w % (wt*block)) / 128, lane w % 128, counters 2*(row*nchunks + j) and
+// +1, sublane = draw index in the chunk; the sweep's per-walker words at
+// counters 40000..40002 on the (rows, 128) tile). stub = 0 is
+// Philox4x32-10 keyed by (seed, 0), counter (j, walker, stream, l/2):
+// one call gives the two noise pairs of draws l and l + 1.
+//
+// Scalars that change every sweep (eps, the boundary flag, the two
+// partner shifts and the seed) are read from device memory, so the smc
+// loop never waits for the host to learn them. Walkers w >= n are masked:
+// nothing is padded and nothing past n is written.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// Philox streams (third counter word) of the generic kernels; the
+// flagship kernels use 0..2.
+constexpr uint32_t kStreamGenCost = 3u;
+constexpr uint32_t kStreamGenSweepWalker = 4u;
+constexpr uint32_t kStreamGenSweepSim = 5u;
+
+struct Leaves {
+  const float* p[KT_NPARAMS];
+};
+struct OutLeaves {
+  float* p[KT_NPARAMS];
+};
+
+__device__ __forceinline__ void noise_pair(uint32_t b1, uint32_t b2,
+                                           float* ea, float* eb) {
+#if KT_NOISE_NORMAL
+  box_muller(b1, b2, ea, eb);
+#else
+  *ea = to_unit(b1);
+  *eb = to_unit(b2);
+#endif
+}
+
+__device__ __forceinline__ void add_draw(const float* th, float e,
+                                         float* acc) {
+  float g[KT_NSTATS];
+  stats_of(draw(th, e), g);
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p) acc[p] += g[p];
+}
+
+// The KT_NSTATS moments (summary sums times inv_n) of ndraws draws for
+// one walker with parameters th.
+__device__ void simulate(const float* th, int ndraws, int chunk, float inv_n,
+                         int stub, uint32_t pid, uint32_t row, uint32_t lane,
+                         uint32_t seed, uint32_t stream, uint32_t walker,
+                         float* m) {
+  int nchunks = (ndraws + 2 * chunk - 1) / (2 * chunk);
+  float s[KT_NSTATS];
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p) s[p] = 0.0f;
+  for (int j = 0; j < nchunks; ++j) {
+    int start_a = 2 * j * chunk, start_b = (2 * j + 1) * chunk;
+    uint32_t ctr = 2u * (row * (uint32_t)nchunks + (uint32_t)j);
+    float a[KT_NSTATS], b[KT_NSTATS];
+#pragma unroll
+    for (int p = 0; p < KT_NSTATS; ++p) a[p] = b[p] = 0.0f;
+    for (int l = 0; l < chunk && start_a + l < ndraws; l += 2) {
+      uint32_t w[4];  // bits of the pairs of draws l and l + 1
+      if (stub) {
+        w[0] = stub_bits(pid, seed, ctr, (uint32_t)l, lane);
+        w[1] = stub_bits(pid, seed, ctr + 1u, (uint32_t)l, lane);
+        w[2] = stub_bits(pid, seed, ctr, (uint32_t)l + 1u, lane);
+        w[3] = stub_bits(pid, seed, ctr + 1u, (uint32_t)l + 1u, lane);
+      } else {
+        Words4 q = philox4x32_10((uint32_t)j, walker, stream,
+                                 (uint32_t)(l >> 1), seed, 0u);
+        w[0] = q.x0;
+        w[1] = q.x1;
+        w[2] = q.x2;
+        w[3] = q.x3;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int ll = l + h;
+        if (ll >= chunk || start_a + ll >= ndraws) break;
+        float ea, eb;
+        noise_pair(w[2 * h], w[2 * h + 1], &ea, &eb);
+        add_draw(th, ea, a);
+        if (start_b + ll < ndraws) add_draw(th, eb, b);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < KT_NSTATS; ++p) s[p] += a[p];
+#pragma unroll
+    for (int p = 0; p < KT_NSTATS; ++p) s[p] += b[p];
+  }
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p) m[p] = s[p] * inv_n;
+}
+
+// Per-walker stub coordinates of the TPU kernels' walker-on-lane grid.
+struct Coords {
+  uint32_t pid, row, lane;
+};
+
+__device__ __forceinline__ Coords coords(int w, int sb_rows) {
+  return {(uint32_t)(w / sb_rows), (uint32_t)((w % sb_rows) / 128),
+          (uint32_t)(w % 128)};
+}
+
+__global__ void streaming_moment_cost_kernel(
+    Leaves th, const long long* __restrict__ seed_ptr,
+    float* __restrict__ out, int ld, int n, int ndraws, float inv_n,
+    int stub, int sb_rows, int chunk) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  float t[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k) t[k] = th.p[k][w];
+  Coords c = coords(w, sb_rows);
+  float m[KT_NSTATS];
+  simulate(t, ndraws, chunk, inv_n, stub, c.pid, c.row, c.lane, seed,
+           kStreamGenCost, (uint32_t)w, m);
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p) out[(size_t)p * ld + w] = m[p];
+}
+
+#if KT_HAS_SWEEP
+__global__ void fused_smc_sweep_kernel(
+    Leaves th, const float* __restrict__ xs, const float* __restrict__ lps,
+    const unsigned char* __restrict__ alive,
+    const float* __restrict__ eps_ptr,
+    const unsigned char* __restrict__ flag_ptr,
+    const long long* __restrict__ rs, OutLeaves oth,
+    float* __restrict__ oxs, float* __restrict__ olps,
+    unsigned char* __restrict__ ocm, int n, int ndraws, float inv_n,
+    float w_scale, int stub, int sb_rows, int chunk) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;
+  // rs = (r1, r2, seed): the partner shifts and the kernel seed
+  int r1 = (int)rs[0], r2 = (int)rs[1];
+  uint32_t seed = (uint32_t)(unsigned long long)rs[2];
+  Coords c = coords(w, sb_rows);
+
+  // per-walker randomness: proposal scale N(0,1) * w_scale, MH log-u
+  uint32_t bu1, bu2, bu3;
+  if (stub) {
+    bu1 = stub_bits(c.pid, seed, 40000u, c.row, c.lane);
+    bu2 = stub_bits(c.pid, seed, 40001u, c.row, c.lane);
+    bu3 = stub_bits(c.pid, seed, 40002u, c.row, c.lane);
+  } else {
+    Words4 b = philox4x32_10(0u, (uint32_t)w, kStreamGenSweepWalker, 0u,
+                             seed, 0u);
+    bu1 = b.x0;
+    bu2 = b.x1;
+    bu3 = b.x2;
+  }
+  float cv, sv;
+  sincos_2pi(to_unit(bu2), &cv, &sv);
+  float z = sqrtf(-2.0f * log1pf(-to_unit(bu1))) * cv;
+  float wv = z * w_scale;
+  float lprob = log1pf(-to_unit(bu3));  // log U(0,1]
+
+  // Gaussian-difference proposal against the partners (w - r) mod n,
+  // i.e. jnp.roll(x, r)[w]
+  int i2 = w - r2, i1 = w - r1;
+  if (i2 < 0) i2 += n;
+  if (i1 < 0) i1 += n;
+  float prop[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    float d = th.p[k][i2] - th.p[k][i1];
+    prop[k] = th.p[k][w] + d * wv;
+  }
+  // push is the identity for the continuous marginals of the table
+  float lpp = prior_logpdf(prop);
+  float lp = lps[w];
+  float dl = lpp - lp;
+  float lm = (dl > 0.0f) ? 0.0f : dl;  // min(dl, 0), NaN propagates
+  bool gate1 = (alive[w] != 0) && (lpp > __uint_as_float(0xff800000u)) &&
+               (lprob < lm);
+
+  // the outputs depend on the simulation only where gate 1 passes
+  bool commit = false;
+  float xp = 0.0f;
+  if (gate1) {
+    float m[KT_NSTATS];
+    simulate(prop, ndraws, chunk, inv_n, stub, c.pid, c.row, c.lane, seed,
+             kStreamGenSweepSim, (uint32_t)w, m);
+    xp = reduce_cost(prop, m);
+    float eps = eps_ptr[0];
+    commit = (xp < eps) || ((flag_ptr[0] != 0) && (xp == eps));
+  }
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k)
+    oth.p[k][w] = commit ? prop[k] : th.p[k][w];
+  oxs[w] = commit ? xp : xs[w];
+  olps[w] = commit ? lpp : lp;
+  ocm[w] = commit ? 1 : 0;
+}
+#endif
+
+inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int kt_streaming_moment_cost(const float* const* th,
+                                        const long long* seed, float* out,
+                                        int ld, int n, int ndraws,
+                                        float inv_n, int stub, int sb_rows,
+                                        int chunk, void* stream) {
+  Leaves leaves;
+  for (int k = 0; k < KT_NPARAMS; ++k) leaves.p[k] = th[k];
+  if (n > 0) {
+    streaming_moment_cost_kernel<<<grid_for(n), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        leaves, seed, out, ld, n, ndraws, inv_n, stub, sb_rows, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+
+#if KT_HAS_SWEEP
+extern "C" int kt_fused_smc_sweep(
+    const float* const* th, const float* xs, const float* lps,
+    const unsigned char* alive, const float* eps, const unsigned char* flag,
+    const long long* rs, float* const* oth, float* oxs, float* olps,
+    unsigned char* ocm, int n, int ndraws, float inv_n, float w_scale,
+    int stub, int sb_rows, int chunk, void* stream) {
+  Leaves leaves;
+  OutLeaves outs;
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    leaves.p[k] = th[k];
+    outs.p[k] = oth[k];
+  }
+  if (n > 0) {
+    fused_smc_sweep_kernel<<<grid_for(n), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        leaves, xs, lps, alive, eps, flag, rs, outs, oxs, olps, ocm, n,
+        ndraws, inv_n, w_scale, stub, sb_rows, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+#endif
+
+extern "C" const char* kt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

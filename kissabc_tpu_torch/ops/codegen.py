@@ -1,0 +1,647 @@
+"""User callables -> CUDA device functions: the port's counterpart of
+Pallas tracing ``jnp`` callables into a Mosaic kernel.
+
+The generic kernels (``csrc/generic.cuh``) run the user's model inside
+the kernel: ``draw(theta, eps)`` makes each simulated value, the
+optional ``stats`` are the summary functions, ``reduce_cost(theta,
+moments)`` turns the moments into a cost, and the prior's logpdf gates
+the proposals. The user writes them once, in PyTorch. Called on real
+tensors they are the plain versions; called on ``Sym`` values they
+record an expression graph, which this module emits as
+``__device__ __forceinline__`` C++ functions:
+
+    float draw(const float* th, float e);
+    float stat_j(float x);                    (one per entry of stats)
+    float reduce_cost(const float* th, const float* m);
+    float prior_logpdf(const float* th);
+
+Supported, exactly what the JAX package's tests and bench models use:
+``+ - * /``, unary ``-``, ``**`` with an integer power, the comparisons,
+``.to(torch.float32)`` / ``.float()`` of a boolean, ``torch.where``,
+``sqrt``, ``exp``, ``log``, ``log1p``, ``expm1``, ``tanh``, ``sin``,
+``cos``, ``abs``, ``square``, ``hypot``, ``maximum``, ``minimum``,
+``clamp``, ``ones_like`` and ``zeros_like``, as ``torch.*`` functions or
+as tensor methods. Anything else raises ``NotImplementedError`` naming
+the op, when the cost or sweep is built; nothing falls back to the plain
+version.
+
+Each emitted operation repeats what PyTorch does for the same
+expression, so the kernel and the plain version round alike: Python
+numbers become float32 constants, written as exact bit patterns
+(``__uint_as_float(0x...u)``), ``c / x`` is ``reciprocal(x) * c`` (as
+``Tensor.__rtruediv__``), and small integer powers are products. The
+generated translation units are compiled without FMA contraction.
+"""
+
+from __future__ import annotations
+
+import numbers
+import operator
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import distributions as D
+
+# C functions of the unary ops (float32 versions from the CUDA math library)
+_UNARY_C = {"sqrt": "sqrtf", "exp": "expf", "log": "logf",
+            "log1p": "log1pf", "expm1": "expm1f", "tanh": "tanhf",
+            "sin": "sinf", "cos": "cosf", "abs": "fabsf"}
+_UNARY = tuple(_UNARY_C) + ("square",)
+_COMPARE_C = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
+              "ne": "!="}
+_ARITH_C = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
+_TORCH_FUNCS = {getattr(torch, name): name for name in _UNARY + (
+    "where", "hypot", "maximum", "minimum", "clamp", "ones_like",
+    "zeros_like")}
+_MAX_ARGS = 16   # the most theta leaves or moments a traced callable gets
+
+
+def _is_number(v):
+    return isinstance(v, numbers.Real) or (
+        isinstance(v, torch.Tensor) and v.numel() == 1
+        and not isinstance(v, Sym))
+
+
+def _number(v):
+    return float(v.item()) if isinstance(v, torch.Tensor) else float(v)
+
+
+class Sym:
+    """A symbolic float32 (``kind="f"``) or boolean (``kind="b"``) value:
+    one node of the recorded expression graph. Leaves are ``theta``
+    (argument k), ``noise`` (the draw's eps), ``x`` (a stat's input) and
+    ``m`` (moment j); constants are plain Python numbers in ``args``."""
+
+    __slots__ = ("op", "args", "kind")
+    __array_ufunc__ = None   # numpy scalars defer to the reflected op
+
+    def __init__(self, op, args=(), kind="f"):
+        self.op, self.args, self.kind = op, tuple(args), kind
+
+    __hash__ = object.__hash__
+
+    def __repr__(self):
+        return f"Sym({self.op}, kind={self.kind})"
+
+    def __bool__(self):
+        raise TypeError(
+            "a traced model value has no truth value: write data-dependent "
+            "choices with torch.where")
+
+    def __iter__(self):
+        raise TypeError("a traced scalar is not iterable")
+
+    def __getitem__(self, index):
+        raise TypeError("a traced scalar cannot be indexed")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):   # protocol probes (numpy, copy, ...)
+            raise AttributeError(name)
+        raise NotImplementedError(
+            f"op {name!r} is not supported in a model compiled into the "
+            f"generic kernels (supported: {', '.join(_supported())})")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        name = _TORCH_FUNCS.get(func)
+        if name is None:
+            raise NotImplementedError(
+                f"op {getattr(func, '__name__', func)!r} is not supported in "
+                "a model compiled into the generic kernels (supported: "
+                f"{', '.join(_supported())})")
+        kwargs = kwargs or {}
+        if name in _UNARY:
+            return _unary(name, *args, **kwargs)
+        if name == "where":
+            return _where(*args, **kwargs)
+        if name in ("hypot", "maximum", "minimum"):
+            return _binary_fn(name, *args, **kwargs)
+        if name == "clamp":
+            return args[0].clamp(*args[1:], **kwargs)
+        return Sym(name, (args[0],))   # ones_like, zeros_like
+
+    # arithmetic --------------------------------------------------------
+    def __add__(self, o):
+        return _arith("add", self, o)
+
+    def __radd__(self, o):
+        return _arith("add", o, self)
+
+    def __sub__(self, o):
+        return _arith("sub", self, o)
+
+    def __rsub__(self, o):
+        return _arith("sub", o, self)
+
+    def __mul__(self, o):
+        return _arith("mul", self, o)
+
+    def __rmul__(self, o):
+        return _arith("mul", o, self)
+
+    def __truediv__(self, o):
+        return _arith("div", self, o)
+
+    def __rtruediv__(self, o):
+        if not _is_number(o):
+            return NotImplemented
+        return Sym("rdiv", (_as_float(self), _number(o)))
+
+    def __neg__(self):
+        return Sym("neg", (_as_float(self),))
+
+    def __pow__(self, p):
+        if not (_is_number(p) and float(_number(p)).is_integer()):
+            raise NotImplementedError(
+                f"op 'pow' with exponent {p!r}: only integer powers are "
+                "supported in a model compiled into the generic kernels")
+        return Sym("pow", (_as_float(self), int(_number(p))))
+
+    def __rpow__(self, o):
+        raise NotImplementedError(
+            "op 'pow' with a traced exponent is not supported in a model "
+            "compiled into the generic kernels")
+
+    def __abs__(self):
+        return _unary("abs", self)
+
+    # comparisons -------------------------------------------------------
+    def __lt__(self, o):
+        return _compare("lt", self, o)
+
+    def __le__(self, o):
+        return _compare("le", self, o)
+
+    def __gt__(self, o):
+        return _compare("gt", self, o)
+
+    def __ge__(self, o):
+        return _compare("ge", self, o)
+
+    def __eq__(self, o):
+        return _compare("eq", self, o)
+
+    def __ne__(self, o):
+        return _compare("ne", self, o)
+
+    # tensor methods ----------------------------------------------------
+    def sqrt(self):
+        return _unary("sqrt", self)
+
+    def exp(self):
+        return _unary("exp", self)
+
+    def log(self):
+        return _unary("log", self)
+
+    def log1p(self):
+        return _unary("log1p", self)
+
+    def expm1(self):
+        return _unary("expm1", self)
+
+    def tanh(self):
+        return _unary("tanh", self)
+
+    def sin(self):
+        return _unary("sin", self)
+
+    def cos(self):
+        return _unary("cos", self)
+
+    def square(self):
+        return _unary("square", self)
+
+    def abs(self):
+        return _unary("abs", self)
+
+    def hypot(self, o):
+        return _binary_fn("hypot", self, o)
+
+    def maximum(self, o):
+        return _binary_fn("maximum", self, o)
+
+    def minimum(self, o):
+        return _binary_fn("minimum", self, o)
+
+    def clamp(self, min=None, max=None):  # noqa: A002 (torch's names)
+        if min is None and max is None:
+            raise ValueError("clamp needs min or max")
+        for bound in (min, max):
+            if bound is not None and not _is_number(bound):
+                raise NotImplementedError(
+                    "op 'clamp' with tensor bounds is not supported in a "
+                    "model compiled into the generic kernels")
+        return Sym("clamp", (_as_float(self),
+                             None if min is None else _number(min),
+                             None if max is None else _number(max)))
+
+    def to(self, dtype, *args, **kwargs):
+        if dtype is not torch.float32 or args or kwargs:
+            raise NotImplementedError(
+                f"op 'to' with {dtype!r}: only .to(torch.float32) is "
+                "supported in a model compiled into the generic kernels")
+        return _as_float(self)
+
+    def float(self):
+        return _as_float(self)
+
+
+def _supported():
+    return (list(_ARITH_C) + ["neg", "pow"] + list(_COMPARE_C)
+            + ["to(float32)", "float"] + sorted(_TORCH_FUNCS.values()))
+
+
+def _operand(v):
+    if isinstance(v, Sym):
+        return _as_float(v)
+    if _is_number(v):
+        return _number(v)
+    raise TypeError(f"unsupported operand {type(v).__name__} in a traced "
+                    "model")
+
+
+def _as_float(v):
+    """A boolean node promoted to float32, as PyTorch promotes it."""
+    if isinstance(v, Sym) and v.kind == "b":
+        return Sym("tofloat", (v,))
+    return v
+
+
+def _arith(op, a, b):
+    if not (isinstance(a, Sym) or isinstance(b, Sym)):
+        return NotImplemented
+    try:
+        return Sym(op, (_operand(a), _operand(b)))
+    except TypeError:
+        return NotImplemented
+
+
+def _compare(op, a, b):
+    try:
+        return Sym(op, (_operand(a), _operand(b)), kind="b")
+    except TypeError:
+        return NotImplemented
+
+
+def _unary(name, a):
+    if not isinstance(a, Sym):
+        raise TypeError(f"{name} of a non-traced value in a traced model")
+    return Sym(name, (_as_float(a),))
+
+
+def _binary_fn(name, a, b):
+    if not (isinstance(a, Sym) and isinstance(b, Sym)):
+        raise TypeError(f"torch.{name} takes two tensors")
+    return Sym(name, (_as_float(a), _as_float(b)))
+
+
+def _where(cond, a, b):
+    if not (isinstance(cond, Sym) and cond.kind == "b"):
+        raise NotImplementedError(
+            "torch.where needs a traced boolean condition")
+    return Sym("where", (cond, _operand(a), _operand(b)))
+
+
+# ---------------------------------------------------------------------------
+# evaluation on tensors (the recorded graph, for the tests)
+# ---------------------------------------------------------------------------
+
+def evaluate(node, env):
+    """Evaluate a recorded graph on tensors: ``env`` maps the leaves,
+    ``{"theta": [..], "noise": t, "x": t, "m": [..]}``. Each node runs
+    the PyTorch op the user's callable ran, so the result equals the
+    callable's bit for bit."""
+    memo = {}
+
+    def ev(v):
+        if not isinstance(v, Sym):
+            return v
+        key = id(v)
+        if key not in memo:
+            memo[key] = _eval_node(v, [ev(a) for a in v.args], env)
+        return memo[key]
+
+    return ev(node)
+
+
+def _eval_node(v, a, env):
+    op = v.op
+    if op == "theta":
+        return env["theta"][a[0]]
+    if op == "m":
+        return env["m"][a[0]]
+    if op in ("noise", "x"):
+        return env[op]
+    if op in _ARITH_C or op in _COMPARE_C:
+        return getattr(operator, "truediv" if op == "div" else op)(a[0], a[1])
+    if op == "rdiv":
+        return a[1] / a[0]
+    if op == "neg":
+        return -a[0]
+    if op == "pow":
+        return a[0] ** a[1]
+    if op == "tofloat":
+        return a[0].to(torch.float32)
+    if op == "where":
+        return torch.where(*a)
+    if op == "clamp":
+        return torch.clamp(a[0], min=a[1], max=a[2])
+    return getattr(torch, op)(*a)
+
+
+# ---------------------------------------------------------------------------
+# emission
+# ---------------------------------------------------------------------------
+
+def f32_literal(value) -> str:
+    """A float32 constant as its exact bit pattern."""
+    bits = int(np.array(value, np.float32).view(np.uint32))
+    return f"__uint_as_float(0x{bits:08x}u)"
+
+
+def _topo(out):
+    """The graph's nodes, each after its operands."""
+    order, seen = [], set()
+
+    def visit(v):
+        if not isinstance(v, Sym) or id(v) in seen:
+            return
+        seen.add(id(v))
+        for a in v.args:
+            visit(a)
+        order.append(v)
+
+    visit(out)
+    return order
+
+
+def _pow_expr(x, p):
+    if p == 0:
+        return "1.0f"
+    if p == 1:
+        return x
+    if p == 2:
+        return f"({x} * {x})"
+    if p == 3:
+        return f"(({x} * {x}) * {x})"
+    if p == -1:
+        return f"(1.0f / {x})"
+    if p == -2:
+        return f"(1.0f / ({x} * {x}))"
+    return f"powf({x}, {float(p)!r}f)"
+
+
+def _pow_ops(p):
+    return {0: 0, 1: 0, 2: 1, 3: 2, -1: 1, -2: 2}.get(p, 1)
+
+
+_OPS = {"clamp": 2, "tofloat": 0, "ones_like": 0, "zeros_like": 0}
+
+
+def _node_expr(v, name):
+    """C expression of one node, its operands named by ``name``."""
+    a = [name(x) if isinstance(x, Sym) else x for x in v.args]
+
+    def lit(x):
+        return x if isinstance(x, str) else f32_literal(x)
+
+    op = v.op
+    if op in _ARITH_C:
+        return f"({lit(a[0])} {_ARITH_C[op]} {lit(a[1])})"
+    if op in _COMPARE_C:
+        return f"({lit(a[0])} {_COMPARE_C[op]} {lit(a[1])})"
+    if op == "rdiv":
+        return f"((1.0f / {a[0]}) * {lit(a[1])})"
+    if op == "neg":
+        return f"(-{a[0]})"
+    if op == "pow":
+        return _pow_expr(a[0], v.args[1])
+    if op in _UNARY_C:
+        return f"{_UNARY_C[op]}({a[0]})"
+    if op == "square":
+        return f"({a[0]} * {a[0]})"
+    if op == "tofloat":
+        return f"({a[0]} ? 1.0f : 0.0f)"
+    if op == "where":
+        return f"({a[0]} ? {lit(a[1])} : {lit(a[2])})"
+    if op == "hypot":
+        return f"hypotf({a[0]}, {a[1]})"
+    if op in ("maximum", "minimum"):
+        # NaN propagates, as torch.maximum / torch.minimum
+        fn = "fmaxf" if op == "maximum" else "fminf"
+        return (f"(({a[0]} != {a[0]} || {a[1]} != {a[1]}) ? "
+                f"({a[0]} + {a[1]}) : {fn}({a[0]}, {a[1]}))")
+    if op == "clamp":
+        x = a[0]
+        if a[1] is not None:
+            x = f"fmaxf({x}, {lit(a[1])})"
+        if a[2] is not None:
+            x = f"fminf({x}, {lit(a[2])})"
+        return f"({a[0]} != {a[0]} ? {a[0]} : {x})"
+    if op in ("ones_like", "zeros_like"):
+        return "1.0f" if op == "ones_like" else "0.0f"
+    raise NotImplementedError(f"op {op!r} cannot be emitted")
+
+
+_LEAF_C = {"theta": "th[{}]", "m": "m[{}]", "noise": "e", "x": "x"}
+
+
+def emit_function(fname, params, out):
+    """One ``__device__ __forceinline__ float fname(params)`` returning
+    the graph ``out``. Returns (C text, float operations per call)."""
+    out = _as_float(out)
+    if not isinstance(out, Sym):   # a constant model
+        return (f"__device__ __forceinline__ float {fname}({params}) {{\n"
+                f"  return {f32_literal(out)};\n}}\n", 0)
+    names, lines, ops = {}, [], 0
+    for i, v in enumerate(_topo(out)):
+        if v.op in _LEAF_C:
+            names[id(v)] = _LEAF_C[v.op].format(*v.args)
+            continue
+        expr = _node_expr(v, lambda x: names[id(x)])
+        ctype = "bool" if v.kind == "b" else "float"
+        names[id(v)] = f"v{i}"
+        lines.append(f"  const {ctype} v{i} = {expr};")
+        ops += _pow_ops(v.args[1]) if v.op == "pow" else _OPS.get(v.op, 1)
+    body = "\n".join(lines)
+    return (f"__device__ __forceinline__ float {fname}({params}) {{\n"
+            f"{body}\n  return {names[id(out)]};\n}}\n", ops)
+
+
+# ---------------------------------------------------------------------------
+# tracing the user's callables
+# ---------------------------------------------------------------------------
+
+def theta_args(structure):
+    """Traced theta: one leaf (``structure=None``) or a tuple of K."""
+    if structure is None:
+        return Sym("theta", (0,))
+    return tuple(Sym("theta", (k,)) for k in range(structure))
+
+
+def _check_out(out, what):
+    if not (isinstance(out, Sym) or _is_number(out)):
+        raise TypeError(f"{what} returned {type(out).__name__}, not a "
+                        "scalar expression")
+    if isinstance(out, Sym) and out.kind == "b":
+        return _as_float(out)
+    return out
+
+
+def trace_draw(draw, structure):
+    return _check_out(draw(theta_args(structure), Sym("noise")), "draw")
+
+
+def probe_structure(draw):
+    """The theta structure ``draw`` accepts, when it is not known yet: a
+    bare leaf, else the first tuple length from 1 to 16 that it
+    unpacks or indexes without error. Raises the last error if none
+    does (an unsupported op raises NotImplementedError at once)."""
+    err = None
+    for structure in (None,) + tuple(range(1, _MAX_ARGS + 1)):
+        try:
+            trace_draw(draw, structure)
+            return structure
+        except (TypeError, ValueError, IndexError) as e:
+            err = e
+    raise err
+
+
+def trace_stats(stats, nmoments):
+    """The per-draw summaries as graphs of ``x``: the stats, or the raw
+    power chain x, x*x, (x*x)*x, ... of the TPU kernels."""
+    x = Sym("x")
+    if stats is not None:
+        return tuple(_check_out(g(x), f"stats[{j}]")
+                     for j, g in enumerate(stats))
+    chain, xp = [], x
+    for p in range(nmoments):
+        chain.append(xp)
+        if p + 1 < nmoments:
+            xp = xp * x
+    return tuple(chain)
+
+
+def trace_reduce(reduce_cost, structure, nstats):
+    m = tuple(Sym("m", (j,)) for j in range(nstats))
+    return _check_out(reduce_cost(theta_args(structure), m), "reduce_cost")
+
+
+# ---------------------------------------------------------------------------
+# the prior, from a per-family table
+# ---------------------------------------------------------------------------
+
+_NEG_INF_C = "__uint_as_float(0xff800000u)"
+
+
+def _marginal_logpdf(d, x):
+    """(C expression, operations) of one marginal's logpdf, the formula
+    of ``kissabc_tpu_torch/distributions.py`` with its float32 host
+    constants."""
+    kind = type(d)
+    if kind is D.Uniform:
+        return (f"(({x} >= {f32_literal(d.a)}) && ({x} <= {f32_literal(d.b)}))"
+                f" ? {f32_literal(-d._nll)} : {_NEG_INF_C}", 3)
+    if kind is D.Normal:
+        z = f"(({x} - {f32_literal(d.mu)}) / {f32_literal(d.sigma)})"
+        return (f"((-0.5f * {z}) * {z} - {f32_literal(d._lnorm)})", 6)
+    if kind is D.Truncated:
+        base, ops = _marginal_logpdf(d.base, x)
+        return (f"((({x} >= {f32_literal(d.lo)}) && ({x} <= "
+                f"{f32_literal(d.hi)})) ? (({base}) - {f32_literal(d._lz)})"
+                f" : {_NEG_INF_C})", ops + 4)
+    raise NotImplementedError(
+        f"{kind.__name__} has no entry in the generic kernels' prior table "
+        "(Uniform, Normal, Truncated of either): its push and logpdf "
+        "cannot be compiled into the fused sweep")
+
+
+def prior_marginals(prior):
+    """(marginals, structure): a ``Factored`` prior's marginals and K,
+    or one univariate prior and ``None``."""
+    if isinstance(prior, D.Factored):
+        return prior.p, prior.nparams
+    return (prior,), None
+
+
+def emit_prior(prior):
+    """``prior_logpdf(th)``: the sum of the marginals' logpdfs in
+    ``Factored.logpdf``'s order. Push is the identity for these
+    continuous families. Returns (C text, operations)."""
+    marginals, _ = prior_marginals(prior)
+    lines, ops = [], 0
+    for k, d in enumerate(marginals):
+        if d.discrete or d.event_dim:
+            raise NotImplementedError(
+                f"marginal {k} ({d!r}) is not a continuous scalar: the "
+                "generic kernels push only continuous marginals")
+        expr, n = _marginal_logpdf(d, f"th[{k}]")
+        ops += n + (k > 0)
+        lines.append(f"  lp = {expr};" if k == 0
+                     else f"  lp = lp + ({expr});")
+    body = "\n".join(lines)
+    return ("__device__ __forceinline__ float prior_logpdf(const float* th) "
+            f"{{\n  float lp;\n{body}\n  return lp;\n}}\n", ops)
+
+
+# ---------------------------------------------------------------------------
+# one model -> one translation unit
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Generated:
+    """The emitted model: ``functions`` (the device functions alone, for
+    the host-compiler test), ``source`` (the translation unit: macros,
+    functions and ``#include "generic.cuh"``), and operation counts per
+    draw (draw and summaries) and per walker (reduce_cost and prior)."""
+    functions: str
+    source: str
+    nparams: int
+    nstats: int
+    draw_ops: int
+    stat_ops: int
+    reduce_ops: int
+    prior_ops: int
+
+
+def generate(draw, *, structure, nstats, stats, nmoments, noise,
+             reduce_cost=None, prior=None):
+    """Trace the model and emit its translation unit. ``structure``:
+    None for one theta leaf, else the tuple length K. With
+    ``reduce_cost`` and ``prior`` the unit also holds the fused sweep."""
+    nparams = 1 if structure is None else structure
+    draw_fn, draw_ops = emit_function(
+        "draw", "const float* th, float e", trace_draw(draw, structure))
+    fns, stat_ops = [draw_fn], 0
+    for j, g in enumerate(trace_stats(stats, nmoments)):
+        text, n = emit_function(f"stat_{j}", "float x", g)
+        fns.append(text)
+        stat_ops += n
+    calls = "\n".join(f"  g[{j}] = stat_{j}(x);" for j in range(nstats))
+    fns.append("__device__ __forceinline__ void stats_of(float x, float* g) "
+               f"{{\n{calls}\n}}\n")
+    reduce_ops = prior_ops = 0
+    if reduce_cost is not None:
+        text, reduce_ops = emit_function(
+            "reduce_cost", "const float* th, const float* m",
+            trace_reduce(reduce_cost, structure, nstats))
+        fns.append(text)
+        text, prior_ops = emit_prior(prior)
+        fns.append(text)
+    functions = "\n".join(fns)
+    source = "\n".join([
+        "// Generated by kissabc_tpu_torch/ops/codegen.py from a user model.",
+        f"#define KT_NPARAMS {nparams}",
+        f"#define KT_NSTATS {nstats}",
+        f"#define KT_NOISE_NORMAL {int(noise == 'normal')}",
+        f"#define KT_HAS_SWEEP {int(reduce_cost is not None)}",
+        '#include "common.cuh"',
+        "namespace {",
+        functions,
+        "}  // namespace",
+        '#include "generic.cuh"', ""])
+    return Generated(functions, source, nparams, nstats, draw_ops, stat_ops,
+                     reduce_ops, prior_ops)

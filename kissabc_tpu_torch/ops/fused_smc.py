@@ -1,0 +1,253 @@
+"""The generic fused smc sweep — the PyTorch counterpart of
+``make_fused_smc_sweep`` in ``kissabc_tpu/ops/pallas_kernels.py`` (TPU
+kernel ``full_call``, pallas_call at :2391).
+
+One kernel launch, ``kt_fused_smc_sweep`` (``csrc/generic.cuh``), runs
+the whole rejuvenation sweep per walker: the Gaussian-difference
+proposal against the partners ``(w - r1) mod n`` and ``(w - r2) mod n``
+(``jnp.roll(x, r)[w]``), the prior's push and logpdf, gate 1 (prior-only
+MH), then, for the walkers that pass gate 1, the user's streamed
+simulator, ``reduce_cost``, gate 2 (``<`` or ``<=`` eps by the boundary
+flag) and the commit. The user's ``draw``,
+``stats`` and ``reduce_cost`` and the prior's logpdf are compiled into it
+by ``ops/codegen.py``. ``fused_smc_sweep_plain`` repeats the kernel's
+arithmetic with the user's callables and the port's prior on tensors;
+it takes ``r1``, ``r2`` and the seed explicitly, so tests can give it
+the JAX sweep's own.
+
+The contract is ``smc``'s inner sweep, so the sweep plugs into
+``smc(..., sweep_fused=...)``::
+
+    sweep(gen, thetas, xs, lps, alive, eps, flag)
+        -> (thetas, xs, lps, naccept)
+
+Nothing of it is read on the host: the shifts and the seed are drawn on
+the generator's device and the kernel reads them, ``eps`` and ``flag``
+from device memory; ``naccept`` is a device tensor.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..utils.rng import uint32_words
+from . import _build, codegen
+from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
+                      sincos_2pi, stub_bits, to_unit)
+from .moves import roll_shifts
+from .streaming import (NOISE_OPS, STREAM_GEN_SWEEP_SIM,
+                        STREAM_GEN_SWEEP_WALKER, _device_of, leaves_of,
+                        streaming_moment_cost_plain, tree_of, validate)
+
+# launches of the CUDA kernel since the last reset (plain ints)
+launches = {"fused_smc_sweep": 0}
+
+# per-walker operations of the sweep outside the simulator, the prior and
+# reduce_cost: one Philox call (100), three mantissa tricks (9), the
+# proposal scale (sqrt, log1p, sincos: 30), the MH log-u (2), the gates
+# and the eps test (10); per leaf the proposal (3) and the commit (1)
+SWEEP_OPS, SWEEP_OPS_PER_LEAF = 100 + 9 + 30 + 1 + 2 + 10 + 3, 4
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+class FusedSMCSweep:
+    """``sweep(gen, thetas, xs, lps, alive, eps, flag)``, made by
+    ``make_fused_smc_sweep``."""
+
+    def __init__(self, prior, draw, reduce_cost, *, max_stretch, stats,
+                 nstats, ndraws, noise, block, chunk, walker_tiles, bits):
+        self.prior, self.draw, self.reduce_cost = prior, draw, reduce_cost
+        self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
+        self.noise, self.block, self.chunk = noise, block, chunk
+        self.walker_tiles, self.bits = walker_tiles, bits
+        self.d = prior.nparams
+        self.w_scale = float(np.float32(max_stretch / math.sqrt(self.d)))
+        self.structure = codegen.prior_marginals(prior)[1]
+        # trace now: an unsupported op or prior family raises here
+        self.unit = codegen.generate(
+            draw, structure=self.structure, nstats=nstats, stats=stats,
+            nmoments=nstats, noise=noise, reduce_cost=reduce_cost,
+            prior=prior)
+
+    def _leaves(self, thetas):
+        leaves, structure = leaves_of(thetas, "make_fused_smc_sweep")
+        if len(leaves) != self.d or structure != self.structure:
+            raise ValueError(
+                f"prior has {self.d} scalar marginals but thetas has "
+                f"{len(leaves)} leaves")
+        n = leaves[0].shape[0]
+        if n < 3:
+            raise ValueError("need at least 3 walkers")
+        return leaves, n
+
+    def _sb_rows(self, n):
+        return plan_tiles(n, self.block, self.walker_tiles)[1] * self.block
+
+    def __call__(self, gen, thetas, xs, lps, alive, eps, flag):
+        leaves, n = self._leaves(thetas)
+        words = uint32_words(gen, 3)
+        r1, r2 = roll_shifts(words[:2], n)
+        rs = torch.stack((r1, r2, words[2]))
+        out, oxs, olps, commit = self.run(leaves, xs, lps, alive, eps, flag,
+                                          rs)
+        return tree_of(out, self.structure), oxs, olps, commit.sum()
+
+    def run(self, leaves, xs, lps, alive, eps, flag, rs):
+        """One sweep with given shifts and seed, ``rs = (r1, r2, seed)``
+        (an int64 tensor on the population's device): the plain version
+        for CPU tensors, the kernel for CUDA tensors. Returns (theta
+        leaves, xs, lps, commit mask)."""
+        n = leaves[0].shape[0]
+        dev = _device_of(leaves)
+        if dev.type == "cpu":
+            return fused_smc_sweep_plain(self, leaves, xs, lps, alive, eps,
+                                         flag, rs[0], rs[1], rs[2:])
+        ins = self._inputs(n, dev, xs, lps, alive, eps, flag)
+        outs = ([torch.empty_like(x) for x in leaves],
+                torch.empty_like(ins[0]), torch.empty_like(ins[1]),
+                torch.empty(n, dtype=torch.bool, device=dev))
+        self.launch(n, leaves, ins, rs, outs)
+        launches["fused_smc_sweep"] += 1
+        return outs
+
+    @staticmethod
+    def _inputs(n, dev, xs, lps, alive, eps, flag):
+        def vec(t, dtype, name):
+            if t.shape != (n,) or t.device != dev:
+                raise ValueError(f"{name} must be a vector of length {n} "
+                                 f"on {dev}, got {tuple(t.shape)} on "
+                                 f"{t.device}")
+            return t.to(dtype).contiguous()
+
+        return (vec(xs, torch.float32, "xs"), vec(lps, torch.float32, "lps"),
+                vec(alive, torch.bool, "alive"),
+                torch.as_tensor(eps, device=dev).to(torch.float32)
+                .reshape(1),
+                torch.as_tensor(flag, device=dev).to(torch.bool).reshape(1))
+
+    def launch(self, n, leaves, ins, rs, outs):
+        """Launch over the first ``n`` walkers of checked CUDA buffers:
+        ``ins`` = (xs, lps, alive, eps[1], flag[1]), ``rs`` = (r1, r2,
+        seed) int64, ``outs`` = (theta leaves, xs, lps, commit)."""
+        lib = _build.load_generated(self.unit.source)
+        xs, lps, alive, eps, flag = ins
+        oth, oxs, olps, ocm = outs
+        err = lib.kt_fused_smc_sweep(
+            _build.pointers(leaves), xs.data_ptr(), lps.data_ptr(),
+            alive.data_ptr(), eps.data_ptr(), flag.data_ptr(),
+            rs.data_ptr(), _build.pointers(oth), oxs.data_ptr(),
+            olps.data_ptr(), ocm.data_ptr(), n, self.ndraws,
+            float(np.float32(1.0 / self.ndraws)), self.w_scale,
+            int(self.bits == "stub"), self._sb_rows(n), self.chunk,
+            _stream())
+        _build.check(lib, err, "fused_smc_sweep")
+
+    def work(self, n, nsim=None):
+        """(bytes, operations) of one sweep over ``n`` walkers of which
+        ``nsim`` (default all) pass gate 1: the K leaves, xs, lps and
+        alive read once (the partners re-read leaves already counted),
+        eps, flag and the shifts and seed; the K leaves, xs, lps and the
+        commit mask written once. Every walker costs the proposal, the
+        prior and the commit; only a walker that passes gate 1 needs the
+        simulator (operations per draw as the streaming cost), the
+        moments' scaling and reduce_cost, since no output of any other
+        walker depends on them."""
+        u = self.unit
+        k = u.nparams
+        nsim = n if nsim is None else nsim
+        per_draw = NOISE_OPS[self.noise] + u.draw_ops + u.stat_ops + u.nstats
+        per_walker = SWEEP_OPS + SWEEP_OPS_PER_LEAF * k + u.prior_ops
+        per_sim = self.ndraws * per_draw + u.reduce_ops + u.nstats
+        return n * (8 * k + 17) + 29, n * per_walker + nsim * per_sim
+
+
+def fused_smc_sweep_plain(sweep, leaves, xs, lps, alive, eps, flag, r1,
+                          r2, seed):
+    """Plain PyTorch version of ``kt_fused_smc_sweep`` for the model of
+    ``sweep`` (a ``FusedSMCSweep``), with explicit partner shifts ``r1``,
+    ``r2`` and kernel ``seed`` (ints or tensors), so tests can pass the
+    JAX sweep's own. Returns (theta leaves, xs, lps, commit mask)."""
+    n = leaves[0].shape[0]
+    dev = leaves[0].device
+    seed = _seed_tensor(seed, dev)
+    props, pushed, lpp, gate1 = proposal_plain(sweep, leaves, lps, alive,
+                                               r1, r2, seed)
+    moments = streaming_moment_cost_plain(
+        sweep.draw, sweep.stats, sweep.nstats, pushed, seed, n=n,
+        ndraws=sweep.ndraws, chunk=sweep.chunk, noise=sweep.noise,
+        bits=sweep.bits, sb_rows=sweep._sb_rows(n),
+        stream=STREAM_GEN_SWEEP_SIM)
+    xp = sweep.reduce_cost(pushed, moments).to(torch.float32)
+    eps = torch.as_tensor(eps, device=dev).to(torch.float32)
+    flag = torch.as_tensor(flag, device=dev).to(torch.bool)
+    commit = gate1 & ((xp < eps) | (flag & (xp == eps)))
+    return ([torch.where(commit, p, x) for p, x in zip(props, leaves)],
+            torch.where(commit, xp, xs), torch.where(commit, lpp, lps),
+            commit)
+
+
+def proposal_plain(sweep, leaves, lps, alive, r1, r2, seed):
+    """The sweep's steps before the simulator, in plain PyTorch: the
+    proposal, its push and prior logpdf, and gate 1 (alive, inside the
+    prior's support, prior-only MH). Returns (proposal leaves, pushed
+    tree, logpdf, gate-1 mask); the mask says which walkers' outputs
+    depend on the simulation."""
+    n = leaves[0].shape[0]
+    dev = leaves[0].device
+    seed = _seed_tensor(seed, dev)
+    sb_rows = sweep._sb_rows(n)
+    w = torch.arange(n, device=dev)
+    pid, row, lane = w // sb_rows, (w % sb_rows) // 128, w % 128
+    if sweep.bits == "stub":
+        bu1, bu2, bu3 = (stub_bits(pid, seed, c, row, lane)
+                         for c in (40_000, 40_001, 40_002))
+    else:
+        bu1, bu2, bu3, _ = philox4x32_10(0, w, STREAM_GEN_SWEEP_WALKER,
+                                         0, seed)
+    z = torch.sqrt(-2.0 * torch.log1p(-to_unit(bu1))) \
+        * sincos_2pi(to_unit(bu2))[0]
+    wv = z * sweep.w_scale
+    lprob = torch.log1p(-to_unit(bu3))
+    i2 = torch.remainder(w - r2, n)
+    i1 = torch.remainder(w - r1, n)
+    props = [x + (x[i2] - x[i1]) * wv for x in leaves]
+    pushed = sweep.prior.push_tree(tree_of(props, sweep.structure))
+    lpp = sweep.prior.logpdf_tree(pushed).to(torch.float32)
+    gate1 = (alive.to(torch.bool) & (lpp > float("-inf"))
+             & (lprob < torch.clamp(lpp - lps, max=0.0)))
+    return props, pushed, lpp, gate1
+
+
+def make_fused_smc_sweep(prior, draw, reduce_cost, *,
+                         max_stretch: float = 2.0, nmoments: int = 2,
+                         stats=None, ndraws: int = 1000,
+                         noise: str = "normal", block: int = 1024,
+                         chunk: int = 512, walker_tiles: int = 8,
+                         bits: str = "hw", mesh=None):
+    """Generic fused smc rejuvenation sweep: bring your own model to one
+    kernel per sweep, for ``smc(..., sweep_fused=...)``.
+
+    ``prior``: a ``Factored`` of scalar marginals (or one marginal) from
+    the families of ``ops/codegen.py``'s prior table (Uniform, Normal,
+    Truncated of either). ``draw``, ``stats`` and ``reduce_cost`` follow
+    ``make_streaming_moment_cost``, with ``reduce_cost`` also compiled
+    into the kernel: elementwise PyTorch of the supported ops. Anything
+    the kernel cannot hold raises when the sweep is built. ``mesh=``
+    raises ``NotImplementedError``: walker sharding is not ported yet.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_fused_smc_sweep(mesh=...): walker sharding is not ported "
+            "yet")
+    stats, nstats = validate(stats, nmoments, noise, block, bits, chunk)
+    return FusedSMCSweep(
+        prior, draw, reduce_cost, max_stretch=max_stretch, stats=stats,
+        nstats=nstats, ndraws=ndraws, noise=noise, block=block, chunk=chunk,
+        walker_tiles=walker_tiles, bits=bits)

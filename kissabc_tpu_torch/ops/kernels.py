@@ -374,6 +374,33 @@ def fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, eps, seed, *, consts,
     n = mu.shape[0]
     dev = mu.device
     seed = _seed_tensor(seed, dev)
+    pmu, psg, lpp, gate1 = fused_sweep_proposal_plain(
+        mu, sg, dmu, dsg, lps, seed, consts=consts, block=block, bits=bits)
+    w = torch.arange(n, device=dev)
+    pid = w // block
+    if bits == "stub":
+        s1, s2 = _moments_stub(seed, pid, torch.zeros_like(w), w % block,
+                               ndraws, chunk)
+    else:
+        s1, s2 = _moments_philox(seed, STREAM_SWEEP_SIM, n, ndraws, dev)
+    xp = _summary_cost(pmu, psg, s1, s2, ndraws, target_mu, target_sd,
+                       sd_weight)
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    commit = gate1 & (xp < eps)
+    return (torch.where(commit, pmu, mu), torch.where(commit, psg, sg),
+            torch.where(commit, xp, xs), torch.where(commit, lpp, lps),
+            commit)
+
+
+def fused_sweep_proposal_plain(mu, sg, dmu, dsg, lps, seed, *, consts,
+                               block, bits):
+    """The fused sweep's steps before the simulator, in plain PyTorch:
+    the proposal, the prior logpdf and gate 1. Returns ``(pmu, psg, lpp,
+    gate1)``; the mask says which walkers' outputs depend on the
+    simulation."""
+    n = mu.shape[0]
+    dev = mu.device
+    seed = _seed_tensor(seed, dev)
     w = torch.arange(n, device=dev)
     pid = w // block
     if bits == "stub":
@@ -394,18 +421,7 @@ def fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, eps, seed, *, consts,
                       consts["lp_const"] - psg * psg * consts["half_inv_var"],
                       float("-inf"))
     gate1 = inside & (lprob < torch.clamp(lpp - lps, max=0.0))
-    if bits == "stub":
-        s1, s2 = _moments_stub(seed, pid, torch.zeros_like(w), w % block,
-                               ndraws, chunk)
-    else:
-        s1, s2 = _moments_philox(seed, STREAM_SWEEP_SIM, n, ndraws, dev)
-    xp = _summary_cost(pmu, psg, s1, s2, ndraws, target_mu, target_sd,
-                       sd_weight)
-    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
-    commit = gate1 & (xp < eps)
-    return (torch.where(commit, pmu, mu), torch.where(commit, psg, sg),
-            torch.where(commit, xp, xs), torch.where(commit, lpp, lps),
-            commit)
+    return pmu, psg, lpp, gate1
 
 
 def fused_sweep(mu, sg, dmu, dsg, xs, lps, eps, seed, *, ndraws=1000,
@@ -515,9 +531,13 @@ def normal_summary_cost_work(n, ndraws):
     return 12 * n + 8, n * (ndraws * OPS_PER_DRAW + 12)
 
 
-def fused_sweep_work(n, ndraws):
-    """(bytes, operations) of one fused sweep: six [n] float32 inputs,
-    eps and the seed read once, four [n] float32 outputs and the [n]
-    commit mask written once."""
-    return 41 * n + 12, n * (ndraws * OPS_PER_DRAW + 12
-                             + OPS_PER_SWEEP_WALKER)
+def fused_sweep_work(n, ndraws, nsim=None):
+    """(bytes, operations) of one fused sweep over ``n`` walkers of which
+    ``nsim`` (default all) pass gate 1: six [n] float32 inputs, eps and
+    the seed read once, four [n] float32 outputs and the [n] commit mask
+    written once. Every walker costs the proposal, the prior and the
+    gates; only a walker that passes gate 1 needs the simulator and the
+    cost, since no output of any other walker depends on them."""
+    nsim = n if nsim is None else nsim
+    return 41 * n + 12, (n * OPS_PER_SWEEP_WALKER
+                         + nsim * (ndraws * OPS_PER_DRAW + 12))

@@ -259,3 +259,30 @@ def test_work_counts():
     assert nb == 12 * (1 << 20) + 8 and ops > 4e10
     nb2, ops2 = K.fused_sweep_work(131072, 1000)
     assert nb2 == 41 * 131072 + 12 and ops2 > ops / 8
+    # only walkers that pass gate 1 are charged the simulator
+    nb3, ops3 = K.fused_sweep_work(131072, 1000, 65536)
+    nb4, ops4 = K.fused_sweep_work(131072, 1000, 0)
+    assert nb3 == nb4 == nb2 and ops4 < ops3 < ops2
+    assert ops2 - ops3 == ops3 - ops4
+
+
+def test_fused_sweep_proposal_gate1_is_the_sweeps():
+    """The gate-1 mask the bound counts with is the sweep's own: every
+    commit passed it, and with eps = +inf every walker that passed it
+    commits (the flagship cost is finite inside the prior's support)."""
+    n = 400
+    mu, sg = (torch.from_numpy(x) for x in _inputs(n, 5))
+    dmu = torch.roll(mu, 7) - torch.roll(mu, 3)
+    dsg = torch.roll(sg, 7) - torch.roll(sg, 3)
+    xs, lps = torch.full((n,), 0.5), torch.full((n,), -3.0)
+    consts = K.fused_sweep_constants(max_stretch=2.0, mu_lo=1.0, mu_hi=3.0,
+                                     sg_sigma=0.05, sg_lo=0.0, sg_hi=100.0)
+    kw = dict(consts=consts, block=256, bits="stub")
+    gate1 = K.fused_sweep_proposal_plain(mu, sg, dmu, dsg, lps, 9, **kw)[3]
+    assert 0 < int(gate1.sum()) < n
+    for eps, same in ((0.5, False), (float("inf"), True)):
+        commit = K.fused_sweep_plain(
+            mu, sg, dmu, dsg, xs, lps, eps, 9, ndraws=300, target_mu=2.0,
+            target_sd=0.04, sd_weight=50.0, chunk=128, **kw)[4]
+        assert not (commit & ~gate1).any()
+        assert torch.equal(commit, gate1) == same

@@ -342,8 +342,12 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "kissabc_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_smc.py"]
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"kissabc_tpu_torch/ops/codegen.py",
+            "kissabc_tpu_torch/ops/streaming.py",
+            "kissabc_tpu_torch/ops/fused_smc.py"} <= names
     hits = [(f.relative_to(REPO), m.group(0).strip())
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits

@@ -206,9 +206,6 @@ def test_left_for_later_slices_raise():
     prior, cost = _port_prior(), kt.make_flagship_cost_batched()
     with pytest.raises(NotImplementedError, match="slice 2"):
         kt.smc(prior, cost, device="cpu")
-    with pytest.raises(NotImplementedError, match="sweep_fused"):
-        kt.smc(prior, cost, cost_vectorized=True, sweep_fused=object(),
-               device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         kt.smc(prior, cost, cost_vectorized=True, mesh=object(),
                device="cpu")

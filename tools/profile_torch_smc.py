@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
 """Where the time of kissabc_tpu_torch's ``smc`` goes on one CUDA card.
 
-    python3 tools/profile_torch_smc.py [--trace-dir DIR]
+    python3 tools/profile_torch_smc.py [--path flagship|generic|both]
+                                       [--trace-dir DIR]
 
 Runs ``smc`` on the flagship README model at 1000 and at 2**20
 particles: once warm without the profiler for the wall time, then once
-under ``torch.profiler``. For each run it prints one JSON line with the
-wall time, the iterations, the device busy time (the union of all CUDA
-kernel and copy intervals), the device idle share of the profiled
-window, the sync and copy calls, and the CUDA kernels that took the
-most device time. With ``--trace-dir`` a Chrome trace of each profiled
+under ``torch.profiler``. ``--path flagship`` (the default) runs slice
+1's path, the flagship cost kernel and the split sweep; ``--path
+generic`` runs the same model as a user model through
+``make_streaming_moment_cost`` and ``smc(sweep_fused=make_fused_smc_sweep
+(...))``; ``both`` runs both. For each run it prints one JSON line with
+the wall time, the iterations, the device busy time (the union of all
+CUDA kernel and copy intervals), the device idle share of the profiled
+window, the CUDA events and the port's kernel launches per iteration,
+the sync and copy calls (and, for the generic path, those of the fused
+sweep called alone 100 times, each with the Python frames it came from,
+and the blocking syncs torch's sync debug mode reports), and the CUDA
+kernels that took the most device time. With ``--trace-dir`` a Chrome trace of each profiled
 run is written there (tens of MiB each). Needs one CUDA card; imports
 nothing of JAX.
 """
@@ -37,13 +45,79 @@ def busy_us(intervals):
     return total
 
 
-def profile_run(torch, kt, nparticles, trace_dir, **kw):
+SYNC_OR_COPY = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                "cudaMemcpyAsync")
+
+
+def sync_or_copy_calls(prof):
+    """Host calls that wait for the card or copy to or from it."""
+    return sum(e.count for e in prof.key_averages() if e.key in SYNC_OR_COPY)
+
+
+def sweep_syncs(torch, prior, sweep, n, calls=100):
+    """The fused sweep called alone ``calls`` times, with eps and the
+    flag on the card as smc passes them: its sync or copy calls per call
+    (0 means the sweep reads nothing on the host), each such call with
+    its count and the Python frames it came from, and the blocking syncs
+    torch's sync debug mode reports over the same calls."""
+    import warnings
+
     from torch.profiler import ProfilerActivity, profile
 
-    prior = kt.Factored(kt.Uniform(1, 3), kt.TruncatedNormal(0, 0.05, 0, 100))
-    cost = kt.make_flagship_cost_batched()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    th = prior.sample_tree(gen, n)
+    args = (torch.full((n,), 0.5, device="cuda"), prior.logpdf_tree(th),
+            torch.ones(n, dtype=torch.bool, device="cuda"),
+            torch.tensor(0.5, device="cuda"), torch.tensor(False,
+                                                           device="cuda"))
+    sweep(gen, th, *args)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        for _ in range(calls):
+            sweep(gen, th, *args)
+    torch.cuda.synchronize()
+    sources = [{"call": e.key, "count": e.count,
+                "stack": [f for f in e.stack if "profile_torch_smc" not in f
+                          ][:6]}
+               for e in prof.key_averages(group_by_stack_n=12)
+               if e.key in SYNC_OR_COPY]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(calls):
+                sweep(gen, th, *args)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    blocking = [str(w.message).splitlines()[0] for w in caught
+                if "synchroniz" in str(w.message)]
+    return {"calls": calls,
+            "sync_or_copy_per_call": sync_or_copy_calls(prof) / calls,
+            "sources": sources, "blocking_syncs": len(blocking),
+            "blocking_examples": blocking[:3]}
+
+
+def profile_run(torch, kt, path, nparticles, trace_dir, **kw):
+    from torch.profiler import ProfilerActivity, profile
+
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import fused_smc, kernels, streaming
+
+    prior, draw, reduce_cost = models.flagship()
+    if path == "generic":
+        cost = kt.make_streaming_moment_cost(draw, reduce_cost)
+        kw = dict(kw, sweep_fused=kt.make_fused_smc_sweep(prior, draw,
+                                                          reduce_cost))
+    else:
+        cost = kt.make_flagship_cost_batched()
+    modules = (kernels, streaming, fused_smc)
 
     def run():
+        for m in modules:
+            m.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = kt.smc(prior, cost, cost_vectorized=True,
@@ -54,12 +128,13 @@ def profile_run(torch, kt, nparticles, trace_dir, **kw):
 
     run()  # warm: kernel build, allocator, lazy CUDA init
     res, wall = run()
+    launches = {k: v for m in modules for k, v in m.launches.items() if v}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = run()
     trace = None
     if trace_dir:
-        trace = os.path.join(trace_dir, f"smc_{nparticles}.json")
+        trace = os.path.join(trace_dir, f"smc_{path}_{nparticles}.json")
         prof.export_chrome_trace(trace)
 
     dev_events = [e for e in prof.events()
@@ -73,15 +148,19 @@ def profile_run(torch, kt, nparticles, trace_dir, **kw):
         n_, t_ = by_name.get(name, (0, 0.0))
         by_name[name] = (n_ + 1, t_ + t)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    syncs = sum(e.count for e in prof.key_averages()
-                if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                             "cudaMemcpyAsync"))
+    syncs = sync_or_copy_calls(prof)
+    per_sweep = (sweep_syncs(torch, prior, kw["sweep_fused"], nparticles)
+                 if path == "generic" else None)
     return {
-        "nparticles": nparticles, "iterations": res.iterations,
+        "path": path, "nparticles": nparticles,
+        "iterations": res.iterations,
         "eps": res.eps, "wall_s": wall, "wall_profiled_s": wall_prof,
         "device_busy_s": busy if dev_events else None,
         "device_idle_share": (1 - busy / wall_prof) if dev_events else None,
-        "cuda_events": len(dev_events), "sync_or_copy_calls": syncs,
+        "cuda_events": len(dev_events),
+        "cuda_events_per_iteration": len(dev_events) / res.iterations,
+        "kernel_launches": launches, "sync_or_copy_calls": syncs,
+        "fused_sweep_alone": per_sweep,
         "top_kernels_ms": [{"name": k, "count": c, "ms": t / 1e3}
                            for k, (c, t) in top],
         "trace": trace,
@@ -90,6 +169,8 @@ def profile_run(torch, kt, nparticles, trace_dir, **kw):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("flagship", "generic", "both"),
+                    default="flagship")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     import torch
@@ -105,9 +186,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    for n, kw in ((1000, {}), (1 << 20, {"min_r_ess": 0.5})):
-        print(json.dumps(profile_run(torch, kt, n, args.trace_dir, **kw)),
-              flush=True)
+    paths = ("flagship", "generic") if args.path == "both" else (args.path,)
+    for path in paths:
+        for n, kw in ((1000, {}), (1 << 20, {"min_r_ess": 0.5})):
+            print(json.dumps(profile_run(torch, kt, path, n, args.trace_dir,
+                                         **kw)), flush=True)
     return 0
 
 
