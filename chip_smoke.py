@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels with nvcc — ``kissabc_tpu_torch/csrc/flagship.cu``
 and, one nvcc each and all at once, the generic kernels of
-``csrc/generic.cuh`` with the user models the script defines compiled
-into them — holds each kernel against its plain PyTorch version on the
-card, and drives the port's two paths:
+``csrc/generic.cuh`` and the scan kernel of ``csrc/scan.cuh`` with the
+user models the script defines compiled into them — holds each kernel
+against its plain PyTorch version on the card, and drives the port's
+paths:
 
 - slice 1: ``smc`` on the flagship README model through the flagship
   cost kernel at 1000 and 2**20 particles, and the fused flagship sweep
@@ -16,8 +17,14 @@ card, and drives the port's two paths:
   ``make_streaming_moment_cost`` on the same model written as a user
   model, at 1000 and 2**20 particles (the JAX bench's ``smc-fused-generic``
   and ``smc-1m`` rows), through the generic cost and sweep kernels;
+- slice 3: ``smc`` with ``make_streaming_scan_cost`` on the AR(1) model
+  of the JAX bench's ``streaming-scan`` row at 131072 particles x 1000
+  steps, through the scan kernel; ``smc`` with the README model's
+  per-walker cost ``cost(theta, gen)`` (the JAX default form) at 1000
+  particles; and ``smc_stepped`` on the generic fused path, run through
+  and run stopped at its first checkpoint and resumed;
 
-and checks each posterior against the reference's parity rule. Every
+and checks each posterior against its limits. Every
 phase prints one line with its result and seconds; any failed check
 raises and the script exits non-zero. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
@@ -33,7 +40,9 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCRIPT_LIMIT_S = 1000    # whole run, build included (the limit is 1200 s)
@@ -176,14 +185,15 @@ def main():
     from kissabc_tpu_torch.ops import _build
     from kissabc_tpu_torch.ops import fused_smc as F
     from kissabc_tpu_torch.ops import kernels as K
+    from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
     def reset_counts():
-        for module in (K, S, F):
+        for module in (K, S, F, SC):
             module.reset_launch_counts()
 
     def counts():
-        return {**K.launches, **S.launches, **F.launches}
+        return {**K.launches, **S.launches, **F.launches, **SC.launches}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -234,15 +244,43 @@ def main():
             gprior, gdraw, ecdf_reduce, stats=ecdf((2.0, 3.0, 4.0)),
             ndraws=700, bits="stub"),
     }
+    # the scan models (slice 3); stub and hw, and any nsteps, share a unit
+    aprior, astep, ainit, areduce = models.ar1()
+    _, sstep, sinit, sobserve, sreduce, sseries = models.sir()
+
+    def two_leaf_step(th, xt, eps, t):   # tests/test_scan_cost.py:151-168
+        x, acc = xt
+        x = x + th[0] * 0.1 + eps
+        return (x, 0.9 * acc + 0.1 * torch.abs(x))
+
+    scans = {   # name: (cost, theta structure)
+        "ar1": (kt.make_streaming_scan_cost(astep, ainit, areduce,
+                                            nsteps=1000), 2),
+        "ar1-odd-stub": (kt.make_streaming_scan_cost(
+            astep, ainit, lambda th, m: m[0] + 10.0 * m[1], nsteps=257,
+            bits="stub"), 2),
+        "sir-stub": (kt.make_streaming_scan_cost(
+            sstep, sinit, sreduce, observe=sobserve, series=sseries,
+            nsteps=2 * models.SIR_DAYS, sub_rows=16, bits="stub"), 2),
+        "two-leaf-stub": (kt.make_streaming_scan_cost(
+            two_leaf_step, lambda th: (th[0], torch.abs(th[0])),
+            lambda th, m: m[0], observe=lambda th, xt, t, obs: (xt[1],),
+            nsteps=64, bits="stub"), 1),
+    }
     units = {}   # generated source -> names (stub and hw share a unit)
     for name, (c, k) in costs.items():
         units.setdefault(c.unit(k).source, []).append(f"cost {name}")
     for name, sw in sweeps.items():
         units.setdefault(sw.unit.source, []).append(f"sweep {name}")
+    for name, (c, k) in scans.items():
+        units.setdefault(c.unit(k).source, []).append(f"scan {name}")
+
+    ptxas = {}   # unit names -> ptxas lines
 
     def ptxas_lines(log, prefix):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
+                ptxas.setdefault(prefix, []).append(line.strip())
                 say(f"  ptxas {prefix}: {line.strip()}")
 
     with Phase("build") as ph:
@@ -260,8 +298,9 @@ def main():
             ptxas_lines(log, "/".join(names))
             _build.load_generated(text)
             slowest = max(slowest, secs)
-        ph.result = (f"{len(units)} generated units, the slowest compiled in "
-                     f"{slowest:.2f} s, in parallel with flagship.cu")
+        ph.result = (f"{len(units)} generated units (generic and scan), the "
+                     f"slowest compiled in {slowest:.2f} s, in parallel with "
+                     "flagship.cu")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -397,6 +436,40 @@ def main():
               "commit mask written past n")
         ph.result = f"n={n} in buffers of {n + extra}: tails untouched"
 
+    # ---- the scan kernel vs its plain version on the stub stream ---------
+    with Phase("scan-stub") as ph:
+        n = 65536
+        th2 = (uniform(n, 0.5, 2.0), uniform(n, 0.5, 1.5))
+        sir_th = (uniform(n, 0.05, 0.8), uniform(n, 0.02, 0.4))
+        results = {}
+        for name, th in (("ar1-odd-stub", th2), ("sir-stub", sir_th),
+                         ("two-leaf-stub", th2[:1])):
+            c = scans[name][0]
+            seed = torch.tensor([42], dtype=torch.int64, device=dev)
+            got, want = c.means(th, seed), c.means_plain(th, seed)
+            err = max(assert_close(torch, g, w, f"scan {name} mean {p}")
+                      for p, (g, w) in enumerate(zip(got, want)))
+            unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+            results[name] = (err, unequal)
+        # sentinel tails: a launch over n walkers leaves everything past n
+        nn, extra = 1000, 1024
+        for name, k in (("ar1-odd-stub", 2), ("sir-stub", 2)):
+            c = scans[name][0]
+            ths = [torch.full((nn + extra,), v, device=dev)
+                   for v in (0.5, 0.1)[:k]]
+            out = torch.full((c.unit(k).nstats, nn + extra), float("nan"),
+                             device=dev)
+            c.launch(nn, ths, torch.tensor([5], dtype=torch.int64,
+                                           device=dev), out, nn + extra,
+                     structure=k)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out[:, :nn]).all()),
+                  f"scan {name}: a walker < n unwritten")
+            check(bool(torch.isnan(out[:, nn:]).all()),
+                  f"scan {name}: a walker >= n written")
+        ph.result = ("max|err|, unequal values: " + json.dumps(results)
+                     + f"; n={nn} in buffers of {nn + extra}: tails untouched")
+
     # ---- 4: Philox statistics ----------------------------------------------
     with Phase("philox-statistics") as ph:
         n = 131072
@@ -477,6 +550,7 @@ def main():
 
     with Phase("smc-fused-generic") as ph:
         res, wall, launched = run_generic_smc(1000)
+        fused_1000 = res
         ph.result = (f"n=1000 iterations {res.iterations} eps {res.eps:.6f}"
                      f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
                      f" wall {wall:.3f} s launches {launched}")
@@ -489,6 +563,92 @@ def main():
         ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
                      f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
                      f" wall {wall:.3f} s launches {launched}")
+
+    # ---- slice 3: smc_stepped, the scan cost, the per-walker cost --------
+    with Phase("smc-stepped-resume") as ph:
+        kw = dict(cost_vectorized=True, sweep_fused=sweeps["flagship"],
+                  nparticles=1000, epstol=EPSTOL, key=2,
+                  checkpoint_every=10)
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            whole = kt.smc_stepped(fprior, costs["flagship"][0],
+                                   checkpoint_path=os.path.join(tmp, "w.npz"),
+                                   max_iters=2000, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+            path = os.path.join(tmp, "r.npz")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                cut = kt.smc_stepped(fprior, costs["flagship"][0],
+                                     checkpoint_path=path, max_iters=10, **kw)
+            check(cut.iterations == 10, f"the cut run ran {cut.iterations}")
+            log = kt.IterLog(enabled=False)
+            resumed = kt.smc_stepped(fprior, costs["flagship"][0],
+                                     checkpoint_path=path, resume=True,
+                                     log=log, max_iters=2000, **kw)
+        check(log.records[0]["iteration"] == 11, "resume did not start at 11")
+        for name, r in (("resumed", resumed), ("smc", fused_1000)):
+            check(bool((whole.C == r.C).all()) and whole.eps == r.eps
+                  and whole.iterations == r.iterations,
+                  f"smc_stepped differs from the {name} run: iterations "
+                  f"{whole.iterations} vs {r.iterations}, eps {whole.eps} vs "
+                  f"{r.eps}, {int((whole.C != r.C).sum())} costs differ")
+        check(launched["streaming_moment_cost"] > 0
+              and launched["fused_smc_sweep"] > 0,
+              f"smc_stepped missed a generic kernel: {launched}")
+        check(whole.eps <= EPSTOL, f"eps {whole.eps} > {EPSTOL}")
+        ph.result = (f"n=1000 iterations {whole.iterations} eps "
+                     f"{whole.eps:.6f}; resumed from iteration 10: C, eps, "
+                     f"iterations bit-equal, and equal to smc; wall "
+                     f"{wall:.3f} s launches {launched}")
+
+    with Phase("smc-scan-ar1") as ph:
+        n, nsteps = 131072, 1000
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(aprior, scans["ar1"][0], nparticles=n,
+                     cost_vectorized=True, epstol=0.15, key=9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        scan_launches = launched["streaming_scan_cost"]
+        mu_p, s_p = res.P
+        # the limits of tests/test_scan_cost.py:187-189
+        check(abs(mu_p.mean() - 1.0) < 0.15, f"mean mu {mu_p.mean()}")
+        check(abs(s_p.mean() - 1.0) < 0.25, f"mean s {s_p.mean()}")
+        check(res.eps <= 0.15, f"eps {res.eps} > 0.15")
+        check(scan_launches > 0, "smc did not launch streaming_scan_cost")
+        check(sum(launched.values()) == scan_launches,
+              f"the scan path launched another kernel: {launched}")
+        ph.result = (f"n={n} x {nsteps} steps iterations {res.iterations} "
+                     f"eps {res.eps:.6f} mu {mu_p.mean():.5f} s "
+                     f"{s_p.mean():.5f} wall {wall:.3f} s launches {launched}")
+
+    with Phase("smc-perwalker") as ph:
+        def readme_cost(theta, g):   # __graft_entry__.py:17-22, per walker
+            mu, sigma = theta
+            x = mu + sigma * torch.randn(1000, generator=g, device=g.device)
+            return torch.hypot(x.mean() - 2.0,
+                               (x.std(correction=0) - 0.04) * 50)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(prior, readme_cost, nparticles=1000, epstol=EPSTOL,
+                     key=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mu_p, sg_p = res.P
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
+        ph.result = (f"n=1000 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {mu_p.mean():.5f} sigma {sg_p.mean():.5f}"
+                     f" wall {wall:.3f} s (torch.func.vmap, no kernel of "
+                     f"the port: launches {counts()})")
 
     with Phase("streaming-gk") as ph:
         n, nd = 131072, 1000
@@ -648,6 +808,34 @@ def main():
                      f"{ms3:.3f} ms (bound {b3:.3f}); fused_smc_sweep "
                      f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
                      f"pass gate 1), {border4} borderline")
+
+    with Phase("scan-kernel-times") as ph:
+        # the AR(1) model of bench.py:770-779 at the smc-scan-ar1 shape. No
+        # PyTorch call runs a per-walker recurrence with in-kernel noise,
+        # so library_ms is null.
+        n, nsteps = 131072, 1000
+        c = scans["ar1"][0]
+        th = aprior.sample_tree(gen, n)
+        seed = torch.tensor([13], dtype=torch.int64, device=dev)
+        got, want = c.means(th, seed), c.means_plain(th, seed)
+        err5 = max(assert_close(torch, g, w, f"scan ar1 mean {p} hw")
+                   for p, (g, w) in enumerate(zip(got, want)))
+        unequal = sum(int((g != w).sum()) for g, w in zip(got, want))
+        ms5 = cuda_ms(torch, lambda: c.means(th, seed), 20)
+        plain5 = cuda_ms(torch, lambda: c.means_plain(th, seed), 1, warmup=0)
+        b5, by5 = bound(c.work(n, 2))
+        regs = [line for names, lines in ptxas.items() if "scan ar1" in names
+                for line in lines]
+        records.append(dict(
+            name="streaming_scan_cost", route="cuda",
+            source="kissabc_tpu_torch/csrc/scan.cuh",
+            replaces="kissabc_tpu/ops/pallas_kernels.py:2800",
+            launches=scan_launches, max_abs_err=err5, matched=True, ms=ms5,
+            plain_ms=plain5, bound_ms=b5, bound_by=by5, library_ms=None))
+        ph.result = (f"n={n} x {nsteps} steps: {ms5:.4f} ms, "
+                     f"{n * nsteps / (ms5 / 1e3) / 1e9:.2f} Gsteps/s, bound "
+                     f"{b5:.4f} ms ({by5}), plain {plain5:.1f} ms, max|err| "
+                     f"{err5:.3g} ({unequal} unequal values); ptxas {regs}")
 
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,8 @@ from .core.smc import _SMCState
 from .utils.rng import as_generator
 
 _FAMILIES = {"Uniform": D.Uniform, "Normal": D.Normal,
-             "Truncated": D.Truncated}
+             "Truncated": D.Truncated, "DiscreteUniform": D.DiscreteUniform,
+             "MvNormal": D.MvNormal}
 
 
 def prior_from_numpy(spec):
@@ -44,7 +45,7 @@ def prior_from_numpy(spec):
 def state_from_numpy(thetas, xs, lps, alive, eps, logz, it, *, key=0,
                      device="cpu") -> _SMCState:
     """The port's smc state from numpy arrays: ``thetas`` a tuple of
-    ``[n]`` arrays (one per marginal), ``xs``/``lps`` ``[n]`` float32,
+    ``[n]`` (or ``[n, d]``) arrays (one per marginal), ``xs``/``lps`` ``[n]`` float32,
     ``alive`` ``[n]`` bool, ``eps``/``logz`` float32 scalars, ``it`` an
     int. ``key`` seeds the generator the next iteration draws from."""
     dev = torch.device(device)

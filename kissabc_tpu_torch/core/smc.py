@@ -13,20 +13,41 @@ Each iteration:
 
 The JAX ``lax.while_loop`` becomes a Python loop whose stop flag is read
 once per iteration; the ``lax.cond`` around resampling becomes an ``if``
-on one host-read flag. The population is a tuple of ``[n]`` tensors on
-the run's device. The batched cost contract is ``cost(pushed_thetas,
-gen) -> costs[n]`` (``cost_vectorized=True``); the per-walker form
-``cost(theta, gen)`` comes in a later slice.
+on one host-read flag. The population is a tuple of ``[n]`` (or
+``[n, d]``) tensors on the run's device.
+
+Two cost contracts, as in the JAX package:
+
+- per walker (``cost_vectorized=False``, the default): ``cost(theta,
+  gen) -> scalar`` or ``cost(theta) -> scalar`` (``core/density.py``'s
+  ``_adapt_cost``). ``theta`` is one walker's pushed parameters and
+  ``gen`` the run's ``torch.Generator``: a stochastic cost draws with
+  ``generator=gen, device=gen.device``. The counterpart of the JAX
+  ``vmap`` is ``torch.func.vmap(..., randomness="different")``, so every
+  walker gets its own draws and the run repeats from its ``key``. A
+  one-argument cost is deterministic, as in JAX (it has no key), and is
+  mapped with ``randomness="error"``: a draw inside it raises. A cost
+  vmap cannot map (``.item()``, Python control flow on a tensor) raises
+  vmap's error with a hint; nothing loops over the walkers in Python;
+- batched (``cost_vectorized=True``): ``cost(pushed_thetas, gen) ->
+  costs[n]``, e.g. ``make_streaming_moment_cost`` or
+  ``make_streaming_scan_cost``.
+
+``smc_stepped`` drives the same program one ``body`` at a time from the
+host, with ``IterLog`` records and checkpoint/resume
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from ..ops.moves import gaussian_diff_propose
 from ..ops.quantile import (masked_quantile, masked_quantile_bisect,
@@ -34,9 +55,11 @@ from ..ops.quantile import (masked_quantile, masked_quantile_bisect,
 from ..ops.resampling import replicate_alive, systematic
 from ..ops.tree import tfloat, tgather, tree_map, tselect
 from ..particles import particles_from_tree
+from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator, log_uniform
+from .density import _adapt_cost
 
 _f32 = torch.float32
 
@@ -67,6 +90,36 @@ class SMCResult(NamedTuple):
     log_evidence: float = float("nan")
 
 
+_VMAP_HINT = (
+    "the per-walker cost could not be mapped over the walkers with "
+    "torch.func.vmap; write it with tensor ops vmap can batch (no .item(), "
+    "no Python control flow on tensors), or pass a batched cost "
+    "cost(thetas, gen) -> costs[n] with cost_vectorized=True")
+
+
+def per_walker_cost(cost):
+    """The batched cost ``(pushed_thetas, gen) -> costs[n]`` of a
+    per-walker ``cost(theta, gen)`` or ``cost(theta)``: the counterpart
+    of the JAX ``vmap`` at ``kissabc_tpu/core/smc.py:116-118``. Walkers
+    are mapped on the leading axis of every leaf; the thetas arrive
+    pushed, so the map itself does not push again."""
+    cost2 = _adapt_cost(cost)
+    # a cost without the generator is deterministic (as in JAX, where it
+    # gets no key): a draw inside it raises instead of being shared
+    mapped = vmap(cost2, in_dims=(0, None), randomness=(
+        "different" if cost2 is cost else "error"))
+
+    def batched(thetas, gen):
+        try:
+            return mapped(thetas, gen)
+        except RuntimeError as e:
+            if not str(e).startswith("vmap"):
+                raise
+            raise RuntimeError(f"{e}\nsmc: {_VMAP_HINT}") from e
+
+    return batched
+
+
 class _SMCProgram:
     """The smc program for one configuration: ``init_state(gen)``,
     ``body(state)``, ``cond(state)``, and ``__call__(gen)`` which runs
@@ -75,8 +128,11 @@ class _SMCProgram:
     def __init__(self, prior, cost, *, nparticles, alpha, mcmc_retrys,
                  mcmc_tol, epstol, r_epstol, min_r_ess, max_stretch,
                  max_iters, resample, verbose, partner_scheme="auto",
-                 quantile_impl="auto", sweep_fused=None, device="cpu"):
-        self.prior, self.cost = prior, cost
+                 quantile_impl="auto", sweep_fused=None, device="cpu",
+                 cost_vectorized=True):
+        self.prior = prior
+        self.cost = (cost if cost_vectorized
+                     else per_walker_cost(cost))
         self.sweep_fused = sweep_fused
         self.n = nparticles
         self.alpha, self.epstol, self.r_epstol = alpha, epstol, r_epstol
@@ -98,6 +154,7 @@ class _SMCProgram:
 
     def batch_cost(self, thetas, gen):
         return self.cost(self.prior.push_tree(thetas), gen).to(_f32)
+
 
     def init(self, gen):
         thetas = tfloat(self.prior.sample_tree(gen, self.n))
@@ -229,6 +286,52 @@ def _validate_smc_knobs(prior, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
     return r_epstol, min_r_ess
 
 
+def _program(prior, cost, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
+             epstol, r_epstol, min_r_ess, max_stretch, max_iters, resample,
+             verbose, mesh, cost_vectorized, partner_scheme, quantile_impl,
+             sweep_fused, device, caller):
+    """The checked knobs and the program, shared by ``smc`` and
+    ``smc_stepped``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{caller}(mesh=...): walker sharding is not ported yet")
+    r_epstol, min_r_ess = _validate_smc_knobs(
+        prior, nparticles=nparticles, alpha=alpha, mcmc_retrys=mcmc_retrys,
+        mcmc_tol=mcmc_tol, r_epstol=r_epstol, min_r_ess=min_r_ess,
+        max_stretch=max_stretch, resample=resample,
+        partner_scheme=partner_scheme, quantile_impl=quantile_impl)
+    return _SMCProgram(
+        prior, cost, nparticles=nparticles, alpha=alpha,
+        mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
+        r_epstol=r_epstol, min_r_ess=min_r_ess, max_stretch=max_stretch,
+        max_iters=max_iters, resample=resample, verbose=verbose,
+        partner_scheme=partner_scheme, quantile_impl=quantile_impl,
+        sweep_fused=sweep_fused, device=resolve_device(device),
+        cost_vectorized=cost_vectorized)
+
+
+def _result(prior, state, caller, max_iters) -> SMCResult:
+    if not bool(state.done):
+        # the reference loops until an eps stall / epstol / acceptance
+        # collapse; max_iters is this build's safety bound
+        warnings.warn(
+            f"{caller}: stopped at the max_iters={max_iters} safety bound "
+            "before any stopping rule (eps stall / epstol / acceptance "
+            "collapse) fired; the posterior may not be converged.",
+            RuntimeWarning, stacklevel=3)
+    alive_np = fetch(state.alive)
+    pushed = prior.push_tree(state.thetas)
+    pushed_alive = tree_map(lambda x: fetch(x)[alive_np], pushed)
+    return SMCResult(
+        P=particles_from_tree(pushed_alive),
+        C=fetch(state.xs),
+        eps=float(state.eps),
+        iterations=int(state.it),
+        ess=int(alive_np.sum()),
+        log_evidence=float(state.logz),
+    )
+
+
 def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
         mcmc_retrys: int = 0, mcmc_tol: float = 0.015, epstol: float = 0.0,
         r_epstol: float | None = None, min_r_ess: float | None = None,
@@ -241,56 +344,69 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
     and the reference (smc.jl:92-106): ``r_epstol=(1-alpha)^1.5/50``,
     ``min_r_ess=alpha^2``.
 
-    ``cost`` is a batched cost ``cost(pushed_thetas, gen) -> costs[n]``
-    and needs ``cost_vectorized=True`` (for instance
-    ``make_flagship_cost_batched()`` or ``make_streaming_moment_cost``).
+    ``cost``: per walker, ``cost(theta, gen)`` or ``cost(theta)`` (the
+    default, see the module docstring); or, with
+    ``cost_vectorized=True``, a batched ``cost(pushed_thetas, gen) ->
+    costs[n]`` (``make_flagship_cost_batched()``,
+    ``make_streaming_moment_cost``, ``make_streaming_scan_cost``).
     ``sweep_fused``: a one-kernel rejuvenation sweep
     ``sweep(gen, thetas, xs, lps, alive, eps, flag) -> (thetas, xs, lps,
     naccept)`` (``make_fused_smc_sweep``) that replaces the split sweep;
     the init still runs ``cost``. ``key``: an int seed or a
     ``torch.Generator`` on the run's device. ``device``: ``None`` runs on
     CUDA (and raises without a card); pass ``"cpu"`` for the plain
-    versions on the CPU. ``parallel`` is accepted for API parity."""
-    if not cost_vectorized:
-        raise NotImplementedError(
-            "smc(cost_vectorized=False): the per-walker cost form "
-            "cost(theta, gen) comes in slice 2 of the port; pass a batched "
-            "cost with cost_vectorized=True")
-    if mesh is not None:
-        raise NotImplementedError(
-            "smc(mesh=...): walker sharding is not ported yet")
-    r_epstol, min_r_ess = _validate_smc_knobs(
-        prior, nparticles=nparticles, alpha=alpha, mcmc_retrys=mcmc_retrys,
-        mcmc_tol=mcmc_tol, r_epstol=r_epstol, min_r_ess=min_r_ess,
-        max_stretch=max_stretch, resample=resample,
-        partner_scheme=partner_scheme, quantile_impl=quantile_impl)
+    versions on the CPU. ``parallel`` is accepted for API parity;
+    ``mesh=`` raises ``NotImplementedError``."""
     del parallel
-    dev = resolve_device(device)
-    program = _SMCProgram(
+    program = _program(
         prior, cost, nparticles=nparticles, alpha=alpha,
         mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
         r_epstol=r_epstol, min_r_ess=min_r_ess, max_stretch=max_stretch,
-        max_iters=max_iters, resample=resample, verbose=verbose,
-        partner_scheme=partner_scheme, quantile_impl=quantile_impl,
-        sweep_fused=sweep_fused, device=dev)
-    state = program(as_generator(key, dev))
+        max_iters=max_iters, resample=resample, verbose=verbose, mesh=mesh,
+        cost_vectorized=cost_vectorized, partner_scheme=partner_scheme,
+        quantile_impl=quantile_impl, sweep_fused=sweep_fused, device=device,
+        caller="smc")
+    state = program(as_generator(key, program.device))
+    return _result(prior, state, "smc", max_iters)
 
-    if not bool(state.done):
-        # the reference loops until an eps stall / epstol / acceptance
-        # collapse; max_iters is this build's safety bound
-        warnings.warn(
-            f"smc: stopped at the max_iters={max_iters} safety bound "
-            "before any stopping rule (eps stall / epstol / acceptance "
-            "collapse) fired; the posterior may not be converged.",
-            RuntimeWarning, stacklevel=2)
-    alive_np = fetch(state.alive)
-    pushed = prior.push_tree(state.thetas)
-    pushed_alive = tree_map(lambda x: fetch(x)[alive_np], pushed)
-    return SMCResult(
-        P=particles_from_tree(pushed_alive),
-        C=fetch(state.xs),
-        eps=float(state.eps),
-        iterations=int(state.it),
-        ess=int(alive_np.sum()),
-        log_evidence=float(state.logz),
-    )
+
+def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
+                resume: bool = False, log=None, nparticles: int = 100,
+                alpha: float = 0.95, mcmc_retrys: int = 0,
+                mcmc_tol: float = 0.015, epstol: float = 0.0,
+                r_epstol: float | None = None, min_r_ess: float | None = None,
+                max_stretch: float = 2.0, max_iters: int = 10_000,
+                resample: str = "replicate", checkpoint_every: int = 10,
+                cost_vectorized: bool = False, mesh=None,
+                partner_scheme: str = "auto", quantile_impl: str = "auto",
+                sweep_fused=None, key=0, device=None) -> SMCResult:
+    """Host-stepped smc: the program of ``smc``, driven one ``body`` at a
+    time, so the same key gives the same result as ``smc``. After every
+    iteration ``log`` (an ``IterLog``) gets ``iteration``, ``eps``,
+    ``ess`` and ``accepted``. Every ``checkpoint_every`` iterations the
+    whole loop state goes to ``checkpoint_path`` (``utils/checkpoint.py``:
+    the population, costs, log-priors, alive mask, eps, evidence,
+    iteration, last accept count, stop flag and the run generator's
+    state); with ``resume=True`` a run starts from that file when it
+    exists and continues the same random stream, so a resumed run
+    equals an uninterrupted one. ``mesh=`` raises as in ``smc``."""
+    program = _program(
+        prior, cost, nparticles=nparticles, alpha=alpha,
+        mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
+        r_epstol=r_epstol, min_r_ess=min_r_ess, max_stretch=max_stretch,
+        max_iters=max_iters, resample=resample, verbose=False, mesh=mesh,
+        cost_vectorized=cost_vectorized, partner_scheme=partner_scheme,
+        quantile_impl=quantile_impl, sweep_fused=sweep_fused, device=device,
+        caller="smc_stepped")
+    state = program.init_state(as_generator(key, program.device))
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, _meta = ckpt.load(checkpoint_path, state)
+    while program.cond(state):
+        state = program.body(state)
+        it = int(state.it)
+        if log is not None:
+            log.emit(iteration=it, eps=float(state.eps),
+                     ess=int(state.alive.sum()), accepted=int(state.acc))
+        if checkpoint_path and it % checkpoint_every == 0:
+            ckpt.save(checkpoint_path, state, {"iteration": it})
+    return _result(prior, state, "smc_stepped", max_iters)

@@ -1,7 +1,8 @@
 """The distributions on the main path — the PyTorch counterpart of the
-``Uniform``, ``Normal``, ``Truncated``/``TruncatedNormal`` and
-``Factored`` of ``kissabc_tpu/distributions.py``; the other families
-come in a later slice.
+``Uniform``, ``Normal``, ``Truncated``/``TruncatedNormal``,
+``DiscreteUniform``, ``MvNormal`` and ``Factored`` of
+``kissabc_tpu/distributions.py``; the other families come in a later
+slice.
 
 As in the JAX package, parameters and every derived constant are host
 numpy float32 values computed once in ``__init__``; only the sampled and
@@ -183,6 +184,82 @@ class Truncated(Distribution):
 
 def TruncatedNormal(mu, sigma, lo, hi):
     return Truncated(Normal(mu, sigma), lo, hi)
+
+
+class DiscreteUniform(Distribution):
+    """Integers ``a..b`` with equal mass. Samples are int64; the
+    population evolves them in float32 and ``push`` rounds half to even
+    to int32, as the JAX package's discrete push does."""
+
+    _fields = ("a", "b")
+    discrete = True
+
+    def __init__(self, a=0, b=1):
+        self.a, self.b = _f32(a), _f32(b)
+        self._lpmf = _f32(np.log(self.b - self.a + 1))
+
+    def sample(self, gen, shape=()):
+        return torch.randint(int(self.a), int(self.b) + 1, shape,
+                             generator=gen, device=gen.device)
+
+    def logpdf(self, x):
+        inside = (x >= float(self.a)) & (x <= float(self.b))
+        return torch.where(inside, _full(x, -self._lpmf), _full(x, _NEG_INF))
+
+
+class MvNormal(Distribution):
+    """Multivariate normal with a ``[d]`` vector leaf, so a population is
+    one ``[n, d]`` tensor. ``MvNormal(d, sigma)`` is the zero-mean
+    isotropic form; else a mean vector and a scalar sigma, a vector of
+    sigmas or a full covariance. The Cholesky factor, its inverse and
+    the log-determinant are computed once on the host in float64."""
+
+    event_dim = 1
+
+    def __init__(self, mean_or_dim, sigma_or_cov=1.0):
+        if isinstance(mean_or_dim, (int, np.integer)):
+            mean = np.zeros((int(mean_or_dim),), _f32)
+        else:
+            mean = np.asarray(mean_or_dim, _f32)
+        cov = np.asarray(sigma_or_cov, np.float64)
+        if cov.ndim == 0:
+            cov = cov ** 2 * np.eye(mean.shape[0])
+        elif cov.ndim == 1:
+            cov = np.diag(cov ** 2)
+        self.mean, self.cov = mean, cov.astype(_f32)
+        chol = np.linalg.cholesky(np.asarray(self.cov, np.float64))
+        self.chol = chol.astype(_f32)
+        self._cholinv = np.linalg.inv(chol).astype(_f32)
+        self._logdet = _f32(2.0 * np.sum(np.log(np.diag(chol))))
+        self._dev = {}
+
+    @property
+    def nparams(self):
+        return self.mean.shape[0]
+
+    def _host(self, name, like):
+        """The host constant ``name`` as a tensor on ``like``'s device,
+        copied there once."""
+        key = (name, like.device)
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(getattr(self, name),
+                                             device=like.device)
+        return self._dev[key]
+
+    def sample(self, gen, shape=()):
+        d = self.mean.shape[0]
+        z = torch.randn(tuple(shape) + (d,), generator=gen, device=gen.device)
+        return self._host("mean", z) + z @ self._host("chol", z).T
+
+    def logpdf(self, x):
+        d = self.mean.shape[0]
+        diff = x - self._host("mean", x)
+        sol = torch.einsum("ij,...j->...i", self._host("_cholinv", x), diff)
+        maha = torch.sum(sol * sol, dim=-1)
+        return -0.5 * (maha + float(self._logdet) + d * _LOG_2PI)
+
+    def __repr__(self):
+        return f"MvNormal(d={self.mean.shape[0]})"
 
 
 class Factored(Distribution):

@@ -1,7 +1,8 @@
 """Models written for the generic kernels (``make_streaming_moment_cost``,
-``make_fused_smc_sweep``): the ones the JAX package's bench runs, in
-PyTorch. ``chip_smoke.py``, ``tools/profile_torch_smc.py`` and the tests
-drive them; they are also examples of a user model.
+``make_fused_smc_sweep``, ``make_streaming_scan_cost``): the ones the
+JAX package's bench and examples run, in PyTorch. ``chip_smoke.py``,
+``tools/profile_torch_smc.py`` and the tests drive them; they are also
+examples of a user model.
 
 - ``flagship()``: the README Normal(mu, sigma) model (``bench.py:517-560``):
   prior ``Factored(Uniform(1, 3), TruncatedNormal(0, 0.05, 0, 100))``,
@@ -10,7 +11,14 @@ drive them; they are also examples of a user model.
 - ``g_and_k()``: the four-parameter g-and-k quantile model
   (``bench.py:362-370``): prior ``Uniform(0, 6), Uniform(0.1, 3),
   Uniform(-1, 5), Uniform(0, 0.9)``, draw
-  ``a + b (1 + 0.8 tanh(g eps / 2)) eps exp(k log1p(eps^2))``.
+  ``a + b (1 + 0.8 tanh(g eps / 2)) eps exp(k log1p(eps^2))``;
+- ``ar1()``: the AR(1) sequential simulator of ``bench.py:770-806``
+  (``x_{t+1} = 0.8 x_t + 0.2 mu + s eps``), prior ``Uniform(0, 2),
+  Uniform(0.3, 2)``, cost ``hypot(E[x] - 1, (var - v) / v)`` against the
+  stationary mean 1 and variance ``v = 1 / (1 - 0.8^2)``;
+- ``sir()``: the stochastic SIR epidemic of ``examples/example_sir.py``,
+  each day folded into an infection and a recovery sub-step, matched to
+  the deterministic curve at beta=0.3, gamma=0.1 through ``series``.
 """
 
 from __future__ import annotations
@@ -58,3 +66,74 @@ def g_and_k():
         return torch.hypot(m[0] - t1, (torch.sqrt(var) - t2) * 0.3)
 
     return prior, draw, reduce_cost
+
+
+AR1_A = np.float32(0.2)   # the AR(1) mean-reversion weight
+
+
+def ar1():
+    """(prior, step, init, reduce_cost) of the AR(1) model."""
+    stat_var = 1.0 / (1.0 - (1.0 - float(AR1_A)) ** 2)
+    prior = Factored(Uniform(0, 2), Uniform(0.3, 2.0))
+
+    def step(th, x, eps, t):
+        mu, s = th
+        return (1 - AR1_A) * x + AR1_A * mu + s * eps
+
+    def init(th):
+        return th[0]
+
+    def reduce_cost(th, m):
+        var = torch.clamp(m[1] - m[0] * m[0], min=0.0)
+        return torch.hypot(m[0] - 1.0, (var - stat_var) / stat_var)
+
+    return prior, step, init, reduce_cost
+
+
+SIR_POP, SIR_I0, SIR_DAYS = 1000.0, 10.0, 50
+
+
+def sir_series():
+    """The observed curve at beta=0.3, gamma=0.1 (the example's
+    ``observed_curve``) on the recovery sub-steps, zeros between:
+    ``2 * SIR_DAYS`` float32 values."""
+    s, i, ys = SIR_POP - SIR_I0, SIR_I0, []
+    for _ in range(SIR_DAYS):
+        ninf = 0.3 * s * i / SIR_POP
+        nrec = 0.1 * i
+        s, i = s - ninf, i + ninf - nrec
+        ys.append(i)
+    series = np.zeros((2 * SIR_DAYS,), np.float32)
+    series[1::2] = np.asarray(ys, np.float32)
+    return series
+
+
+def sir():
+    """(prior, step, init, observe, reduce_cost, series) of the SIR
+    model; ``nsteps = 2 * SIR_DAYS``."""
+    prior = Factored(Uniform(0.05, 0.8), Uniform(0.02, 0.4))
+
+    def step(th, state, eps, t):
+        beta, gamma = th
+        s, i = state
+        even = (t % 2) == 0
+        # infection sub-step flow on even t, recovery flow on odd t
+        flow = torch.where(even, beta * s * i / SIR_POP, gamma * i)
+        dn = flow + torch.sqrt(torch.clamp(flow, min=0.0)) * eps
+        dn = torch.clamp(dn, torch.zeros_like(dn), torch.where(even, s, i))
+        return torch.where(even, s - dn, s), torch.where(even, i + dn, i - dn)
+
+    def init(th):
+        return (SIR_POP - SIR_I0) + 0.0 * th[0], SIR_I0 + 0.0 * th[0]
+
+    def observe(th, state, t, obs):
+        # the day boundary is after the recovery sub-step (odd t); x2
+        # restores the day-average normalization lost to the sub-steps
+        _, i = state
+        odd = (t % 2) == 1
+        return (torch.where(odd, torch.abs(i - obs), 0.0) * 2.0 / SIR_POP,)
+
+    def reduce_cost(th, m):
+        return m[0]
+
+    return prior, step, init, observe, reduce_cost, sir_series()

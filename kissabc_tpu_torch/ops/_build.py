@@ -5,8 +5,9 @@ Two kinds of translation unit:
 
 - ``csrc/flagship.cu``, the flagship kernels (``build()``, ``load()``);
 - a generated unit per user model: the device functions that
-  ``ops/codegen.py`` emits, then ``#include "generic.cuh"``
-  (``start(text)``, ``load_generated()``), written to
+  ``ops/codegen.py`` emits, then ``#include "generic.cuh"`` (i.i.d.
+  simulators, the fused sweep) or ``#include "scan.cuh"`` (sequential
+  simulators) (``start(text)``, ``load_generated()``), written to
   ``build/kissabc_tpu_torch/gen-<sha>.cu`` and compiled to
   ``libgen-<sha>.so``.
 
@@ -32,7 +33,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCE = CSRC / "flagship.cu"
-HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh", CSRC / "scan.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kissabc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,6 +52,7 @@ _SIGNATURES = {
 GEN_SIGNATURES = {
     "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _P],
+    "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 
@@ -142,7 +144,7 @@ def _bind(path: Path, signatures) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name, None)
-        if fn is None:   # a unit without the sweep
+        if fn is None:   # a unit without the sweep, or not of this kind
             continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

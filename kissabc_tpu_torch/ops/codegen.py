@@ -15,13 +15,25 @@ record an expression graph, which this module emits as
     float reduce_cost(const float* th, const float* m);
     float prior_logpdf(const float* th);
 
-Supported, exactly what the JAX package's tests and bench models use:
-``+ - * /``, unary ``-``, ``**`` with an integer power, the comparisons,
-``.to(torch.float32)`` / ``.float()`` of a boolean, ``torch.where``,
+The scan kernel (``csrc/scan.cuh``) runs a sequential model: ``init(
+theta)``, ``step(theta, x, eps, t)`` and ``observe(theta, x, t, obs)``
+become (``generate_scan``)
+
+    void scan_init(const float* th, float* x);
+    void scan_step(const float* th, const float* x, float e, int t,
+                   float* xn);
+    void scan_observe(const float* th, const float* x, int t,
+                      const float* obs, float* o);
+
+Supported, exactly what the JAX package's tests, bench models and
+examples use: ``+ - * /``, unary ``-``, ``**`` with an integer power, the
+comparisons, ``.to(torch.float32)`` / ``.float()`` of a boolean or of
+the int32 step index ``t`` (which also takes ``%``, ``+ - *`` and
+comparisons with integers, promoting as PyTorch does), ``torch.where``,
 ``sqrt``, ``exp``, ``log``, ``log1p``, ``expm1``, ``tanh``, ``sin``,
 ``cos``, ``abs``, ``square``, ``hypot``, ``maximum``, ``minimum``,
-``clamp``, ``ones_like`` and ``zeros_like``, as ``torch.*`` functions or
-as tensor methods. Anything else raises ``NotImplementedError`` naming
+``clamp`` (with number or tensor bounds), ``ones_like`` and
+``zeros_like``, as ``torch.*`` functions or as tensor methods. Anything else raises ``NotImplementedError`` naming
 the op, when the cost or sweep is built; nothing falls back to the plain
 version.
 
@@ -29,8 +41,11 @@ Each emitted operation repeats what PyTorch does for the same
 expression, so the kernel and the plain version round alike: Python
 numbers become float32 constants, written as exact bit patterns
 (``__uint_as_float(0x...u)``), ``c / x`` is ``reciprocal(x) * c`` (as
-``Tensor.__rtruediv__``), and small integer powers are products. The
-generated translation units are compiled without FMA contraction.
+``Tensor.__rtruediv__``), ``x / c`` is ``x * (1/c)`` with ``1/c`` rounded
+to float32 (as PyTorch divides a CUDA tensor by a scalar,
+``div_true_kernel_cuda``; on the CPU it divides, up to one ulp away),
+and small integer powers are products. The generated translation units
+are compiled without FMA contraction.
 """
 
 from __future__ import annotations
@@ -68,11 +83,26 @@ def _number(v):
     return float(v.item()) if isinstance(v, torch.Tensor) else float(v)
 
 
+def _is_int(v):
+    """An int32 value: an integer Sym (the scan's step index ``t`` and
+    what is computed from it with integers) or a Python integer."""
+    if isinstance(v, Sym):
+        return v.kind == "i"
+    return isinstance(v, numbers.Integral) and not isinstance(v, bool)
+
+
+def _int_operand(v):
+    return v if isinstance(v, Sym) else int(v)
+
+
 class Sym:
-    """A symbolic float32 (``kind="f"``) or boolean (``kind="b"``) value:
-    one node of the recorded expression graph. Leaves are ``theta``
-    (argument k), ``noise`` (the draw's eps), ``x`` (a stat's input) and
-    ``m`` (moment j); constants are plain Python numbers in ``args``."""
+    """A symbolic float32 (``kind="f"``), boolean (``kind="b"``) or int32
+    (``kind="i"``) value: one node of the recorded expression graph.
+    Leaves are ``theta`` (argument k), ``noise`` (the draw's or step's
+    eps), ``x`` (a stat's input), ``m`` (moment j), and for the scan
+    model ``xs`` (state leaf j), ``t`` (the int32 step index) and ``obs``
+    (series leaf j at t); constants are plain Python numbers in
+    ``args``."""
 
     __slots__ = ("op", "args", "kind")
     __array_ufunc__ = None   # numpy scalars defer to the reflected op
@@ -149,10 +179,29 @@ class Sym:
             return NotImplemented
         return Sym("rdiv", (_as_float(self), _number(o)))
 
+    def __mod__(self, o):
+        return _mod(self, o)
+
+    def __rmod__(self, o):
+        return _mod(o, self)
+
+    def __floordiv__(self, o):
+        raise NotImplementedError(
+            "op 'floor_divide' is not supported in a model compiled into the "
+            "generic kernels")
+
+    __rfloordiv__ = __floordiv__
+
     def __neg__(self):
+        if self.kind == "i":
+            return Sym("neg", (self,), kind="i")
         return Sym("neg", (_as_float(self),))
 
     def __pow__(self, p):
+        if self.kind == "i":
+            raise NotImplementedError(
+                "op 'pow' of the integer step index is not supported in a "
+                "model compiled into the generic kernels")
         if not (_is_number(p) and float(_number(p)).is_integer()):
             raise NotImplementedError(
                 f"op 'pow' with exponent {p!r}: only integer powers are "
@@ -229,29 +278,29 @@ class Sym:
     def clamp(self, min=None, max=None):  # noqa: A002 (torch's names)
         if min is None and max is None:
             raise ValueError("clamp needs min or max")
-        for bound in (min, max):
-            if bound is not None and not _is_number(bound):
-                raise NotImplementedError(
-                    "op 'clamp' with tensor bounds is not supported in a "
-                    "model compiled into the generic kernels")
-        return Sym("clamp", (_as_float(self),
-                             None if min is None else _number(min),
-                             None if max is None else _number(max)))
+        bounds = tuple(None if b is None else _operand(b) for b in (min, max))
+        if any(isinstance(b, Sym) for b in bounds):
+            # tensor bounds: NaN in x or in a bound gives NaN, as torch
+            return Sym("clampt", (_as_float(self),) + bounds)
+        return Sym("clamp", (_as_float(self),) + bounds)
 
     def to(self, dtype, *args, **kwargs):
-        if dtype is not torch.float32 or args or kwargs:
+        if args or kwargs or dtype not in (torch.float32, torch.int32) or (
+                dtype is torch.int32 and self.kind != "i"):
             raise NotImplementedError(
-                f"op 'to' with {dtype!r}: only .to(torch.float32) is "
-                "supported in a model compiled into the generic kernels")
-        return _as_float(self)
+                f"op 'to' with {dtype!r}: only .to(torch.float32) (and "
+                ".to(torch.int32) of an int32 value) is supported in a model "
+                "compiled into the generic kernels")
+        return _as_float(self) if dtype is torch.float32 else self
 
     def float(self):
         return _as_float(self)
 
 
 def _supported():
-    return (list(_ARITH_C) + ["neg", "pow"] + list(_COMPARE_C)
-            + ["to(float32)", "float"] + sorted(_TORCH_FUNCS.values()))
+    return (list(_ARITH_C) + ["neg", "pow", "remainder (int32)"]
+            + list(_COMPARE_C) + ["to(float32)", "float"]
+            + sorted(_TORCH_FUNCS.values()))
 
 
 def _operand(v):
@@ -264,23 +313,44 @@ def _operand(v):
 
 
 def _as_float(v):
-    """A boolean node promoted to float32, as PyTorch promotes it."""
+    """A boolean or int32 node promoted to float32, as PyTorch promotes
+    it against a float."""
     if isinstance(v, Sym) and v.kind == "b":
         return Sym("tofloat", (v,))
+    if isinstance(v, Sym) and v.kind == "i":
+        return Sym("itof", (v,))
     return v
 
 
 def _arith(op, a, b):
+    """``a op b`` with PyTorch's promotion: int32 with an integer stays
+    int32 (but ``/`` divides in float32), anything with a float is
+    float32."""
     if not (isinstance(a, Sym) or isinstance(b, Sym)):
         return NotImplemented
     try:
+        if op != "div" and _is_int(a) and _is_int(b):
+            return Sym(op, (_int_operand(a), _int_operand(b)), kind="i")
         return Sym(op, (_operand(a), _operand(b)))
     except TypeError:
         return NotImplemented
 
 
+def _mod(a, b):
+    """``a % b`` of int32 values, with Python's sign rule as PyTorch's
+    ``remainder``."""
+    if not (_is_int(a) and _is_int(b)):
+        raise NotImplementedError(
+            "op 'remainder' is supported only between int32 values (the "
+            "step index t and integers) in a model compiled into the "
+            "generic kernels")
+    return Sym("mod", (_int_operand(a), _int_operand(b)), kind="i")
+
+
 def _compare(op, a, b):
     try:
+        if _is_int(a) and _is_int(b):
+            return Sym(op, (_int_operand(a), _int_operand(b)), kind="b")
         return Sym(op, (_operand(a), _operand(b)), kind="b")
     except TypeError:
         return NotImplemented
@@ -302,6 +372,9 @@ def _where(cond, a, b):
     if not (isinstance(cond, Sym) and cond.kind == "b"):
         raise NotImplementedError(
             "torch.where needs a traced boolean condition")
+    if _is_int(a) and _is_int(b):
+        return Sym("where", (cond, _int_operand(a), _int_operand(b)),
+                   kind="i")
     return Sym("where", (cond, _operand(a), _operand(b)))
 
 
@@ -329,13 +402,11 @@ def evaluate(node, env):
 
 def _eval_node(v, a, env):
     op = v.op
-    if op == "theta":
-        return env["theta"][a[0]]
-    if op == "m":
-        return env["m"][a[0]]
-    if op in ("noise", "x"):
+    if op in ("theta", "m", "xs", "obs"):
+        return env[op][a[0]]
+    if op in ("noise", "x", "t"):
         return env[op]
-    if op in _ARITH_C or op in _COMPARE_C:
+    if op in _ARITH_C or op in _COMPARE_C or op == "mod":
         return getattr(operator, "truediv" if op == "div" else op)(a[0], a[1])
     if op == "rdiv":
         return a[1] / a[0]
@@ -343,12 +414,17 @@ def _eval_node(v, a, env):
         return -a[0]
     if op == "pow":
         return a[0] ** a[1]
-    if op == "tofloat":
+    if op in ("tofloat", "itof"):
         return a[0].to(torch.float32)
     if op == "where":
         return torch.where(*a)
     if op == "clamp":
         return torch.clamp(a[0], min=a[1], max=a[2])
+    if op == "clampt":
+        def bound(b):
+            return b if b is None or torch.is_tensor(b) else \
+                torch.full_like(a[0], b)
+        return torch.clamp(a[0], min=bound(a[1]), max=bound(a[2]))
     return getattr(torch, op)(*a)
 
 
@@ -398,19 +474,29 @@ def _pow_ops(p):
     return {0: 0, 1: 0, 2: 1, 3: 2, -1: 1, -2: 2}.get(p, 1)
 
 
-_OPS = {"clamp": 2, "tofloat": 0, "ones_like": 0, "zeros_like": 0}
+_OPS = {"clamp": 2, "clampt": 2, "tofloat": 0, "ones_like": 0,
+        "zeros_like": 0}
 
 
 def _node_expr(v, name):
     """C expression of one node, its operands named by ``name``."""
     a = [name(x) if isinstance(x, Sym) else x for x in v.args]
 
-    def lit(x):
-        return x if isinstance(x, str) else f32_literal(x)
+    def lit(x):   # an int32 node's constants are Python ints
+        if isinstance(x, str):
+            return x
+        return str(x) if isinstance(x, int) else f32_literal(x)
 
     op = v.op
+    if op == "div" and not isinstance(a[1], str):   # x * (1/c), as torch
+        inv = np.float32(1.0) / np.float32(a[1])
+        return f"({lit(a[0])} * {f32_literal(inv)})"
     if op in _ARITH_C:
         return f"({lit(a[0])} {_ARITH_C[op]} {lit(a[1])})"
+    if op == "mod":
+        return f"kt_imod({lit(a[0])}, {lit(a[1])})"
+    if op == "itof":
+        return f"((float)({a[0]}))"
     if op in _COMPARE_C:
         return f"({lit(a[0])} {_COMPARE_C[op]} {lit(a[1])})"
     if op == "rdiv":
@@ -441,34 +527,68 @@ def _node_expr(v, name):
         if a[2] is not None:
             x = f"fminf({x}, {lit(a[2])})"
         return f"({a[0]} != {a[0]} ? {a[0]} : {x})"
+    if op == "clampt":
+        x, nan_first = a[0], [a[0]]
+        if a[1] is not None:
+            x = f"fmaxf({x}, {lit(a[1])})"
+            nan_first.append(lit(a[1]))
+        if a[2] is not None:
+            x = f"fminf({x}, {lit(a[2])})"
+            nan_first.append(lit(a[2]))
+        for y in reversed(nan_first):   # NaN of x, then of min, then max
+            x = f"({y} != {y} ? {y} : {x})"
+        return x
     if op in ("ones_like", "zeros_like"):
         return "1.0f" if op == "ones_like" else "0.0f"
     raise NotImplementedError(f"op {op!r} cannot be emitted")
 
 
-_LEAF_C = {"theta": "th[{}]", "m": "m[{}]", "noise": "e", "x": "x"}
+_LEAF_C = {"theta": "th[{}]", "m": "m[{}]", "noise": "e", "x": "x",
+           "xs": "x[{}]", "t": "t", "obs": "obs[{}]"}
+_CTYPE = {"f": "float", "b": "bool", "i": "int"}
+
+
+def _emit_body(outs):
+    """SSA lines computing every graph of ``outs`` (shared nodes once).
+    Returns (lines, C expression of each output, operations)."""
+    names, lines, ops, seen = {}, [], 0, set()
+    for out in outs:
+        for v in _topo(out):
+            if id(v) in seen:
+                continue
+            seen.add(id(v))
+            if v.op in _LEAF_C:
+                names[id(v)] = _LEAF_C[v.op].format(*v.args)
+                continue
+            expr = _node_expr(v, lambda x: names[id(x)])
+            i = len(lines)
+            names[id(v)] = f"v{i}"
+            lines.append(f"  const {_CTYPE[v.kind]} v{i} = {expr};")
+            ops += _pow_ops(v.args[1]) if v.op == "pow" else _OPS.get(v.op, 1)
+    exprs = [names[id(o)] if isinstance(o, Sym) else f32_literal(o)
+             for o in outs]
+    return lines, exprs, ops
 
 
 def emit_function(fname, params, out):
     """One ``__device__ __forceinline__ float fname(params)`` returning
     the graph ``out``. Returns (C text, float operations per call)."""
-    out = _as_float(out)
-    if not isinstance(out, Sym):   # a constant model
-        return (f"__device__ __forceinline__ float {fname}({params}) {{\n"
-                f"  return {f32_literal(out)};\n}}\n", 0)
-    names, lines, ops = {}, [], 0
-    for i, v in enumerate(_topo(out)):
-        if v.op in _LEAF_C:
-            names[id(v)] = _LEAF_C[v.op].format(*v.args)
-            continue
-        expr = _node_expr(v, lambda x: names[id(x)])
-        ctype = "bool" if v.kind == "b" else "float"
-        names[id(v)] = f"v{i}"
-        lines.append(f"  const {ctype} v{i} = {expr};")
-        ops += _pow_ops(v.args[1]) if v.op == "pow" else _OPS.get(v.op, 1)
-    body = "\n".join(lines)
+    lines, (expr,), ops = _emit_body([_as_float(out)])
+    body = "".join(line + "\n" for line in lines)
     return (f"__device__ __forceinline__ float {fname}({params}) {{\n"
-            f"{body}\n  return {names[id(out)]};\n}}\n", ops)
+            f"{body}  return {expr};\n}}\n", ops)
+
+
+def emit_outputs(fname, params, outs, out_name):
+    """One ``__device__ __forceinline__ void fname(params)`` writing the
+    float32 graphs ``outs`` to ``out_name[0..]``, computed from the
+    inputs before any is written. Returns (C text, operations)."""
+    lines, exprs, ops = _emit_body([_as_float(o) for o in outs])
+    stores = "".join(f"  {out_name}[{j}] = {e};\n"
+                     for j, e in enumerate(exprs))
+    body = "".join(line + "\n" for line in lines)
+    return (f"__device__ __forceinline__ void {fname}({params}) {{\n"
+            f"{body}{stores}}}\n", ops)
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +648,151 @@ def trace_stats(stats, nmoments):
 def trace_reduce(reduce_cost, structure, nstats):
     m = tuple(Sym("m", (j,)) for j in range(nstats))
     return _check_out(reduce_cost(theta_args(structure), m), "reduce_cost")
+
+
+# ---------------------------------------------------------------------------
+# the sequential (scan) model: init, step, observe
+# ---------------------------------------------------------------------------
+
+class ScanContractError(ValueError):
+    """A scan model that breaks the contract whatever the theta
+    structure: not retried by ``probe_scan``."""
+
+
+def _state(out, what, nstate=None):
+    """The flat state tuple of ``init``'s or ``step``'s output: one
+    scalar, or a tuple or list of scalars."""
+    leaves = list(out) if isinstance(out, (tuple, list)) else [out]
+    if nstate is not None and len(leaves) != nstate:
+        raise ScanContractError(
+            f"{what} returned a state of {len(leaves)} leaves; init gives "
+            f"{nstate}")
+    return tuple(_check_out(v, f"{what} state leaf {j}")
+                 for j, v in enumerate(leaves)), isinstance(out, (tuple,
+                                                                 list))
+
+
+def default_observe(nmoments):
+    """The raw moments ``x, x*x, (x*x)*x, ...`` of a scalar state
+    (pallas_kernels.py:2881-2887)."""
+    def observe(theta, x, t, obs):   # noqa: ARG001
+        vals, xp = [], x
+        for p in range(nmoments):
+            vals.append(xp)
+            if p + 1 < nmoments:
+                xp = xp * x
+        return tuple(vals)
+    return observe
+
+
+@dataclass(frozen=True)
+class ScanGraphs:
+    """The traced scan model: the state's leaves after ``init`` and after
+    one ``step``, and the observations of the stepped state."""
+    structure: object
+    init: tuple
+    step: tuple
+    observe: tuple
+    state_is_tuple: bool
+
+
+def trace_scan(step, init, observe, structure, series_tree=None):
+    """Trace ``init(theta)``, ``step(theta, x, eps, t)`` and ``observe(
+    theta, x, t, obs)`` for a theta structure (None: one leaf; K: a tuple
+    of K). ``observe`` reads the state after the step, so it is traced on
+    the state's own leaves."""
+    theta = theta_args(structure)
+    x0, is_tuple = _state(init(theta), "init")
+    xs = tuple(Sym("xs", (j,)) for j in range(len(x0)))
+    state = xs if is_tuple else xs[0]
+    t = Sym("t", kind="i")
+    x1, _ = _state(step(theta, state, Sym("noise"), t), "step", len(x0))
+    obs = None if series_tree is None else series_tree(
+        [Sym("obs", (j,)) for j in range(series_tree.nleaves)])
+    vals = observe(theta, state, t, obs)
+    if not isinstance(vals, tuple) or not 1 <= len(vals) <= 16:
+        raise ScanContractError(
+            "observe must return a tuple of 1..16 values, got "
+            f"{type(vals).__name__}")
+    vals = tuple(_check_out(v, f"observe[{j}]") for j, v in enumerate(vals))
+    return ScanGraphs(structure, x0, x1, vals, is_tuple)
+
+
+def probe_scan(step, init, observe, series_tree=None):
+    """``trace_scan`` for the first theta structure, from one leaf to a
+    16-tuple, that the model accepts. A broken contract raises at once;
+    else the last structure's error is raised if none fits."""
+    err = None
+    for k in (None,) + tuple(range(1, _MAX_ARGS + 1)):
+        try:
+            return trace_scan(step, init, observe, k, series_tree)
+        except ScanContractError:
+            raise
+        except (TypeError, ValueError, IndexError) as e:
+            err = e
+    raise err
+
+
+_IMOD = """__device__ __forceinline__ int kt_imod(int a, int b) {
+  const int r = a % b;   // the sign of b, as torch.remainder
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+"""
+
+
+@dataclass(frozen=True)
+class GeneratedScan:
+    """The emitted scan model: ``functions`` (the device functions alone,
+    for the host-compiler test), ``source`` (the translation unit ending
+    in ``#include "scan.cuh"``), and operation counts per walker
+    (``init_ops``) and per step (``step_ops``, ``observe_ops``)."""
+    functions: str
+    source: str
+    nparams: int
+    nstate: int
+    nstats: int
+    nseries: int
+    init_ops: int
+    step_ops: int
+    observe_ops: int
+
+
+def generate_scan(graphs, *, nseries, noise):
+    """Emit the translation unit of a traced scan model:
+
+        void scan_init(const float* th, float* x);
+        void scan_step(const float* th, const float* x, float e, int t,
+                       float* xn);
+        void scan_observe(const float* th, const float* x, int t,
+                          const float* obs, float* o);
+    """
+    s = graphs.structure
+    nparams = 1 if s is None else s
+    init_fn, init_ops = emit_outputs(
+        "scan_init", "const float* th, float* x", graphs.init, "x")
+    step_fn, step_ops = emit_outputs(
+        "scan_step", "const float* th, const float* x, float e, int t, "
+        "float* xn", graphs.step, "xn")
+    obs_fn, observe_ops = emit_outputs(
+        "scan_observe", "const float* th, const float* x, int t, "
+        "const float* obs, float* o", graphs.observe, "o")
+    functions = "\n".join([_IMOD, init_fn, step_fn, obs_fn])
+    source = "\n".join([
+        "// Generated by kissabc_tpu_torch/ops/codegen.py from a user scan "
+        "model.",
+        f"#define KT_NPARAMS {nparams}",
+        f"#define KT_NSTATE {len(graphs.init)}",
+        f"#define KT_NSTATS {len(graphs.observe)}",
+        f"#define KT_NSERIES {nseries}",
+        f"#define KT_NOISE_NORMAL {int(noise == 'normal')}",
+        '#include "common.cuh"',
+        "namespace {",
+        functions,
+        "}  // namespace",
+        '#include "scan.cuh"', ""])
+    return GeneratedScan(functions, source, nparams, len(graphs.init),
+                         len(graphs.observe), nseries, init_ops, step_ops,
+                         observe_ops)
 
 
 # ---------------------------------------------------------------------------

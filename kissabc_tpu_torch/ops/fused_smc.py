@@ -77,27 +77,30 @@ class FusedSMCSweep:
             prior=prior)
 
     def _leaves(self, thetas):
+        """(leaves, n, the caller's structure). As the JAX sweep, only
+        the leaf count and shapes are checked: a 1-tuple population for
+        a single marginal runs, and comes back as a 1-tuple."""
         leaves, structure = leaves_of(thetas, "make_fused_smc_sweep")
-        if len(leaves) != self.d or structure != self.structure:
+        if len(leaves) != self.d:
             raise ValueError(
                 f"prior has {self.d} scalar marginals but thetas has "
                 f"{len(leaves)} leaves")
         n = leaves[0].shape[0]
         if n < 3:
             raise ValueError("need at least 3 walkers")
-        return leaves, n
+        return leaves, n, structure
 
     def _sb_rows(self, n):
         return plan_tiles(n, self.block, self.walker_tiles)[1] * self.block
 
     def __call__(self, gen, thetas, xs, lps, alive, eps, flag):
-        leaves, n = self._leaves(thetas)
+        leaves, n, structure = self._leaves(thetas)
         words = uint32_words(gen, 3)
         r1, r2 = roll_shifts(words[:2], n)
         rs = torch.stack((r1, r2, words[2]))
         out, oxs, olps, commit = self.run(leaves, xs, lps, alive, eps, flag,
                                           rs)
-        return tree_of(out, self.structure), oxs, olps, commit.sum()
+        return tree_of(out, structure), oxs, olps, commit.sum()
 
     def run(self, leaves, xs, lps, alive, eps, flag, rs):
         """One sweep with given shifts and seed, ``rs = (r1, r2, seed)``

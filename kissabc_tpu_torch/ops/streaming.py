@@ -86,6 +86,10 @@ def leaves_of(thetas, what):
         raise ValueError(
             f"{what} expects per-walker scalar parameters ([n] leaves); "
             f"got shapes {[tuple(x.shape) for x in leaves]}")
+    if len({x.shape[0] for x in leaves}) > 1:   # the kernels read n of each
+        raise ValueError(
+            f"{what}: the theta leaves have different lengths "
+            f"{[x.shape[0] for x in leaves]}")
     return [x.to(torch.float32).contiguous() for x in leaves], structure
 
 

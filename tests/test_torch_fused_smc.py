@@ -294,3 +294,56 @@ def test_smc_with_fused_sweep_recovers_readme_posterior():
         assert abs(sg.mean() - 0.04) < 0.01
         assert float(r.eps) <= 0.1
     assert res.C.shape == (512,) and res.ess == len(res.P[0])
+
+
+def _normal_sweeps():
+    """The same one-parameter model for both packages: prior N(1, 0.5),
+    draw theta + 0.1 eps, cost |E[x] - 1|."""
+    kw = dict(bits="stub", **TILES)
+    jsweep = ka.make_fused_smc_sweep(
+        ka.Normal(1.0, 0.5), lambda th, e: th + 0.1 * e,
+        lambda th, m: jnp.abs(m[0] - 1.0), interpret=True, **kw)
+    tsweep = kt.make_fused_smc_sweep(
+        kt.Normal(1.0, 0.5), lambda th, e: th + 0.1 * e,
+        lambda th, m: torch.abs(m[0] - 1.0), **kw)
+    return jsweep, tsweep
+
+
+def test_sweep_takes_a_one_tuple_for_a_single_marginal():
+    """As the JAX sweep, only the leaf count is checked: a 1-tuple
+    population for a prior that is not Factored runs, gives the bare
+    tensor population's results and comes back as a 1-tuple."""
+    _, sweep = _normal_sweeps()
+    n = 256
+    th = torch.from_numpy(
+        np.random.default_rng(5).normal(1.0, 0.5, n).astype(np.float32))
+    xs, lps = torch.full((n,), 0.3), kt.Normal(1.0, 0.5).logpdf(th)
+    alive = torch.ones(n, dtype=torch.bool)
+    args = (xs, lps, alive, torch.tensor(0.3), torch.tensor(False))
+    bare = sweep(as_generator(3, "cpu"), th, *args)
+    tup = sweep(as_generator(3, "cpu"), (th,), *args)
+    assert torch.is_tensor(bare[0])
+    assert isinstance(tup[0], tuple) and len(tup[0]) == 1
+    assert torch.equal(tup[0][0], bare[0])
+    for a, b in zip(tup[1:], bare[1:]):
+        assert torch.equal(a, b)
+    assert 0 < int(bare[3]) < n
+
+
+def test_sweep_leaf_count_message_matches_jax():
+    jsweep, tsweep = _normal_sweeps()
+    x = np.linspace(0.5, 1.5, 128).astype(np.float32)
+    xs, lps = np.full(128, 0.3, np.float32), np.zeros(128, np.float32)
+    alive = np.ones(128, bool)
+    with pytest.raises(ValueError) as jerr:
+        jsweep(jax.random.key(0), (jnp.asarray(x), jnp.asarray(x)),
+               jnp.asarray(xs), jnp.asarray(lps), jnp.asarray(alive), 0.3,
+               False)
+    t = torch.from_numpy(x)
+    with pytest.raises(ValueError) as terr:
+        tsweep(as_generator(0, "cpu"), (t, t), torch.from_numpy(xs),
+               torch.from_numpy(lps), torch.from_numpy(alive),
+               torch.tensor(0.3), torch.tensor(False))
+    assert str(terr.value) == str(jerr.value)
+    assert str(terr.value) == "prior has 1 scalar marginals but thetas has " \
+        "2 leaves"

@@ -1,7 +1,7 @@
 """kissabc_tpu_torch's smc on the CPU: one iteration of the loop body
 held against the JAX ``program.body`` from the same numpy state, the
 README oracle run end to end through the port, the knob checks with
-the JAX package's messages, and what the first slice leaves out.
+the JAX package's messages, and what the port still leaves out.
 """
 
 import warnings
@@ -203,12 +203,15 @@ def test_knob_validation_messages_match_jax(bad):
 
 
 def test_left_for_later_slices_raise():
+    """Walker sharding is the one smc option still to port; the
+    per-walker cost form runs (tests/test_torch_smc_perwalker.py)."""
     prior, cost = _port_prior(), kt.make_flagship_cost_batched()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        kt.smc(prior, cost, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         kt.smc(prior, cost, cost_vectorized=True, mesh=object(),
                device="cpu")
+    with pytest.raises(NotImplementedError, match="smc_stepped.*mesh"):
+        kt.smc_stepped(prior, cost, cost_vectorized=True, mesh=object(),
+                       device="cpu")
 
 
 def test_smc_defaults_to_cuda():

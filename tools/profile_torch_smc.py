@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of kissabc_tpu_torch's ``smc`` goes on one CUDA card.
 
-    python3 tools/profile_torch_smc.py [--path flagship|generic|both]
-                                       [--trace-dir DIR]
+    python3 tools/profile_torch_smc.py
+        [--path flagship|generic|both|scan|perwalker|all] [--trace-dir DIR]
 
-Runs ``smc`` on the flagship README model at 1000 and at 2**20
-particles: once warm without the profiler for the wall time, then once
+Runs ``smc`` once warm without the profiler for the wall time, then once
 under ``torch.profiler``. ``--path flagship`` (the default) runs slice
-1's path, the flagship cost kernel and the split sweep; ``--path
-generic`` runs the same model as a user model through
-``make_streaming_moment_cost`` and ``smc(sweep_fused=make_fused_smc_sweep
-(...))``; ``both`` runs both. For each run it prints one JSON line with
+1's path on the flagship README model at 1000 and 2**20 particles, the
+flagship cost kernel and the split sweep; ``--path generic`` runs the
+same model as a user model through ``make_streaming_moment_cost`` and
+``smc(sweep_fused=make_fused_smc_sweep(...))``; ``both`` runs both.
+``--path scan`` runs the AR(1) model through ``make_streaming_scan_cost``
+at 131072 particles x 1000 steps (``chip_smoke.py``'s ``smc-scan-ar1``);
+``--path perwalker`` the README model's per-walker cost ``cost(theta,
+gen)`` at 1000 particles (``smc-perwalker``); ``all`` runs all four.
+For each run it prints one JSON line with
 the wall time, the iterations, the device busy time (the union of all
 CUDA kernel and copy intervals), the device idle share of the profiled
 window, the CUDA events and the port's kernel launches per iteration,
@@ -100,29 +104,50 @@ def sweep_syncs(torch, prior, sweep, n, calls=100):
             "blocking_examples": blocking[:3]}
 
 
-def profile_run(torch, kt, path, nparticles, trace_dir, **kw):
+def path_spec(torch, kt, path):
+    """(prior, cost, smc keywords, [(particles, extra keywords)])."""
+    from kissabc_tpu_torch import models
+
+    readme = dict(cost_vectorized=True, epstol=0.011113, key=2)
+    sizes = [(1000, {}), (1 << 20, {"min_r_ess": 0.5})]
+    prior, draw, reduce_cost = models.flagship()
+    if path == "flagship":
+        return prior, kt.make_flagship_cost_batched(), readme, sizes
+    if path == "generic":
+        return (prior, kt.make_streaming_moment_cost(draw, reduce_cost),
+                dict(readme, sweep_fused=kt.make_fused_smc_sweep(
+                    prior, draw, reduce_cost)), sizes)
+    if path == "scan":
+        aprior, step, init, areduce = models.ar1()
+        return (aprior, kt.make_streaming_scan_cost(step, init, areduce,
+                                                    nsteps=1000),
+                dict(cost_vectorized=True, epstol=0.15, key=9),
+                [(131072, {})])
+
+    def cost(theta, gen):   # __graft_entry__.py:17-22, per walker
+        mu, sigma = theta
+        x = mu + sigma * torch.randn(1000, generator=gen, device=gen.device)
+        return torch.hypot(x.mean() - 2.0, (x.std(correction=0) - 0.04) * 50)
+
+    return prior, cost, dict(epstol=0.011113, key=2), [(1000, {})]
+
+
+def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
     from torch.profiler import ProfilerActivity, profile
 
-    from kissabc_tpu_torch import models
-    from kissabc_tpu_torch.ops import fused_smc, kernels, streaming
+    from kissabc_tpu_torch.ops import fused_smc, kernels, scan, streaming
 
-    prior, draw, reduce_cost = models.flagship()
-    if path == "generic":
-        cost = kt.make_streaming_moment_cost(draw, reduce_cost)
-        kw = dict(kw, sweep_fused=kt.make_fused_smc_sweep(prior, draw,
-                                                          reduce_cost))
-    else:
-        cost = kt.make_flagship_cost_batched()
-    modules = (kernels, streaming, fused_smc)
+    prior, cost, base, _ = spec
+    kw = dict(base, **kw)
+    modules = (kernels, streaming, fused_smc, scan)
 
     def run():
         for m in modules:
             m.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = kt.smc(prior, cost, cost_vectorized=True,
-                     nparticles=nparticles, epstol=0.011113, max_iters=2000,
-                     key=2, **kw)
+        res = kt.smc(prior, cost, nparticles=nparticles, max_iters=2000,
+                     **kw)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -169,7 +194,8 @@ def profile_run(torch, kt, path, nparticles, trace_dir, **kw):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("flagship", "generic", "both"),
+    ap.add_argument("--path", choices=("flagship", "generic", "both", "scan",
+                                       "perwalker", "all"),
                     default="flagship")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -186,11 +212,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    paths = ("flagship", "generic") if args.path == "both" else (args.path,)
+    paths = {"both": ("flagship", "generic"),
+             "all": ("flagship", "generic", "scan", "perwalker")}.get(
+                 args.path, (args.path,))
     for path in paths:
-        for n, kw in ((1000, {}), (1 << 20, {"min_r_ess": 0.5})):
-            print(json.dumps(profile_run(torch, kt, path, n, args.trace_dir,
-                                         **kw)), flush=True)
+        spec = path_spec(torch, kt, path)
+        for n, kw in spec[3]:
+            print(json.dumps(profile_run(torch, kt, path, spec, n,
+                                         args.trace_dir, **kw)), flush=True)
     return 0
 
 
