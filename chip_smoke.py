@@ -37,6 +37,7 @@ run from a directory without the package, it exits 1 and prints no result.
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -47,6 +48,7 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCRIPT_LIMIT_S = 1000    # whole run, build included (the limit is 1200 s)
 FULL_SMC_LIMIT_S = 420   # the 2**20-particle smc run alone
+README_LIMIT_S = 300     # the README AIS run (2e4 half-updates) alone
 H100_F32_OPS = 67e12     # float32 outside the tensor cores, H100 SXM
 H100_BYTES = 3.35e12     # HBM3, H100 SXM
 EPSTOL = 0.011113        # README.md:84 of the reference
@@ -103,6 +105,35 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_name(mangled):
+    """A function's own identifier out of its Itanium mangling: the last
+    name of ``_ZN<len><name>...E`` (namespaces first) or of ``_Z<len>
+    <name>``; anything else as it is."""
+    pos, name = 2 + mangled.startswith("_ZN"), mangled
+    if not mangled.startswith("_Z"):
+        return mangled
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return name
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+
+
+def cuda_timed(torch, fn):
+    """(``fn()``, its milliseconds by CUDA events): one run, started on
+    an idle device."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(work):
@@ -182,18 +213,21 @@ def main():
 
     import kissabc_tpu_torch as kt
     from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.core import ais as AI
     from kissabc_tpu_torch.ops import _build
+    from kissabc_tpu_torch.ops import fused_ais as FA
     from kissabc_tpu_torch.ops import fused_smc as F
     from kissabc_tpu_torch.ops import kernels as K
     from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
     def reset_counts():
-        for module in (K, S, F, SC):
+        for module in (K, S, F, SC, FA):
             module.reset_launch_counts()
 
     def counts():
-        return {**K.launches, **S.launches, **F.launches, **SC.launches}
+        return {**K.launches, **S.launches, **F.launches, **SC.launches,
+                **FA.launches}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -267,6 +301,30 @@ def main():
             lambda th, m: m[0], observe=lambda th, xt, t, obs: (xt[1],),
             nsteps=64, bits="stub"), 1),
     }
+    # the generic AIS sweep's models (slice 4): the flagship model, g-and-k
+    # (bench.py:347-383) and the mixed discrete prior of
+    # tests/test_pallas.py:811-861
+    dprior = kt.Factored(kt.DiscreteUniform(1, 10), kt.Uniform(0.1, 1.0))
+
+    def ddraw(th, eps):
+        m, s_ = th
+        return m + s_ * eps
+
+    def dreduce(th, mo):
+        return torch.abs(mo[0] - 3.0)
+
+    ais_sweeps = {   # name: (sweep, stub twin)
+        "flagship": (kt.make_fused_ais_sweep(fprior, fdraw, freduce,
+                                             scale=0.005),
+                     kt.make_fused_ais_sweep(fprior, fdraw, freduce,
+                                             scale=0.5, bits="stub")),
+        "g-and-k": (kt.make_fused_ais_sweep(gprior, gdraw, greduce,
+                                            scale=0.05),
+                    kt.make_fused_ais_sweep(gprior, gdraw, greduce,
+                                            scale=0.5, bits="stub")),
+        "discrete": (None, kt.make_fused_ais_sweep(
+            dprior, ddraw, dreduce, scale=0.5, bits="stub")),
+    }
     units = {}   # generated source -> names (stub and hw share a unit)
     for name, (c, k) in costs.items():
         units.setdefault(c.unit(k).source, []).append(f"cost {name}")
@@ -274,22 +332,33 @@ def main():
         units.setdefault(sw.unit.source, []).append(f"sweep {name}")
     for name, (c, k) in scans.items():
         units.setdefault(c.unit(k).source, []).append(f"scan {name}")
+    ais_units = {}
+    for name, (_, sw) in ais_sweeps.items():
+        ais_units.setdefault(sw.unit.source, []).append(f"ais {name}")
 
-    ptxas = {}   # unit names -> ptxas lines
+    ptxas = {}   # unit names -> ptxas lines, each after its function
 
     def ptxas_lines(log, prefix):
+        fn = ""
         for line in log.splitlines():
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"(\w+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
             if "registers" in line or "spill" in line:
-                ptxas.setdefault(prefix, []).append(line.strip())
-                say(f"  ptxas {prefix}: {line.strip()}")
+                ptxas.setdefault(prefix, []).append(f"{fn}: {line.strip()}")
+                say(f"  ptxas {prefix} {fn}: {line.strip()}")
 
     with Phase("build") as ph:
-        # every nvcc starts now: the flagship source and each generated unit
+        # every nvcc starts now: the hand-written sources (flagship.cu and
+        # ais.cu, one library) and each generated unit
         jobs = [_build.start()] + [_build.start(text) for text in units]
+        ais_jobs = [_build.start(text) for text in ais_units]
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
         _build.load()
-        ph.result = f"{lib_path.name} compiled in {build_s:.2f} s"
+        ph.result = (f"{lib_path.name} (flagship.cu + ais.cu) compiled in "
+                     f"{build_s:.2f} s")
 
     with Phase("build-generic") as ph:
         slowest = 0.0
@@ -301,6 +370,24 @@ def main():
         ph.result = (f"{len(units)} generated units (generic and scan), the "
                      f"slowest compiled in {slowest:.2f} s, in parallel with "
                      "flagship.cu")
+
+    with Phase("build-ais") as ph:
+        # ais.cu was built into the library of the build phase
+        slowest = 0.0
+        for (text, names), job in zip(ais_units.items(), ais_jobs):
+            _, secs, log = job.wait()
+            ptxas_lines(log, "/".join(names))
+            _build.load_generated(text)
+            slowest = max(slowest, secs)
+        ptxas["ais.cu"] = [line for line in ptxas.get("flagship", [])
+                           if "_ais_" in line]
+        per_sm, sms, grid = FA.full_grid(65536)
+        ph.result = (f"ais.cu in {lib_path.name}; {len(ais_units)} generated "
+                     f"AIS units, the slowest compiled in {slowest:.2f} s "
+                     f"(started with the others); ais.cu ptxas "
+                     f"{ptxas['ais.cu']}; kt_fused_ais_full co-resident: "
+                     f"{per_sm} blocks/SM x {sms} SMs, grid {grid} blocks of "
+                     f"128 for h=65536")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -836,6 +923,415 @@ def main():
                      f"{n * nsteps / (ms5 / 1e3) / 1e9:.2f} Gsteps/s, bound "
                      f"{b5:.4f} ms ({by5}), plain {plain5:.1f} ms, max|err| "
                      f"{err5:.3g} ({unequal} unequal values); ptxas {regs}")
+
+    # ---- slice 4: AIS --------------------------------------------------
+    def ais_compare(got, want, inputs, what, margin):
+        """Kernel vs plain AIS half or sweep on the same inputs; outputs
+        (theta leaves..., lp, ll). A walker commits where any output
+        differs from its input. The commit masks agree except where the
+        plain version's MH log-ratio lies within a rounding band of its
+        accept draw (``margin``, the one less the other: the kernels of
+        #7 and #8 contract multiply-adds, and sum the moments in another
+        order than their plain versions); values
+        committed on both sides agree within the golden tolerance, and
+        uncommitted walkers keep their inputs bit for bit on both sides.
+        Returns (max abs err, unequal values, commits, borderline)."""
+        def committed(outs):
+            m = torch.zeros_like(inputs[0], dtype=torch.bool)
+            for o, x in zip(outs, inputs):
+                m |= o != x
+            return m
+        gc, wc = committed(got), committed(want)
+        # a few float32 ulps of the log-densities that make up lw
+        band = 1e-4 + 1e-5 * (inputs[-1].abs() + want[-1].abs())
+        differ = gc != wc
+        border = differ & (margin.abs() < band)
+        check(bool((~differ | border).all()), f"{what}: commit masks differ "
+              f"on {int((differ & ~border).sum())} walkers away from the "
+              "accept threshold")
+        both = gc & wc
+        err, unequal = 0.0, 0
+        for k, (g, w, x) in enumerate(zip(got, want, inputs)):
+            err = max(err, assert_close(torch, g[both], w[both],
+                                        f"{what} output {k}"))
+            check(bool(torch.equal(g[~gc], x[~gc])),
+                  f"{what}: uncommitted output {k} changed")
+            unequal += int((g[both] != w[both]).sum())
+        return err, unequal, int(both.sum()), int(border.sum())
+
+    def flagship_start(n):
+        """A population around the posterior: mu ~ U(1.6, 2.4), sigma ~
+        U(0.01, 0.1), its prior logpdf and loglikelihoods in [-50, -1]."""
+        th = (uniform(n, 1.6, 2.4), uniform(n, 0.01, 0.1))
+        lp = prior.logpdf(prior.push_tree(th)).to(torch.float32)
+        return th, lp, uniform(n, -50.0, -1.0)
+
+    def population(th):
+        mu_, sg_ = (x.double() for x in th)
+        return (float(mu_.mean()), float(sg_.mean()), float(mu_.std()),
+                float(sg_.std()))
+
+    def same_population(a, b, what):
+        """The rule of tests/test_pallas.py:536-542: |d mean mu| < 3e-3,
+        |d mean sigma| < 3e-4, each std ratio within 25%."""
+        pa, pb = population(a), population(b)
+        check(abs(pa[0] - pb[0]) < 3e-3, f"{what}: mean mu {pa[0]} vs "
+              f"{pb[0]}")
+        check(abs(pa[1] - pb[1]) < 3e-4, f"{what}: mean sigma {pa[1]} vs "
+              f"{pb[1]}")
+        for k in (2, 3):
+            check(abs(pa[k] / pb[k] - 1.0) < 0.25,
+                  f"{what}: std ratio {pa[k] / pb[k]}")
+        return pb
+
+    flagship_cost = kt.make_flagship_cost_batched()   # kernel #1
+    shifts6 = torch.tensor([5, 77, 1000, 3, 40000, 65001], dtype=torch.int64,
+                           device=dev)
+    shifts12 = torch.cat([shifts6, torch.tensor(
+        [11, 2, 65000, 9, 123, 4567], dtype=torch.int64, device=dev)])
+    seed_t = torch.tensor([2024], dtype=torch.int64, device=dev)
+    fl_kw = dict(ndraws=1000, target_mu=2.0, target_sd=0.04, sd_weight=50.0,
+                 a_stretch=3.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
+                 sg_lo=0.0, sg_hi=100.0, chunk=512)
+    with Phase("ais-stub") as ph:
+        n, h = 65536, 32768
+        res = {}
+        # kernel #7: one half-update
+        m7 = FA.FlagshipAIS(scale=0.1, block=2048, bits="stub", **fl_kw)
+        th, lp, ll = flagship_start(n)
+        ins = [th[0][:h], th[1][:h], lp[:h], ll[:h]]
+        comp = [th[0][h:], th[1][h:]]
+        outs = [torch.empty_like(x) for x in ins]
+        m7.launch_half(ins, comp, shifts6[:6] % h, seed_t, outs)
+        want = m7.half_plain(*ins, *comp, shifts6 % h, seed_t)
+        res["#7 half"] = ais_compare(outs, want[:4], ins,
+                                     "fused_ais_half stub", want[5])
+        # kernel #8: both halves in one launch
+        m8 = FA.FlagshipAIS(scale=0.1, block=1024, bits="stub", **fl_kw)
+        ins = [th[0], th[1], lp, ll]
+        outs = [torch.empty_like(x) for x in ins]
+        m8.launch_full(ins, shifts12 % h, seed_t, outs)
+        want = m8.full_plain(*ins, shifts12 % h, seed_t)
+        res["#8 full"] = ais_compare(outs, want[:4], ins,
+                                     "fused_ais_full stub", want[5])
+        check(res["#8 full"][2] > 0, "fused_ais_full stub committed nothing")
+        # kernel #6 on its three models: one half-update each
+        starts = {"flagship": [th[0], th[1]],
+                  "g-and-k": list(gprior.sample_tree(gen, n)),
+                  "discrete": [torch.randint(1, 11, (n,), generator=gen,
+                                             device=dev).float(),
+                               uniform(n, 0.1, 1.0)]}
+        for name, leaves in starts.items():
+            sw = ais_sweeps[name][1]
+            leaves = [x.contiguous() for x in leaves]
+            lp6 = sw.prior.logpdf_tree(sw.pushed(leaves)).to(torch.float32)
+            ll6 = uniform(n, -20.0, -1.0)
+            upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
+            got = sw.half(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h, seed_t)
+            want = sw.half_plain(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h,
+                                 seed_t, terms=True)
+            flat = lambda o: list(o[0]) + [o[1], o[2]]  # noqa: E731
+            res[f"#6 {name}"] = ais_compare(
+                flat(got), flat(want), upd + [lp6[:h], ll6[:h]],
+                f"fused_ais_sweep stub {name}", want[3][1])
+            check(res[f"#6 {name}"][2] > 0, f"#6 {name} committed nothing")
+        ph.result = ("(max|err|, unequal committed values, commits, "
+                     "borderline): " + json.dumps(res))
+
+    with Phase("ais-kernel-times") as ph:
+        # the main-path shapes: n = 131072 walkers x 1000 draws, Philox
+        n, h, nd = 131072, 65536, 1000
+        th0 = prior.sample_tree(gen, n)
+        model_k = kt.ApproxKernelizedPosterior(prior, flagship_cost,
+                                               0.005, cost_vectorized=True)
+        lds0 = model_k.loglike_batch(th0, gen)
+        ins = [th0[0].contiguous(), th0[1].contiguous(), lds0[0], lds0[1]]
+        times, plain_ms = {}, {}   # plain: one whole sweep, the same inputs
+        m7 = FA.FlagshipAIS(scale=0.005, block=2048, bits="hw", **fl_kw)
+        m8 = FA.FlagshipAIS(scale=0.005, block=1024, bits="hw", **fl_kw)
+        sh = shifts12 % h
+        outs7 = [torch.empty_like(x) for x in ins]
+
+        def sweep7():
+            m7.launch_half([x[:h] for x in ins], [x[h:] for x in ins[:2]],
+                           sh[:6], seed_t, [o[:h] for o in outs7])
+            m7.launch_half([x[h:] for x in ins], [o[:h] for o in outs7[:2]],
+                           sh[6:], seed_t, [o[h:] for o in outs7])
+
+        def plain7():   # half B against the updated half A, as sweep7
+            a = m7.half_plain(*(x[:h] for x in ins), ins[0][h:], ins[1][h:],
+                              sh[:6], seed_t)
+            return a, m7.half_plain(*(x[h:] for x in ins), a[0], a[1],
+                                    sh[6:], seed_t)
+
+        sweep7()
+        (a7, b7), plain_ms["fused_ais_half"] = cuda_timed(torch, plain7)
+        want7 = [torch.cat([a, b]) for a, b in zip(a7, b7)]
+        err7 = ais_compare(outs7, want7[:4], ins, "fused_ais_half hw",
+                           want7[5])
+        nsim7 = int(a7[4].sum() + b7[4].sum())
+        times["fused_ais_half"] = cuda_ms(torch, sweep7, 20)
+        outs8 = [torch.empty_like(x) for x in ins]
+        m8.launch_full(ins, sh, seed_t, outs8)
+        want8, plain_ms["fused_ais_full"] = cuda_timed(
+            torch, lambda: m8.full_plain(*ins, sh, seed_t))
+        err8 = ais_compare(outs8, list(want8[:4]), ins, "fused_ais_full hw",
+                           want8[5])
+        nsim8 = int(want8[4].sum())
+        times["fused_ais_full"] = cuda_ms(
+            torch, lambda: m8.launch_full(ins, sh, seed_t, outs8), 20)
+        sw6 = ais_sweeps["flagship"][0]
+        outs6 = ([torch.empty_like(x) for x in ins[:2]],
+                 torch.empty_like(ins[2]), torch.empty_like(ins[3]))
+
+        def halves6(o):
+            return [tuple(x[sl] for x in o[0]) + (o[1][sl], o[2][sl])
+                    for sl in (slice(0, h), slice(h, n))]
+
+        def sweep6():
+            oa, ob = halves6(outs6)
+            sw6.half([ins[0][:h], ins[1][:h]], ins[2][:h], ins[3][:h],
+                     [ins[0][h:], ins[1][h:]], sh[:6], seed_t,
+                     outs=(list(oa[:2]), oa[2], oa[3]))
+            sw6.half([ins[0][h:], ins[1][h:]], ins[2][h:], ins[3][h:],
+                     list(oa[:2]), sh[6:], seed_t,
+                     outs=(list(ob[:2]), ob[2], ob[3]))
+
+        def plain6():
+            a = sw6.half_plain([ins[0][:h], ins[1][:h]], ins[2][:h],
+                               ins[3][:h], [ins[0][h:], ins[1][h:]], sh[:6],
+                               seed_t, terms=True)
+            return a, sw6.half_plain([ins[0][h:], ins[1][h:]], ins[2][h:],
+                                     ins[3][h:], a[0], sh[6:], seed_t,
+                                     terms=True)
+
+        sweep6()
+        (a6, b6), plain_ms["fused_ais_sweep"] = cuda_timed(torch, plain6)
+        want6 = [torch.cat([a6[0][k], b6[0][k]]) for k in (0, 1)] + [
+            torch.cat([a6[1], b6[1]]), torch.cat([a6[2], b6[2]])]
+        err6 = ais_compare(list(outs6[0]) + [outs6[1], outs6[2]], want6, ins,
+                           "fused_ais_sweep hw flagship",
+                           torch.cat([a6[3][1], b6[3][1]]))
+        nsim6 = int(a6[3][0].sum() + b6[3][0].sum())
+        times["fused_ais_sweep"] = cuda_ms(torch, sweep6, 20)
+        w6 = [sw6.work(h, int(x[3][0].sum())) for x in (a6, b6)]
+        bounds = {
+            "fused_ais_half": bound(m7.work(n, nsim7)),
+            "fused_ais_full": bound(m8.work(n, nsim8)),
+            "fused_ais_sweep": bound((w6[0][0] + w6[1][0],
+                                      w6[0][1] + w6[1][1])),
+        }
+        ais_err = {"fused_ais_half": err7[0], "fused_ais_full": err8[0],
+                   "fused_ais_sweep": err6[0]}
+        regs = {names: lines for names, lines in ptxas.items()
+                if "ais" in names}   # ais.cu's and the generated units'
+        ph.result = "; ".join(
+            f"{k} {times[k]:.4f} ms/sweep ({n / (times[k] / 1e3):.4g} "
+            f"updates/s), bound {bounds[k][0]:.4f} ms ({bounds[k][1]}), "
+            f"plain {plain_ms[k]:.1f} ms/sweep"
+            for k in times) + (
+            f"; inside the prior {nsim7}, {nsim8}, {nsim6} of {n}; "
+            f"(max|err|, unequal committed values, commits, borderline) "
+            f"#7 {err7}, #8 {err8}, #6 {err6}; "
+            f"ptxas {json.dumps(regs)}")
+
+    def draw_init(model, n, key):
+        """The init ``sample(..., key=key)`` makes: ``_init_ensemble`` on
+        a generator seeded with ``key``, the first draws of the run."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(key)
+        th, ld, valid = AI._init_ensemble(model, g, n, 100)
+        check(bool(valid.all()), "AIS init left invalid walkers")
+        return th, ld
+
+    def iterate(sweep, th, ld, sweeps, key):
+        g = torch.Generator(device=dev)
+        g.manual_seed(key)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(sweeps):
+            th, ld = sweep(g, th, ld)
+        torch.cuda.synchronize()
+        return th, ld, time.perf_counter() - t0, counts()
+
+    with Phase("ais-sample-split") as ph:
+        # bench.py:254-296 (ais-sweep): 500 red/black sweeps at n = 131072
+        n, ntr = 131072, 500
+        model_k = kt.ApproxKernelizedPosterior(prior, flagship_cost,
+                                               0.005, cost_vectorized=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = kt.sample(model_k, kt.AIS(n), n, ntransitions=ntr, key=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        split_launches = launched["normal_summary_cost"]
+        check(split_launches >= 2 * ntr + 1,
+              f"sample launched normal_summary_cost {split_launches} times")
+        check(sum(launched.values()) == split_launches,
+              f"the split path launched another kernel: {launched}")
+        split_pop = tuple(torch.as_tensor(p.particles, device=dev)
+                          for p in post)
+        m_mu, m_sg, s_mu, s_sg = population(split_pop)
+        check(abs(m_mu - 2.0) < 0.005, f"mean mu {m_mu}")
+        check(abs(m_sg - 0.04) < 0.002, f"mean sigma {m_sg}")
+        check(0.0040 <= s_mu <= 0.0068, f"std mu {s_mu}")
+        ph.result = (f"n={n}, {ntr} sweeps: wall {wall:.3f} s "
+                     f"({n * ntr / wall:.4g} updates/s); mu {m_mu:.5f} +- "
+                     f"{s_mu:.5f}, sigma {m_sg:.5f} +- {s_sg:.5f}; launches "
+                     f"{launched}")
+
+    with Phase("ais-fused") as ph:
+        n = 131072
+        th0, ld0 = draw_init(model_k, n, 0)
+        out = {}
+        fused_launches = {}
+        for name, mk in (("fused_ais_half", kt.make_fused_flagship_ais_sweep),
+                         ("fused_ais_full",
+                          kt.make_fused_flagship_ais_sweep_onekernel)):
+            th, ld, wall, launched = iterate(mk(n, scale=0.005), th0, ld0,
+                                             500, 7)
+            fused_launches[name] = launched[name]
+            check(launched[name] == (1000 if name == "fused_ais_half"
+                                     else 500),
+                  f"{name}: {launched[name]} launches in 500 sweeps")
+            check(all(bool(torch.isfinite(x).all()) for x in ld),
+                  f"{name}: non-finite log-densities")
+            pop = same_population(split_pop, th, name)
+            out[name] = (f"{wall:.3f} s ({n * 500 / wall:.4g} updates/s), "
+                         f"mu {pop[0]:.5f} +- {pop[2]:.5f}, sigma "
+                         f"{pop[1]:.5f} +- {pop[3]:.5f}")
+        # one sweep of each wrapper, on a CUDA and on a CPU generator, held
+        # against its plain version fed the words a clone of the generator
+        # gives: the wrappers' draws of shifts and seed, and half B
+        # proposing against the updated half A (after the main path's
+        # counts were read, so these launches are not counted)
+        h = n // 2
+        ins = [th0[0], th0[1], ld0[0], ld0[1]]
+        for gdev in (dev, torch.device("cpu")):
+            for name, mk in (
+                    ("fused_ais_half", kt.make_fused_flagship_ais_sweep),
+                    ("fused_ais_full",
+                     kt.make_fused_flagship_ais_sweep_onekernel)):
+                g = torch.Generator(device=gdev)
+                g.manual_seed(11)
+                replay = torch.Generator(device=gdev)
+                replay.set_state(g.get_state())
+                sweep = mk(n, scale=0.005)
+                (omu, osg), (olp, oll) = sweep(g, th0, ld0)
+                m = sweep.model
+
+                def words(k):
+                    return FA.uint32_words(replay, k).to(dev)
+
+                if name == "fused_ais_half":
+                    w = words(7)
+                    a = m.half_plain(*(x[:h] for x in ins), ins[0][h:],
+                                     ins[1][h:], FA.rot_shifts6(w[:6], h),
+                                     w[6:])
+                    w = words(7)
+                    b = m.half_plain(*(x[h:] for x in ins), a[0], a[1],
+                                     FA.rot_shifts6(w[:6], h), w[6:])
+                    want = [torch.cat([x, y]) for x, y in zip(a, b)]
+                else:
+                    w = words(13)
+                    want = m.full_plain(*ins, torch.cat(
+                        [FA.rot_shifts6(w[0:6], h),
+                         FA.rot_shifts6(w[6:12], h)]), w[12:])
+                res = ais_compare([omu, osg, olp, oll], list(want[:4]), ins,
+                                  f"{name} sweep, {gdev.type} generator",
+                                  want[5])
+                check(res[2] > 0, f"{name} sweep committed nothing")
+                out[f"{name} replay ({gdev.type} generator)"] = res
+        ph.result = json.dumps(out)
+
+    with Phase("ais-fused-generic") as ph:
+        n = 131072
+        gcost = costs["g-and-k"][0]
+        model_g = kt.ApproxKernelizedPosterior(gprior, gcost, 0.05,
+                                               cost_vectorized=True)
+        thg, ldg = draw_init(model_g, n, 3)
+        h = n // 2
+        split = AI.make_sweep_halves(model_g, n)
+        ths, _, wall_s, _ = iterate(split, AI._halves(thg, h),
+                                    AI._halves(ldg, h), 200, 8)
+        ths = AI._unhalves(ths)
+        thf, _, wall_f, launched = iterate(ais_sweeps["g-and-k"][0], thg, ldg,
+                                           200, 7)
+        generic_ais_launches = launched["fused_ais_sweep"]
+        check(generic_ais_launches == 400, f"#6 launched "
+              f"{generic_ais_launches} times in 200 sweeps")
+        stats = []
+        # the tolerances of tests/test_pallas.py:800-806
+        for i, tol in ((0, 0.1), (1, 0.1), (2, 0.25), (3, 0.05)):
+            a, b = ths[i].double(), thf[i].double()
+            check(abs(float(a.mean() - b.mean())) < tol,
+                  f"g-and-k param {i}: mean {float(a.mean())} vs "
+                  f"{float(b.mean())}")
+            check(abs(float(a.std() / b.std()) - 1.0) < 0.3,
+                  f"g-and-k param {i}: std {float(a.std())} vs "
+                  f"{float(b.std())}")
+            stats.append(f"{float(b.mean()):.4f}+-{float(b.std()):.4f}")
+        thff, _, wall_ff, launched = iterate(ais_sweeps["flagship"][0], th0,
+                                             ld0, 500, 9)
+        generic_ais_launches += launched["fused_ais_sweep"]
+        pop = same_population(split_pop, thff, "fused_ais_sweep flagship")
+        ph.result = (f"g-and-k n={n}, 200 sweeps: #6 {wall_f:.3f} s "
+                     f"({n * 200 / wall_f:.4g} updates/s) vs split "
+                     f"{wall_s:.3f} s ({n * 200 / wall_s:.4g}); #6 posterior "
+                     f"{stats}; flagship through #6, 500 sweeps: "
+                     f"{wall_ff:.3f} s ({n * 500 / wall_ff:.4g} updates/s), "
+                     f"mu {pop[0]:.5f} +- {pop[2]:.5f}, sigma {pop[1]:.5f}")
+
+    with Phase("ais-readme") as ph:
+        # the reference README's wall-clock claim: AIS(10), 1000 samples,
+        # ntransitions=100, per-walker cost (__graft_entry__.py:17-22);
+        # gather partners, no kernel of the port (the JAX path is a vmap)
+        _alarm(README_LIMIT_S)
+
+        def readme_cost(theta, g):
+            mu, sigma = theta
+            x = mu + sigma * torch.randn(1000, generator=g, device=g.device)
+            return torch.hypot(x.mean() - 2.0,
+                               (x.std(correction=0) - 0.04) * 50)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post = kt.sample(kt.ApproxKernelizedPosterior(prior, readme_cost,
+                                                      0.005),
+                         kt.AIS(10), 1000, ntransitions=100, key=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        m_mu, m_sg, s_mu, s_sg = population(
+            tuple(torch.as_tensor(p.particles) for p in post))
+        check(abs(m_mu - 2.0) < 0.005, f"mean mu {m_mu}")
+        check(abs(m_sg - 0.04) < 0.002, f"mean sigma {m_sg}")
+        check(0.0040 <= s_mu <= 0.0068, f"std mu {s_mu}")
+        ph.result = (f"AIS(10), 1000 samples, 100 sweeps per block: wall "
+                     f"{wall:.3f} s (2e4 half-updates); mu {m_mu:.5f} +- "
+                     f"{s_mu:.5f}, sigma {m_sg:.5f} +- {s_sg:.5f}; launches "
+                     f"{counts()}")
+
+    for name, src, rep, launched in (
+            ("fused_ais_sweep", "kissabc_tpu_torch/csrc/generic.cuh",
+             "kissabc_tpu/ops/pallas_kernels.py:1150", generic_ais_launches),
+            ("fused_ais_half", "kissabc_tpu_torch/csrc/ais.cu",
+             "kissabc_tpu/ops/pallas_kernels.py:525",
+             fused_launches["fused_ais_half"]),
+            ("fused_ais_full", "kissabc_tpu_torch/csrc/ais.cu",
+             "kissabc_tpu/ops/pallas_kernels.py:797",
+             fused_launches["fused_ais_full"])):
+        # no PyTorch call fuses an ensemble move, a prior, a simulator and
+        # an MH accept, so library_ms is null
+        records.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launched, max_abs_err=ais_err[name], matched=True,
+            ms=times[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=None))
 
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -5,7 +5,10 @@ algorithms with torch tensors, on an NVIDIA H100 through hand-written
 CUDA kernels (``csrc/``), or on the CPU through each kernel's plain
 PyTorch version when the caller passes ``device="cpu"``.
 
-Today: adaptive-epsilon SMC-ABC, whole:
+Today: adaptive-epsilon SMC-ABC, whole, and the affine-invariant
+ensemble sampler (AIS).
+
+SMC-ABC:
 
 - ``smc`` with a per-walker cost ``cost(theta, gen)`` or ``cost(theta)``
   (the default form), or a batched cost with ``cost_vectorized=True``:
@@ -22,13 +25,32 @@ Today: adaptive-epsilon SMC-ABC, whole:
 - the priors ``Uniform``, ``Normal``, ``Truncated``/``TruncatedNormal``,
   ``DiscreteUniform``, ``MvNormal`` and ``Factored``.
 
+AIS (slice 4):
+
+- ``sample(model, AIS(N), ns)`` (also with ``chains=``, the positional
+  ``MCMCThreads()``/``MCMCDistributed()`` form, ``thinning=`` and
+  ``schedule="sequential"``) and ``sample_raw``, on the three density
+  models ``ApproxKernelizedPosterior``, ``ApproxPosterior`` and
+  ``CommonLogDensity``, with a per-walker or a batched cost;
+- the fused AIS sweeps, each a CUDA kernel: ``make_fused_ais_sweep``
+  (user models), ``make_fused_flagship_ais_sweep`` (one launch per
+  half) and ``make_fused_flagship_ais_sweep_onekernel`` (one
+  cooperative launch per sweep).
+
 It imports nothing of JAX or of the JAX package.
 """
 
+from .core.ais import (  # noqa: F401
+    AIS, MCMCDistributed, MCMCThreads, sample, sample_raw)
+from .core.density import (  # noqa: F401
+    ApproxKernelizedPosterior, ApproxPosterior, CommonLogDensity)
 from .core.smc import SMCResult, smc, smc_stepped  # noqa: F401
 from .distributions import (  # noqa: F401
     DiscreteUniform, Factored, MvNormal, Normal, Truncated, TruncatedNormal,
     Uniform)
+from .ops.fused_ais import (  # noqa: F401
+    make_fused_ais_sweep, make_fused_flagship_ais_sweep,
+    make_fused_flagship_ais_sweep_onekernel)
 from .ops.fused_smc import make_fused_smc_sweep  # noqa: F401
 from .ops.kernels import (  # noqa: F401
     make_flagship_cost_batched, make_fused_flagship_sweep)
@@ -42,4 +64,8 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "MvNormal", "Particles", "make_flagship_cost_batched",
            "make_fused_flagship_sweep", "make_streaming_moment_cost",
            "make_streaming_scan_cost", "make_fused_smc_sweep", "IterLog",
-           "trace"]
+           "trace", "AIS", "sample", "sample_raw", "MCMCThreads",
+           "MCMCDistributed", "ApproxKernelizedPosterior", "ApproxPosterior",
+           "CommonLogDensity", "make_fused_ais_sweep",
+           "make_fused_flagship_ais_sweep",
+           "make_fused_flagship_ais_sweep_onekernel"]

@@ -6,7 +6,9 @@ and numpy arrays only (the port imports nothing of the JAX package).
   {"a": 1, "b": 3}), ("Truncated", {"base": ("Normal", {"mu": 0,
   "sigma": 0.05}), "lo": 0, "hi": 100})])``;
 - ``state_from_numpy(...)`` makes the port's ``_SMCState`` from the numpy
-  arrays of a JAX ``_SMCState``.
+  arrays of a JAX ``_SMCState``;
+- ``ais_state_from_numpy(thetas, lds)`` makes the port's AIS ensemble
+  (theta leaves and log-density record), whole or as red/black halves.
 
 Tests use both to run the two packages from one starting point.
 """
@@ -60,3 +62,33 @@ def state_from_numpy(thetas, xs, lps, alive, eps, logz, it, *, key=0,
         t(eps, torch.float32), t(logz, torch.float32), t(it, torch.int64),
         torch.zeros((), dtype=torch.int64, device=dev),
         torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def ais_state_from_numpy(thetas, lds, *, halves=False, device="cpu"):
+    """The port's AIS ensemble from numpy arrays: ``thetas`` a tuple of
+    ``[n]`` (or ``[n, d]``) arrays or one array, ``lds`` an ``(lp, ll)``
+    pair, an ``(lp, cost)`` pair or one ``[n]`` array. Returns ``(thetas,
+    lds)`` as float32 tensors; with ``halves=True`` as ``((th_a, th_b),
+    (ld_a, ld_b))``, the carry of ``make_sweep_halves``."""
+    dev = torch.device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+
+    def conv(tree):
+        if isinstance(tree, (tuple, list)):
+            return tuple(t(x) for x in tree)
+        return t(tree)
+
+    th, ld = conv(thetas), conv(lds)
+    if not halves:
+        return th, ld
+    n = (th[0] if isinstance(th, tuple) else th).shape[0]
+    h = n // 2
+
+    def split(tree):
+        if isinstance(tree, tuple):
+            return (tuple(x[:h] for x in tree), tuple(x[h:] for x in tree))
+        return tree[:h], tree[h:]
+
+    return split(th), split(ld)

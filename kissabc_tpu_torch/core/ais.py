@@ -1,0 +1,354 @@
+"""Affine-invariant ensemble sampler (AIS) and the ``sample`` driver —
+the PyTorch counterpart of ``kissabc_tpu/core/ais.py`` (the reference's
+``AIS`` and its AbstractMCMC ``step``, ``src/KissABC.jl:21-80``, driving
+``transition!``, ``src/transition.jl:67-82``).
+
+- The ensemble is a tuple of ``[n]`` (or ``[n, d]``) float tensors. One
+  *sweep* updates the red half against the black half, then the black
+  half against the updated red half: the standard parallel form of the
+  Goodman-Weare moves. The halves are carried as two separate trees
+  (``make_sweep_halves``) and rejoin only at emission.
+- One *block* is ``ntransitions * thinning`` sweeps followed by emitting
+  all n walkers, pushed: the simulator-call budget and sample count of
+  the reference's round robin for the same arguments.
+- The init draws the whole ensemble and redraws invalid walkers in
+  bounded retry rounds (KissABC.jl:50-61); a budget that runs out is a
+  ``RuntimeError`` on the host.
+- ``schedule="sequential"`` runs the reference's literal one-walker
+  round robin (serial; for parity studies).
+- ``chains=`` runs independent chains one after another, each on a
+  generator seeded from the run's key, and concatenates their samples
+  (the reference's ``MCMCThreads``).
+
+The JAX ``lax.scan`` loops are Python loops; the split sweep reads
+nothing on the host, so a block runs without a device sync. ``mesh=``
+raises ``NotImplementedError``: walker sharding is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.moves import mixture_one, propose_half
+from ..ops.tree import tree_leaves, tree_map, tselect
+from ..particles import particles_from_tree
+from ..utils.device import resolve_device
+from ..utils.hostfetch import fetch
+from ..utils.rng import as_generator, uint32_words
+
+
+class AIS:
+    """Ensemble sampler configuration: ``AIS(nparticles)``
+    (KissABC.jl:21-23)."""
+
+    def __init__(self, nparticles: int):
+        self.nparticles = int(nparticles)
+
+    def __repr__(self):
+        return f"AIS({self.nparticles})"
+
+
+# ---------------------------------------------------------------------------
+# ensemble init with a bounded invalid-retry (KissABC.jl:50-61)
+# ---------------------------------------------------------------------------
+
+def _init_ensemble(model, gen, n, retry_sampling):
+    """(thetas, lds, valid): the whole ensemble drawn at once, the
+    invalid walkers redrawn in at most ``retry_sampling`` rounds."""
+    def draw_all():
+        th = model.init_batch(gen, n)
+        return th, model.loglike_batch(model.push(th), gen)
+
+    thetas, lds = draw_all()
+    valid = model.ld_valid(lds)
+    t = 0
+    while t < retry_sampling and not bool(valid.all()):
+        nth, nld = draw_all()
+        thetas = tselect(valid, thetas, nth)
+        lds = tselect(valid, lds, nld)
+        valid = model.ld_valid(lds)
+        t += 1
+    return thetas, lds, valid
+
+
+# ---------------------------------------------------------------------------
+# the red/black sweep
+# ---------------------------------------------------------------------------
+
+def _half_update(model, gen, upd, upd_lds, comp, kernel, scheme):
+    """MH-update the walkers of one half (``upd``) against partners from
+    the other half (``comp``)."""
+    props, corr, lu = propose_half(gen, upd, comp, model.nparams,
+                                   kernel=kernel, scheme=scheme,
+                                   accept_lu=True)
+    new_lds = model.loglike_batch(model.push(props), gen)
+    if lu is None:
+        acc = model.accept_batch(gen, upd_lds, new_lds, corr)
+    else:   # the fused rotation draw made the accept draw too
+        acc = model.accept_lu(lu, upd_lds, new_lds, corr)
+    # the reference stores the raw float proposal, pushing only at
+    # loglike and emission time (transition.jl:77)
+    return tselect(acc, props, upd), tselect(acc, new_lds, upd_lds)
+
+
+def _halves(tree, h):
+    return (tree_map(lambda x: x[:h], tree), tree_map(lambda x: x[h:], tree))
+
+
+def _unhalves(pair):
+    return tree_map(lambda a, b: torch.cat([a, b]), *pair)
+
+
+def make_sweep_halves(model, n, kernel=mixture_one, partner_scheme="auto"):
+    """One red/black sweep over the ensemble carried as two half trees:
+    ``sweep(gen, (th_a, th_b), (ld_a, ld_b)) -> (th, ld)`` in the same
+    form. ``partner_scheme``: ``"roll"`` (rotation partners), ``"gather"``
+    (per-walker random partners, the reference's law) or ``"auto"``."""
+    del n
+
+    def sweep(gen, th, ld):
+        tha, thb = th
+        lda, ldb = ld
+        tha, lda = _half_update(model, gen, tha, lda, thb, kernel,
+                                partner_scheme)
+        thb, ldb = _half_update(model, gen, thb, ldb, tha, kernel,
+                                partner_scheme)
+        return (tha, thb), (lda, ldb)
+
+    return sweep
+
+
+def make_sweep(model, n, kernel=mixture_one, partner_scheme="auto"):
+    """One red/black sweep over a single ``[n]``-leading ensemble:
+    ``sweep(gen, thetas, lds) -> (thetas, lds)``; splits into halves,
+    sweeps and concatenates."""
+    h = n // 2
+    sweep2 = make_sweep_halves(model, n, kernel, partner_scheme)
+
+    def sweep(gen, thetas, lds):
+        th, ld = sweep2(gen, _halves(thetas, h), _halves(lds, h))
+        return _unhalves(th), _unhalves(ld)
+
+    return sweep
+
+
+# ---------------------------------------------------------------------------
+# the reference's literal schedule (KissABC.jl:66-80)
+# ---------------------------------------------------------------------------
+
+def _sequential_transition(model, gen, thetas, lds, i):
+    """One MH move of walker ``i`` against the current ensemble minus
+    ``i`` (transition.jl:67-82), with the single-walker mixture."""
+    n = tree_leaves(thetas)[0].shape[0]
+    idx = torch.arange(n, device=gen.device)
+    idx[i], idx[n - 1] = n - 1, i    # walker i to the last slot
+    comp = tree_map(lambda x: x[idx[: n - 1]], thetas)
+    theta_i = tree_map(lambda x: x[i], thetas)
+    old_ld = tree_map(lambda x: x[i], lds)
+    prop, corr = mixture_one(gen, theta_i, comp, n - 1, model.nparams)
+    new_ld = model.loglike(model.push(prop), gen)
+    acc = model.accept(gen, old_ld, new_ld, corr)
+
+    def put(full, p):
+        full = full.clone()
+        full[i] = torch.where(acc, p, full[i])
+        return full
+
+    return tree_map(put, thetas, prop), tree_map(put, lds, new_ld)
+
+
+def _check_n(model, n):
+    if n < model.nparams + 5:
+        raise ValueError(
+            f"nparticles = {n} is insufficient, set number of particles in "
+            f"AIS(.) at least to {model.nparams + 5}")
+
+
+def make_sequential_run(model, sampler: AIS, ns: int, *,
+                        ntransitions: int = 1, discard_initial: int = 0,
+                        retry_sampling: int = 100, thinning: int = 1):
+    """``run(gen) -> (samples, valid)`` of the reference's round robin:
+    one recorded sample per step, the walker cursor cycling, with
+    ``ntransitions`` single-walker moves between records."""
+    n = sampler.nparticles
+    _check_n(model, n)
+    if thinning < 1:
+        raise ValueError("thinning must be >= 1")
+    total = discard_initial + ns * thinning
+
+    def run(gen):
+        thetas, lds, valid = _init_ensemble(model, gen, n, retry_sampling)
+        emits, i = [], 0
+        for _ in range(total):
+            for _ in range(ntransitions):
+                thetas, lds = _sequential_transition(model, gen, thetas,
+                                                     lds, i)
+            emits.append(model.push(tree_map(lambda x: x[i], thetas)))
+            i = (i + 1) % n
+        # AbstractMCMC's thinning: after the discard, keep the last step
+        # of each group of `thinning`
+        kept = emits[discard_initial + thinning - 1::thinning]
+        return tree_map(lambda *xs: torch.stack(xs), *kept), valid
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the sample driver (the reference's re-exported `sample`,
+# KissABC.jl:106-175)
+# ---------------------------------------------------------------------------
+
+def _no_mesh(mesh, caller):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{caller}(mesh=...): walker sharding is not ported yet")
+
+
+def make_run(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
+             discard_initial: int = 0, retry_sampling: int = 100,
+             kernel=mixture_one, mesh=None, partner_scheme="auto",
+             progress: bool = False, thinning: int = 1):
+    """The red/black program ``run(gen) -> (samples [blocks*n, ...],
+    valid [n])``: ``ceil(discard_initial * ntransitions / n)`` burn-in
+    sweeps, then ``ceil(ns / n)`` blocks of ``ntransitions * thinning``
+    sweeps, each emitting the pushed ensemble."""
+    _no_mesh(mesh, "make_run")
+    n = sampler.nparticles
+    _check_n(model, n)
+    if thinning < 1:
+        raise ValueError("thinning must be >= 1")
+    sweep = make_sweep_halves(model, n, kernel, partner_scheme)
+    h = n // 2
+    burn_sweeps = max(0, math.ceil(discard_initial * ntransitions / n))
+    blocks = max(1, math.ceil(ns / n))
+    sweeps_per_block = ntransitions * thinning
+
+    def run(gen):
+        thetas, lds, valid = _init_ensemble(model, gen, n, retry_sampling)
+        th, ld = _halves(thetas, h), _halves(lds, h)
+        for _ in range(burn_sweeps):
+            th, ld = sweep(gen, th, ld)
+        emits = []
+        for b in range(blocks):
+            for _ in range(sweeps_per_block):
+                th, ld = sweep(gen, th, ld)
+            emits.append(model.push(_unhalves(th)))
+            if progress:
+                print(f"AIS block {b + 1}/{blocks} ({sweeps_per_block} "
+                      "sweeps each)", flush=True)
+        return tree_map(lambda *xs: torch.cat(xs), *emits), valid
+
+    return run
+
+
+_INVALID = ("Prior leads to infinite costs too often, tune the prior or "
+            "increase `retry_sampling`.")
+
+
+def sample_raw(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
+               discard_initial: int = 0, retry_sampling: int = 100, key=0,
+               kernel=mixture_one, mesh=None, progress: bool = False,
+               partner_scheme="auto", schedule: str = "red_black",
+               thinning: int = 1, device=None):
+    """Run AIS and return ``(pushed samples with leading axis [ns],
+    valid mask)`` — the tensor-level API under ``sample``."""
+    _no_mesh(mesh, "sample")
+    dev = resolve_device(device)
+    if schedule == "sequential":
+        # the serial round robin has no partner batching and no kernel
+        # hook: refuse knobs that would be ignored
+        ignored = [] if partner_scheme == "auto" else ["partner_scheme"]
+        ignored += [] if kernel is mixture_one else ["kernel"]
+        ignored += [] if not progress else ["progress"]
+        if ignored:
+            raise ValueError(
+                f"schedule='sequential' does not support {ignored}; "
+                "drop them or use the default red_black schedule")
+        run = make_sequential_run(
+            model, sampler, ns, ntransitions=ntransitions,
+            discard_initial=discard_initial, retry_sampling=retry_sampling,
+            thinning=thinning)
+    elif schedule == "red_black":
+        run = make_run(model, sampler, ns, ntransitions=ntransitions,
+                       discard_initial=discard_initial,
+                       retry_sampling=retry_sampling, kernel=kernel,
+                       partner_scheme=partner_scheme, progress=progress,
+                       thinning=thinning)
+    else:
+        raise ValueError(
+            f"schedule must be 'red_black' or 'sequential', got {schedule!r}")
+    flat, valid = run(as_generator(key, dev))
+    if not bool(valid.all()):
+        raise RuntimeError(_INVALID)
+    return tree_map(lambda x: x[:ns], flat), valid
+
+
+class MCMCThreads:
+    """Positional multi-chain marker, as the reference's re-exported
+    ``MCMCThreads`` (KissABC.jl:175): ``sample(model, AIS(N),
+    MCMCThreads(), ns, nchains)`` routes to ``chains=nchains``."""
+
+
+class MCMCDistributed:
+    """Positional multi-chain marker, as the reference's
+    ``MCMCDistributed``; chains run as with ``MCMCThreads``."""
+
+
+def _chain_generators(key, chains, dev):
+    """One generator per chain, seeded from ``chains`` words of the run's
+    generator."""
+    seeds = fetch(uint32_words(as_generator(key, dev), chains))
+    return [as_generator(int(s), dev) for s in seeds]
+
+
+def sample(model, sampler: AIS, ns, *args, ntransitions: int = 1,
+           discard_initial: int = 0, retry_sampling: int = 100,
+           chains: int | None = None, key=0, progress: bool = False,
+           kernel=mixture_one, mesh=None, partner_scheme="auto",
+           schedule: str = "red_black", thinning: int = 1, device=None):
+    """KissABC-style entry point: per-dimension ``Particles`` (unwrapped
+    when one-dimensional), as bundle_samples (KissABC.jl:82-94).
+    ``chains=Nc`` concatenates Nc independent chains (KissABC.jl:96-104);
+    the reference's positional ``sample(model, AIS(N), MCMCThreads(), ns,
+    Nc)`` (or ``MCMCDistributed()``) is accepted too. ``progress=True``
+    prints each block; ``thinning=t`` keeps every t-th step. ``key``: an
+    int seed or a ``torch.Generator`` on the run's device. ``device``:
+    ``None`` runs on CUDA (and raises without a card); ``"cpu"`` runs the
+    plain versions. ``mesh=`` raises ``NotImplementedError``."""
+    if isinstance(ns, (MCMCThreads, MCMCDistributed)) or (
+            isinstance(ns, type)
+            and issubclass(ns, (MCMCThreads, MCMCDistributed))):
+        if len(args) != 2:
+            raise TypeError(
+                "sample(model, sampler, MCMCThreads(), ns, nchains) "
+                f"needs ns and nchains, got {len(args)} extra args")
+        if chains is not None:
+            raise TypeError(
+                "pass nchains positionally after MCMCThreads() OR as "
+                "chains=, not both")
+        ns, chains = args
+    elif args:
+        raise TypeError(
+            f"sample() got unexpected positional arguments {args}; did "
+            "you mean sample(model, sampler, MCMCThreads(), ns, "
+            "nchains)?")
+    ns = int(ns)
+    kw = dict(ntransitions=ntransitions, discard_initial=discard_initial,
+              retry_sampling=retry_sampling, kernel=kernel, mesh=mesh,
+              progress=progress, partner_scheme=partner_scheme,
+              thinning=thinning, device=device)
+    if chains is None:
+        flat, _ = sample_raw(model, sampler, ns, key=key, schedule=schedule,
+                             **kw)
+        return particles_from_tree(tree_map(fetch, flat))
+    if schedule != "red_black":
+        raise ValueError(
+            "schedule='sequential' is single-chain only; drop chains= or "
+            "use the default red_black schedule")
+    _no_mesh(mesh, "sample")
+    outs = [sample_raw(model, sampler, ns, key=g, **kw)[0]
+            for g in _chain_generators(key, chains, resolve_device(device))]
+    return particles_from_tree(
+        tree_map(lambda *xs: fetch(torch.cat(xs)), *outs))

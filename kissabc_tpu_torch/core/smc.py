@@ -47,7 +47,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ..ops.moves import gaussian_diff_propose
 from ..ops.quantile import (masked_quantile, masked_quantile_bisect,
@@ -59,7 +58,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator, log_uniform
-from .density import _adapt_cost
+from .density import per_walker_cost  # noqa: F401 (re-exported)
 
 _f32 = torch.float32
 
@@ -88,36 +87,6 @@ class SMCResult(NamedTuple):
     # log P(cost < eps | prior): the telescoping product of the
     # per-iteration survival fractions (adaptive-SMC evidence estimator)
     log_evidence: float = float("nan")
-
-
-_VMAP_HINT = (
-    "the per-walker cost could not be mapped over the walkers with "
-    "torch.func.vmap; write it with tensor ops vmap can batch (no .item(), "
-    "no Python control flow on tensors), or pass a batched cost "
-    "cost(thetas, gen) -> costs[n] with cost_vectorized=True")
-
-
-def per_walker_cost(cost):
-    """The batched cost ``(pushed_thetas, gen) -> costs[n]`` of a
-    per-walker ``cost(theta, gen)`` or ``cost(theta)``: the counterpart
-    of the JAX ``vmap`` at ``kissabc_tpu/core/smc.py:116-118``. Walkers
-    are mapped on the leading axis of every leaf; the thetas arrive
-    pushed, so the map itself does not push again."""
-    cost2 = _adapt_cost(cost)
-    # a cost without the generator is deterministic (as in JAX, where it
-    # gets no key): a draw inside it raises instead of being shared
-    mapped = vmap(cost2, in_dims=(0, None), randomness=(
-        "different" if cost2 is cost else "error"))
-
-    def batched(thetas, gen):
-        try:
-            return mapped(thetas, gen)
-        except RuntimeError as e:
-            if not str(e).startswith("vmap"):
-                raise
-            raise RuntimeError(f"{e}\nsmc: {_VMAP_HINT}") from e
-
-    return batched
 
 
 class _SMCProgram:

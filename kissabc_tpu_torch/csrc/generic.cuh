@@ -1,17 +1,20 @@
 // Hand-written CUDA kernels for user models on Hopper (sm_90a): the
 // generic streaming simulator cost and the generic fused smc sweep.
 //
-// They replace two Pallas TPU kernels of kissabc_tpu/ops/pallas_kernels.py:
+// They replace three Pallas TPU kernels of kissabc_tpu/ops/pallas_kernels.py:
 //   kt_streaming_moment_cost <- make_streaming_moment_cost (pallas_call :2742)
 //   kt_fused_smc_sweep       <- make_fused_smc_sweep       (pallas_call :2391)
+//   kt_fused_ais_sweep       <- make_fused_ais_sweep half_call (pallas_call
+//                               :1440), in units with KT_HAS_AIS
 //
 // This file is a template. kissabc_tpu_torch/ops/codegen.py traces the
 // user's PyTorch callables and writes a translation unit that defines
 //   KT_NPARAMS (theta leaves K), KT_NSTATS, KT_NOISE_NORMAL, KT_HAS_SWEEP
 //   float draw(const float* th, float e)        one simulated value
 //   void  stats_of(float x, float* g)           the KT_NSTATS summaries
-//   float reduce_cost(const float* th, const float* m)   (sweep only)
-//   float prior_logpdf(const float* th)                  (sweep only)
+//   float reduce_cost(const float* th, const float* m)   (sweeps only)
+//   float prior_logpdf(const float* th)                  (sweeps only)
+//   void  prior_push(const float* th, float* out)        (AIS only)
 // and then includes this file; ops/_build.py compiles it with nvcc.
 //
 // Design. One thread per walker loops over its draws, as the flagship
@@ -232,6 +235,116 @@ __global__ void fused_smc_sweep_kernel(
 }
 #endif
 
+#if defined(KT_HAS_AIS) && KT_HAS_AIS
+// The generic AIS half-update (make_fused_ais_sweep): per walker i of the
+// updated half, the 4:2:1 stretch / DE / walk proposal against the six
+// partners comp[(i + r_j) % h], the push (discrete marginals rounded) and
+// the prior's logpdf, then, inside the prior, the streamed simulator on
+// the pushed proposal, reduce_cost in the kernel, and the kernelized MH
+// accept on lp + ll; the raw float proposal is committed. A walker
+// outside the prior skips the simulator: its llp is its lpp (-inf) and it
+// never commits, the outputs the TPU kernel gives after simulating it.
+//
+// Words k of a walker (stub counter 50000 + k, on the TPU kernel's
+// (TR, 128) super-tile: program i / sb_rows, row, lane; Philox word k of
+// counter (k / 4, i, kStreamGenAisWalker, 0)): 0 move, 1 stretch z,
+// 2 accept, then normal pair q from words 3 + 2q, 4 + 2q. The normals in
+// order: the DE gamma, one jitter per leaf, the three walk weights. The
+// simulator is simulate() at the same (program, row, lane).
+constexpr uint32_t kStreamGenAisWalker = 8u;
+constexpr uint32_t kStreamGenAisSim = 9u;
+constexpr int kAisPairs = (KT_NPARAMS + 4 + 1) / 2;
+constexpr int kAisWords = 3 + 2 * kAisPairs;
+
+struct AisGenConsts {
+  float inv_n, g_lo, g_span, de_scale, inv300, third, p_s_hi, p_d_hi,
+      inv_scale, corr2;  // corr2 = 2 (d - 1)
+};
+
+__global__ void fused_ais_sweep_kernel(
+    Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
+    Leaves comp, const long long* __restrict__ shifts,
+    const long long* __restrict__ seed_ptr, OutLeaves oth,
+    float* __restrict__ olp, float* __restrict__ oll, int h, int ndraws,
+    AisGenConsts c, int stub, int sb_rows, int chunk) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h) return;  // no padding walkers: nothing past h is written
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  Coords cc = coords(i, sb_rows);
+  uint32_t wd[kAisWords];
+  if (stub) {
+#pragma unroll
+    for (int k = 0; k < kAisWords; ++k)
+      wd[k] = stub_bits(cc.pid, seed, 50000u + (uint32_t)k, cc.row, cc.lane);
+  } else {
+#pragma unroll
+    for (int g = 0; 4 * g < kAisWords; ++g) {
+      Words4 q = philox4x32_10((uint32_t)g, (uint32_t)i, kStreamGenAisWalker,
+                               0u, seed, 0u);
+      uint32_t v[4] = {q.x0, q.x1, q.x2, q.x3};
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * g + t < kAisWords) wd[4 * g + t] = v[t];
+    }
+  }
+  float nrm[2 * kAisPairs];
+#pragma unroll
+  for (int q = 0; q < kAisPairs; ++q)
+    box_muller(wd[3 + 2 * q], wd[4 + 2 * q], &nrm[2 * q], &nrm[2 * q + 1]);
+  float u_mid = to_unit(wd[0]), u_z = to_unit(wd[1]), u_acc = to_unit(wd[2]);
+  bool is_s = u_mid < c.p_s_hi;
+  bool is_d = (u_mid >= c.p_s_hi) && (u_mid < c.p_d_hi);
+  float zroot = u_z * c.g_span + c.g_lo;
+  float z = zroot * zroot;
+  float corr = is_s ? c.corr2 * logf(zroot) : 0.0f;
+  float gamma = c.de_scale * expf(0.1f * nrm[0]);
+  float r1 = nrm[1 + KT_NPARAMS], r2 = nrm[2 + KT_NPARAMS],
+        r3 = nrm[3 + KT_NPARAMS];
+
+  int idx[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    int k = i + (int)shifts[j];
+    idx[j] = k >= h ? k - h : k;
+  }
+  float prop[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    const float* cp = comp.p[k];
+    float xi = th.p[k][i];
+    float pa = cp[idx[0]], da = cp[idx[1]], db = cp[idx[2]];
+    float wa = cp[idx[3]], wb = cp[idx[4]], wc = cp[idx[5]];
+    float p_s = pa + z * (xi - pa);
+    float tri = (fabsf(da - db) + fabsf(xi - db)) + fabsf(da - xi);
+    float p_d = (xi + gamma * (da - db)) + ((gamma * tri) * c.inv300) *
+                                               nrm[1 + k];
+    float cen = ((wa + wb) + wc) * c.third;
+    float p_w = xi + ((r1 * (wa - cen) + r2 * (wb - cen)) + r3 * (wc - cen));
+    prop[k] = is_s ? p_s : (is_d ? p_d : p_w);
+  }
+  float pushed[KT_NPARAMS];
+  prior_push(prop, pushed);
+  float lpp = prior_logpdf(pushed);
+  bool valid = lpp > __uint_as_float(0xff800000u);
+  float llp = lpp;
+  if (valid) {  // no output of a walker outside the prior depends on it
+    float m[KT_NSTATS];
+    simulate(pushed, ndraws, chunk, c.inv_n, stub, cc.pid, cc.row, cc.lane,
+             seed, kStreamGenAisSim, (uint32_t)i, m);
+    float t = reduce_cost(pushed, m) * c.inv_scale;
+    llp = -0.5f * (t * t);
+  }
+  float lp0 = lp[i], ll0 = ll[i];
+  float lw = (corr + (lpp + llp)) - (lp0 + ll0);
+  bool acc = valid && (log1pf(-u_acc) <= lw);
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k)
+    oth.p[k][i] = acc ? prop[k] : th.p[k][i];
+  olp[i] = acc ? lpp : lp0;
+  oll[i] = acc ? llp : ll0;
+}
+#endif
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -269,6 +382,32 @@ extern "C" int kt_fused_smc_sweep(
                              (cudaStream_t)stream>>>(
         leaves, xs, lps, alive, eps, flag, rs, outs, oxs, olps, ocm, n,
         ndraws, inv_n, w_scale, stub, sb_rows, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if defined(KT_HAS_AIS) && KT_HAS_AIS
+extern "C" int kt_fused_ais_sweep(
+    const float* const* th, const float* lp, const float* ll,
+    const float* const* comp, const long long* shifts, const long long* seed,
+    float* const* oth, float* olp, float* oll, int h, int ndraws,
+    const float* fconsts, int stub, int sb_rows, int chunk, void* stream) {
+  Leaves leaves, partners;
+  OutLeaves outs;
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    leaves.p[k] = th[k];
+    partners.p[k] = comp[k];
+    outs.p[k] = oth[k];
+  }
+  const float* f = fconsts;
+  AisGenConsts c = {f[0], f[1], f[2], f[3], f[4],
+                    f[5], f[6], f[7], f[8], f[9]};
+  if (h > 0) {
+    fused_ais_sweep_kernel<<<grid_for(h), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        leaves, lp, ll, partners, shifts, seed, outs, olp, oll, h, ndraws, c,
+        stub, sb_rows, chunk);
   }
   return (int)cudaGetLastError();
 }

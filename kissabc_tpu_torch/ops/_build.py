@@ -3,7 +3,9 @@ at first use and loads them with ``ctypes``.
 
 Two kinds of translation unit:
 
-- ``csrc/flagship.cu``, the flagship kernels (``build()``, ``load()``);
+- the hand-written sources, built into one library (``build()``,
+  ``load()``): ``csrc/flagship.cu``, the flagship smc kernels, and
+  ``csrc/ais.cu``, the flagship AIS sweeps;
 - a generated unit per user model: the device functions that
   ``ops/codegen.py`` emits, then ``#include "generic.cuh"`` (i.i.d.
   simulators, the fused sweep) or ``#include "scan.cuh"`` (sequential
@@ -32,8 +34,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCE = CSRC / "flagship.cu"
-HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh", CSRC / "scan.cuh")
+SOURCES = (CSRC / "flagship.cu", CSRC / "ais.cu")
+HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh", CSRC / "scan.cuh",
+           CSRC / "moments.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kissabc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,11 +51,15 @@ _SIGNATURES = {
     "kt_normal_summary_cost": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
                                _I, _I, _I, _P],
     "kt_fused_sweep": [_P] * 13 + [_I, _I] + [_F] * 11 + [_I, _I, _I, _P],
+    "kt_fused_ais_half": [_P] * 12 + [_I, _P, _P, _P],
+    "kt_fused_ais_full": [_P] * 10 + [_I, _P, _P, _P],
+    "kt_fused_ais_full_grid": [_I, _P],
 }
 GEN_SIGNATURES = {
     "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _P],
     "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "kt_fused_ais_sweep": [_P] * 9 + [_I, _I, _P, _I, _I, _I, _P],
 }
 
 
@@ -72,7 +79,7 @@ def _digest(*parts: bytes) -> str:
 
 
 def library_path() -> Path:
-    digest = _digest(SOURCE.read_bytes(), HEADERS[0].read_bytes(),
+    digest = _digest(*(f.read_bytes() for f in SOURCES + HEADERS),
                      " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libflagship-{digest}.so"
 
@@ -89,14 +96,14 @@ class _Job:
     """One nvcc run towards ``lib``, started at construction (or nothing
     to do when the library exists)."""
 
-    def __init__(self, lib: Path, source: Path, flags):
+    def __init__(self, lib: Path, sources, flags):
         self.lib, self.proc = lib, None
         if lib.exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.tmp = lib.with_suffix(f".{os.getpid()}.{id(self)}.tmp")
         self.cmd = [nvcc(), *flags, "-I", str(CSRC), "-o", str(self.tmp),
-                    str(source)]
+                    *map(str, sources)]
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(self.cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
@@ -116,22 +123,22 @@ class _Job:
 
 
 def start(text: str | None = None) -> _Job:
-    """Start compiling the flagship source (``text=None``) or a generated
+    """Start compiling the hand-written sources (``text=None``) or a generated
     unit, unless its library exists; ``.wait()`` on the result gives
     (library path, seconds compiling, compiler output). Starting several
     before waiting on any runs their nvcc at once."""
     if text is None:
-        return _Job(library_path(), SOURCE, NVCC_FLAGS)
+        return _Job(library_path(), SOURCES, NVCC_FLAGS)
     lib = generated_path(text)
     source = BUILD_DIR / (lib.stem.replace("libgen-", "gen-") + ".cu")
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         source.write_text(text)
-    return _Job(lib, source, GEN_FLAGS)
+    return _Job(lib, (source,), GEN_FLAGS)
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the flagship kernels unless a library for this source
+    """Compile the hand-written sources unless a library for them
     exists. Returns (library path, seconds spent compiling, compiler
     output)."""
     return start().wait()
@@ -155,7 +162,7 @@ def _bind(path: Path, signatures) -> ctypes.CDLL:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The built flagship kernel library."""
+    """The built library of the hand-written sources."""
     return _bind(build()[0], _SIGNATURES)
 
 

@@ -14,6 +14,7 @@ record an expression graph, which this module emits as
     float stat_j(float x);                    (one per entry of stats)
     float reduce_cost(const float* th, const float* m);
     float prior_logpdf(const float* th);
+    void prior_push(const float* th, float* out);   (the AIS sweep)
 
 The scan kernel (``csrc/scan.cuh``) runs a sequential model: ``init(
 theta)``, ``step(theta, x, eps, t)`` and ``observe(theta, x, t, obs)``
@@ -813,6 +814,9 @@ def _marginal_logpdf(d, x):
     if kind is D.Normal:
         z = f"(({x} - {f32_literal(d.mu)}) / {f32_literal(d.sigma)})"
         return (f"((-0.5f * {z}) * {z} - {f32_literal(d._lnorm)})", 6)
+    if kind is D.DiscreteUniform:   # on the pushed (rounded) value
+        return (f"(({x} >= {f32_literal(d.a)}) && ({x} <= {f32_literal(d.b)}))"
+                f" ? {f32_literal(-d._lpmf)} : {_NEG_INF_C}", 3)
     if kind is D.Truncated:
         base, ops = _marginal_logpdf(d.base, x)
         return (f"((({x} >= {f32_literal(d.lo)}) && ({x} <= "
@@ -820,7 +824,8 @@ def _marginal_logpdf(d, x):
                 f" : {_NEG_INF_C})", ops + 4)
     raise NotImplementedError(
         f"{kind.__name__} has no entry in the generic kernels' prior table "
-        "(Uniform, Normal, Truncated of either): its push and logpdf "
+        "(Uniform, Normal, Truncated of either, DiscreteUniform): its push "
+        "and logpdf "
         "cannot be compiled into the fused sweep")
 
 
@@ -832,14 +837,18 @@ def prior_marginals(prior):
     return (prior,), None
 
 
-def emit_prior(prior):
+def emit_prior(prior, push=False):
     """``prior_logpdf(th)``: the sum of the marginals' logpdfs in
-    ``Factored.logpdf``'s order. Push is the identity for these
-    continuous families. Returns (C text, operations)."""
+    ``Factored.logpdf``'s order. Without ``push`` only continuous
+    marginals are taken (the smc sweep's push is the identity); with it,
+    ``prior_push(th, out)`` is emitted too, rounding the discrete
+    marginals half to even (``rintf``, then float, as the JAX kernel's
+    ``push_tree`` and re-cast). Returns (C text, logpdf operations, push
+    operations)."""
     marginals, _ = prior_marginals(prior)
-    lines, ops = [], 0
+    lines, pushes, ops, push_ops = [], [], 0, 0
     for k, d in enumerate(marginals):
-        if d.discrete or d.event_dim:
+        if d.event_dim or (d.discrete and not push):
             raise NotImplementedError(
                 f"marginal {k} ({d!r}) is not a continuous scalar: the "
                 "generic kernels push only continuous marginals")
@@ -847,9 +856,16 @@ def emit_prior(prior):
         ops += n + (k > 0)
         lines.append(f"  lp = {expr};" if k == 0
                      else f"  lp = lp + ({expr});")
+        pushes.append(f"  out[{k}] = rintf(th[{k}]);" if d.discrete
+                      else f"  out[{k}] = th[{k}];")
+        push_ops += int(d.discrete)
     body = "\n".join(lines)
-    return ("__device__ __forceinline__ float prior_logpdf(const float* th) "
-            f"{{\n  float lp;\n{body}\n  return lp;\n}}\n", ops)
+    text = ("__device__ __forceinline__ float prior_logpdf(const float* th) "
+            f"{{\n  float lp;\n{body}\n  return lp;\n}}\n")
+    if push:
+        text += ("__device__ __forceinline__ void prior_push(const float* th,"
+                 " float* out) {\n" + "\n".join(pushes) + "\n}\n")
+    return text, ops, push_ops
 
 
 # ---------------------------------------------------------------------------
@@ -870,13 +886,16 @@ class Generated:
     stat_ops: int
     reduce_ops: int
     prior_ops: int
+    push_ops: int = 0
 
 
 def generate(draw, *, structure, nstats, stats, nmoments, noise,
-             reduce_cost=None, prior=None):
+             reduce_cost=None, prior=None, ais=False):
     """Trace the model and emit its translation unit. ``structure``:
     None for one theta leaf, else the tuple length K. With
-    ``reduce_cost`` and ``prior`` the unit also holds the fused sweep."""
+    ``reduce_cost`` and ``prior`` the unit also holds the fused smc
+    sweep, or with ``ais=True`` the fused AIS sweep instead (whose prior
+    pushes discrete marginals)."""
     nparams = 1 if structure is None else structure
     draw_fn, draw_ops = emit_function(
         "draw", "const float* th, float e", trace_draw(draw, structure))
@@ -888,13 +907,13 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
     calls = "\n".join(f"  g[{j}] = stat_{j}(x);" for j in range(nstats))
     fns.append("__device__ __forceinline__ void stats_of(float x, float* g) "
                f"{{\n{calls}\n}}\n")
-    reduce_ops = prior_ops = 0
+    reduce_ops = prior_ops = push_ops = 0
     if reduce_cost is not None:
         text, reduce_ops = emit_function(
             "reduce_cost", "const float* th, const float* m",
             trace_reduce(reduce_cost, structure, nstats))
         fns.append(text)
-        text, prior_ops = emit_prior(prior)
+        text, prior_ops, push_ops = emit_prior(prior, push=ais)
         fns.append(text)
     functions = "\n".join(fns)
     source = "\n".join([
@@ -902,11 +921,12 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
         f"#define KT_NPARAMS {nparams}",
         f"#define KT_NSTATS {nstats}",
         f"#define KT_NOISE_NORMAL {int(noise == 'normal')}",
-        f"#define KT_HAS_SWEEP {int(reduce_cost is not None)}",
+        f"#define KT_HAS_SWEEP {int(reduce_cost is not None and not ais)}",
+        *(["#define KT_HAS_AIS 1"] if ais else []),
         '#include "common.cuh"',
         "namespace {",
         functions,
         "}  // namespace",
         '#include "generic.cuh"', ""])
     return Generated(functions, source, nparams, nstats, draw_ops, stat_ops,
-                     reduce_ops, prior_ops)
+                     reduce_ops, prior_ops, push_ops)

@@ -160,7 +160,7 @@ def plan_tiles(n: int, block: int, walker_tiles: int):
 
 def _moments_stub(seed, pid, ctr0, sub, ndraws, chunk):
     """z-moment sums of the stub stream in the TPU kernels' order (see
-    ``moments_stub`` in flagship.cu). ``pid``, ``ctr0``, ``sub``: [n]."""
+    ``moments_stub`` in moments.cuh). ``pid``, ``ctr0``, ``sub``: [n]."""
     n = pid.shape[0]
     nchunks = -(-ndraws // (2 * chunk))
     lane = torch.arange(chunk, device=pid.device)
@@ -183,11 +183,12 @@ def _moments_stub(seed, pid, ctr0, sub, ndraws, chunk):
     return s1, s2
 
 
-def _moments_philox(seed, stream, n, ndraws, device):
+def _moments_philox(seed, stream, n, ndraws, device, walker0=0):
     """z-moment sums of Philox draws (see ``moments_philox`` in
-    flagship.cu): group q gives draws 4q .. 4q+3."""
+    moments.cuh): group q gives draws 4q .. 4q+3; walkers are numbered
+    from ``walker0``."""
     ngroups = -(-ndraws // 4)
-    walker = torch.arange(n, device=device)
+    walker = walker0 + torch.arange(n, device=device)
     s1 = torch.zeros(n, dtype=torch.float32, device=device)
     s2 = torch.zeros_like(s1)
     gstep = min(ngroups, max(1, _SLAB // (4 * max(n, 1))))

@@ -1,21 +1,36 @@
-"""The smc rejuvenation proposal — the PyTorch counterpart of
-``gaussian_diff_propose`` in ``kissabc_tpu/ops/moves.py``.
+"""Proposal moves — the PyTorch counterpart of ``kissabc_tpu/ops/moves.py``.
 
-For every walker i, two distinct partners a, b != i from the snapshot
-population and ``W = (theta_b - theta_a) * max_stretch * N(0,1) /
-sqrt(d)``. The random draws are split from the arithmetic
-(``propose_roll`` / ``propose_gather``) so tests can feed both packages
-the same shifts, partners and scales.
+- smc: ``gaussian_diff_propose``. For every walker i, two distinct
+  partners a, b != i from the snapshot population and ``W = (theta_b -
+  theta_a) * max_stretch * N(0,1) / sqrt(d)``.
+- AIS: the 4:2:1 stretch / differential-evolution / walk mixture of the
+  reference (``src/transition.jl``) over a red/black half ensemble,
+  partners drawn from the other half. ``stretch_one``, ``de_one``,
+  ``walk_one`` and ``mixture_one`` move one walker (the sequential
+  schedule, and ``propose_half(kernel=...)`` through
+  ``torch.func.vmap``); ``mixture_batched`` moves a whole half with one
+  batched draw per random quantity.
+
+Every move is split into its draws from the explicit generator and a
+pure function of those draws (``propose_roll``/``propose_gather``,
+``stretch_move``/``de_move``/``walk_move``/``mixture_move``,
+``rollfused_from_words``), so tests can feed both packages the same
+words, shifts and partners. Shifts are computed on the generator's
+device: the split AIS sweep reads nothing on the host.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+from torch.func import vmap
 
 from ..utils.rng import uint32_words
-from .tree import tree_leaves, tree_map
+from .tree import sample_distinct, tree_leaves, tree_map
+
+_F32 = np.float32
 
 AUTO_ROLL_MIN = 16384  # below this, per-walker gathers are cheap and the
 # reference-exact partner law wins; above it, two rotations are used
@@ -83,3 +98,309 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto"):
     b = b + (b >= lo).to(b.dtype)
     b = b + (b >= hi).to(b.dtype)
     return propose_gather(ens, w, a, b)
+
+
+# ---------------------------------------------------------------------------
+# AIS: the stretch variate and the single-walker moves (transition.jl)
+# ---------------------------------------------------------------------------
+
+def _stretch_consts(a):
+    """float32 (1/sqrt(a), sqrt(a) - 1/sqrt(a)), as the JAX package
+    rounds them."""
+    sa = np.sqrt(_F32(a))
+    inv = _F32(1.0) / sa
+    return float(inv), float(sa - inv)
+
+
+def cdf_g_inv(u, a):
+    """Inverse cdf of the stretch g-pdf, eq. 10 of Foreman-Mackey et al.
+    2013 (reference transition.jl:46)."""
+    lo, span = _stretch_consts(a)
+    return (u * span + lo) ** 2
+
+
+def sample_g(gen, a=3.0):
+    return cdf_g_inv(torch.rand((), generator=gen, device=gen.device), a)
+
+
+def _noise_like(gen, tree):
+    """Standard-normal noise shaped like ``tree`` (the DE jitter)."""
+    return tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                          device=gen.device), tree)
+
+
+def _bshape(w, x):
+    """Broadcast a per-walker ``w`` against a leaf ``x`` with trailing
+    component axes."""
+    return w.reshape(w.shape + (1,) * (x.dim() - w.dim()))
+
+
+def _take(comp, j):
+    return tree_map(lambda x: x[j], comp)
+
+
+def stretch_move(theta, part, z, d):
+    """Goodman-Weare stretch (transition.jl:51-59): ``part + z * (theta -
+    part)`` and the log-Jacobian ``(d - 1) log z``."""
+    prop = tree_map(lambda pa, pi: pa + _bshape(z, pa) * (pi - pa), part,
+                    theta)
+    return prop, (d - 1) * torch.log(z)
+
+
+def de_scale(d):
+    return float(_F32(2.38 / math.sqrt(2 * d)))
+
+
+def de_move(theta, ta, tb, gnorm, noise, d):
+    """ter Braak differential evolution (transition.jl:2-22): ``gamma =
+    2.38/sqrt(2d) * exp(0.1 gnorm)``, ``theta + gamma (a - b)`` plus the
+    triangle-scaled jitter ``gamma/300 (|a-b| + |i-b| + |a-i|) noise``;
+    zero correction."""
+    gamma = de_scale(d) * torch.exp(0.1 * gnorm)
+
+    def mk(xi, xa, xb, nz):
+        g = _bshape(gamma, xi)
+        tri = torch.abs(xa - xb) + torch.abs(xi - xb) + torch.abs(xa - xi)
+        return xi + g * (xa - xb) + g * tri / 300.0 * nz
+
+    return tree_map(mk, theta, ta, tb, noise)
+
+
+def walk_move(theta, twa, twb, twc, r):
+    """Goodman-Weare walk over three partners (transition.jl:24-43):
+    ``theta + sum_k r_k (t_k - centroid)``; zero correction. ``r``: the
+    three weights on the leading axis."""
+    def mk(xi, xa, xb, xc):
+        cen = (xa + xb + xc) / 3.0
+        return xi + (_bshape(r[0], xi) * (xa - cen)
+                     + _bshape(r[1], xi) * (xb - cen)
+                     + _bshape(r[2], xi) * (xc - cen))
+
+    return tree_map(mk, theta, twa, twb, twc)
+
+
+def mixture_move(is_s, is_d, p_s, c_s, p_d, p_w):
+    """Select the stretch, DE or walk proposal per walker; the correction
+    is the stretch's where it was chosen, else 0."""
+    prop = tree_map(
+        lambda a, b, c: torch.where(_bshape(is_s, a), a,
+                                    torch.where(_bshape(is_d, a), b, c)),
+        p_s, p_d, p_w)
+    return prop, torch.where(is_s, c_s, torch.zeros_like(c_s))
+
+
+def _randint(gen, hi, shape=()):
+    return torch.randint(0, hi, shape, generator=gen, device=gen.device)
+
+
+def stretch_one(gen, theta_i, comp, hc, d, a=3.0):
+    """Stretch move of one walker against a partner from ``comp``
+    (leaves ``[hc, ...]``)."""
+    j = _randint(gen, hc)
+    return stretch_move(theta_i, _take(comp, j), sample_g(gen, a), d)
+
+
+def de_one(gen, theta_i, comp, hc, d):
+    ia = _randint(gen, hc)
+    ib = sample_distinct(gen, hc, (ia,))
+    gnorm = torch.randn((), generator=gen, device=gen.device)
+    noise = _noise_like(gen, theta_i)
+    prop = de_move(theta_i, _take(comp, ia), _take(comp, ib), gnorm, noise,
+                   d)
+    return prop, torch.zeros((), device=gen.device)
+
+
+def walk_one(gen, theta_i, comp, hc, d):
+    ia = _randint(gen, hc)
+    ib = sample_distinct(gen, hc, (ia,))
+    ic = sample_distinct(gen, hc, (ia, ib))
+    r = torch.randn(3, generator=gen, device=gen.device)
+    prop = walk_move(theta_i, _take(comp, ia), _take(comp, ib),
+                     _take(comp, ic), r)
+    return prop, torch.zeros((), device=gen.device)
+
+
+def mixture_one(gen, theta_i, comp, hc, d):
+    """4:2:1 stretch/DE/walk mixture (transition.jl:61-65): the three
+    proposals are made and one is selected by ``mid ~ U{0..6}``."""
+    mid = _randint(gen, 7)
+    p_s, c_s = stretch_one(gen, theta_i, comp, hc, d)
+    p_d, _ = de_one(gen, theta_i, comp, hc, d)
+    p_w, _ = walk_one(gen, theta_i, comp, hc, d)
+    return mixture_move(mid < 4, (mid >= 4) & (mid < 6), p_s, c_s, p_d, p_w)
+
+
+# ---------------------------------------------------------------------------
+# AIS: raw uint32 words -> variates (the maps of the JAX package's fused
+# per-sweep draw; words are int64 tensors holding uint32 values)
+# ---------------------------------------------------------------------------
+
+_ERFINV_LO = _F32(np.nextafter(_F32(-1.0), _F32(0.0)))
+_ERFINV_SPAN = float(_F32(1.0) - _ERFINV_LO)
+_SQRT2 = float(_F32(math.sqrt(2.0)))
+
+
+def _bits_to_uniform(bits):
+    """uint32 -> U[0,1) by the mantissa bitcast of jax.random.uniform."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(
+        torch.float32) - 1.0
+
+
+def _bits_to_normal(bits):
+    """uint32 -> N(0,1) as ``sqrt(2) erfinv(U(-1,1))``, the open interval
+    at -1 as in jax.random.normal."""
+    u = _bits_to_uniform(bits) * _ERFINV_SPAN + float(_ERFINV_LO)
+    return _SQRT2 * torch.erfinv(u)
+
+
+def _bits_to_log_uniform(bits):
+    """uint32 -> log U, the MH accept draw: ``log1p(-u)``."""
+    return torch.log1p(-_bits_to_uniform(bits))
+
+
+def _bump_distinct(raw):
+    """Mutually distinct draws from ``raw[j]`` uniform over ``[0, hc-j)``:
+    each is bumped past the earlier ones in ascending order (the
+    sorted-exclude arithmetic of ``sample_distinct``)."""
+    draws = []
+    for u in raw:
+        if draws:
+            ex = torch.sort(torch.stack(draws), dim=0)[0]
+            for t in range(len(draws)):
+                u = u + (u >= ex[t]).to(u.dtype)
+        draws.append(u)
+    return draws
+
+
+def _distinct_shifts(v, hc, ks):
+    """Rotation shifts from raw uint32 words ``v``: for each group size k
+    in ``ks``, k words give k distinct draws over ``[0, hc)``. Returns a
+    flat list of 0-d tensors on ``v``'s device."""
+    out, i = [], 0
+    for k in ks:
+        out.extend(_bump_distinct([v[i + j] % (hc - j) for j in range(k)]))
+        i += k
+    return out
+
+
+def _partners(gen, comp, h, hc, k, scheme):
+    """k mutually distinct partner trees for h walkers from ``comp``.
+    ``roll``: k distinct rotations, partner ``comp[(i + r_j) % hc]``
+    (``jnp.roll(x, -r)[:h]``), computed by index on the device;
+    ``gather``: per-walker random distinct indices (the reference law)."""
+    if scheme == "roll":
+        v = uint32_words(gen, k)
+        pos = torch.arange(h, device=gen.device)
+        return [_take(comp, torch.remainder(pos + r, hc))
+                for r in _distinct_shifts(v, hc, (k,))]
+    raw = [_randint(gen, hc - j, (h,)) for j in range(k)]
+    return [_take(comp, i) for i in _bump_distinct(raw)]
+
+
+def _rows(words, start, count, like, h):
+    """Normal rows ``start .. start+count`` of the word block as a leaf
+    shaped like ``like`` (``[h]`` or ``[h, ...]``)."""
+    rows = _bits_to_normal(words[start:start + count])
+    if like.dim() == 1:
+        return rows[0]
+    return torch.movedim(rows.reshape(tuple(like.shape[1:]) + (h,)), -1, 0)
+
+
+def rollfused_from_words(half, comp, d, a_stretch, words, shifts,
+                         accept_lu=True):
+    """The rotation-scheme mixture as a pure function of its draws (the
+    JAX package's ``_mixture_batched_rollfused``): ``words`` is the
+    ``(6 + C [+ 1], h)`` block of uint32 words (move id, stretch z, DE
+    gamma, one jitter row per parameter component, the three walk
+    weights, the accept draw), ``shifts`` the six rotations (stretch 1,
+    DE 2, walk 3). Returns ``(prop, corr, lu)``; ``lu`` is None unless
+    ``accept_lu``."""
+    leaves = tree_leaves(half)
+    h = leaves[0].shape[0]
+    cols = [int(np.prod(x.shape[1:], dtype=np.int64)) for x in leaves]
+    C = sum(cols)
+    mid = words[0] % 7
+    is_s, is_d = mid < 4, (mid >= 4) & (mid < 6)
+    z = cdf_g_inv(_bits_to_uniform(words[1]), a_stretch)
+    nleaves, off = [], 0
+    for x, c in zip(leaves, cols):
+        nleaves.append(_rows(words, 3 + off, c, x, h))
+        off += c
+    it = iter(nleaves)
+    noise = tree_map(lambda _: next(it), half)
+    r = _bits_to_normal(words[3 + C:6 + C])
+    lu = _bits_to_log_uniform(words[6 + C]) if accept_lu else None
+    pos = torch.arange(h, device=words.device)
+
+    def partner(shift):
+        return _take(comp, torch.remainder(pos + shift, h))
+
+    s1, d1, d2, w1, w2, w3 = shifts
+    p_s, c_s = stretch_move(half, partner(s1), z, d)
+    p_d = de_move(half, partner(d1), partner(d2),
+                  _bits_to_normal(words[2]), noise, d)
+    p_w = walk_move(half, partner(w1), partner(w2), partner(w3), r)
+    prop, corr = mixture_move(is_s, is_d, p_s, c_s, p_d, p_w)
+    return prop, corr, lu
+
+
+def _mixture_batched_rollfused(gen, half, comp, d, a_stretch, accept_lu, h):
+    """All randomness of the rotation mixture from two draws of words: six
+    for the partner shifts, and one ``(R, h)`` block for every per-walker
+    quantity."""
+    C = sum(int(np.prod(x.shape[1:], dtype=np.int64))
+            for x in tree_leaves(half))
+    shifts = _distinct_shifts(uint32_words(gen, 6), h, (1, 2, 3))
+    R = 6 + C + (1 if accept_lu else 0)
+    words = uint32_words(gen, R * h).reshape(R, h)
+    return rollfused_from_words(half, comp, d, a_stretch, words, shifts,
+                                accept_lu)
+
+
+def mixture_batched(gen, half, comp, d, a_stretch=3.0, scheme="auto",
+                    accept_lu=False):
+    """The 4:2:1 mixture over one half ensemble, one batched draw per
+    random quantity. ``scheme="roll"`` (distinct random rotations of the
+    complementary half) with equal halves takes the fused draw of
+    ``_mixture_batched_rollfused``; otherwise each quantity is drawn on
+    its own. With ``accept_lu=True`` returns ``(prop, corr, lu)``; ``lu``
+    is the fused accept draw on the rotation path, else None."""
+    h = tree_leaves(half)[0].shape[0]
+    hc = tree_leaves(comp)[0].shape[0]
+    scheme = _resolve_scheme(scheme, h + hc)
+    if scheme == "roll" and h == hc:
+        out = _mixture_batched_rollfused(gen, half, comp, d, a_stretch,
+                                         accept_lu, h)
+        return out if accept_lu else out[:2]
+    dev = gen.device
+    mid = _randint(gen, 7, (h,))
+    (part,) = _partners(gen, comp, h, hc, 1, scheme)
+    z = cdf_g_inv(torch.rand(h, generator=gen, device=dev), a_stretch)
+    p_s, c_s = stretch_move(half, part, z, d)
+    ta, tb = _partners(gen, comp, h, hc, 2, scheme)
+    gnorm = torch.randn(h, generator=gen, device=dev)
+    p_d = de_move(half, ta, tb, gnorm, _noise_like(gen, half), d)
+    twa, twb, twc = _partners(gen, comp, h, hc, 3, scheme)
+    r = torch.randn((3, h), generator=gen, device=dev)
+    p_w = walk_move(half, twa, twb, twc, r)
+    prop, corr = mixture_move(mid < 4, (mid >= 4) & (mid < 6), p_s, c_s,
+                              p_d, p_w)
+    return (prop, corr, None) if accept_lu else (prop, corr)
+
+
+def propose_half(gen, half, comp, d, kernel=None, scheme="auto",
+                 accept_lu=False):
+    """Propose for every walker of ``half`` (leaves ``[H, ...]``) with
+    partners from ``comp``. The default is ``mixture_batched``; a
+    single-walker kernel (``stretch_one``, ``de_one``, ``walk_one``, or
+    one of the same signature) is mapped over the walkers with
+    ``torch.func.vmap(randomness="different")``. Returns ``(props,
+    corr)``, or ``(props, corr, lu)`` with ``accept_lu=True`` (``lu`` is
+    None unless the fused rotation draw made it)."""
+    if kernel is None or kernel is mixture_one:
+        return mixture_batched(gen, half, comp, d, scheme=scheme,
+                               accept_lu=accept_lu)
+    hc = tree_leaves(comp)[0].shape[0]
+    props, corr = vmap(lambda th: kernel(gen, th, comp, hc, d),
+                       randomness="different")(half)
+    return (props, corr, None) if accept_lu else (props, corr)

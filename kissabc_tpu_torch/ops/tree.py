@@ -66,3 +66,48 @@ def tgather(tree, idx):
             out[i] = x[idx]
     it = iter(out)
     return tree_map(lambda _: next(it), tree)
+
+
+def tmap(f, *trees):
+    """Elementwise map through the particle tree (the reference's ``op``,
+    types.jl:15-25)."""
+    return tree_map(f, *trees)
+
+
+def tadd(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tsub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
+def tscale(a, s):
+    """Multiply every leaf by a scalar (broadcasts over leading axes)."""
+    return tree_map(lambda x: x * s, a)
+
+
+def taxpy(a, x, y):
+    """``a*x + y`` over the tree with scalar ``a``."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)
+
+
+def tzeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def leading_dim(tree) -> int:
+    return tree_leaves(tree)[0].shape[0]
+
+
+def sample_distinct(gen, n, exclude):
+    """One index uniform over ``{0..n-1}`` minus ``exclude`` (k mutually
+    distinct int scalars): draw ``u`` in ``[0, n-k)`` and bump it past
+    each excluded value in ascending order — the branch-free
+    construction of the JAX package, with no host read."""
+    ex = torch.sort(torch.stack([torch.as_tensor(e) for e in exclude]))[0]
+    u = torch.randint(0, n - len(exclude), (), generator=gen,
+                      device=gen.device)
+    for j in range(len(exclude)):
+        u = u + (u >= ex[j]).to(u.dtype)
+    return u

@@ -302,3 +302,74 @@ def test_emitted_functions_match_torch_on_host(tmp_path, name, draw, k,
         assert torch.equal(torch.isfinite(got_lp), finite)
         assert 0 < int(finite.sum()) < n   # both branches of the support
         assert _ulps(got_lp[finite], want_lp[finite]) <= ULP_TOL
+
+
+# ---------------------------------------------------------------------------
+# the AIS sweep's prior: the discrete push
+# ---------------------------------------------------------------------------
+
+_PUSH_RUNNER = r"""
+extern "C" void run_push(const float* th, float* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    float t[K], p[K];
+    for (int k = 0; k < K; ++k) t[k] = th[k * n + i];
+    prior_push(t, p);
+    for (int k = 0; k < K; ++k) out[k * n + i] = p[k];
+    out[K * n + i] = prior_logpdf(p);
+  }
+}
+"""
+
+DISCRETE_PRIOR = kt.Factored(kt.DiscreteUniform(1, 10), kt.Uniform(0.1, 1.0))
+
+
+def test_ais_unit_pushes_discrete_marginals():
+    unit = C.generate(flagship_draw, structure=2, nstats=2, stats=None,
+                      nmoments=2, noise="normal",
+                      reduce_cost=lambda th, m: torch.abs(m[0] - 3.0),
+                      prior=DISCRETE_PRIOR, ais=True)
+    for needle in ("#define KT_HAS_AIS 1", "#define KT_HAS_SWEEP 0",
+                   "void prior_push(", "rintf(th[0])", "out[1] = th[1];"):
+        assert needle in unit.source
+    assert unit.push_ops == 1 and unit.prior_ops == 7
+    # the smc sweep has no push: a discrete marginal is still refused there
+    with pytest.raises(NotImplementedError, match="continuous"):
+        kt.make_fused_smc_sweep(DISCRETE_PRIOR, flagship_draw,
+                                lambda th, m: m[0])
+
+
+def test_emitted_discrete_push_matches_torch_on_host(tmp_path):
+    """``prior_push`` rounds half to even as ``DiscreteUniform.push``
+    (``torch.round``) and ``prior_logpdf`` of the pushed value equals
+    the port's logpdf of the pushed tree, bit for bit; the continuous
+    leaf passes unchanged."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to build the emitted code")
+    unit = C.generate(flagship_draw, structure=2, nstats=2, stats=None,
+                      nmoments=2, noise="normal",
+                      reduce_cost=lambda th, m: torch.abs(m[0] - 3.0),
+                      prior=DISCRETE_PRIOR, ais=True)
+    src = tmp_path / "unit.cpp"
+    src.write_text(_PRELUDE + unit.functions + "#define K 2\n" + _PUSH_RUNNER)
+    lib_path = tmp_path / "unit.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    halves = torch.tensor([0.5, 1.5, 2.5, 3.5, 9.5, 10.5, -0.5, 10.49])
+    m = torch.cat([halves, torch.rand(2040, generator=torch.Generator()
+                                      .manual_seed(3)) * 12.0 - 1.0])
+    s = torch.rand(m.shape[0], generator=torch.Generator().manual_seed(4))
+    n = m.shape[0]
+    flat = torch.cat([m, s]).contiguous()
+    out = torch.empty(3 * n)
+    lib.run_push(_ptr(flat), _ptr(out), n)
+    pushed = DISCRETE_PRIOR.push_tree((m, s))
+    assert torch.equal(out[:n], pushed[0].to(torch.float32))
+    assert torch.equal(out[n:2 * n], s)
+    assert torch.equal(out[:8], torch.tensor([0., 2., 2., 4., 10., 10., -0.,
+                                              10.]))
+    want = DISCRETE_PRIOR.logpdf_tree(
+        tuple(x.to(torch.float32) for x in pushed))
+    assert torch.equal(out[2 * n:], want)
+    assert 0 < int(torch.isfinite(want).sum()) < n
