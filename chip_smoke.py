@@ -36,6 +36,7 @@ run from a directory without the package, it exits 1 and prints no result.
 """
 
 import json
+import math
 import os
 import re
 import signal
@@ -105,6 +106,34 @@ def cuda_ms(torch, fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps, kernel, per_call=1):
+    """Mean device milliseconds per call of ``fn`` spent in the CUDA
+    kernel named ``kernel`` (launched ``per_call`` times by each call),
+    from ``torch.profiler``'s record of the card's kernel intervals: a
+    short kernel's own time, without the host's launch overhead that
+    events around a loop of calls measure when the host is the slower
+    side. The profiler may miss a launch at the edge of its window, so
+    the window holds ``spare`` calls more than the ``reps`` it must see,
+    and the time is the mean of every interval it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spare = 3
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + spare):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    launched = (reps + spare) * per_call
+    check(reps * per_call <= len(spans) <= launched,
+          f"the profiler saw {len(spans)} launches of {kernel} in "
+          f"{reps + spare} calls of {per_call} launches")
+    return sum(spans) / 1e3 / len(spans) * per_call
 
 
 def kernel_name(mangled):
@@ -214,20 +243,23 @@ def main():
     import kissabc_tpu_torch as kt
     from kissabc_tpu_torch import models
     from kissabc_tpu_torch.core import ais as AI
+    from kissabc_tpu_torch.core import abcde as AB
     from kissabc_tpu_torch.ops import _build
+    from kissabc_tpu_torch.ops import fused_abcde as FD
     from kissabc_tpu_torch.ops import fused_ais as FA
     from kissabc_tpu_torch.ops import fused_smc as F
+    from kissabc_tpu_torch.ops import fused_tempered as FT
     from kissabc_tpu_torch.ops import kernels as K
     from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
     def reset_counts():
-        for module in (K, S, F, SC, FA):
+        for module in (K, S, F, SC, FA, FT, FD):
             module.reset_launch_counts()
 
     def counts():
         return {**K.launches, **S.launches, **F.launches, **SC.launches,
-                **FA.launches}
+                **FA.launches, **FT.launches, **FD.launches}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -325,6 +357,52 @@ def main():
         "discrete": (None, kt.make_fused_ais_sweep(
             dprior, ddraw, dreduce, scale=0.5, bits="stub")),
     }
+    # slice 5: the tempered sweep's three models (tests/test_pallas.py
+    # :1062-1295) and the fused ABC-DE generation's: the flagship model,
+    # and the discrete prior of tests/test_abcde_pfilter.py:117-132 with a
+    # Gaussian simulator around the particle
+    cprior, ll_conj, ll_vec, tsmc_truth = models.conjugate_normal()
+    ydata = [float(y) for y in models.TSMC_Y]
+
+    def ll_bounded(theta):
+        s_ = 0.0
+        for y in ydata:
+            s_ = s_ + torch.square(y - theta)
+        return -0.5 * s_
+
+    def ll_mixed(theta):
+        a, k = theta
+        return -0.5 * torch.square(a - 1.2) - 0.5 * torch.square(k - 3.0)
+
+    tempered_models = {
+        "conjugate": (cprior, ll_conj),
+        "bounded": (kt.Uniform(0.5, 1.5), ll_bounded),
+        "mixed": (kt.Factored(kt.Normal(1.0, 1.0), kt.DiscreteUniform(1, 6)),
+                  ll_mixed)}
+    tempered = {   # name: (sweep, stub twin)
+        name: (kt.make_fused_tempered_sweep(p_, ll_),
+               kt.make_fused_tempered_sweep(p_, ll_, bits="stub"))
+        for name, (p_, ll_) in tempered_models.items()}
+    gamma_de = 2.38 / math.sqrt(4.0)   # proposal_width 1, d = 2
+    xprior = kt.DiscreteUniform(0, 10)
+
+    def xdraw(x, eps):
+        return x + 0.5 * eps
+
+    def xreduce(x, m):
+        return torch.abs(m[0] - 5.0)
+
+    abcde_gens = {"flagship": kt.make_fused_abcde_generation(
+        fprior, fdraw, freduce, gamma=gamma_de)}
+    for cost_on in ("raw", "pushed"):
+        abcde_gens[f"flagship-stub-{cost_on}"] = \
+            kt.make_fused_abcde_generation(fprior, fdraw, freduce,
+                                           gamma=gamma_de, cost_on=cost_on,
+                                           bits="stub")
+        abcde_gens[f"discrete-stub-{cost_on}"] = \
+            kt.make_fused_abcde_generation(xprior, xdraw, xreduce,
+                                           gamma=2.38 / math.sqrt(2.0),
+                                           cost_on=cost_on, bits="stub")
     units = {}   # generated source -> names (stub and hw share a unit)
     for name, (c, k) in costs.items():
         units.setdefault(c.unit(k).source, []).append(f"cost {name}")
@@ -335,6 +413,11 @@ def main():
     ais_units = {}
     for name, (_, sw) in ais_sweeps.items():
         ais_units.setdefault(sw.unit.source, []).append(f"ais {name}")
+    t5_units = {}
+    for name, (sw, _) in tempered.items():
+        t5_units.setdefault(sw.unit.source, []).append(f"tempered {name}")
+    for name, g5 in abcde_gens.items():
+        t5_units.setdefault(g5.unit.source, []).append(f"abcde {name}")
 
     ptxas = {}   # unit names -> ptxas lines, each after its function
 
@@ -354,6 +437,7 @@ def main():
         # ais.cu, one library) and each generated unit
         jobs = [_build.start()] + [_build.start(text) for text in units]
         ais_jobs = [_build.start(text) for text in ais_units]
+        t5_jobs = [_build.start(text) for text in t5_units]
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
         _build.load()
@@ -388,6 +472,17 @@ def main():
                      f"{ptxas['ais.cu']}; kt_fused_ais_full co-resident: "
                      f"{per_sm} blocks/SM x {sms} SMs, grid {grid} blocks of "
                      f"128 for h=65536")
+
+    with Phase("build-tempered-abcde") as ph:
+        secs5 = {}
+        for (text, names), job in zip(t5_units.items(), t5_jobs):
+            _, secs, log = job.wait()
+            ptxas_lines(log, "/".join(names))
+            _build.load_generated(text)
+            secs5["/".join(names)] = round(secs, 2)
+        ph.result = (f"{len(t5_units)} generated units of kernels #9 "
+                     f"(tempered.cuh) and #10 (generic.cuh, KT_HAS_ABCDE), "
+                     f"started with the others; nvcc seconds {secs5}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -959,6 +1054,10 @@ def main():
             unequal += int((g[both] != w[both]).sum())
         return err, unequal, int(both.sum()), int(border.sum())
 
+    def flat(o):
+        """A half-update's (theta leaves, lp, ll) as one list."""
+        return list(o[0]) + [o[1], o[2]]
+
     def flagship_start(n):
         """A population around the posterior: mu ~ U(1.6, 2.4), sigma ~
         U(0.01, 0.1), its prior logpdf and loglikelihoods in [-50, -1]."""
@@ -1030,7 +1129,6 @@ def main():
             got = sw.half(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h, seed_t)
             want = sw.half_plain(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h,
                                  seed_t, terms=True)
-            flat = lambda o: list(o[0]) + [o[1], o[2]]  # noqa: E731
             res[f"#6 {name}"] = ais_compare(
                 flat(got), flat(want), upd + [lp6[:h], ll6[:h]],
                 f"fused_ais_sweep stub {name}", want[3][1])
@@ -1332,6 +1430,390 @@ def main():
             launches=launched, max_abs_err=ais_err[name], matched=True,
             ms=times[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], library_ms=None))
+
+    # ---- slice 5: tsmc, pfilter, ABCDE; kernels #9 and #10 -------------
+    with Phase("tempered-stub") as ph:
+        # kernel #9, one half-update at h = 32768 on stub bits, against its
+        # plain version on the card, on the three models at lam 0, 0.3, 1
+        n, h = 65536, 32768
+        res = {}
+        for name, (p_, ll_) in tempered_models.items():
+            sw = tempered[name][1]
+            if name == "conjugate":
+                leaves = [torch.randn(n, generator=gen, device=dev)]
+            elif name == "bounded":
+                leaves = [uniform(n, 0.5, 1.5)]
+            else:
+                leaves = [torch.randn(n, generator=gen, device=dev) + 1.0,
+                          torch.randint(1, 7, (n,), generator=gen,
+                                        device=dev).float()
+                          + uniform(n, -0.4, 0.4)]
+            pushed = sw.pushed(leaves)
+            lp5 = p_.logpdf_tree(pushed).float()
+            ll5 = ll_(pushed).float()
+            upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
+            for lam in (0.0, 0.3, 1.0):
+                got = sw.half(upd, lp5[:h], ll5[:h], cmp_, shifts6 % h,
+                              seed_t, lam)
+                want = sw.half_plain(upd, lp5[:h], ll5[:h], cmp_,
+                                     shifts6 % h, seed_t, lam, terms=True)
+                r = ais_compare(flat(got), flat(want),
+                                upd + [lp5[:h], ll5[:h]],
+                                f"fused_tempered_sweep stub {name} "
+                                f"lam={lam}", want[3][1])
+                check(r[2] > 0, f"#9 {name} lam={lam} committed nothing")
+                res[f"{name} lam={lam}"] = r
+        ph.result = ("(max|err|, unequal committed values, commits, "
+                     "borderline): " + json.dumps(res))
+
+    def abcde_compare(got, want, inputs, hi, what, band=1e-4,
+                      cost_atol=1e-4):
+        """Kernel vs plain ABC-DE generation on the same inputs, outputs
+        (theta leaves, lps, ds, gate) and the plain version's simulated
+        cost ``dp``: the gate masks equal; the commit masks equal except
+        where ``dp`` lies within ``band`` (relative, floor 1) of
+        ``hi = max(eps_i, ds)``; committed values within the golden
+        tolerance (ds within ``cost_atol``: the flagship reduce's
+        ``m2 - m1^2`` cancels, see kernel-times); walkers that do not
+        commit keep their inputs bit for bit. Returns (max abs err,
+        unequal committed values, commits, borderline, gate passes)."""
+        gate_g, gate_w = got[-1] > 0.5, want[3] > 0.5
+        check(bool(torch.equal(gate_g, gate_w)), f"{what}: gate masks "
+              f"differ on {int((gate_g != gate_w).sum())} walkers")
+        outs_g = list(got[0]) + [got[1], got[2]]
+        outs_w = list(want[0]) + [want[1], want[2]]
+
+        def committed(outs):
+            m = torch.zeros_like(gate_g)
+            for o, x in zip(outs, inputs):
+                m |= o != x
+            return m
+
+        gc, wc = committed(outs_g), committed(outs_w)
+        differ = gc != wc
+        border = differ & ((want[4] - hi).abs() < band * hi.abs().clamp(
+            min=1.0))
+        check(bool((~differ | border).all()), f"{what}: commit masks "
+              f"differ on {int((differ & ~border).sum())} walkers away from "
+              "max(eps_i, ds)")
+        check(not bool(gc[~gate_g].any()), f"{what}: a walker committed "
+              "without passing the gate")
+        both = gc & wc
+        err, unequal = 0.0, 0
+        for k, (g, w, x) in enumerate(zip(outs_g, outs_w, inputs)):
+            kw = {"atol": cost_atol} if k == len(inputs) - 1 else {}
+            err = max(err, assert_close(torch, g[both], w[both],
+                                        f"{what} output {k}", **kw))
+            check(bool(torch.equal(g[~gc], x[~gc])),
+                  f"{what}: uncommitted output {k} changed")
+            unequal += int((g[both] != w[both]).sum())
+        return (err, unequal, int(both.sum()), int(border.sum()),
+                int(gate_g.sum()))
+
+    def abcde_generation_inputs(g5, leaves, cost_hi):
+        """Bases and partners gathered at random from the population, its
+        prior logpdf with every 13th walker at -inf, costs in [0,
+        cost_hi), thresholds 0.3 at or below 0.3 else 0.8, half of the
+        walkers inactive."""
+        n = leaves[0].shape[0]
+        idx = [torch.randint(0, n, (n,), generator=gen, device=dev)
+               for _ in range(3)]
+        bases = [[x[i] for x in leaves] for i in idx]
+        pushed = g5.prior.push_tree(leaves[0] if len(leaves) == 1
+                                    else tuple(leaves))
+        lps = g5.prior.logpdf_tree(pushed).float().contiguous()
+        lps[::13] = float("-inf")
+        ds = uniform(n, 0.0, cost_hi)
+        active = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+        eps_i = torch.where(ds <= 0.3, 0.3, 0.8)
+        return bases, lps, ds, active, eps_i
+
+    with Phase("abcde-stub") as ph:
+        # kernel #10 at n = 65536 x 1000 draws on stub bits against its
+        # plain version on the card: the flagship model with the cost on
+        # the raw and on the pushed proposal, and the discrete prior
+        n = 65536
+        res = {}
+        for name in ("flagship-stub-raw", "flagship-stub-pushed",
+                     "discrete-stub-raw", "discrete-stub-pushed"):
+            g5 = abcde_gens[name]
+            if name.startswith("flagship"):
+                leaves = [uniform(n, 1.5, 2.5), uniform(n, 0.01, 0.1)]
+            else:
+                leaves = [torch.randint(0, 11, (n,), generator=gen,
+                                        device=dev).float()
+                          + uniform(n, -0.4, 0.4)]
+            bases, lps, ds, active, eps_i = abcde_generation_inputs(
+                g5, leaves, 3.0)
+            got = g5.run(leaves, bases, lps, ds, active, eps_i, seed_t)
+            want = g5.generation_plain(leaves, bases, lps, ds, active,
+                                       eps_i, seed_t, terms=True)
+            r = abcde_compare(got, want, leaves + [lps, ds],
+                              torch.maximum(eps_i, ds), f"#10 {name}")
+            check(r[2] > 0, f"#10 {name} committed nothing")
+            check(not bool((got[3] > 0.5)[active == 0].any()),
+                  f"#10 {name}: an inactive walker passed the gate")
+            res[name] = r
+        ph.result = ("(max|err|, unequal committed values, commits, "
+                     "borderline, gate passes): " + json.dumps(res))
+
+    with Phase("tempered-kernel-times") as ph:
+        # kernel #9 per sweep (two launches) at 131072 walkers, Philox, the
+        # conjugate loglike at lam = 0.3; the plain version as one whole
+        # sweep on the same inputs
+        n, h = 131072, 65536
+        sw9 = tempered["conjugate"][0]
+        th9 = torch.randn(n, generator=gen, device=dev)
+        lp9, ll9 = cprior.logpdf(th9).float(), ll_conj(th9).float()
+        lam9 = torch.tensor(0.3, device=dev)
+        sh9 = shifts12 % h
+        outs9 = ([torch.empty_like(th9)], torch.empty_like(lp9),
+                 torch.empty_like(ll9))
+
+        def part(o, sl):
+            return ([o[0][0][sl]], o[1][sl], o[2][sl])
+
+        def sweep9():
+            oa, ob = part(outs9, slice(0, h)), part(outs9, slice(h, n))
+            sw9.half([th9[:h]], lp9[:h], ll9[:h], [th9[h:]], sh9[:6], seed_t,
+                     lam9, outs=oa)
+            sw9.half([th9[h:]], lp9[h:], ll9[h:], oa[0], sh9[6:], seed_t,
+                     lam9, outs=ob)
+
+        def plain9():
+            a = sw9.half_plain([th9[:h]], lp9[:h], ll9[:h], [th9[h:]],
+                               sh9[:6], seed_t, lam9, terms=True)
+            return a, sw9.half_plain([th9[h:]], lp9[h:], ll9[h:], a[0],
+                                     sh9[6:], seed_t, lam9, terms=True)
+
+        sweep9()
+        (a9, b9), plain9_ms = cuda_timed(torch, plain9)
+        want9 = [torch.cat([a9[0][0], b9[0][0]]), torch.cat([a9[1], b9[1]]),
+                 torch.cat([a9[2], b9[2]])]
+        err9 = ais_compare(flat(outs9), want9, [th9, lp9, ll9],
+                           "fused_tempered_sweep hw",
+                           torch.cat([a9[3][1], b9[3][1]]))
+        # the kernel's own time (two launches) by the profiler, and the
+        # sweep's time by events around 50 calls, the host's wrapper and
+        # launch overhead included
+        ms9 = device_ms(torch, sweep9, 50, "fused_tempered_sweep_kernel",
+                        per_call=2)
+        events9 = cuda_ms(torch, sweep9, 50)
+        w9 = sw9.work(h)
+        bound9 = bound((2 * w9[0], 2 * w9[1]))
+        regs = {names: lines for names, lines in ptxas.items()
+                if "tempered" in names}
+        ph.result = (f"n={n}: {ms9:.5f} ms/sweep on the card "
+                     f"({n / (ms9 / 1e3):.4g} updates/s), {events9:.4f} ms "
+                     f"per sweep by events with the host's launches, bound "
+                     f"{bound9[0]:.5f} ms ({bound9[1]}), plain "
+                     f"{plain9_ms:.1f} ms/sweep; (max|err|, unequal "
+                     f"committed values, commits, borderline) {err9}; ptxas "
+                     f"{json.dumps(regs)}")
+
+    with Phase("abcde-kernel-times") as ph:
+        # kernel #10 per generation at 16384 and 131072 walkers x 1000
+        # draws on the flagship model, Philox, on the inputs of an ABCDE
+        # generation (costs from kernel #4, eps unreachable, the rank
+        # trick's bases); the plain version on the same inputs
+        g10 = abcde_gens["flagship"]
+        times10 = {}
+        for n in (16384, 131072):
+            th10 = [x.contiguous() for x in fprior.sample_tree(gen, n)]
+            lps10 = fprior.logpdf_tree(tuple(th10)).float()
+            ds10 = costs["flagship"][0](tuple(th10), gen)
+            eps_i10 = torch.clamp(ds10.min(), min=1e-6).expand(n).contiguous()
+            order10, count10 = AB.rank_count(ds10)
+            v10 = FD.uint32_words(gen, 3 * n).reshape(3, n)
+            parents = AB.bases_from_words(v10, ds10, eps_i10, order10,
+                                          count10)
+            bases10 = [[x[i] for x in th10] for i in parents]
+            act10 = torch.ones(n, device=dev)
+            args10 = (th10, bases10, lps10, ds10, act10, eps_i10, seed_t)
+            got = g10.run(*args10)
+            want, plain_ms10 = cuda_timed(torch, lambda: g10.generation_plain(
+                *args10, terms=True))
+            err10 = abcde_compare(got, want, th10 + [lps10, ds10],
+                                  torch.maximum(eps_i10, ds10),
+                                  f"#10 hw n={n}")
+            ms10 = device_ms(torch, lambda: g10.run(*args10), 20,
+                             "fused_abcde_generation_kernel")
+            events10 = cuda_ms(torch, lambda: g10.run(*args10), 20)
+            nsim10 = int(want[3].sum())
+            times10[n] = (ms10, plain_ms10, bound(g10.work(n, nsim10)),
+                          err10, nsim10, events10)
+        regs = {names: lines for names, lines in ptxas.items()
+                if "abcde" in names}
+        ph.result = "; ".join(
+            f"n={n}: {t[0]:.4f} ms/generation on the card "
+            f"({n / (t[0] / 1e3):.4g} updates/s), {t[5]:.4f} ms by events, "
+            f"bound {t[2][0]:.4f} ms ({t[2][1]}, {t[4]} walkers pass the "
+            f"gate), plain {t[1]:.1f} ms; (max|err|, unequal, commits, "
+            f"borderline, gate passes) {t[3]}"
+            for n, t in times10.items()) + f"; ptxas {json.dumps(regs)}"
+
+    with Phase("tsmc-conjugate") as ph:
+        # bench.py:825-881: 4096 particles, 5 MCMC steps, key 1, warm; the
+        # split rejuvenation, then the fused sweep (#9), then #9 at 131072
+        m_t, sd_t, logz_t = tsmc_truth
+
+        def run_tsmc(n, fused, key):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = kt.tsmc(cprior, ll_vec, nparticles=n, mcmc_steps=5,
+                        loglike_vectorized=True, key=key,
+                        sweep_fused=tempered["conjugate"][0] if fused
+                        else None)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        out = {}
+        tempered_launches = 0
+        for label, n, fused in (("split", 4096, False), ("fused", 4096, True),
+                                ("fused", 131072, True)):
+            run_tsmc(n, fused, 11)   # warm
+            reset_counts()
+            r, wall = run_tsmc(n, fused, 1)
+            launched = counts()
+            check(r.lam == 1.0, f"tsmc {label} n={n}: lam {r.lam}")
+            check(abs(r.P.mean() - m_t) < 0.02,
+                  f"tsmc {label} n={n}: mean {r.P.mean()} vs {m_t}")
+            check(abs(r.P.std() - sd_t) < 0.02,
+                  f"tsmc {label} n={n}: sd {r.P.std()} vs {sd_t}")
+            check(abs(r.log_evidence - logz_t) < 0.15,
+                  f"tsmc {label} n={n}: log Z {r.log_evidence} vs {logz_t}")
+            n9 = launched["fused_tempered_sweep"]
+            check(n9 == (2 * 5 * r.iterations if fused else 0),
+                  f"tsmc {label} n={n}: {n9} launches of #9 in "
+                  f"{r.iterations} iterations")
+            check(sum(launched.values()) == n9,
+                  f"tsmc launched another kernel: {launched}")
+            tempered_launches += n9
+            out[f"{label} n={n}"] = (
+                f"wall {wall:.4f} s, {r.iterations} iterations, mean "
+                f"{r.P.mean():.5f} sd {r.P.std():.5f} log Z "
+                f"{r.log_evidence:.4f} (truth {m_t:.5f}, {sd_t:.5f}, "
+                f"{logz_t:.4f}), ESS {r.ess:.1f}, #9 launches {n9}")
+        ph.result = json.dumps(out)
+
+    with Phase("pfilter-mixture") as ph:
+        # bench.py:884-911: Uniform(-10, 10), the 0.1N+N mixture cost per
+        # walker, 4096 particles, key 4, warm
+        def run_pf(key):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = kt.pfilter(kt.Uniform(-10, 10), models.mixture_cost, 4096,
+                           key=key)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        run_pf(11)
+        reset_counts()
+        r, wall = run_pf(4)
+        m = float(r.P.mean())
+        check(abs(m) < 0.25 and r.eps < 1.0,
+              f"pfilter: mean {m}, eps {r.eps}")
+        ph.result = (f"n=4096: wall {wall:.4f} s, {r.iterations} "
+                     f"iterations, eps {r.eps:.5f}, mean {m:.5f}, unfixed "
+                     f"{r.unfixed} (per-walker vmap; launches {counts()})")
+
+    with Phase("abcde-dirac") as ph:
+        # bench.py:914-938: Normal(1, 0.2), |x^2 + 1 - 1.5|, eps 0.01, 1024
+        # particles, 2000 generations, earlystop, key 1, warm
+        def run_dirac(key):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = kt.ABCDE(kt.Normal(1, 0.2), models.dirac_cost, 0.01,
+                         nparticles=1024, generations=2000, earlystop=True,
+                         verbose=False, key=key)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        run_dirac(11)
+        r, wall = run_dirac(1)
+        m = float(r.P.mean())
+        check(r.reached_eps and abs(m - math.sqrt(0.5)) < 0.02,
+              f"ABCDE dirac: reached {r.reached_eps}, mean {m}")
+        ph.result = (f"n=1024: wall {wall:.4f} s, {r.iterations} "
+                     f"generations, nsim {r.nsim}, mean {m:.5f} (truth "
+                     f"{math.sqrt(0.5):.5f})")
+
+    with Phase("abcde-fused") as ph:
+        # bench.py:940-987: the flagship streaming model at 16384 particles
+        # x 1000 draws, eps 1e-6 (unreachable): the marginal time per
+        # generation from 20 and 520 generations (median of 3 runs after a
+        # warm one), fused (#10) and split (kernel #4); then the rule of
+        # tests/test_pallas.py:1404-1416 at 4096 particles, 60 generations
+        nb = 16384
+        scost = costs["flagship"][0]
+
+        def run_de(n, fused, gens, key, eps=1e-6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = kt.ABCDE(fprior, scost, eps, nparticles=n, generations=gens,
+                         cost_vectorized=True, verbose=False, key=key,
+                         sweep_fused=abcde_gens["flagship"] if fused
+                         else None)
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        out = {}
+        for label, fused in (("fused", True), ("split", False)):
+            reset_counts()
+            walls = {}
+            for gens in (20, 520):
+                run_de(nb, fused, gens, 12)
+                ts = []
+                for rep in range(3):
+                    r, wall = run_de(nb, fused, gens, 2 + rep)
+                    ts.append(wall)
+                walls[gens] = sorted(ts)[1]
+            launched = counts()
+            if fused:
+                abcde_launches = launched["fused_abcde_generation"]
+                check(abcde_launches == 4 * (20 + 520),
+                      f"#10 launched {abcde_launches} times")
+            else:
+                check(launched["fused_abcde_generation"] == 0,
+                      "the split path launched #10")
+            check(launched["streaming_moment_cost"] > 0,
+                  f"ABCDE {label} did not launch kernel #4: {launched}")
+            marg = (walls[520] - walls[20]) / 500
+            mu = float(r.P[0].mean())
+            check(abs(mu - 2.0) < 0.05, f"ABCDE {label}: mean mu {mu}")
+            out[label] = (f"{marg * 1e3:.4f} ms/generation marginal, "
+                          f"{nb / marg:.4g} updates/s (walls 20: "
+                          f"{walls[20]:.4f} s, 520: {walls[520]:.4f} s), "
+                          f"mu {mu:.5f}, launches {launched}")
+        for label, fused in (("fused", True), ("split", False)):
+            r, wall = run_de(4096, fused, 60, 2, eps=0.02)
+            mu, sg = (float(p.mean()) for p in r.P)
+            check(abs(mu - 2.0) < 0.02 and abs(sg - 0.04) < 0.003,
+                  f"ABCDE {label} n=4096: mu {mu}, sigma {sg}")
+            out[f"{label} rule n=4096"] = (f"mu {mu:.5f} sigma {sg:.5f}, "
+                                           f"nsim {r.nsim}, wall "
+                                           f"{wall:.3f} s")
+        ph.result = json.dumps(out)
+
+    records.append(dict(
+        name="fused_tempered_sweep", route="cuda",
+        source="kissabc_tpu_torch/csrc/tempered.cuh",
+        replaces="kissabc_tpu/ops/pallas_kernels.py:1585",
+        launches=tempered_launches, max_abs_err=err9[0], matched=True,
+        ms=ms9, plain_ms=plain9_ms, bound_ms=bound9[0], bound_by=bound9[1],
+        library_ms=None, library_note="no PyTorch call fuses a move, a "
+        "prior, a likelihood and an MH accept", events_ms=events9))
+    t10 = times10[16384]
+    records.append(dict(
+        name="fused_abcde_generation", route="cuda",
+        source="kissabc_tpu_torch/csrc/generic.cuh",
+        replaces="kissabc_tpu/ops/pallas_kernels.py:1841",
+        launches=abcde_launches, max_abs_err=max(
+            t[3][0] for t in times10.values()), matched=True,
+        ms=t10[0], plain_ms=t10[1], bound_ms=t10[2][0], bound_by=t10[2][1],
+        library_ms=None, library_note="no PyTorch call fuses a DE step, a "
+        "prior gate, a simulator and a commit", events_ms=t10[5],
+        ms_131072=times10[131072][0], bound_ms_131072=times10[131072][2][0]))
 
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")

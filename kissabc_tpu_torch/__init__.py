@@ -37,21 +37,37 @@ AIS (slice 4):
   half) and ``make_fused_flagship_ais_sweep_onekernel`` (one
   cooperative launch per sweep).
 
+Tempered SMC, the particle filter and ABC-DE (slice 5):
+
+- ``tsmc`` (adaptive tempered SMC with the evidence estimate), with a
+  per-walker or batched log-likelihood, or ``sweep_fused=
+  make_fused_tempered_sweep(prior, loglike)``: the likelihood compiled
+  into one CUDA kernel per half-update;
+- ``pfilter`` (the quantile particle filter);
+- ``ABCDE`` (ABC differential evolution), or with ``sweep_fused=
+  make_fused_abcde_generation(prior, draw, reduce_cost, gamma=...)``:
+  one CUDA kernel per generation.
+
 It imports nothing of JAX or of the JAX package.
 """
 
+from .core.abcde import ABCDE, ABCDEResult  # noqa: F401
 from .core.ais import (  # noqa: F401
     AIS, MCMCDistributed, MCMCThreads, sample, sample_raw)
 from .core.density import (  # noqa: F401
     ApproxKernelizedPosterior, ApproxPosterior, CommonLogDensity)
+from .core.pfilter import PFilterResult, pfilter  # noqa: F401
 from .core.smc import SMCResult, smc, smc_stepped  # noqa: F401
+from .core.tsmc import TSMCResult, tsmc  # noqa: F401
 from .distributions import (  # noqa: F401
     DiscreteUniform, Factored, MvNormal, Normal, Truncated, TruncatedNormal,
     Uniform)
 from .ops.fused_ais import (  # noqa: F401
     make_fused_ais_sweep, make_fused_flagship_ais_sweep,
     make_fused_flagship_ais_sweep_onekernel)
+from .ops.fused_abcde import make_fused_abcde_generation  # noqa: F401
 from .ops.fused_smc import make_fused_smc_sweep  # noqa: F401
+from .ops.fused_tempered import make_fused_tempered_sweep  # noqa: F401
 from .ops.kernels import (  # noqa: F401
     make_flagship_cost_batched, make_fused_flagship_sweep)
 from .ops.scan import make_streaming_scan_cost  # noqa: F401
@@ -68,4 +84,6 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "MCMCDistributed", "ApproxKernelizedPosterior", "ApproxPosterior",
            "CommonLogDensity", "make_fused_ais_sweep",
            "make_fused_flagship_ais_sweep",
-           "make_fused_flagship_ais_sweep_onekernel"]
+           "make_fused_flagship_ais_sweep_onekernel", "tsmc", "TSMCResult",
+           "pfilter", "PFilterResult", "ABCDE", "ABCDEResult",
+           "make_fused_tempered_sweep", "make_fused_abcde_generation"]

@@ -8,9 +8,12 @@ and numpy arrays only (the port imports nothing of the JAX package).
 - ``state_from_numpy(...)`` makes the port's ``_SMCState`` from the numpy
   arrays of a JAX ``_SMCState``;
 - ``ais_state_from_numpy(thetas, lds)`` makes the port's AIS ensemble
-  (theta leaves and log-density record), whole or as red/black halves.
+  (theta leaves and log-density record), whole or as red/black halves;
+- ``tsmc_state_from_numpy(thetas, lp, ll, lam)`` and
+  ``abcde_state_from_numpy(thetas, lps, ds)`` make the populations of
+  tsmc and ABCDE.
 
-Tests use both to run the two packages from one starting point.
+Tests use them to run the two packages from one starting point.
 """
 
 from __future__ import annotations
@@ -92,3 +95,30 @@ def ais_state_from_numpy(thetas, lds, *, halves=False, device="cpu"):
         return tree[:h], tree[h:]
 
     return split(th), split(ld)
+
+
+def _f32_tree(thetas, dev):
+    """A tuple of arrays (one per marginal) or one array, as float32
+    tensors on ``dev``."""
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
+    if isinstance(thetas, (tuple, list)):
+        return tuple(t(x) for x in thetas)
+    return t(thetas)
+
+
+def tsmc_state_from_numpy(thetas, lp, ll, lam, *, device="cpu"):
+    """tsmc's population from numpy arrays: ``(thetas, lp, ll, lam)`` with
+    float32 tensors on ``device``, ``lam`` a 0-d tensor (the kernel of
+    the fused tempered sweep reads it from device memory)."""
+    dev = torch.device(device)
+    lp, ll, lam = _f32_tree((lp, ll, lam), dev)
+    return _f32_tree(thetas, dev), lp, ll, lam.reshape(())
+
+
+def abcde_state_from_numpy(thetas, lps, ds, *, device="cpu"):
+    """ABCDE's population from numpy arrays: ``(thetas, lps, ds)`` as
+    float32 tensors on ``device``."""
+    dev = torch.device(device)
+    lps, ds = _f32_tree((lps, ds), dev)
+    return _f32_tree(thetas, dev), lps, ds

@@ -6,6 +6,9 @@
 //   kt_fused_smc_sweep       <- make_fused_smc_sweep       (pallas_call :2391)
 //   kt_fused_ais_sweep       <- make_fused_ais_sweep half_call (pallas_call
 //                               :1440), in units with KT_HAS_AIS
+//   kt_fused_abcde_generation <- make_fused_abcde_generation full_call
+//                               (pallas_call :2071), in units with
+//                               KT_HAS_ABCDE
 //
 // This file is a template. kissabc_tpu_torch/ops/codegen.py traces the
 // user's PyTorch callables and writes a translation unit that defines
@@ -14,7 +17,7 @@
 //   void  stats_of(float x, float* g)           the KT_NSTATS summaries
 //   float reduce_cost(const float* th, const float* m)   (sweeps only)
 //   float prior_logpdf(const float* th)                  (sweeps only)
-//   void  prior_push(const float* th, float* out)        (AIS only)
+//   void  prior_push(const float* th, float* out)        (AIS, ABC-DE)
 // and then includes this file; ops/_build.py compiles it with nvcc.
 //
 // Design. One thread per walker loops over its draws, as the flagship
@@ -47,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "walkers.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -56,13 +61,6 @@ constexpr int kThreads = 128;
 constexpr uint32_t kStreamGenCost = 3u;
 constexpr uint32_t kStreamGenSweepWalker = 4u;
 constexpr uint32_t kStreamGenSweepSim = 5u;
-
-struct Leaves {
-  const float* p[KT_NPARAMS];
-};
-struct OutLeaves {
-  float* p[KT_NPARAMS];
-};
 
 __device__ __forceinline__ void noise_pair(uint32_t b1, uint32_t b2,
                                            float* ea, float* eb) {
@@ -130,16 +128,6 @@ __device__ void simulate(const float* th, int ndraws, int chunk, float inv_n,
   }
 #pragma unroll
   for (int p = 0; p < KT_NSTATS; ++p) m[p] = s[p] * inv_n;
-}
-
-// Per-walker stub coordinates of the TPU kernels' walker-on-lane grid.
-struct Coords {
-  uint32_t pid, row, lane;
-};
-
-__device__ __forceinline__ Coords coords(int w, int sb_rows) {
-  return {(uint32_t)(w / sb_rows), (uint32_t)((w % sb_rows) / 128),
-          (uint32_t)(w % 128)};
 }
 
 __global__ void streaming_moment_cost_kernel(
@@ -245,16 +233,11 @@ __global__ void fused_smc_sweep_kernel(
 // outside the prior skips the simulator: its llp is its lpp (-inf) and it
 // never commits, the outputs the TPU kernel gives after simulating it.
 //
-// Words k of a walker (stub counter 50000 + k, on the TPU kernel's
-// (TR, 128) super-tile: program i / sb_rows, row, lane; Philox word k of
-// counter (k / 4, i, kStreamGenAisWalker, 0)): 0 move, 1 stretch z,
-// 2 accept, then normal pair q from words 3 + 2q, 4 + 2q. The normals in
-// order: the DE gamma, one jitter per leaf, the three walk weights. The
-// simulator is simulate() at the same (program, row, lane).
+// The words and the proposal are mixture_propose (walkers.cuh), shared
+// with the tempered sweep; the simulator is simulate() at the same
+// (program, row, lane).
 constexpr uint32_t kStreamGenAisWalker = 8u;
 constexpr uint32_t kStreamGenAisSim = 9u;
-constexpr int kAisPairs = (KT_NPARAMS + 4 + 1) / 2;
-constexpr int kAisWords = 3 + 2 * kAisPairs;
 
 struct AisGenConsts {
   float inv_n, g_lo, g_span, de_scale, inv300, third, p_s_hi, p_d_hi,
@@ -271,57 +254,11 @@ __global__ void fused_ais_sweep_kernel(
   if (i >= h) return;  // no padding walkers: nothing past h is written
   uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
   Coords cc = coords(i, sb_rows);
-  uint32_t wd[kAisWords];
-  if (stub) {
-#pragma unroll
-    for (int k = 0; k < kAisWords; ++k)
-      wd[k] = stub_bits(cc.pid, seed, 50000u + (uint32_t)k, cc.row, cc.lane);
-  } else {
-#pragma unroll
-    for (int g = 0; 4 * g < kAisWords; ++g) {
-      Words4 q = philox4x32_10((uint32_t)g, (uint32_t)i, kStreamGenAisWalker,
-                               0u, seed, 0u);
-      uint32_t v[4] = {q.x0, q.x1, q.x2, q.x3};
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        if (4 * g + t < kAisWords) wd[4 * g + t] = v[t];
-    }
-  }
-  float nrm[2 * kAisPairs];
-#pragma unroll
-  for (int q = 0; q < kAisPairs; ++q)
-    box_muller(wd[3 + 2 * q], wd[4 + 2 * q], &nrm[2 * q], &nrm[2 * q + 1]);
-  float u_mid = to_unit(wd[0]), u_z = to_unit(wd[1]), u_acc = to_unit(wd[2]);
-  bool is_s = u_mid < c.p_s_hi;
-  bool is_d = (u_mid >= c.p_s_hi) && (u_mid < c.p_d_hi);
-  float zroot = u_z * c.g_span + c.g_lo;
-  float z = zroot * zroot;
-  float corr = is_s ? c.corr2 * logf(zroot) : 0.0f;
-  float gamma = c.de_scale * expf(0.1f * nrm[0]);
-  float r1 = nrm[1 + KT_NPARAMS], r2 = nrm[2 + KT_NPARAMS],
-        r3 = nrm[3 + KT_NPARAMS];
-
-  int idx[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    int k = i + (int)shifts[j];
-    idx[j] = k >= h ? k - h : k;
-  }
-  float prop[KT_NPARAMS];
-#pragma unroll
-  for (int k = 0; k < KT_NPARAMS; ++k) {
-    const float* cp = comp.p[k];
-    float xi = th.p[k][i];
-    float pa = cp[idx[0]], da = cp[idx[1]], db = cp[idx[2]];
-    float wa = cp[idx[3]], wb = cp[idx[4]], wc = cp[idx[5]];
-    float p_s = pa + z * (xi - pa);
-    float tri = (fabsf(da - db) + fabsf(xi - db)) + fabsf(da - xi);
-    float p_d = (xi + gamma * (da - db)) + ((gamma * tri) * c.inv300) *
-                                               nrm[1 + k];
-    float cen = ((wa + wb) + wc) * c.third;
-    float p_w = xi + ((r1 * (wa - cen) + r2 * (wb - cen)) + r3 * (wc - cen));
-    prop[k] = is_s ? p_s : (is_d ? p_d : p_w);
-  }
+  MixConsts mc = {c.g_lo,  c.g_span, c.de_scale, c.inv300,
+                  c.third, c.p_s_hi, c.p_d_hi,   c.corr2};
+  float prop[KT_NPARAMS], corr, u_acc;
+  mixture_propose(th, comp, shifts, i, h, seed, cc, stub,
+                  kStreamGenAisWalker, mc, prop, &corr, &u_acc);
   float pushed[KT_NPARAMS];
   prior_push(prop, pushed);
   float lpp = prior_logpdf(pushed);
@@ -342,6 +279,84 @@ __global__ void fused_ais_sweep_kernel(
     oth.p[k][i] = acc ? prop[k] : th.p[k][i];
   olp[i] = acc ? lpp : lp0;
   oll[i] = acc ? llp : ll0;
+}
+#endif
+
+#if defined(KT_HAS_ABCDE) && KT_HAS_ABCDE
+// The ABC-DE generation (make_fused_abcde_generation): per walker w, the
+// DE proposal ts + gamma (ta - tb) from the bases and partners gathered
+// before the launch, the push and the prior's logpdf, the prior-MH gate
+// (active, and log U <= min(lpp - lps, 0)), then, for the walkers that
+// pass the gate only, the streamed simulator on the raw or the pushed
+// proposal (push_cost), reduce_cost in the kernel, and the commit
+// dp <= max(eps_i, ds). The raw proposal is committed; gate is 0 or 1.
+// A walker that fails the gate skips the simulator: no output of it
+// depends on the simulation, as in the TPU kernel, which simulates every
+// walker and masks.
+//
+// Gate uniform: stub counter 40000 on the (TR, 128) super-tile, or word 0
+// of Philox counter (0, w, kStreamAbcdeWalker, 0); the simulator is
+// simulate() at the same (program, row, lane), on kStreamAbcdeSim.
+constexpr uint32_t kStreamAbcdeWalker = 11u;
+constexpr uint32_t kStreamAbcdeSim = 12u;
+
+__global__ void fused_abcde_generation_kernel(
+    Leaves th, Leaves ts, Leaves ta, Leaves tb, const float* __restrict__ lps,
+    const float* __restrict__ ds, const float* __restrict__ active,
+    const float* __restrict__ eps_i, const long long* __restrict__ seed_ptr,
+    OutLeaves oth, float* __restrict__ olps, float* __restrict__ ods,
+    float* __restrict__ ogate, int n, int ndraws, float inv_n, float gamma,
+    int push_cost, int stub, int sb_rows, int chunk) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;  // no padding walkers: nothing past n is written
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  Coords c = coords(w, sb_rows);
+  uint32_t bu;
+  if (stub) {
+    bu = stub_bits(c.pid, seed, 40000u, c.row, c.lane);
+  } else {
+    bu = philox4x32_10(0u, (uint32_t)w, kStreamAbcdeWalker, 0u, seed, 0u).x0;
+  }
+  float lprob = log1pf(-to_unit(bu));  // log U(0,1]
+
+  float prop[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k)
+    prop[k] = ts.p[k][w] + gamma * (ta.p[k][w] - tb.p[k][w]);
+  float pushed[KT_NPARAMS];
+  prior_push(prop, pushed);
+  float lpp = prior_logpdf(pushed);
+  float lp = lps[w];
+  float dl = lpp - lp;
+  // min(dl, 0) with NaN kept (fminf would drop it): -inf - -inf never
+  // passes, as jnp.minimum
+  float lm = (dl > 0.0f) ? 0.0f : dl;
+  bool gate = (active[w] > 0.5f) && (lprob <= lm);
+
+  bool commit = false;
+  float dp = 0.0f;
+  if (gate) {  // the outputs depend on the simulation only here
+    // selected leaf by leaf (a pointer to one array or the other would
+    // put both on the stack)
+    float sim[KT_NPARAMS];
+#pragma unroll
+    for (int k = 0; k < KT_NPARAMS; ++k)
+      sim[k] = push_cost ? pushed[k] : prop[k];
+    float m[KT_NSTATS];
+    simulate(sim, ndraws, chunk, inv_n, stub, c.pid, c.row, c.lane, seed,
+             kStreamAbcdeSim, (uint32_t)w, m);
+    dp = reduce_cost(sim, m);
+    float e = eps_i[w], d = ds[w];
+    // max(eps_i, ds) with NaN kept, as jnp.maximum
+    float hi = (e != e || d != d) ? (e + d) : fmaxf(e, d);
+    commit = dp <= hi;
+  }
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k)
+    oth.p[k][w] = commit ? prop[k] : th.p[k][w];
+  olps[w] = commit ? lpp : lp;
+  ods[w] = commit ? dp : ds[w];
+  ogate[w] = gate ? 1.0f : 0.0f;
 }
 #endif
 
@@ -408,6 +423,33 @@ extern "C" int kt_fused_ais_sweep(
                              (cudaStream_t)stream>>>(
         leaves, lp, ll, partners, shifts, seed, outs, olp, oll, h, ndraws, c,
         stub, sb_rows, chunk);
+  }
+  return (int)cudaGetLastError();
+}
+#endif
+
+#if defined(KT_HAS_ABCDE) && KT_HAS_ABCDE
+extern "C" int kt_fused_abcde_generation(
+    const float* const* th, const float* const* bases, const float* lps,
+    const float* ds, const float* active, const float* eps_i,
+    const long long* seed, float* const* oth, float* olps, float* ods,
+    float* ogate, int n, int ndraws, float inv_n, float gamma, int push_cost,
+    int stub, int sb_rows, int chunk, void* stream) {
+  // bases: the K leaves of ts, then of ta, then of tb
+  Leaves leaves, s, a, b;
+  OutLeaves outs;
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    leaves.p[k] = th[k];
+    s.p[k] = bases[k];
+    a.p[k] = bases[KT_NPARAMS + k];
+    b.p[k] = bases[2 * KT_NPARAMS + k];
+    outs.p[k] = oth[k];
+  }
+  if (n > 0) {
+    fused_abcde_generation_kernel<<<grid_for(n), kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+        leaves, s, a, b, lps, ds, active, eps_i, seed, outs, olps, ods,
+        ogate, n, ndraws, inv_n, gamma, push_cost, stub, sb_rows, chunk);
   }
   return (int)cudaGetLastError();
 }

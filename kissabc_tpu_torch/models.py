@@ -18,7 +18,13 @@ examples of a user model.
   stationary mean 1 and variance ``v = 1 / (1 - 0.8^2)``;
 - ``sir()``: the stochastic SIR epidemic of ``examples/example_sir.py``,
   each day folded into an infection and a recovery sub-step, matched to
-  the deterministic curve at beta=0.3, gamma=0.1 through ``series``.
+  the deterministic curve at beta=0.3, gamma=0.1 through ``series``;
+- ``conjugate_normal()``: tsmc's oracle (``bench.py:825-881``,
+  ``tests/test_tsmc.py``): prior Normal(0, 1), eight data points of unit
+  variance, the log-likelihood per walker (compiled into the tempered
+  sweep) and batched, and the closed-form posterior and evidence;
+- ``mixture_cost`` and ``dirac_cost``: the per-walker costs of the JAX
+  bench's ``pfilter`` and ``abcde`` rows (``bench.py:884-938``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distributions import Factored, TruncatedNormal, Uniform
+from .distributions import Factored, Normal, TruncatedNormal, Uniform
 
 
 def flagship():
@@ -137,3 +143,52 @@ def sir():
         return m[0]
 
     return prior, step, init, observe, reduce_cost, sir_series()
+
+
+TSMC_Y = np.array([1.2, 0.8, 1.5, 0.9, 1.1, 1.3, 0.7, 1.0], np.float32)
+
+
+def conjugate_normal():
+    """(prior, loglike_elem, loglike_vec, truth) of the conjugate-normal
+    oracle: ``loglike_elem(theta)`` is elementwise over walkers with the
+    data as constants (a loop over the eight points, the form the
+    tempered sweep compiles), ``loglike_vec(thetas, gen)`` the batched
+    form for ``loglike_vectorized=True``; ``truth`` is the posterior
+    mean and sd and the log-evidence ``log N(Y; 0, I + 11^T)``."""
+    y, k = TSMC_Y, len(TSMC_Y)
+    c = float(np.float32(k / 2 * np.log(2 * np.pi)))
+    yt = torch.from_numpy(y)
+
+    def loglike_elem(theta):
+        s = 0.0
+        for v in y:
+            s = s + torch.square(float(v) - theta)
+        return -0.5 * s - c
+
+    def loglike_vec(thetas, gen):
+        d = yt.to(thetas.device)[None, :] - thetas[:, None]
+        return -0.5 * torch.sum(d * d, dim=1) - k / 2 * np.log(2 * np.pi)
+
+    cov = np.eye(k) + np.ones((k, k))
+    yd = y.astype(np.float64)
+    logz = -0.5 * (yd @ np.linalg.solve(cov, yd)
+                   + np.linalg.slogdet(cov)[1] + k * np.log(2 * np.pi))
+    truth = (float(y.sum() / (k + 1)), float(1.0 / np.sqrt(k + 1)),
+             float(logz))
+    return Normal(0, 1), loglike_elem, loglike_vec, truth
+
+
+def mixture_cost(x, gen):
+    """The classical 0.1N+N mixture simulator (the reference's
+    runtests.jl:144-146) per walker: ``|x + e|`` with ``e`` N(0, 0.1^2)
+    or N(0, 1) with even odds."""
+    def draw(f):
+        return f((), generator=gen, device=gen.device)
+    sim = x + torch.where(draw(torch.rand) < 0.5, draw(torch.randn) * 0.1,
+                          draw(torch.randn))
+    return torch.abs(sim)
+
+
+def dirac_cost(x):
+    """``|x^2 + 1 - 1.5|``: the posterior is a point mass at sqrt(0.5)."""
+    return torch.abs(x * x + 1 - 1.5)

@@ -8,8 +8,10 @@ Two kinds of translation unit:
   ``csrc/ais.cu``, the flagship AIS sweeps;
 - a generated unit per user model: the device functions that
   ``ops/codegen.py`` emits, then ``#include "generic.cuh"`` (i.i.d.
-  simulators, the fused sweep) or ``#include "scan.cuh"`` (sequential
-  simulators) (``start(text)``, ``load_generated()``), written to
+  simulators, the fused smc and AIS sweeps, the ABC-DE generation),
+  ``#include "scan.cuh"`` (sequential simulators) or ``#include
+  "tempered.cuh"`` (the tempered sweep of a log-likelihood)
+  (``start(text)``, ``load_generated()``), written to
   ``build/kissabc_tpu_torch/gen-<sha>.cu`` and compiled to
   ``libgen-<sha>.so``.
 
@@ -36,7 +38,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flagship.cu", CSRC / "ais.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh", CSRC / "scan.cuh",
-           CSRC / "moments.cuh")
+           CSRC / "moments.cuh", CSRC / "walkers.cuh", CSRC / "tempered.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kissabc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -60,6 +62,9 @@ GEN_SIGNATURES = {
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _P],
     "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _P],
     "kt_fused_ais_sweep": [_P] * 9 + [_I, _I, _P, _I, _I, _I, _P],
+    "kt_fused_tempered_sweep": [_P] * 10 + [_I, _P, _I, _I, _P],
+    "kt_fused_abcde_generation": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I,
+                                              _I, _P],
 }
 
 

@@ -14,7 +14,14 @@ record an expression graph, which this module emits as
     float stat_j(float x);                    (one per entry of stats)
     float reduce_cost(const float* th, const float* m);
     float prior_logpdf(const float* th);
-    void prior_push(const float* th, float* out);   (the AIS sweep)
+    void prior_push(const float* th, float* out);   (the AIS sweep and
+                                                     the ABC-DE generation)
+
+The tempered sweep (``csrc/tempered.cuh``) runs a deterministic
+log-likelihood of the pushed parameters, ``loglike(theta)``, whose data
+enter as Python or numpy constants (``generate_tempered``):
+
+    float loglike(const float* th);
 
 The scan kernel (``csrc/scan.cuh``) runs a sequential model: ``init(
 theta)``, ``step(theta, x, eps, t)`` and ``observe(theta, x, t, obs)``
@@ -646,6 +653,14 @@ def trace_stats(stats, nmoments):
     return tuple(chain)
 
 
+def trace_loglike(loglike, structure):
+    """The graph of a deterministic, elementwise ``loglike(theta)`` of
+    the pushed parameters: data enter as Python or numpy constants (a
+    Python loop over 8 data points traces to 8 terms); nothing random,
+    nothing reduced over walkers."""
+    return _check_out(loglike(theta_args(structure)), "loglike")
+
+
 def trace_reduce(reduce_cost, structure, nstats):
     m = tuple(Sym("m", (j,)) for j in range(nstats))
     return _check_out(reduce_cost(theta_args(structure), m), "reduce_cost")
@@ -890,12 +905,13 @@ class Generated:
 
 
 def generate(draw, *, structure, nstats, stats, nmoments, noise,
-             reduce_cost=None, prior=None, ais=False):
+             reduce_cost=None, prior=None, ais=False, abcde=False):
     """Trace the model and emit its translation unit. ``structure``:
     None for one theta leaf, else the tuple length K. With
     ``reduce_cost`` and ``prior`` the unit also holds the fused smc
-    sweep, or with ``ais=True`` the fused AIS sweep instead (whose prior
-    pushes discrete marginals)."""
+    sweep, or with ``ais=True`` the fused AIS sweep instead, or with
+    ``abcde=True`` the fused ABC-DE generation (the last two push
+    discrete marginals)."""
     nparams = 1 if structure is None else structure
     draw_fn, draw_ops = emit_function(
         "draw", "const float* th, float e", trace_draw(draw, structure))
@@ -913,7 +929,7 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
             "reduce_cost", "const float* th, const float* m",
             trace_reduce(reduce_cost, structure, nstats))
         fns.append(text)
-        text, prior_ops, push_ops = emit_prior(prior, push=ais)
+        text, prior_ops, push_ops = emit_prior(prior, push=ais or abcde)
         fns.append(text)
     functions = "\n".join(fns)
     source = "\n".join([
@@ -921,8 +937,10 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
         f"#define KT_NPARAMS {nparams}",
         f"#define KT_NSTATS {nstats}",
         f"#define KT_NOISE_NORMAL {int(noise == 'normal')}",
-        f"#define KT_HAS_SWEEP {int(reduce_cost is not None and not ais)}",
+        "#define KT_HAS_SWEEP "
+        f"{int(reduce_cost is not None and not (ais or abcde))}",
         *(["#define KT_HAS_AIS 1"] if ais else []),
+        *(["#define KT_HAS_ABCDE 1"] if abcde else []),
         '#include "common.cuh"',
         "namespace {",
         functions,
@@ -930,3 +948,44 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
         '#include "generic.cuh"', ""])
     return Generated(functions, source, nparams, nstats, draw_ops, stat_ops,
                      reduce_ops, prior_ops, push_ops)
+
+
+@dataclass(frozen=True)
+class GeneratedTempered:
+    """The emitted tempered model: ``functions`` (the device functions
+    alone, for the host-compiler test), ``source`` (the translation unit
+    ending in ``#include "tempered.cuh"``), and operation counts per
+    walker of the log-likelihood, the prior's logpdf and its push."""
+    functions: str
+    source: str
+    nparams: int
+    loglike_ops: int
+    prior_ops: int
+    push_ops: int
+
+
+def generate_tempered(loglike, prior):
+    """Trace ``loglike`` on the prior's theta structure and emit the
+    translation unit of the tempered sweep:
+
+        float loglike(const float* th);
+        float prior_logpdf(const float* th);
+        void prior_push(const float* th, float* out);
+    """
+    structure = prior_marginals(prior)[1]
+    nparams = 1 if structure is None else structure
+    ll_fn, loglike_ops = emit_function(
+        "loglike", "const float* th", trace_loglike(loglike, structure))
+    prior_fn, prior_ops, push_ops = emit_prior(prior, push=True)
+    functions = "\n".join([ll_fn, prior_fn])
+    source = "\n".join([
+        "// Generated by kissabc_tpu_torch/ops/codegen.py from a user "
+        "log-likelihood.",
+        f"#define KT_NPARAMS {nparams}",
+        '#include "common.cuh"',
+        "namespace {",
+        functions,
+        "}  // namespace",
+        '#include "tempered.cuh"', ""])
+    return GeneratedTempered(functions, source, nparams, loglike_ops,
+                             prior_ops, push_ops)

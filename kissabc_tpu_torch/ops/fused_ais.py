@@ -440,40 +440,39 @@ def make_fused_flagship_ais_sweep_onekernel(
 # kernel #6: the generic sweep
 # ---------------------------------------------------------------------------
 
-class FusedAISSweep:
-    """``make_fused_ais_sweep``'s sweep: ``sweep(gen, thetas, (lp, ll))``
-    over full ``[n]`` tuples, or, with ``halves=True``, ``sweep(gen,
-    (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)))``. ``half`` runs one
-    half-update with given shifts and seed."""
+class MixtureHalfSweep:
+    """The parts of a red/black half-update that the generic AIS sweep
+    (#6) and the tempered sweep (#9, ``ops/fused_tempered.py``) share:
+    the prior, the move constants, the stub layout, the leaf checks and
+    the plain version of ``mixture_propose`` (``csrc/walkers.cuh``).
+    ``walker_stream`` is the Philox stream of the walkers' words and
+    ``name`` the public factory, for messages."""
 
-    def __init__(self, prior, draw, reduce_cost, *, scale, stats, nstats,
-                 ndraws, noise, a_stretch, block, chunk, walker_tiles, bits,
-                 halves):
-        self.prior, self.draw, self.reduce_cost = prior, draw, reduce_cost
-        self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
-        self.noise, self.block, self.chunk = noise, block, chunk
-        self.walker_tiles, self.bits, self.halves = walker_tiles, bits, halves
+    walker_stream = STREAM_GEN_AIS_WALKER
+    name = "make_fused_ais_sweep"
+
+    def __init__(self, prior, *, a_stretch, block, walker_tiles, bits):
+        self.prior, self.block = prior, block
+        self.walker_tiles, self.bits = walker_tiles, bits
         self.d = prior.nparams
         self.structure = codegen.prior_marginals(prior)[1]
         self.mc = move_constants(a_stretch, self.d)
-        self.inv_scale = _f32(1.0 / scale)
         self.npairs = -(-(self.d + 4) // 2)
-        # trace now: an unsupported op or prior family raises here
-        self.unit = codegen.generate(
-            draw, structure=self.structure, nstats=nstats, stats=stats,
-            nmoments=nstats, noise=noise, reduce_cost=reduce_cost,
-            prior=prior, ais=True)
-        self.fconsts = np.array(
-            [_f32(1.0 / ndraws), *self.mc, self.inv_scale,
-             _f32(2 * (self.d - 1))], np.float32)
 
     def _sb_rows(self, h):
         return plan_tiles(h, self.block, self.walker_tiles)[1] * self.block
 
+    @staticmethod
+    def _draws(gen, h):
+        """A half-update's draws from ``gen``: seven words, the six
+        partner shifts (``rot_shifts6``) and the kernel seed."""
+        words = uint32_words(gen, 7)
+        return rot_shifts6(words[:6], h), words[6:]
+
     def _check_leaves(self, leaves, what):
         if any(x.dim() != 1 for x in leaves):
             raise ValueError(
-                "make_fused_ais_sweep expects per-walker scalar parameters "
+                f"{self.name} expects per-walker scalar parameters "
                 f"([n] leaves); got {what} shapes "
                 f"{[tuple(x.shape) for x in leaves]}")
         if len(leaves) != self.d:
@@ -488,10 +487,10 @@ class FusedAISSweep:
         return _f32_tree(pushed)
 
     def proposal_plain(self, upd, comp, shifts, seed):
-        """The half-update's steps before the simulator, in plain PyTorch:
-        returns (proposal leaves, pushed tree, logpdf, inside mask, corr,
-        accept uniform). The mask says which walkers the kernel
-        simulates."""
+        """The half-update's steps before the simulator or likelihood, in
+        plain PyTorch: returns (proposal leaves, pushed tree, logpdf,
+        inside mask, corr, accept uniform). The mask says which walkers
+        propose inside the prior's support."""
         h = upd[0].shape[0]
         dev = upd[0].device
         sb_rows = self._sb_rows(h)
@@ -499,7 +498,7 @@ class FusedAISSweep:
         words = _walker_words(
             self.bits, _seed_tensor(seed, dev), 3 + 2 * self.npairs,
             pid=i // sb_rows, cbase=50_000, sub=(i % sb_rows) // 128,
-            lane=i % 128, stream=STREAM_GEN_AIS_WALKER, walker=i)
+            lane=i % 128, stream=self.walker_stream, walker=i)
         pairs = [(words[3 + 2 * q], words[4 + 2 * q])
                  for q in range(self.npairs)]
         is_s, is_d, z, corr, gamma, nrm, u_acc = _mixture_setup(
@@ -511,6 +510,31 @@ class FusedAISSweep:
         pushed = self.pushed(props)
         lpp = self.prior.logpdf_tree(pushed).to(torch.float32)
         return props, pushed, lpp, lpp > _NEG_INF, corr, u_acc
+
+
+class FusedAISSweep(MixtureHalfSweep):
+    """``make_fused_ais_sweep``'s sweep: ``sweep(gen, thetas, (lp, ll))``
+    over full ``[n]`` tuples, or, with ``halves=True``, ``sweep(gen,
+    (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)))``. ``half`` runs one
+    half-update with given shifts and seed."""
+
+    def __init__(self, prior, draw, reduce_cost, *, scale, stats, nstats,
+                 ndraws, noise, a_stretch, block, chunk, walker_tiles, bits,
+                 halves):
+        super().__init__(prior, a_stretch=a_stretch, block=block,
+                         walker_tiles=walker_tiles, bits=bits)
+        self.draw, self.reduce_cost = draw, reduce_cost
+        self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
+        self.noise, self.chunk, self.halves = noise, chunk, halves
+        self.inv_scale = _f32(1.0 / scale)
+        # trace now: an unsupported op or prior family raises here
+        self.unit = codegen.generate(
+            draw, structure=self.structure, nstats=nstats, stats=stats,
+            nmoments=nstats, noise=noise, reduce_cost=reduce_cost,
+            prior=prior, ais=True)
+        self.fconsts = np.array(
+            [_f32(1.0 / ndraws), *self.mc, self.inv_scale,
+             _f32(2 * (self.d - 1))], np.float32)
 
     def half_plain(self, upd, lp, ll, comp, shifts, seed, terms=False):
         """Plain version of ``kt_fused_ais_sweep``: returns (theta leaves,
@@ -569,11 +593,6 @@ class FusedAISSweep:
         self.launch(upd, lp.contiguous(), ll.contiguous(), comp,
                     shifts.contiguous(), _seed_tensor(seed, dev), outs)
         return outs
-
-    @staticmethod
-    def _draws(gen, h):
-        words = uint32_words(gen, 7)
-        return rot_shifts6(words[:6], h), words[6:]
 
     def sweep_halves(self, gen, th, ld):
         tha_l, sa = leaves_of(th[0], "make_fused_ais_sweep")

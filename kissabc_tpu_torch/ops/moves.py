@@ -10,6 +10,9 @@
   schedule, and ``propose_half(kernel=...)`` through
   ``torch.func.vmap``); ``mixture_batched`` moves a whole half with one
   batched draw per random quantity.
+- pfilter: ``masked_index`` and ``masked_distinct`` draw among the True
+  entries of a mask, by modulo draws from uint32 words mapped through
+  the True-first order (``distinct_positions``, ``masked_order``).
 
 Every move is split into its draws from the explicit generator and a
 pure function of those draws (``propose_roll``/``propose_gather``,
@@ -404,3 +407,48 @@ def propose_half(gen, half, comp, d, kernel=None, scheme="auto",
     props, corr = vmap(lambda th: kernel(gen, th, comp, hc, d),
                        randomness="different")(half)
     return (props, corr, None) if accept_lu else (props, corr)
+
+
+# ---------------------------------------------------------------------------
+# pfilter: draws among the True entries of a mask
+# ---------------------------------------------------------------------------
+
+def masked_order(mask):
+    """Positions of a mask's True entries first, each group in index
+    order: the stable ``argsort(~mask)`` of the JAX package."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)
+
+
+def distinct_positions(words, m):
+    """k mutually distinct positions in ``[0, m)`` from k rows of uint32
+    words (int64 tensors): row j is reduced modulo ``max(m - j, 1)`` and
+    bumped past the earlier draws in ascending order, the construction of
+    ``sample_distinct``. ``m`` may be a device tensor: nothing is read on
+    the host."""
+    m = torch.as_tensor(m, device=words.device)
+    return _bump_distinct([words[j] % torch.clamp(m - j, min=1)
+                           for j in range(words.shape[0])])
+
+
+def masked_index(gen, mask, order=None, shape=()):
+    """Uniform random indices among the True entries of ``mask``, one per
+    element of ``shape``."""
+    if order is None:
+        order = masked_order(mask)
+    (pos,) = distinct_positions(
+        uint32_words(gen, max(1, math.prod(shape))).reshape((1,) + shape),
+        mask.sum())
+    return order[pos]
+
+
+def masked_distinct(gen, mask, k, order=None, shape=()):
+    """k distinct uniform indices among the True entries of ``mask``
+    (which must hold at least k), one k-tuple per element of ``shape``:
+    positions drawn distinct in ``[0, m)`` and mapped through the
+    True-first stable order. pfilter's good-set partner draws
+    (smc.jl:309-311) use it with a precomputed ``order``."""
+    if order is None:
+        order = masked_order(mask)
+    words = uint32_words(gen, k * max(1, math.prod(shape)))
+    pos = distinct_positions(words.reshape((k,) + shape), mask.sum())
+    return tuple(order[p] for p in pos)

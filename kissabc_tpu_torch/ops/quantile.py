@@ -88,6 +88,18 @@ def masked_quantile_bisect(x, mask, q):
     return torch.where(torch.isfinite(xlo), xlo + frac * (xhi - xlo), xlo)
 
 
+def quantile(x, q):
+    """Plain type-7 quantile over the whole array (the reference's eps
+    update, smc.jl:299)."""
+    return masked_quantile(x, torch.ones_like(x, dtype=torch.bool), q)
+
+
+def ess_weights(w):
+    """Kish effective sample size ``sum(w)^2 / sum(w^2)``."""
+    s = w.sum()
+    return s * s / (w * w).sum()
+
+
 def resolve_quantile_impl(impl, mesh, n=None):
     """``'auto'`` picks the bisection when the population is sharded
     over more than one device or ``n >= 2**18``, else the sort."""

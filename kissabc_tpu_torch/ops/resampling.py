@@ -32,6 +32,9 @@ def systematic_from_u0(weights, u0):
     w = weights / weights.sum()
     cum = torch.cumsum(w, 0)
     r = (torch.floor(n * cum - u0).to(torch.int64) + 1).clamp(0, n)
-    h = torch.bincount(r, minlength=n + 1)
+    # a histogram of a known size: bincount on CUDA reads the maximum on
+    # the host, a scatter-add does not
+    h = torch.zeros(n + 1, dtype=torch.int64, device=r.device).index_add_(
+        0, r, torch.ones_like(r))
     idx = torch.cumsum(h, 0)[:n]
     return idx.clamp(0, n - 1)

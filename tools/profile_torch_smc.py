@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of kissabc_tpu_torch's ``smc`` goes on one CUDA card.
+"""Where the time of kissabc_tpu_torch's ``smc``, ``tsmc`` and ``ABCDE``
+goes on one CUDA card.
 
     python3 tools/profile_torch_smc.py
-        [--path flagship|generic|both|scan|perwalker|all] [--trace-dir DIR]
+        [--path flagship|generic|both|scan|perwalker|tsmc|abcde|all]
+        [--trace-dir DIR]
 
 Runs ``smc`` once warm without the profiler for the wall time, then once
 under ``torch.profiler``. ``--path flagship`` (the default) runs slice
@@ -13,11 +15,18 @@ same model as a user model through ``make_streaming_moment_cost`` and
 ``--path scan`` runs the AR(1) model through ``make_streaming_scan_cost``
 at 131072 particles x 1000 steps (``chip_smoke.py``'s ``smc-scan-ar1``);
 ``--path perwalker`` the README model's per-walker cost ``cost(theta,
-gen)`` at 1000 particles (``smc-perwalker``); ``all`` runs all four.
-For each run it prints one JSON line with
-the wall time, the iterations, the device busy time (the union of all
-CUDA kernel and copy intervals), the device idle share of the profiled
-window, the CUDA events and the port's kernel launches per iteration,
+gen)`` at 1000 particles (``smc-perwalker``). ``--path tsmc`` runs
+``tsmc`` on the conjugate-normal oracle at 4096 particles, 5 MCMC steps,
+with the split rejuvenation and with the fused tempered sweep (kernel
+#9) (``chip_smoke.py``'s ``tsmc-conjugate``); ``--path abcde`` runs
+``ABCDE`` on the flagship model with the streaming cost at 16384
+particles for 100 generations at an unreachable eps, split and through
+the fused generation (kernel #10) (``abcde-fused``). ``all`` runs all
+six. For each run it prints one JSON line with
+the wall time, the iterations (generations for ABCDE), the device busy
+time (the union of all CUDA kernel and copy intervals), the device idle
+share of the profiled window, the CUDA events and the port's kernel
+launches per iteration,
 the sync and copy calls (and, for the generic path, those of the fused
 sweep called alone 100 times, each with the Python frames it came from,
 and the blocking syncs torch's sync debug mode reports), and the CUDA
@@ -132,22 +141,28 @@ def path_spec(torch, kt, path):
     return prior, cost, dict(epstol=0.011113, key=2), [(1000, {})]
 
 
-def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
+def _modules():
+    from kissabc_tpu_torch.ops import (fused_abcde, fused_smc,
+                                       fused_tempered, kernels, scan,
+                                       streaming)
+    return (kernels, streaming, fused_smc, scan, fused_tempered, fused_abcde)
+
+
+def measure(torch, call, trace):
+    """Runs ``call()`` (one whole run of a sampler) warm, then timed,
+    then under ``torch.profiler``. Returns (result, wall seconds, the
+    port's kernel launches of the timed run, the profiler, the profiled
+    wall seconds); ``trace`` names a Chrome trace to write, or None."""
     from torch.profiler import ProfilerActivity, profile
 
-    from kissabc_tpu_torch.ops import fused_smc, kernels, scan, streaming
-
-    prior, cost, base, _ = spec
-    kw = dict(base, **kw)
-    modules = (kernels, streaming, fused_smc, scan)
+    modules = _modules()
 
     def run():
         for m in modules:
             m.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = kt.smc(prior, cost, nparticles=nparticles, max_iters=2000,
-                     **kw)
+        res = call()
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
@@ -157,11 +172,14 @@ def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_prof = run()
-    trace = None
-    if trace_dir:
-        trace = os.path.join(trace_dir, f"smc_{path}_{nparticles}.json")
+    if trace:
         prof.export_chrome_trace(trace)
+    return res, wall, launches, prof, wall_prof
 
+
+def device_summary(torch, prof, wall_prof, iterations):
+    """Busy time, idle share, CUDA events per iteration, sync or copy
+    calls and the top kernels of a profiled run."""
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     intervals = [(e.time_range.start, e.time_range.end) for e in dev_events]
@@ -173,21 +191,77 @@ def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
         n_, t_ = by_name.get(name, (0, 0.0))
         by_name[name] = (n_ + 1, t_ + t)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    syncs = sync_or_copy_calls(prof)
+    return {
+        "wall_profiled_s": wall_prof,
+        "device_busy_s": busy if dev_events else None,
+        "device_idle_share": (1 - busy / wall_prof) if dev_events else None,
+        "cuda_events": len(dev_events),
+        "cuda_events_per_iteration": len(dev_events) / max(iterations, 1),
+        "sync_or_copy_calls": sync_or_copy_calls(prof),
+        "top_kernels_ms": [{"name": k, "count": c, "ms": t / 1e3}
+                           for k, (c, t) in top],
+    }
+
+
+def profile_sampler(torch, kt, path, trace_dir):
+    """tsmc (split and fused, 4096) or ABCDE (split and fused, 16384 x
+    100 generations): one JSON-ready dict per run."""
+    from kissabc_tpu_torch import models
+
+    out = []
+    for fused in (False, True):
+        if path == "tsmc":
+            prior, ll_elem, ll_vec, _ = models.conjugate_normal()
+            sweep = (kt.make_fused_tempered_sweep(prior, ll_elem) if fused
+                     else None)
+            n = 4096
+
+            def call():
+                return kt.tsmc(prior, ll_vec, nparticles=n, mcmc_steps=5,
+                               loglike_vectorized=True, sweep_fused=sweep,
+                               key=1)
+        else:
+            prior, draw, reduce_cost = models.flagship()
+            cost = kt.make_streaming_moment_cost(draw, reduce_cost)
+            gen = (kt.make_fused_abcde_generation(
+                prior, draw, reduce_cost, gamma=2.38 / 2.0) if fused
+                else None)
+            n = 16384
+
+            def call():
+                return kt.ABCDE(prior, cost, 1e-6, nparticles=n,
+                                generations=100, cost_vectorized=True,
+                                sweep_fused=gen, verbose=False, key=2)
+        label = f"{path}_{'fused' if fused else 'split'}"
+        trace = os.path.join(trace_dir, f"{label}_{n}.json") \
+            if trace_dir else None
+        res, wall, launches, prof, wall_prof = measure(torch, call, trace)
+        out.append({"path": label, "nparticles": n,
+                    "iterations": res.iterations, "wall_s": wall,
+                    **device_summary(torch, prof, wall_prof, res.iterations),
+                    "kernel_launches": launches, "trace": trace})
+    return out
+
+
+def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
+    prior, cost, base, _ = spec
+    kw = dict(base, **kw)
+
+    def call():
+        return kt.smc(prior, cost, nparticles=nparticles, max_iters=2000,
+                      **kw)
+
+    trace = (os.path.join(trace_dir, f"smc_{path}_{nparticles}.json")
+             if trace_dir else None)
+    res, wall, launches, prof, wall_prof = measure(torch, call, trace)
+
     per_sweep = (sweep_syncs(torch, prior, kw["sweep_fused"], nparticles)
                  if path == "generic" else None)
     return {
         "path": path, "nparticles": nparticles,
-        "iterations": res.iterations,
-        "eps": res.eps, "wall_s": wall, "wall_profiled_s": wall_prof,
-        "device_busy_s": busy if dev_events else None,
-        "device_idle_share": (1 - busy / wall_prof) if dev_events else None,
-        "cuda_events": len(dev_events),
-        "cuda_events_per_iteration": len(dev_events) / res.iterations,
-        "kernel_launches": launches, "sync_or_copy_calls": syncs,
-        "fused_sweep_alone": per_sweep,
-        "top_kernels_ms": [{"name": k, "count": c, "ms": t / 1e3}
-                           for k, (c, t) in top],
+        "iterations": res.iterations, "eps": res.eps, "wall_s": wall,
+        **device_summary(torch, prof, wall_prof, res.iterations),
+        "kernel_launches": launches, "fused_sweep_alone": per_sweep,
         "trace": trace,
     }
 
@@ -195,7 +269,7 @@ def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("flagship", "generic", "both", "scan",
-                                       "perwalker", "all"),
+                                       "perwalker", "tsmc", "abcde", "all"),
                     default="flagship")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -213,9 +287,13 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
     paths = {"both": ("flagship", "generic"),
-             "all": ("flagship", "generic", "scan", "perwalker")}.get(
-                 args.path, (args.path,))
+             "all": ("flagship", "generic", "scan", "perwalker", "tsmc",
+                     "abcde")}.get(args.path, (args.path,))
     for path in paths:
+        if path in ("tsmc", "abcde"):
+            for row in profile_sampler(torch, kt, path, args.trace_dir):
+                print(json.dumps(row), flush=True)
+            continue
         spec = path_spec(torch, kt, path)
         for n, kw in spec[3]:
             print(json.dumps(profile_run(torch, kt, path, spec, n,
