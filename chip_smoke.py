@@ -24,7 +24,12 @@ paths:
   particles; and ``smc_stepped`` on the generic fused path, run through
   and run stopped at its first checkpoint and resumed;
 
-and checks each posterior against its limits. Every
+and checks each posterior against its limits (slices 4 and 5 add AIS,
+tsmc, pfilter and ABCDE and their kernels). For the kernels redesigned
+since, ``radius-exhaustive`` holds the Box-Muller radius of
+``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
+and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads,
+which must give equal outputs. Every
 phase prints one line with its result and seconds; any failed check
 raises and the script exits non-zero. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
@@ -35,6 +40,7 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Without a card, or
 run from a directory without the package, it exits 1 and prints no result.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -53,6 +59,29 @@ README_LIMIT_S = 300     # the README AIS run (2e4 half-updates) alone
 H100_F32_OPS = 67e12     # float32 outside the tensor cores, H100 SXM
 H100_BYTES = 3.35e12     # HBM3, H100 SXM
 EPSTOL = 0.011113        # README.md:84 of the reference
+
+
+# common.cuh's box_muller_radius against sqrtf(-2 log1pf(-u)) for every
+# value u = k 2^-23 that to_unit gives: one thread per k
+RADIUS_CHECK = r"""
+#include "common.cuh"
+namespace {
+__global__ void radius_check_kernel(unsigned int* bad) {
+  uint32_t k = blockIdx.x * blockDim.x + threadIdx.x;
+  float u = to_unit(k << 9);
+  float want = sqrtf(-2.0f * log1pf(-u));
+  if (__float_as_uint(box_muller_radius(u)) != __float_as_uint(want))
+    atomicAdd(bad, 1u);
+}
+}  // namespace
+extern "C" int kt_radius_check(unsigned int* bad, void* stream) {
+  radius_check_kernel<<<(1 << 23) / 256, 256, 0, (cudaStream_t)stream>>>(bad);
+  return (int)cudaGetLastError();
+}
+extern "C" const char* kt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+"""
 
 
 class Timeout(Exception):
@@ -209,6 +238,14 @@ def compare_sweeps(torch, got, want, eps, what, band=1e-5, cost_atol=2e-5):
         err = max(err, assert_close(torch, g[both], w[both],
                                     f"{what} committed output {k}"))
     return err, int(differ.sum())
+
+
+def unequal_committed(got, want):
+    """Committed values (theta leaves, xs, lps of walkers both sweeps
+    commit) that differ between two sweeps' outputs."""
+    both = got[3] & want[3]
+    return sum(int((g[both] != w[both]).sum()) for g, w in zip(
+        list(got[0]) + list(got[1:3]), list(want[0]) + list(want[1:3])))
 
 
 def flagship_outputs(out):
@@ -438,6 +475,7 @@ def main():
         jobs = [_build.start()] + [_build.start(text) for text in units]
         ais_jobs = [_build.start(text) for text in ais_units]
         t5_jobs = [_build.start(text) for text in t5_units]
+        radius_job = _build.start(RADIUS_CHECK)
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
         _build.load()
@@ -483,6 +521,19 @@ def main():
         ph.result = (f"{len(t5_units)} generated units of kernels #9 "
                      f"(tempered.cuh) and #10 (generic.cuh, KT_HAS_ABCDE), "
                      f"started with the others; nvcc seconds {secs5}")
+
+    with Phase("radius-exhaustive") as ph:
+        radius_job.wait()
+        lib = _build.load_generated(RADIUS_CHECK)
+        lib.kt_radius_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        _build.check(lib, lib.kt_radius_check(
+            bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "radius_check")
+        check(int(bad) == 0, f"box_muller_radius differs from sqrtf(-2 "
+              f"log1pf(-u)) at {int(bad)} of 2^23 values of u")
+        ph.result = ("box_muller_radius equals sqrtf(-2 log1pf(-u)) bit for "
+                     "bit at all 2^23 values of u")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -589,9 +640,10 @@ def main():
             acc = int(got[3].sum())
             check(0 < acc < n, f"sweep {name} accepted {acc} of {n}")
             check(not bool(got[3][~alive].any()), "a dead walker committed")
-            commits[name] = (acc, border)
+            commits[name] = (acc, border, unequal_committed(got, want))
         ph.result = (f"max|err| {max(errs.values()):.3g} "
-                     f"({json.dumps(errs)}); commits, borderline {commits}")
+                     f"({json.dumps(errs)}); commits, borderline, unequal "
+                     f"committed values {commits}")
 
     with Phase("generic-no-write-past-n") as ph:
         n, extra = 1000, 1024
@@ -973,8 +1025,27 @@ def main():
                                             flag_t, rs), 20)
         plain4 = cuda_ms(torch, lambda: F.fused_smc_sweep_plain(
             sw, th, xs, lps, alive, eps_t, flag_t, 5, 77, 11), 1, warmup=0)
-        nsim = int(F.proposal_plain(sw, th, lps, alive, 5, 77, 11)[3].sum())
+        gate1 = F.proposal_plain(sw, th, lps, alive, 5, 77, 11)[3]
+        nsim = int(gate1.sum())
         b4, by4 = bound(sw.work(n, nsim))
+        # the block size, by measurement: each walker's bits are keyed by
+        # its index, so every block size gives the same outputs bit for bit
+        ins = sw._inputs(n, xs.device, xs, lps, alive, eps_t, flag_t)
+        by_threads = {}
+        for t in (128, 256, 512, 1024):
+            outs = ([torch.empty_like(x) for x in th],
+                    torch.empty_like(xs), torch.empty_like(lps),
+                    torch.empty(n, dtype=torch.bool, device=dev))
+            sw.launch(n, th, ins, rs, outs, threads=t)
+            for g, o in zip(list(got[0]) + list(got[1:]),
+                            list(outs[0]) + list(outs[1:])):
+                check(bool(torch.equal(g, o)), f"fused_smc_sweep: blocks of "
+                      f"{t} differ from blocks of {F.SWEEP_THREADS}")
+            by_threads[t] = dict(
+                ms=cuda_ms(torch, lambda: sw.launch(n, th, ins, rs, outs,
+                                                    threads=t), 20),
+                blocks_per_sm=sw.occupancy(t),
+                lane_share=F.lane_share(gate1, t))
         records.append(dict(
             name="fused_smc_sweep", route="cuda",
             source="kissabc_tpu_torch/csrc/generic.cuh",
@@ -982,14 +1053,19 @@ def main():
             launches=generic_launches["fused_smc_sweep"],
             max_abs_err=err4, matched=True, ms=ms4, plain_ms=plain4,
             bound_ms=b4, bound_by=by4, library_ms=None,
-            simulated_share=nsim / n))
+            simulated_share=nsim / n, threads=F.SWEEP_THREADS,
+            lane_share=F.lane_share(gate1), lane_share_uncompacted=(
+                F.lane_share(gate1, 32)), unequal=unequal_committed(got, want),
+            by_threads=by_threads))
         ph.result = (f"normal_summary_cost {ms1:.3f} ms (bound {b1:.3f}); "
                      f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}, {nsim2} "
                      f"of 131072 walkers pass gate 1), "
                      f"{border} borderline commits; streaming_moment_cost "
                      f"{ms3:.3f} ms (bound {b3:.3f}); fused_smc_sweep "
                      f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
-                     f"pass gate 1), {border4} borderline")
+                     f"pass gate 1), {border4} borderline, blocks of "
+                     f"{F.SWEEP_THREADS}; by block size "
+                     f"{json.dumps(by_threads)}")
 
     with Phase("scan-kernel-times") as ph:
         # the AR(1) model of bench.py:770-779 at the smc-scan-ar1 shape. No

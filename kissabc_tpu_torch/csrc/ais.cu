@@ -98,7 +98,7 @@ __device__ __forceinline__ void walker_words(const Bits& b, int stub,
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       Words4 q = philox4x32_10((uint32_t)g, b.walker, kStreamAisWalker, 0u,
-                               b.seed, 0u);
+                               b.seed);
       wd[4 * g] = q.x0;
       if (4 * g + 1 < 9) wd[4 * g + 1] = q.x1;
       if (4 * g + 2 < 9) wd[4 * g + 2] = q.x2;

@@ -16,6 +16,18 @@
 // simulates only the walkers that pass its gate 1 (no other walker's
 // outputs depend on the simulation).
 //
+// What bounds kernel 1 on the H100 is instruction issue: one warp
+// instruction per scheduler per cycle, 132 x 128 lane instructions per
+// cycle. Its draw loop (moments_philox in moments.cuh) issues 43 SASS
+// instructions a draw (tools/sass_draw_loop.py; 53.5 before the loop was
+// cut), so 1000 draws of 2^20 walkers take at least 1.34 ms at 1980 MHz;
+// the bound of chip_smoke.py counts 47 operations a draw at the float32
+// rate, 0.74 ms, which only an FMA on every lane every cycle would reach.
+// The loop issues only the arithmetic of the result: round keys made once
+// per walker, the last ragged group of four draws peeled out of the loop,
+// and the Box-Muller radius without the branches of log1pf and sqrtf
+// (common.cuh), bit for bit.
+//
 // Random bits. bits = 0 ("hw") uses Philox4x32-10 keyed by (seed, 0) with
 // counter (draw group, walker, stream, 0): one call gives four words, i.e.
 // two Box-Muller pairs. It is the counterpart of the TPU's hardware PRNG.
@@ -95,8 +107,7 @@ __global__ void fused_sweep_kernel(
     bu2 = stub_bits(pid, seed, 10001u, csub, clane);
     bu3 = stub_bits(pid, seed, 10002u, csub, clane);
   } else {
-    Words4 b = philox4x32_10(0u, (uint32_t)w, kStreamSweepWalker, 0u, seed,
-                             0u);
+    Words4 b = philox4x32_10(0u, (uint32_t)w, kStreamSweepWalker, 0u, seed);
     bu1 = b.x0;
     bu2 = b.x1;
     bu3 = b.x2;

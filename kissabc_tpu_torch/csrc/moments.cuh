@@ -45,26 +45,39 @@ __device__ void moments_stub(uint32_t pid, uint32_t seed, uint32_t ctr0,
   *s2 = m2;
 }
 
+// The four draws of one Philox call (two Box-Muller pairs) added to the
+// moment sums in order; with kGuard only the first `left` of them.
+template <bool kGuard>
+__device__ __forceinline__ void add_group(Words4 b, int left, float* m1,
+                                          float* m2) {
+  float z[4];
+  box_muller(b.x0, b.x1, &z[0], &z[1]);
+  box_muller(b.x2, b.x3, &z[2], &z[3]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!kGuard || k < left) {
+      *m1 += z[k];
+      *m2 += z[k] * z[k];
+    }
+  }
+}
+
 // z-moment sums of ndraws N(0,1) draws from Philox: group q gives draws
-// 4q .. 4q+3 (two Box-Muller pairs from one Philox call).
+// 4q .. 4q+3 (two Box-Muller pairs from one Philox call). The round keys
+// are made once; the whole groups run without a guard, the ragged last
+// group (ndraws % 4 draws) after them.
 __device__ void moments_philox(uint32_t seed, uint32_t stream,
                                uint32_t walker, int ndraws, float* s1,
                                float* s2) {
+  PhiloxKey key = philox_key(seed);
   float m1 = 0.0f, m2 = 0.0f;
-  int ngroups = (ndraws + 3) / 4;
-  for (int q = 0; q < ngroups; ++q) {
-    Words4 b = philox4x32_10((uint32_t)q, walker, stream, 0u, seed, 0u);
-    float z[4];
-    box_muller(b.x0, b.x1, &z[0], &z[1]);
-    box_muller(b.x2, b.x3, &z[2], &z[3]);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (4 * q + k < ndraws) {
-        m1 += z[k];
-        m2 += z[k] * z[k];
-      }
-    }
-  }
+  int whole = ndraws / 4;
+  for (int q = 0; q < whole; ++q)
+    add_group<false>(philox4x32_10((uint32_t)q, walker, stream, 0u, key), 4,
+                     &m1, &m2);
+  if (ndraws % 4)
+    add_group<true>(philox4x32_10((uint32_t)whole, walker, stream, 0u, key),
+                    ndraws % 4, &m1, &m2);
   *s1 = m1;
   *s2 = m2;
 }

@@ -108,6 +108,7 @@ __global__ void streaming_scan_cost_kernel(
   uint32_t lane = (uint32_t)(w % 128);
   int npairs = (nsteps + 1) / 2;
 
+  PhiloxKey key = philox_key(seed);
   Words4 q = {0u, 0u, 0u, 0u};
   for (int j = 0; j < npairs; ++j) {
     uint32_t b1, b2;
@@ -118,7 +119,7 @@ __global__ void streaming_scan_cost_kernel(
     } else {
       if ((j & 1) == 0)
         q = philox4x32_10((uint32_t)(j >> 1), (uint32_t)w, kStreamScan, 0u,
-                          seed, 0u);
+                          key);
       b1 = (j & 1) ? q.x2 : q.x0;
       b2 = (j & 1) ? q.x3 : q.x1;
     }

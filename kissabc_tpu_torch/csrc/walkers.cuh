@@ -65,8 +65,7 @@ __device__ __forceinline__ void mixture_propose(
   } else {
 #pragma unroll
     for (int g = 0; 4 * g < kMixWords; ++g) {
-      Words4 q = philox4x32_10((uint32_t)g, (uint32_t)i, stream, 0u, seed,
-                               0u);
+      Words4 q = philox4x32_10((uint32_t)g, (uint32_t)i, stream, 0u, seed);
       uint32_t v[4] = {q.x0, q.x1, q.x2, q.x3};
 #pragma unroll
       for (int t = 0; t < 4; ++t)

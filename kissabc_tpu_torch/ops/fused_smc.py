@@ -8,7 +8,9 @@ proposal against the partners ``(w - r1) mod n`` and ``(w - r2) mod n``
 (``jnp.roll(x, r)[w]``), the prior's push and logpdf, gate 1 (prior-only
 MH), then, for the walkers that pass gate 1, the user's streamed
 simulator, ``reduce_cost``, gate 2 (``<`` or ``<=`` eps by the boundary
-flag) and the commit. The user's ``draw``,
+flag) and the commit. Each block of ``SWEEP_THREADS`` threads compacts
+its gate-1 walkers onto its first threads before the simulator
+(``sweep_geometry``, ``lane_share``). The user's ``draw``,
 ``stats`` and ``reduce_cost`` and the prior's logpdf are compiled into it
 by ``ops/codegen.py``. ``fused_smc_sweep_plain`` repeats the kernel's
 arithmetic with the user's callables and the port's prior on tensors;
@@ -28,6 +30,7 @@ from device memory; ``naccept`` is a device tensor.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -45,6 +48,13 @@ from .streaming import (NOISE_OPS, STREAM_GEN_SWEEP_SIM,
 # launches of the CUDA kernel since the last reset (plain ints)
 launches = {"fused_smc_sweep": 0}
 
+# threads per block of the kernel, which compacts the block's gate-1
+# walkers onto its first threads: the block size at most
+# (kSweepMaxThreads in csrc/generic.cuh), and the one launched, chosen by
+# measurement on the card (chip_smoke.py kernel-times, PERF.md)
+MAX_SWEEP_THREADS = 1024
+SWEEP_THREADS = 512
+
 # per-walker operations of the sweep outside the simulator, the prior and
 # reduce_cost: one Philox call (100), three mantissa tricks (9), the
 # proposal scale (sqrt, log1p, sincos: 30), the MH log-u (2), the gates
@@ -55,6 +65,34 @@ SWEEP_OPS, SWEEP_OPS_PER_LEAF = 100 + 9 + 30 + 1 + 2 + 10 + 3, 4
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def sweep_geometry(n: int, threads: int = SWEEP_THREADS) -> tuple[int, int]:
+    """(blocks, threads) of one launch over ``n`` walkers: blocks of
+    ``threads``, a multiple of 32 up to ``MAX_SWEEP_THREADS``, one walker
+    a thread."""
+    if threads % 32 or not 32 <= threads <= MAX_SWEEP_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 in [32, "
+                         f"{MAX_SWEEP_THREADS}], got {threads}")
+    return max(1, -(-n // threads)), threads
+
+
+def lane_share(gate1, threads: int = SWEEP_THREADS) -> float:
+    """The share of the draw loop's lanes that do useful work when each
+    block of ``threads`` compacts its gate-1 walkers (``gate1``, a bool
+    vector over the walkers): the block's p passing walkers run on
+    ceil(p / 32) warps, so the share is sum p / sum 32 ceil(p / 32) over
+    the blocks (1.0 where none passes). ``threads=32`` gives the share of
+    one warp per 32 walkers without compaction, where a warp runs the
+    loop while any of its walkers needs it."""
+    n = gate1.shape[0]
+    blocks, threads = sweep_geometry(n, threads)
+    padded = torch.zeros(blocks * threads, dtype=torch.int64,
+                         device=gate1.device)
+    padded[:n] = gate1.to(torch.int64)
+    p = padded.view(blocks, threads).sum(1)
+    lanes = int((torch.div(p + 31, 32, rounding_mode="floor") * 32).sum())
+    return int(p.sum()) / lanes if lanes else 1.0
 
 
 class FusedSMCSweep:
@@ -135,10 +173,12 @@ class FusedSMCSweep:
                 .reshape(1),
                 torch.as_tensor(flag, device=dev).to(torch.bool).reshape(1))
 
-    def launch(self, n, leaves, ins, rs, outs):
+    def launch(self, n, leaves, ins, rs, outs, threads=SWEEP_THREADS):
         """Launch over the first ``n`` walkers of checked CUDA buffers:
         ``ins`` = (xs, lps, alive, eps[1], flag[1]), ``rs`` = (r1, r2,
-        seed) int64, ``outs`` = (theta leaves, xs, lps, commit)."""
+        seed) int64, ``outs`` = (theta leaves, xs, lps, commit); blocks
+        of ``threads`` (``sweep_geometry``)."""
+        blocks, threads = sweep_geometry(n, threads)
         lib = _build.load_generated(self.unit.source)
         xs, lps, alive, eps, flag = ins
         oth, oxs, olps, ocm = outs
@@ -148,9 +188,19 @@ class FusedSMCSweep:
             rs.data_ptr(), _build.pointers(oth), oxs.data_ptr(),
             olps.data_ptr(), ocm.data_ptr(), n, self.ndraws,
             float(np.float32(1.0 / self.ndraws)), self.w_scale,
-            int(self.bits == "stub"), self._sb_rows(n), self.chunk,
-            _stream())
+            int(self.bits == "stub"), self._sb_rows(n), self.chunk, blocks,
+            threads, _stream())
         _build.check(lib, err, "fused_smc_sweep")
+
+    def occupancy(self, threads=SWEEP_THREADS):
+        """Blocks of ``threads`` of the kernel (Philox bits) resident on
+        one SM of the current card."""
+        lib = _build.load_generated(self.unit.source)
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.kt_fused_smc_sweep_occupancy(
+            sweep_geometry(1, threads)[1], ctypes.byref(out)),
+            "fused_smc_sweep occupancy")
+        return out.value
 
     def work(self, n, nsim=None):
         """(bytes, operations) of one sweep over ``n`` walkers of which

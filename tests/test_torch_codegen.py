@@ -8,8 +8,10 @@ to a few float32 ulps.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
+from kissabc_tpu_torch.ops import _build
 from kissabc_tpu_torch.ops import codegen as C
 
 
@@ -373,3 +376,73 @@ def test_emitted_discrete_push_matches_torch_on_host(tmp_path):
         tuple(x.to(torch.float32) for x in pushed))
     assert torch.equal(out[2 * n:], want)
     assert 0 < int(torch.isfinite(want).sum()) < n
+
+
+# ---------------------------------------------------------------------------
+# the entry points a unit declares against those the wrappers bind
+# ---------------------------------------------------------------------------
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _entry_points(text):
+    """extern "C" function -> its ctypes argument types (a pointer or the
+    stream a ``c_void_p``), from preprocessed C++."""
+    out = {}
+    for m in re.finditer(r'extern "C" [\w ]+?\**\s*(kt_\w+)\(([^)]*)\)', text):
+        args = [a.split() for a in m.group(2).split(",") if a.strip()]
+        out[m.group(1)] = [ctypes.c_void_p if "*" in "".join(a)
+                           else _C_TYPES[a[-2]] for a in args]
+    return out
+
+
+def _preprocessed(tmp_path, source):
+    """``source`` (a unit or a file of csrc/) through the host C
+    preprocessor, with the CUDA headers empty: only the entry points its
+    macros enable remain."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to preprocess the unit")
+    for header in ("cuda_runtime.h", "cooperative_groups.h"):
+        (tmp_path / header).write_text("")
+    unit = tmp_path / "unit.cu"
+    unit.write_text(source)
+    csrc = Path(kt.__file__).parent / "csrc"
+    return subprocess.run(
+        ["g++", "-E", "-P", "-x", "c++", "-std=c++17", "-I", str(tmp_path),
+         "-I", str(csrc), str(unit)], check=True, capture_output=True,
+        text=True).stdout
+
+
+def test_sweep_unit_declares_what_fused_smc_binds(tmp_path):
+    """The flagship model's unit for kernel #3 declares the sweep's entry
+    points with the argument types ``ops/_build.py`` gives ctypes (a
+    mismatch would pass pointers or floats in the wrong registers), and
+    no entry point of the AIS or ABC-DE units."""
+    sweep = kt.make_fused_smc_sweep(*models.flagship())
+    found = _entry_points(_preprocessed(tmp_path, sweep.unit.source))
+    assert set(found) == {"kt_streaming_moment_cost", "kt_fused_smc_sweep",
+                          "kt_fused_smc_sweep_occupancy", "kt_error_string"}
+    for name in ("kt_streaming_moment_cost", "kt_fused_smc_sweep",
+                 "kt_fused_smc_sweep_occupancy"):
+        assert found[name] == _build.GEN_SIGNATURES[name], name
+
+
+@pytest.mark.parametrize("name", sorted(_build.GEN_SIGNATURES))
+def test_generated_entry_points_match_their_bindings(tmp_path, name):
+    """Every entry point of the generated units, declared by one of the
+    templates with all its features on, as ``ops/_build.py`` binds it."""
+    source = "\n".join(
+        ["#define KT_NPARAMS 2", "#define KT_NSTATS 2",
+         "#define KT_NOISE_NORMAL 1", "#define KT_HAS_SWEEP 1",
+         "#define KT_HAS_AIS 1", "#define KT_HAS_ABCDE 1",
+         '#include "generic.cuh"', '#include "scan.cuh"',
+         '#include "tempered.cuh"'])
+    found = _entry_points(_preprocessed(tmp_path, source))
+    assert found[name] == _build.GEN_SIGNATURES[name]
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_hand_written_entry_points_match_their_bindings(tmp_path, name):
+    found = _entry_points(_preprocessed(
+        tmp_path, '#include "flagship.cu"\n#include "ais.cu"\n'))
+    assert found[name] == _build._SIGNATURES[name]

@@ -347,3 +347,85 @@ def test_sweep_leaf_count_message_matches_jax():
     assert str(terr.value) == str(jerr.value)
     assert str(terr.value) == "prior has 1 scalar marginals but thetas has " \
         "2 leaves"
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch geometry and the compaction's lane share (host side)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n, threads, blocks", [
+    (1, 256, 1), (255, 256, 1), (256, 256, 1), (257, 256, 2),
+    (1 << 20, 256, 4096), (1 << 20, 512, 2048), (1000, 32, 32),
+    (1000, 128, 8), (0, 256, 1)])
+def test_sweep_geometry(n, threads, blocks):
+    assert F.sweep_geometry(n, threads) == (blocks, threads)
+    assert blocks * threads >= n
+
+
+@pytest.mark.parametrize("threads", [0, 16, 31, 48, 100, 1056, 2048, -32])
+def test_sweep_geometry_refuses_block_sizes_the_kernel_cannot_take(threads):
+    """The kernel compacts into kSweepMaxThreads shared slots, and its
+    ballots take whole warps."""
+    with pytest.raises(ValueError, match="multiple of 32"):
+        F.sweep_geometry(1000, threads)
+
+
+def test_default_block_size_fits_the_kernel():
+    src = (kt.__path__[0] + "/csrc/generic.cuh")
+    text = open(src).read()
+    assert f"constexpr int kSweepMaxThreads = {F.MAX_SWEEP_THREADS};" in text
+    assert F.SWEEP_THREADS % 32 == 0
+    assert 32 <= F.SWEEP_THREADS <= F.MAX_SWEEP_THREADS
+
+
+def test_lane_share_counts_whole_warps_per_block():
+    t = 256
+    assert F.lane_share(torch.ones(4 * t, dtype=torch.bool), t) == 1.0
+    assert F.lane_share(torch.zeros(4 * t, dtype=torch.bool), t) == 1.0
+    one = torch.zeros(t, dtype=torch.bool)
+    one[[3, 100, 255]] = True            # three walkers on one warp
+    assert F.lane_share(one, t) == 3 / 32
+    mask = torch.zeros(2 * t + 10, dtype=torch.bool)
+    mask[:33] = True                     # block 0: 33 -> two warps
+    mask[t:t + 64] = True                # block 1: 64 -> two warps
+    mask[2 * t:] = True                  # block 2 (ragged): 10 -> one warp
+    assert F.lane_share(mask, t) == (33 + 64 + 10) / (64 + 64 + 32)
+
+
+def test_lane_share_of_32_is_the_uncompacted_warps():
+    """threads=32: a warp of 32 walkers runs the loop while any of them
+    passes, the design without compaction."""
+    mask = torch.zeros(128, dtype=torch.bool)
+    mask[0] = True                       # warp 0: 1 of 32
+    mask[64:96] = True                   # warp 2: 32 of 32
+    assert F.lane_share(mask, 32) == 33 / 64
+    assert F.lane_share(mask, 128) == 33 / 64   # one block, two warps
+
+
+def test_lane_share_at_the_pass_rate_of_the_smc_path():
+    """At a 44% gate-1 pass rate compaction keeps ~88% of the lanes busy
+    in blocks of 256 (~93% in 512), against ~44% without it."""
+    gen = torch.Generator().manual_seed(0)
+    mask = torch.rand(1 << 16, generator=gen) < 0.44
+    plain = F.lane_share(mask, 32)
+    assert abs(plain - 0.44) < 0.01
+    s256, s512 = F.lane_share(mask, 256), F.lane_share(mask, 512)
+    assert 0.85 < s256 < 0.91 and 0.91 < s512 < 0.95
+    assert plain < s256 < s512
+
+
+def test_lane_share_of_the_sweeps_gate1_mask():
+    prior = convert.prior_from_numpy(FLAGSHIP_SPEC)
+    draw, reduce_cost, _ = _models(torch)["flagship"]
+    sweep = kt.make_fused_smc_sweep(prior, draw, reduce_cost, ndraws=100)
+    n = 1000
+    th = list(prior.sample_tree(as_generator(2, "cpu"), n))
+    lps = prior.logpdf_tree(tuple(th))
+    gate1 = F.proposal_plain(sweep, th, lps, torch.ones(n, dtype=torch.bool),
+                             3, 40, 99)[3]
+    p = int(gate1.sum())
+    blocks, t = F.sweep_geometry(n)
+    per_block = [int(gate1[b * t:(b + 1) * t].sum()) for b in range(blocks)]
+    want = p / sum(32 * -(-q // 32) for q in per_block)
+    assert F.lane_share(gate1) == want
+    assert F.lane_share(gate1) >= F.lane_share(gate1, 32)

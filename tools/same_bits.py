@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""Whether the CUDA kernels of this checkout give, bit for bit, the
+outputs of the kernels of another checkout on the same inputs.
+
+    python3 tools/same_bits.py --parent DIR [--n N]
+
+Loads the package of this checkout and the one under DIR side by side
+(the second under another module name, so each builds its own libraries
+into its own ``build/``), makes every input once from a seed on the card,
+and runs each kernel through both: #1 ``normal_summary_cost`` (Philox and
+stub bits), #2 ``fused_sweep``, #3 ``fused_smc_sweep`` (the flagship
+model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
+#4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub),
+#5 ``streaming_scan_cost`` (AR(1)), #6 ``fused_ais_sweep`` (flagship and
+g-and-k, Philox and stub), #7 ``fused_ais_half``, #8 ``fused_ais_full``
+and #10 ``fused_abcde_generation`` (flagship, Philox and stub). Prints
+one JSON line per case with the count of output values that differ (0:
+the same bits), then the card and its power limit; exits 1 if any case
+differs. Needs one card and nvcc; imports nothing of JAX.
+"""
+
+import argparse
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_package(root, name):
+    """The kissabc_tpu_torch package under ``root``, imported as
+    ``name``."""
+    pkg = os.path.join(os.path.abspath(root), "kissabc_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module(f"{name}.models")
+    return mod
+
+
+def flat(out):
+    """Every tensor of a nested output, in order."""
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in flat(o)]
+    return [out]
+
+
+def cases(torch, n, big):
+    """(name, fn(pkg) -> outputs) for every kernel, on inputs made once."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def uniform(m, lo, hi):
+        return torch.rand(m, generator=gen, device=dev) * (hi - lo) + lo
+
+    seed = torch.tensor([11], dtype=torch.int64, device=dev)
+    mu, sg = uniform(big, 1.0, 3.0), uniform(big, 0.01, 0.1)
+    dmu, dsg = uniform(n, -0.5, 0.5), uniform(n, -0.02, 0.02)
+    xs = uniform(big, 0.0, 1.0)
+    alive = torch.rand(big, generator=gen, device=dev) < 0.95
+    gk = [uniform(n, 0, 6), uniform(n, 0.1, 3), uniform(n, -1, 5),
+          uniform(n, 0.0, 0.9)]
+    ar = [uniform(n, 0.0, 2.0), uniform(n, 0.3, 2.0)]
+    lp_ll = (uniform(big, -5.0, 0.0), uniform(big, -50.0, -1.0))
+    h = n // 2
+    shifts6 = torch.tensor([5, 77, 1000, 3, 40000, 65001], dtype=torch.int64,
+                           device=dev) % h
+    shifts12 = torch.cat([shifts6, torch.tensor(
+        [11, 2, 65000, 9, 123, 4567], dtype=torch.int64, device=dev) % h])
+    idx = [torch.randint(0, n, (n,), generator=gen, device=dev)
+           for _ in range(3)]
+    active = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    ds = uniform(n, 0.0, 3.0)
+    fl_kw = dict(ndraws=1000, target_mu=2.0, target_sd=0.04, sd_weight=50.0,
+                 a_stretch=3.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
+                 sg_lo=0.0, sg_hi=100.0, chunk=512)
+
+    def ecdf(pkg, probes):
+        return [lambda x, t=t: (x < t).to(torch.float32) for t in probes]
+
+    def ecdf_reduce(th, m):
+        return (torch.square(m[0] - 0.25) + torch.square(m[1] - 0.5)
+                + torch.square(m[2] - 0.75))
+
+    def k1(bits):
+        return lambda p: p.ops.kernels.normal_summary_cost(
+            mu, sg, seed, bits=bits)
+
+    def k2(p):
+        return p.ops.kernels.fused_sweep(mu[:n], sg[:n], dmu, dsg, xs[:n],
+                                         lp_ll[0][:n], 0.5, seed)
+
+    def k3(model, bits, m):
+        def run(p):
+            if model == "flagship":
+                prior, draw, reduce_cost = p.models.flagship()
+                sw = p.make_fused_smc_sweep(prior, draw, reduce_cost,
+                                            bits=bits)
+                th = [mu[:m], sg[:m]]
+            else:
+                prior, draw, _ = p.models.g_and_k()
+                sw = p.make_fused_smc_sweep(
+                    prior, draw, ecdf_reduce, stats=ecdf(p, (2.0, 3.0, 4.0)),
+                    ndraws=700, bits=bits)
+                th = gk
+            lps = sw.prior.logpdf_tree(tuple(th)).to(torch.float32)
+            rs = torch.tensor([5, 77, 11], dtype=torch.int64, device=dev)
+            return sw.run(th, xs[:m], lps, alive[:m],
+                          torch.tensor(0.5, device=dev),
+                          torch.tensor(False, device=dev), rs)
+        return run
+
+    def k4(model, bits):
+        def run(p):
+            if model == "flagship":
+                _, draw, reduce_cost = p.models.flagship()
+                th = (mu[:n], sg[:n])
+            else:
+                _, draw, reduce_cost = p.models.g_and_k()
+                th = tuple(gk)
+            return p.make_streaming_moment_cost(
+                draw, reduce_cost, bits=bits).moments(th, seed)
+        return run
+
+    def k5(p):
+        _, step, init, reduce_cost = p.models.ar1()
+        return p.make_streaming_scan_cost(step, init, reduce_cost,
+                                          nsteps=1000).means(tuple(ar), seed)
+
+    def k6(model, bits):
+        def run(p):
+            if model == "flagship":
+                prior, draw, reduce_cost = p.models.flagship()
+                leaves = [mu[:n], sg[:n]]
+            else:
+                prior, draw, reduce_cost = p.models.g_and_k()
+                leaves = gk
+            sw = p.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
+                                        bits=bits)
+            return sw.half([x[:h] for x in leaves], lp_ll[0][:h],
+                           lp_ll[1][:h], [x[h:] for x in leaves], shifts6,
+                           seed)
+        return run
+
+    def k7(bits, full):
+        def run(p):
+            m = p.ops.fused_ais.FlagshipAIS(scale=0.1, block=2048, bits=bits,
+                                            **fl_kw)
+            if full:
+                ins = [mu[:n], sg[:n], lp_ll[0][:n], lp_ll[1][:n]]
+                outs = [torch.empty_like(x) for x in ins]
+                m.launch_full(ins, shifts12, seed, outs)
+            else:
+                ins = [mu[:h], sg[:h], lp_ll[0][:h], lp_ll[1][:h]]
+                outs = [torch.empty_like(x) for x in ins]
+                m.launch_half(ins, [mu[h:n], sg[h:n]], shifts6, seed, outs)
+            return outs
+        return run
+
+    def k10(bits):
+        def run(p):
+            prior, draw, reduce_cost = p.models.flagship()
+            g = p.make_fused_abcde_generation(
+                prior, draw, reduce_cost, gamma=2.38 / math.sqrt(4.0),
+                bits=bits)
+            leaves = [mu[:n], sg[:n]]
+            bases = [[x[i] for x in leaves] for i in idx]
+            lps = g.prior.logpdf_tree(tuple(leaves)).float().contiguous()
+            eps_i = torch.where(ds <= 0.3, 0.3, 0.8)
+            return g.run(leaves, bases, lps, ds, active, eps_i, seed)
+        return run
+
+    return [("#1 hw", k1("hw")), ("#1 stub", k1("stub")), ("#2 hw", k2),
+            ("#3 flagship hw 2^20", k3("flagship", "hw", big)),
+            ("#3 g-and-k-ecdf stub", k3("gk", "stub", n)),
+            ("#4 flagship hw", k4("flagship", "hw")),
+            ("#4 flagship stub", k4("flagship", "stub")),
+            ("#4 g-and-k hw", k4("gk", "hw")), ("#5 ar1 hw", k5),
+            ("#6 flagship hw", k6("flagship", "hw")),
+            ("#6 g-and-k stub", k6("gk", "stub")),
+            ("#7 hw", k7("hw", False)), ("#7 stub", k7("stub", False)),
+            ("#8 hw", k7("hw", True)), ("#10 hw", k10("hw")),
+            ("#10 stub", k10("stub"))]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--n", type=int, default=131072)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("same_bits: no CUDA device", file=sys.stderr)
+        return 1
+    new = load_package(HERE, "kt_new")
+    old = load_package(args.parent, "kt_parent")
+    differ = 0
+    for name, fn in cases(torch, args.n, 1 << 20):
+        a, b = flat(fn(new)), flat(fn(old))
+        torch.cuda.synchronize()
+        unequal = sum(int((x != y).sum()) - int((x.isnan() & y.isnan()).sum())
+                      if x.is_floating_point() else int((x != y).sum())
+                      for x, y in zip(a, b))
+        differ += unequal
+        print(json.dumps(dict(case=name, values=sum(x.numel() for x in a),
+                              unequal=unequal)), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(json.dumps(dict(card=card, parent=args.parent, unequal=differ)))
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

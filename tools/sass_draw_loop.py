@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""SASS instructions per draw of the draw loops of kissabc_tpu_torch's
+CUDA kernels, and the issue floor they set.
+
+    python3 tools/sass_draw_loop.py [--repo DIR] [--out DIR]
+
+Builds (with the checkout at ``--repo``, default this one) the
+hand-written library (``csrc/flagship.cu`` + ``csrc/ais.cu``) and the
+generated units of the flagship model for the fused smc sweep (with the
+streaming cost), the generic AIS sweep and the ABC-DE generation, runs
+``cuobjdump -sass`` on each, writes the listings to ``--out``, and prints
+one JSON line per kernel with a draw loop: each innermost loop's
+instructions, its Box-Muller angles (two draws each), instructions per
+draw, its commonest opcodes, and the issue floor of 1000 draws for 2**20
+walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``).
+Then, on the card, it runs kernel #1 (``normal_summary_cost``, 2**20
+walkers x 1000 Philox draws) back to back for about two seconds while
+``nvidia-smi`` samples the SM clock every 50 ms, and prints the kernel's
+milliseconds by CUDA events and the median clock under that load. The
+last line names the card and its power limit. Needs nvcc, cuobjdump and
+one card. Imports nothing of JAX.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout else ""
+
+
+def main():
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=here)
+    ap.add_argument("--out", default=os.path.join(here, "chiprun_out",
+                                                  "sass"))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+    import kissabc_tpu_torch as kt
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import _build
+
+    # the reader of this checkout, whatever the checkout built
+    spec = importlib.util.spec_from_file_location(
+        "sass", os.path.join(here, "kissabc_tpu_torch", "ops", "sass.py"))
+    sass = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sass)
+
+    prior, draw, reduce_cost = models.flagship()
+    units = {
+        "sweep": kt.make_fused_smc_sweep(prior, draw, reduce_cost).unit,
+        "ais": kt.make_fused_ais_sweep(prior, draw, reduce_cost,
+                                      scale=0.005).unit,
+        "abcde": kt.make_fused_abcde_generation(
+            prior, draw, reduce_cost, gamma=1.19).unit}
+    jobs = {"flagship": _build.start()}
+    jobs.update({k: _build.start(u.source) for k, u in units.items()})
+    clock = float(smi("clocks.max.sm") or "nan")
+    os.makedirs(args.out, exist_ok=True)
+    for name, job in jobs.items():
+        lib = job.wait()[0]
+        text = sass.disassemble(lib)
+        with open(os.path.join(args.out, f"{name}.sass"), "w") as f:
+            f.write(text)
+        for fn, instrs in sorted(sass.functions(text).items()):
+            found = sass.draw_loops(instrs)
+            if not found:
+                continue
+            for loop in found:
+                loop["floor_ms_2p20x1000"] = sass.issue_floor_ms(
+                    loop["per_draw"], 1000, 1 << 20, clock)
+            print(json.dumps(dict(lib=name, kernel=fn,
+                                  instructions=len(instrs),
+                                  loops=found)), flush=True)
+    print(json.dumps(dict(load=clock_under_load())), flush=True)
+    print(json.dumps(dict(card=smi("name,power.limit"),
+                          max_sm_clock_mhz=clock, repo=args.repo)))
+
+
+def clock_under_load(seconds=2.0):
+    """Kernel #1 at 2**20 x 1000 draws: its milliseconds by CUDA events,
+    and the SM clocks nvidia-smi reads while it runs back to back."""
+    import torch
+    from kissabc_tpu_torch.ops import kernels as K
+
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mu = torch.rand(n, generator=gen, device="cuda") * 2 + 1
+    sg = torch.rand(n, generator=gen, device="cuda") * 0.1
+    seed = torch.tensor([11], dtype=torch.int64, device="cuda")
+    for _ in range(3):
+        K.normal_summary_cost(mu, sg, seed)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "50"], stdout=subprocess.PIPE, text=True)
+    try:
+        reps, t0 = 0, time.perf_counter()
+        start.record()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                K.normal_summary_cost(mu, sg, seed)
+            reps += 20
+            torch.cuda.synchronize()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    clocks = sorted(float(v) for v in out.split() if v.isdigit())
+    return dict(kernel="normal_summary_cost", n=n, ndraws=1000,
+                ms=start.elapsed_time(end) / reps, reps=reps,
+                sm_clock_mhz_median=clocks[len(clocks) // 2] if clocks
+                else None, sm_clock_mhz_samples=len(clocks),
+                sm_clock_mhz_min=clocks[0] if clocks else None)
+
+
+if __name__ == "__main__":
+    main()
