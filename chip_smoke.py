@@ -143,26 +143,68 @@ def device_ms(torch, fn, reps, kernel, per_call=1):
     from ``torch.profiler``'s record of the card's kernel intervals: a
     short kernel's own time, without the host's launch overhead that
     events around a loop of calls measure when the host is the slower
-    side. The profiler may miss a launch at the edge of its window, so
-    the window holds ``spare`` calls more than the ``reps`` it must see,
-    and the time is the mean of every interval it recorded."""
+    side. The profiler may miss launches in its window (it recorded 17
+    to 19 of 20-23 short launches of #10 on the H100), so the window
+    holds ``reps`` calls more than the ``reps`` it must see, and the time
+    is the mean of every interval it recorded; a window that saw fewer
+    than ``reps`` calls' launches is profiled again, up to three
+    windows."""
     from torch.profiler import ProfilerActivity, profile
 
-    spare = 3
+    spare = reps
+    launched = (reps + spare) * per_call
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + spare):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    launched = (reps + spare) * per_call
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + spare):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if len(spans) >= reps * per_call:
+            break
     check(reps * per_call <= len(spans) <= launched,
           f"the profiler saw {len(spans)} launches of {kernel} in "
           f"{reps + spare} calls of {per_call} launches")
     return sum(spans) / 1e3 / len(spans) * per_call
+
+
+def queued_ms(torch, fn, reps):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs by CUDA
+    events, with the runs queued behind a spin kernel
+    (``torch.cuda._sleep``) that lasts until the host has launched them
+    all, so the card runs them back to back: their kernels and the gaps
+    between them, without the host's launch overhead and without the
+    profiler, which may miss launches (a cross-check of ``device_ms``). The
+    spin is made four times longer, up to three times, until it outlasts
+    the host's launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(4 * (time.perf_counter() - t0) * 2e9)   # ~2 GHz
+    for _ in range(3):
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        t0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # the spin began after t0, so it ended after the host's last launch
+        if host_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError(f"the host's {reps} launches outlasted a spin of "
+                         f"{cycles // 4} cycles")
 
 
 def kernel_name(mangled):
@@ -240,6 +282,32 @@ def compare_sweeps(torch, got, want, eps, what, band=1e-5, cost_atol=2e-5):
     return err, int(differ.sum())
 
 
+# launch geometries (walkers a block, threads a block, lanes a walker) of
+# the lane-group kernels #10 and #6 that abcde-kernel-times and
+# ais-kernel-times time, and the stub phases check, beside each width's
+# default (ops/lane_groups.py geometry); the lanes are the two that a
+# unit instantiates (tools/time_geometry.py times 2, 8 and 16 too)
+GEOMETRIES_10 = [(64, 256, 1), (32, 256, 4), (128, 256, 4), (512, 512, 4),
+                 (1024, 512, 1), (1024, 512, 4)]
+GEOMETRIES_6 = [(512, 512, 1), (512, 512, 4), (1024, 512, 4), (256, 512, 4),
+                (128, 512, 4), (64, 256, 4)]
+
+
+def same_bits(a, b):
+    """Every tensor of two nested outputs equal bit for bit (NaN where
+    NaN)."""
+    if isinstance(a, (list, tuple)):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    nan = a.isnan() if a.is_floating_point() else None
+    if nan is None:
+        return bool((a == b).all())
+    return bool((nan == b.isnan()).all() and (a[~nan] == b[~nan]).all())
+
+
+def geometry_key(g):
+    return f"w{g.walkers} t{g.threads} L{g.lanes}"
+
+
 def unequal_committed(got, want):
     """Committed values (theta leaves, xs, lps of walkers both sweeps
     commit) that differ between two sweeps' outputs."""
@@ -287,6 +355,7 @@ def main():
     from kissabc_tpu_torch.ops import fused_smc as F
     from kissabc_tpu_torch.ops import fused_tempered as FT
     from kissabc_tpu_torch.ops import kernels as K
+    from kissabc_tpu_torch.ops import lane_groups as LG
     from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
@@ -465,6 +534,9 @@ def main():
                           r"(\w+)", line)
             if m:
                 fn = kernel_name(m.group(1))
+                targs = re.search(r"ILb([01])ELi(\d+)EE", m.group(1))
+                if targs:   # a lane-group kernel's <stub, lanes>
+                    fn += f"<{targs.group(1)},{targs.group(2)}>"
             if "registers" in line or "spill" in line:
                 ptxas.setdefault(prefix, []).append(f"{fn}: {line.strip()}")
                 say(f"  ptxas {prefix} {fn}: {line.strip()}")
@@ -1031,7 +1103,7 @@ def main():
         # the block size, by measurement: each walker's bits are keyed by
         # its index, so every block size gives the same outputs bit for bit
         ins = sw._inputs(n, xs.device, xs, lps, alive, eps_t, flag_t)
-        by_threads = {}
+        by_threads, modelled4 = {}, {"uncompacted": F.lane_share(gate1, 32)}
         for t in (128, 256, 512, 1024):
             outs = ([torch.empty_like(x) for x in th],
                     torch.empty_like(xs), torch.empty_like(lps),
@@ -1044,8 +1116,8 @@ def main():
             by_threads[t] = dict(
                 ms=cuda_ms(torch, lambda: sw.launch(n, th, ins, rs, outs,
                                                     threads=t), 20),
-                blocks_per_sm=sw.occupancy(t),
-                lane_share=F.lane_share(gate1, t))
+                blocks_per_sm=sw.occupancy(t))
+            modelled4[t] = F.lane_share(gate1, t)
         records.append(dict(
             name="fused_smc_sweep", route="cuda",
             source="kissabc_tpu_torch/csrc/generic.cuh",
@@ -1054,9 +1126,7 @@ def main():
             max_abs_err=err4, matched=True, ms=ms4, plain_ms=plain4,
             bound_ms=b4, bound_by=by4, library_ms=None,
             simulated_share=nsim / n, threads=F.SWEEP_THREADS,
-            lane_share=F.lane_share(gate1), lane_share_uncompacted=(
-                F.lane_share(gate1, 32)), unequal=unequal_committed(got, want),
-            by_threads=by_threads))
+            unequal=unequal_committed(got, want), by_threads=by_threads))
         ph.result = (f"normal_summary_cost {ms1:.3f} ms (bound {b1:.3f}); "
                      f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}, {nsim2} "
                      f"of 131072 walkers pass gate 1), "
@@ -1065,7 +1135,9 @@ def main():
                      f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
                      f"pass gate 1), {border4} borderline, blocks of "
                      f"{F.SWEEP_THREADS}; by block size "
-                     f"{json.dumps(by_threads)}")
+                     f"{json.dumps(by_threads)}; modelled lane shares "
+                     f"(fused_smc.lane_share on the gate-1 mask, not "
+                     f"measured) {json.dumps(modelled4)}")
 
     with Phase("scan-kernel-times") as ph:
         # the AR(1) model of bench.py:770-779 at the smc-scan-ar1 shape. No
@@ -1209,8 +1281,17 @@ def main():
                 flat(got), flat(want), upd + [lp6[:h], ll6[:h]],
                 f"fused_ais_sweep stub {name}", want[3][1])
             check(res[f"#6 {name}"][2] > 0, f"#6 {name} committed nothing")
+            for w, t, lanes in GEOMETRIES_6:   # the same bits on each
+                geo = LG.check(h, w, t, lanes, sw.nstats)
+                other = sw.half(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h,
+                                seed_t, geometry=geo)
+                check(same_bits(flat(other), flat(got)),
+                      f"#6 {name} stub: {geometry_key(geo)} differs from "
+                      f"{geometry_key(sw.geometry(h))}")
         ph.result = ("(max|err|, unequal committed values, commits, "
-                     "borderline): " + json.dumps(res))
+                     "borderline): " + json.dumps(res) + f"; each model's "
+                     f"outputs equal bit for bit on {len(GEOMETRIES_6)} "
+                     "more geometries of #6")
 
     with Phase("ais-kernel-times") as ph:
         # the main-path shapes: n = 131072 walkers x 1000 draws, Philox
@@ -1262,14 +1343,14 @@ def main():
             return [tuple(x[sl] for x in o[0]) + (o[1][sl], o[2][sl])
                     for sl in (slice(0, h), slice(h, n))]
 
-        def sweep6():
+        def sweep6(geo=None):
             oa, ob = halves6(outs6)
             sw6.half([ins[0][:h], ins[1][:h]], ins[2][:h], ins[3][:h],
                      [ins[0][h:], ins[1][h:]], sh[:6], seed_t,
-                     outs=(list(oa[:2]), oa[2], oa[3]))
+                     outs=(list(oa[:2]), oa[2], oa[3]), geometry=geo)
             sw6.half([ins[0][h:], ins[1][h:]], ins[2][h:], ins[3][h:],
                      list(oa[:2]), sh[6:], seed_t,
-                     outs=(list(ob[:2]), ob[2], ob[3]))
+                     outs=(list(ob[:2]), ob[2], ob[3]), geometry=geo)
 
         def plain6():
             a = sw6.half_plain([ins[0][:h], ins[1][:h]], ins[2][:h],
@@ -1287,7 +1368,39 @@ def main():
                            "fused_ais_sweep hw flagship",
                            torch.cat([a6[3][1], b6[3][1]]))
         nsim6 = int(a6[3][0].sum() + b6[3][0].sum())
+        # #6's time by events around 20 sweeps (two launches each, the
+        # host's wrapper included), as #7's and #8's; beside it the
+        # kernel's own, by the profiler and by events around sweeps queued
+        # behind a spin. Then every geometry of GEOMETRIES_6, which must
+        # give the default's outputs bit for bit
         times["fused_ais_sweep"] = cuda_ms(torch, sweep6, 20)
+        inside6 = torch.cat([a6[3][0], b6[3][0]])
+        ref6 = [x.clone() for x in list(outs6[0]) + list(outs6[1:])]
+        geo6 = sw6.geometry(h)
+        by_geometry6, modelled6 = {}, {}
+        for w, t, lanes in [tuple(geo6[1:])] + [
+                g for g in GEOMETRIES_6 if g != tuple(geo6[1:])]:
+            geo = LG.check(h, w, t, lanes, sw6.nstats)
+            sweep6(geo)
+            check(same_bits(list(outs6[0]) + list(outs6[1:]), ref6),
+                  f"#6 flagship hw: {geometry_key(geo)} differs from "
+                  f"{geometry_key(geo6)}")
+            by_geometry6[geometry_key(geo)] = dict(
+                device_ms=device_ms(torch, lambda: sweep6(geo), 20,
+                                    "fused_ais_sweep_kernel", per_call=2),
+                queued_ms=queued_ms(torch, lambda: sweep6(geo), 20),
+                blocks_per_sm=sw6.occupancy(geo))
+            modelled6[geometry_key(geo)] = LG.lane_share(
+                inside6, LG.check(n, w, t, lanes, sw6.nstats))
+        modelled6["uncompacted"] = LG.lane_share(
+            inside6, LG.check(n, 32, 32, 1, sw6.nstats))
+        extra6 = dict(
+            device_ms=device_ms(torch, sweep6, 20, "fused_ais_sweep_kernel",
+                                per_call=2),
+            queued_ms=queued_ms(torch, sweep6, 20),
+            geometry=geometry_key(geo6),
+            registers=ptxas.get("ais flagship", []),
+            by_geometry=by_geometry6)
         w6 = [sw6.work(h, int(x[3][0].sum())) for x in (a6, b6)]
         bounds = {
             "fused_ais_half": bound(m7.work(n, nsim7)),
@@ -1306,8 +1419,13 @@ def main():
             for k in times) + (
             f"; inside the prior {nsim7}, {nsim8}, {nsim6} of {n}; "
             f"(max|err|, unequal committed values, commits, borderline) "
-            f"#7 {err7}, #8 {err8}, #6 {err6}; "
-            f"ptxas {json.dumps(regs)}")
+            f"#7 {err7}, #8 {err8}, #6 {err6}; #6 on the card "
+            f"{extra6['device_ms']:.4f} ms/sweep by the profiler, "
+            f"{extra6['queued_ms']:.4f} by queued events; by geometry "
+            f"{json.dumps(by_geometry6)}; modelled lane shares "
+            f"(lane_groups.lane_share on the plain version's inside mask, "
+            f"not measured) {json.dumps(modelled6)}; ptxas "
+            f"{json.dumps(regs)}")
 
     def draw_init(model, n, key):
         """The init ``sample(..., key=key)`` makes: ``_init_ensemble`` on
@@ -1505,7 +1623,8 @@ def main():
             name=name, route="cuda", source=src, replaces=rep,
             launches=launched, max_abs_err=ais_err[name], matched=True,
             ms=times[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
-            bound_by=bounds[name][1], library_ms=None))
+            bound_by=bounds[name][1], library_ms=None,
+            **(extra6 if name == "fused_ais_sweep" else {})))
 
     # ---- slice 5: tsmc, pfilter, ABCDE; kernels #9 and #10 -------------
     with Phase("tempered-stub") as ph:
@@ -1630,8 +1749,17 @@ def main():
             check(not bool((got[3] > 0.5)[active == 0].any()),
                   f"#10 {name}: an inactive walker passed the gate")
             res[name] = r
+            for w, t, lanes in GEOMETRIES_10:   # the same bits on each
+                geo = LG.check(n, w, t, lanes, g5.nstats)
+                other = g5.run(leaves, bases, lps, ds, active, eps_i, seed_t,
+                               geometry=geo)
+                check(same_bits(other, got), f"#10 {name}: "
+                      f"{geometry_key(geo)} differs from "
+                      f"{geometry_key(g5.geometry(n))}")
         ph.result = ("(max|err|, unequal committed values, commits, "
-                     "borderline, gate passes): " + json.dumps(res))
+                     "borderline, gate passes): " + json.dumps(res)
+                     + f"; each model's outputs equal bit for bit on "
+                     f"{len(GEOMETRIES_10)} more geometries of #10")
 
     with Phase("tempered-kernel-times") as ph:
         # kernel #9 per sweep (two launches) at 131072 walkers, Philox, the
@@ -1712,20 +1840,57 @@ def main():
             err10 = abcde_compare(got, want, th10 + [lps10, ds10],
                                   torch.maximum(eps_i10, ds10),
                                   f"#10 hw n={n}")
-            ms10 = device_ms(torch, lambda: g10.run(*args10), 20,
-                             "fused_abcde_generation_kernel")
+            # the clocks up first: the one-wave kernel back to back for
+            # half a second; then its own time as the median of 5 repeats
+            # of 20 launches by the profiler, with their spread
+            t_end = time.perf_counter() + 0.5
+            while time.perf_counter() < t_end:
+                for _ in range(50):
+                    g10.run(*args10)
+                torch.cuda.synchronize()
+            reps10 = sorted(device_ms(torch, lambda: g10.run(*args10), 20,
+                                      "fused_abcde_generation_kernel")
+                            for _ in range(5))
+            ms10 = reps10[2]
             events10 = cuda_ms(torch, lambda: g10.run(*args10), 20)
+            queued10 = queued_ms(torch, lambda: g10.run(*args10), 20)
             nsim10 = int(want[3].sum())
+            gate10 = want[3] > 0.5
+            geo10 = g10.geometry(n)
+            by_geometry10, modelled10 = {}, {}
+            for w, t, lanes in [tuple(geo10[1:])] + [
+                    g for g in GEOMETRIES_10 if g != tuple(geo10[1:])]:
+                geo = LG.check(n, w, t, lanes, g10.nstats)
+                check(same_bits(g10.run(*args10, geometry=geo), got),
+                      f"#10 hw n={n}: {geometry_key(geo)} differs from "
+                      f"{geometry_key(geo10)}")
+                by_geometry10[geometry_key(geo)] = dict(
+                    device_ms=device_ms(torch, lambda: g10.run(
+                        *args10, geometry=geo), 20,
+                        "fused_abcde_generation_kernel"),
+                    queued_ms=queued_ms(torch, lambda: g10.run(
+                        *args10, geometry=geo), 20),
+                    blocks_per_sm=g10.occupancy(geo))
+                modelled10[geometry_key(geo)] = LG.lane_share(gate10, geo)
+            modelled10["uncompacted"] = LG.lane_share(
+                gate10, LG.check(n, 32, 32, 1, 2))
             times10[n] = (ms10, plain_ms10, bound(g10.work(n, nsim10)),
-                          err10, nsim10, events10)
+                          err10, nsim10, events10, dict(
+                              repeats_ms=reps10, queued_ms=queued10,
+                              geometry=geometry_key(geo10),
+                              by_geometry=by_geometry10), modelled10)
         regs = {names: lines for names, lines in ptxas.items()
                 if "abcde" in names}
         ph.result = "; ".join(
-            f"n={n}: {t[0]:.4f} ms/generation on the card "
-            f"({n / (t[0] / 1e3):.4g} updates/s), {t[5]:.4f} ms by events, "
-            f"bound {t[2][0]:.4f} ms ({t[2][1]}, {t[4]} walkers pass the "
-            f"gate), plain {t[1]:.1f} ms; (max|err|, unequal, commits, "
-            f"borderline, gate passes) {t[3]}"
+            f"n={n}: {t[0]:.4f} ms/generation on the card, median of "
+            f"{t[6]['repeats_ms']} ({n / (t[0] / 1e3):.4g} updates/s), "
+            f"{t[6]['queued_ms']:.4f} ms by queued events, {t[5]:.4f} ms "
+            f"by events, bound {t[2][0]:.4f} ms ({t[2][1]}, {t[4]} walkers "
+            f"pass the gate), plain {t[1]:.1f} ms; (max|err|, unequal, "
+            f"commits, borderline, gate passes) {t[3]}; by geometry "
+            f"{json.dumps(t[6]['by_geometry'])}; modelled lane shares "
+            f"(lane_groups.lane_share on the plain version's gate mask, not "
+            f"measured) {json.dumps(t[7])}"
             for n, t in times10.items()) + f"; ptxas {json.dumps(regs)}"
 
     with Phase("tsmc-conjugate") as ph:
@@ -1889,7 +2054,11 @@ def main():
         ms=t10[0], plain_ms=t10[1], bound_ms=t10[2][0], bound_by=t10[2][1],
         library_ms=None, library_note="no PyTorch call fuses a DE step, a "
         "prior gate, a simulator and a commit", events_ms=t10[5],
-        ms_131072=times10[131072][0], bound_ms_131072=times10[131072][2][0]))
+        ms_131072=times10[131072][0], bound_ms_131072=times10[131072][2][0],
+        **t10[6], registers=[line for names, lines in ptxas.items()
+                             if "abcde flagship" in names for line in lines],
+        at_131072={k: v for k, v in times10[131072][6].items()
+                   if k != "repeats_ms"}))
 
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")

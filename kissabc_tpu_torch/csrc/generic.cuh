@@ -20,29 +20,41 @@
 //   void  prior_push(const float* th, float* out)        (AIS, ABC-DE)
 // and then includes this file; ops/_build.py compiles it with nvcc.
 //
-// Design. One thread per walker loops over its draws, as the flagship
-// kernels do: the summaries stay in registers, a walker's draws never
-// touch memory, and a walker moves (K + KT_NSTATS) * 4 bytes (cost) or
-// about (2K + 6) * 4 bytes (sweep) against ~50 operations per draw. So
-// the kernels are bound by instruction issue: an SM issues one warp
-// instruction per scheduler per cycle, 132 x 128 lane instructions per
-// cycle on the H100. On the flagship model the draw loop is 49 SASS
-// instructions a draw (tools/sass_draw_loop.py; 80 before, with the stub
-// test, the tail guards and the branches of log1pf and sqrtf in it), so
-// 1000 draws of 2^20 walkers cannot take less than 1.53 ms at 1980 MHz.
-// What the design does about it:
+// Design. A walker's draws form one loop that keeps its summaries in
+// registers and never touches memory; a walker moves (K + KT_NSTATS) * 4
+// bytes (cost) or about (2K + 6) * 4 bytes (sweeps) against ~50
+// operations per draw. So the kernels are bound by instruction issue (an
+// SM issues one warp instruction per scheduler per cycle, 132 x 128 lane
+// instructions per cycle on the H100) or, where few walkers need the
+// simulator, by the latency of one walker's loop. On the flagship model
+// the draw loop is 48.75 SASS instructions a draw (tools/sass_draw_loop.py),
+// so 1000 draws of 2^20 walkers cannot take less than 1.5 ms at 1980 MHz,
+// and one walker's 1000 draws are a chain of ~48750 instructions, 0.025 ms
+// at one instruction a cycle. What the design does about it:
 // - simulate() is a template on the bit source, so the loop holds no
 //   stub test; the draws that both halves of a chunk pair hold run in
 //   pairs without a guard, the ragged rest after them; the Philox round
 //   keys are made once per walker and the Box-Muller radius runs without
 //   libdevice's branches (common.cuh);
-// - the sweep simulates only the walkers that pass gate 1 (no other
-//   walker's outputs depend on it), and a warp runs the draw loop while
-//   any of its lanes needs it: one thread per walker left 56% of the
-//   lanes idle. Each block of 512 threads compacts its gate-1 walkers
-//   onto its first threads before the simulator, so ~93% of the lanes in
-//   the loop do useful work (fused_smc_sweep_kernel below). The AIS
-//   sweep and the ABC-DE generation still mask.
+// - the sweeps and the ABC-DE generation simulate only the walkers whose
+//   outputs depend on it (gate 1, inside the prior, the prior gate), and
+//   a warp runs the draw loop while any of its lanes needs it. So each
+//   block compacts those walkers onto its first threads or lane groups
+//   before the simulator (compact_walkers), and ~90% of the lanes in the
+//   loop do useful work against 32-59% when one thread per walker masks;
+// - kernel #3 (fused_smc_sweep_kernel) runs one thread per compacted
+//   walker: at 2^20 walkers it is issue-bound;
+// - kernels #6 and #10 (the lane-group kernels) give each compacted
+//   walker a group of L lanes that share its draws (simulate_group). At
+//   #10's production width, 16384 walkers x 1000 draws, ~5300 walkers
+//   pass the gate: one thread each would leave ~40 threads an SM and the
+//   kernel bound by the latency of one walker's chain, which L lanes cut
+//   L-fold. At 131072 walkers (#6 per half, #10) the card is issue-bound
+//   and the groups keep the lanes busy. The walkers a block covers, its
+//   threads and L are parameters (the wrappers pick them by measurement:
+//   ops/lane_groups.py), so a block's walkers and the
+//   grid's spread over the SMs are chosen apart from the lanes.
+//
 // Draws keep the TPU kernels' chunk structure: chunk pair j holds draws
 // [2j*chunk, (2j+1)*chunk) (half a, first noise of each pair) and
 // [(2j+1)*chunk, (2j+2)*chunk) (half b); each half is summed on its own
@@ -56,7 +68,10 @@
 // +1, sublane = draw index in the chunk; the sweep's per-walker words at
 // counters 40000..40002 on the (rows, 128) tile). stub = 0 is
 // Philox4x32-10 keyed by (seed, 0), counter (j, walker, stream, l/2):
-// one call gives the two noise pairs of draws l and l + 1.
+// one call gives the two noise pairs of draws l and l + 1. Every
+// walker's bits are keyed by its own index, never by its thread, so
+// compaction and lane groups leave every output's bits as one thread per
+// walker gives them (simulate_group says why the sums keep theirs).
 //
 // Scalars that change every sweep (eps, the boundary flag, the two
 // partner shifts and the seed) are read from device memory, so the smc
@@ -323,6 +338,244 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 }
 #endif
 
+#if (defined(KT_HAS_AIS) && KT_HAS_AIS) || \
+    (defined(KT_HAS_ABCDE) && KT_HAS_ABCDE)
+#define KT_HAS_GROUPS 1
+// The lane-group kernels, #6 (fused_ais_sweep_kernel) and #10
+// (fused_abcde_generation_kernel). A block covers `walkers` walkers with
+// blockDim.x threads in two phases:
+// - phase 1, one thread per walker (in passes of blockDim.x): the steps
+//   before the simulator; a walker that does not need it writes its
+//   outputs at once. A ballot per warp and a prefix over the block's warps
+//   give each walker that needs it a slot, in walker order
+//   (compact_walkers);
+// - phase 2, groups of L lanes (L divides 32, so a group lies inside one
+//   warp): the block's groups take its compacted walkers in turn. Each
+//   group recomputes its walker's proposal from the walker index (the
+//   same bits: one to three Philox calls and ~150-400 operations against
+//   ~49000 for the draws, so only the index crosses the barrier), runs the
+//   simulator on its L lanes (simulate_group) and, on the group's first
+//   lane, reduce_cost, the commit or accept and the writes. A warp runs
+//   while its first group has a walker (phase2_turn).
+// L = 1 runs simulate(), the loop of one thread per walker. Threads past
+// n take no walker and reach every barrier; nothing past n is written.
+constexpr int kGroupMaxThreads = 512;
+constexpr int kGroupMaxWalkers = 4096;  // walkers a block covers at most
+constexpr int kGroupMaxSmem = 232448;   // dynamic shared memory of a block
+// one accumulator per (half, statistic): q = 2p + half
+constexpr int kAccums = 2 * KT_NSTATS;
+// float2 cells of one staging buffer: kAccums rows of 33 (32 lanes and
+// one cell of padding, so a row starts one bank pair after the last)
+constexpr int kStageCells = kAccums * 33;
+// floats of one warp's staging: two buffers
+constexpr int kStageFloats = 2 * 2 * kStageCells;
+
+// a compile-time int as a type: the lanes of an instantiation, a flag
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// The moments of simulate() for one walker on a group of L lanes (L even,
+// dividing 32), called by all 32 lanes of the warp at once: lane r of
+// the group is its rank, gw the group's index in its warp, stage the
+// warp's staging. In chunk pair j the group takes the walker's Philox calls
+// (stub: draw pairs) in rounds of L, lane r call c0 + r, i.e. draws
+// l = 2(c0 + r) and l + 1 of both halves. Each lane makes its noise pairs
+// and runs draw and stats_of on its four draws (pairs), and per
+// accumulator q stores the pair (l, l + 1) in one float2 cell; after a
+// __syncwarp the lane that owns q (q % L == r) loads the round's L cells of
+// q and, after making its next round's pairs, adds them in draw order
+// (source lane, then l before l + 1). A draw past the half's na or nb
+// draws, which only the chunk pair's last rounds hold, is stored as +0: a
+// running sum that starts at +0 is never -0, and x + +0 is x for every
+// other x, so the padded adds change no bit. At the chunk pair's end the
+// lane of (a, p) takes b from its neighbour (q + 1) and adds a, then b, to
+// the total, as simulate() does; the moments reach every lane of the group
+// by shuffles. So every float addition is the one simulate() makes, in
+// its order. Rounds alternate between two buffers, so one __syncwarp a
+// round orders a round's stores after the loads of the round before last.
+// Cell (q, c) lies at q * 33 + c, c the storing lane's index in its warp:
+// a group's cells are its own, the stores of a row are consecutive, and
+// the loads of a half-warp (its lanes own rows r + iL, source column
+// gw * L + src) fall on the bank pairs (lane + iL + src) mod 16, all
+// distinct; every offset but the lane's and the buffer's is a constant.
+template <bool kStub, int L>
+__device__ void simulate_group(const float* th, int ndraws, int chunk,
+                               float inv_n, uint32_t pid, uint32_t row,
+                               uint32_t lane, uint32_t seed, uint32_t stream,
+                               uint32_t walker, int r, int gw, float* stage,
+                               float* m) {
+  static_assert(L >= 2 && 32 % L == 0, "lane groups of 2 to 32");
+  constexpr unsigned kWarp = 0xffffffffu;
+  constexpr int kOwn = (kAccums + L - 1) / L;    // accumulators per lane
+  // this lane's store cell in row 0, and its first load cell (row r,
+  // column of source lane 0)
+  float2* put = reinterpret_cast<float2*>(stage) + gw * L + r;
+  const float2* get = reinterpret_cast<const float2*>(stage) + r * 33 +
+                      gw * L;
+  PhiloxKey key = philox_key(seed);
+  int nchunks = (ndraws + 2 * chunk - 1) / (2 * chunk);
+  int buf = 0;  // cells of the buffer this round uses: 0 or kStageCells
+  float s[kOwn];
+#pragma unroll
+  for (int i = 0; i < kOwn; ++i) s[i] = 0.0f;
+  for (int j = 0; j < nchunks; ++j) {
+    int start_a = 2 * j * chunk;
+    int na = min(chunk, ndraws - start_a);
+    int nb = max(0, min(chunk, ndraws - start_a - chunk));
+    uint32_t ctr = 2u * (row * (uint32_t)nchunks + (uint32_t)j);
+    float2 v[kAccums];  // this lane's pairs of its call
+    // the pairs of call c0 + r; pad: the round may hold draws past na or
+    // nb, to be stored as +0
+    auto make = [&](int c0, auto pad) {
+      int l = 2 * (c0 + r);
+      uint32_t w[4];
+      pair_words<kStub>(pid, ctr, lane, seed, key, (uint32_t)j, walker,
+                        stream, l, w);
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        float ea, eb, ga[KT_NSTATS], gb[KT_NSTATS];
+        noise_pair(w[2 * d], w[2 * d + 1], &ea, &eb);
+        stats_of(draw(th, ea), ga);
+        stats_of(draw(th, eb), gb);
+        if constexpr (decltype(pad)::value) {
+          bool va = l + d < na, vb = l + d < nb;
+#pragma unroll
+          for (int p = 0; p < KT_NSTATS; ++p) {
+            ga[p] = va ? ga[p] : 0.0f;
+            gb[p] = vb ? gb[p] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < KT_NSTATS; ++p) {
+          (d == 0 ? v[2 * p].x : v[2 * p].y) = ga[p];
+          (d == 0 ? v[2 * p + 1].x : v[2 * p + 1].y) = gb[p];
+        }
+      }
+    };
+    float acc[kOwn];
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) acc[i] = 0.0f;
+    // one round: store this lane's pairs, load the cells of the
+    // accumulators it owns, make the next round's pairs (last is the
+    // round's last call), then add the loaded cells in draw order
+    auto round = [&](int c0, int last, auto pad) {
+#pragma unroll
+      for (int q = 0; q < kAccums; ++q) put[buf + q * 33] = v[q];
+      __syncwarp(kWarp);
+      float2 x[kOwn][L];
+#pragma unroll
+      for (int i = 0; i < kOwn; ++i)
+        if (r + i * L < kAccums) {
+#pragma unroll
+          for (int src = 0; src < L; ++src)
+            x[i][src] = get[buf + i * L * 33 + src];
+        }
+      if (c0 + L < last) make(c0 + L, pad);
+#pragma unroll
+      for (int i = 0; i < kOwn; ++i)
+        if (r + i * L < kAccums) {
+#pragma unroll
+          for (int src = 0; src < L; ++src) {
+            acc[i] += x[i][src].x;
+            acc[i] += x[i][src].y;
+          }
+        }
+      buf ^= kStageCells;
+    };
+    // the calls c < nb / 2 hold four draws of the chunk pair: their rounds
+    // run without the padding, the rounds after them with it
+    int full = (nb >> 1) / L * L, ncalls = (na + 1) >> 1;
+    int c0 = 0;
+    if (full > 0) {
+      make(0, Int<0>());
+      for (; c0 < full; c0 += L) round(c0, full, Int<0>());
+    }
+    if (c0 < ncalls) {
+      make(c0, Int<1>());
+      for (; c0 < ncalls; c0 += L) round(c0, ncalls, Int<1>());
+    }
+    // even lanes own the (a, p) accumulators, their odd neighbours (b, p)
+#pragma unroll
+    for (int i = 0; i < kOwn; ++i) {
+      float b = __shfl_xor_sync(kWarp, acc[i], 1);
+      if (!(r & 1)) {
+        s[i] += acc[i];
+        s[i] += b;
+      }
+    }
+  }
+  int first = (int)(threadIdx.x & 31u) - r;
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p)
+    m[p] = __shfl_sync(kWarp, s[(2 * p) / L], first + (2 * p) % L) * inv_n;
+}
+
+// The simulator of phase 2 on L lanes: simulate() itself for L = 1.
+template <bool kStub, int L>
+__device__ __forceinline__ void simulate_lanes(
+    const float* th, int ndraws, int chunk, float inv_n, Coords c,
+    uint32_t seed, uint32_t stream, uint32_t walker, int r, int gw,
+    float* stage, float* m) {
+  if constexpr (L == 1) {
+    simulate<kStub>(th, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
+                    stream, walker, m);
+  } else {
+    simulate_group<kStub, L>(th, ndraws, chunk, inv_n, c.pid, c.row,
+                             c.lane, seed, stream, walker, r, gw, stage,
+                             m);
+  }
+}
+
+// Phase 1 over the block's walkers [first, first + walkers), in passes of
+// blockDim.x threads: needs(w) runs once for each walker w < n (and
+// writes the outputs of a walker that does not need the simulator); the
+// walkers for which it returns true get slots s_walker[0 .. p) in walker
+// order. Every thread reaches every barrier. Returns p.
+template <typename Needs>
+__device__ int compact_walkers(int first, int walkers, int n, int* s_walker,
+                               Needs needs) {
+  __shared__ int s_base[kGroupMaxThreads / 32];
+  __shared__ int s_pass;
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_pass = 0;
+  for (int pass = 0; pass < walkers; pass += blockDim.x) {
+    int i = pass + (int)threadIdx.x, w = first + i;
+    bool sim = (i < walkers && w < n) ? needs(w) : false;
+    unsigned ballot = __ballot_sync(0xffffffffu, sim);
+    if (lane == 0) s_base[warp] = __popc(ballot);
+    __syncthreads();
+    if (threadIdx.x == 0) {  // exclusive prefix over the warps, from s_pass
+      int sum = s_pass;
+      for (int q = 0; q < (int)(blockDim.x >> 5); ++q) {
+        int count = s_base[q];
+        s_base[q] = sum;
+        sum += count;
+      }
+      s_pass = sum;
+    }
+    __syncthreads();
+    if (sim)
+      s_walker[s_base[warp] + __popc(ballot & ((1u << lane) - 1u))] = w;
+    __syncthreads();
+  }
+  return s_pass;
+}
+
+// Phase 2's turn `base` for the group g (the warp's first group g0) of a
+// block with p compacted walkers: whether the group has a walker, and the
+// walker it simulates. With L = 1 a thread runs while it has one; with
+// L > 1 the whole warp runs while its first group has one (the warp's
+// collectives take all 32 lanes), and a group without one simulates the
+// first group's walker again, to write nothing: its lanes would idle in
+// the running warp all the same.
+template <int L>
+__device__ __forceinline__ bool phase2_turn(int base, int g, int g0, int p) {
+  return base + (L == 1 ? g : g0) < p;
+}
+#endif
+
 #if defined(KT_HAS_AIS) && KT_HAS_AIS
 // The generic AIS half-update (make_fused_ais_sweep): per walker i of the
 // updated half, the 4:2:1 stretch / DE / walk proposal against the six
@@ -332,6 +585,19 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 // accept on lp + ll; the raw float proposal is committed. A walker
 // outside the prior skips the simulator: its llp is its lpp (-inf) and it
 // never commits, the outputs the TPU kernel gives after simulating it.
+//
+// What bounds it on the H100: at the production width (two launches of
+// h = 65536 walkers x 1000 draws a sweep) the draw loop's issue; one
+// thread per walker masked the ~41% of walkers outside the prior, so each
+// warp ran the loop with ~59% of its lanes busy. Now phase 1 proposes and
+// writes the walkers outside the prior, and phase 2 runs the compacted
+// walkers on lane groups (see the lane-group kernels above): 4 lanes for
+// a model whose draw needs the latency hidden, 1 lane (one thread per
+// compacted walker, in about one block of 512 an SM) for a light one,
+// where the groups' staging would cost more than it hides
+// (ops/lane_groups.py pick, by measurement). On a run's converged
+// ensemble nearly every walker lies inside the prior: there the gain is
+// the geometry's.
 //
 // The words and the proposal are mixture_propose (walkers.cuh), shared
 // with the tempered sweep; the simulator is simulate() at the same
@@ -344,42 +610,74 @@ struct AisGenConsts {
       inv_scale, corr2;  // corr2 = 2 (d - 1)
 };
 
+// The steps before the simulator for walker i: the proposal, its push and
+// logpdf, the stretch's log-Jacobian and the accept uniform. Returns
+// whether the push lies inside the prior.
 template <bool kStub>
-__global__ void fused_ais_sweep_kernel(
+__device__ __forceinline__ bool ais_propose(
+    Leaves th, Leaves comp, const long long* __restrict__ shifts, int i,
+    int h, uint32_t seed, const AisGenConsts& c, int sb_rows, float* prop,
+    float* pushed, float* lpp, float* corr, float* u_acc) {
+  MixConsts mc = {c.g_lo,  c.g_span, c.de_scale, c.inv300,
+                  c.third, c.p_s_hi, c.p_d_hi,   c.corr2};
+  mixture_propose(th, comp, shifts, i, h, seed, coords(i, sb_rows), kStub,
+                  kStreamGenAisWalker, mc, prop, corr, u_acc);
+  prior_push(prop, pushed);
+  *lpp = prior_logpdf(pushed);
+  return *lpp > __uint_as_float(0xff800000u);
+}
+
+template <bool kStub, int L>
+__global__ void __launch_bounds__(kGroupMaxThreads) fused_ais_sweep_kernel(
     Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
     Leaves comp, const long long* __restrict__ shifts,
     const long long* __restrict__ seed_ptr, OutLeaves oth,
     float* __restrict__ olp, float* __restrict__ oll, int h, int ndraws,
-    AisGenConsts c, int sb_rows, int chunk) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h) return;  // no padding walkers: nothing past h is written
+    AisGenConsts c, int sb_rows, int chunk, int walkers) {
+  extern __shared__ float s_dyn[];  // each warp's staging, then the slots
+  int* s_walker = reinterpret_cast<int*>(
+      s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
   uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
-  Coords cc = coords(i, sb_rows);
-  MixConsts mc = {c.g_lo,  c.g_span, c.de_scale, c.inv300,
-                  c.third, c.p_s_hi, c.p_d_hi,   c.corr2};
-  float prop[KT_NPARAMS], corr, u_acc;
-  mixture_propose(th, comp, shifts, i, h, seed, cc, kStub,
-                  kStreamGenAisWalker, mc, prop, &corr, &u_acc);
-  float pushed[KT_NPARAMS];
-  prior_push(prop, pushed);
-  float lpp = prior_logpdf(pushed);
-  bool valid = lpp > __uint_as_float(0xff800000u);
-  float llp = lpp;
-  if (valid) {  // no output of a walker outside the prior depends on it
-    float m[KT_NSTATS];
-    simulate<kStub>(pushed, ndraws, chunk, c.inv_n, cc.pid, cc.row, cc.lane,
-                    seed, kStreamGenAisSim, (uint32_t)i, m);
-    float t = reduce_cost(pushed, m) * c.inv_scale;
-    llp = -0.5f * (t * t);
-  }
-  float lp0 = lp[i], ll0 = ll[i];
-  float lw = (corr + (lpp + llp)) - (lp0 + ll0);
-  bool acc = valid && (log1pf(-u_acc) <= lw);
+  int p = compact_walkers(
+      blockIdx.x * walkers, walkers, h, s_walker, [&](int i) {
+        float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
+        bool valid = ais_propose<kStub>(th, comp, shifts, i, h, seed, c,
+                                        sb_rows, prop, pushed, &lpp, &corr,
+                                        &u_acc);
+        if (!valid) {  // never commits: the inputs go through
 #pragma unroll
-  for (int k = 0; k < KT_NPARAMS; ++k)
-    oth.p[k][i] = acc ? prop[k] : th.p[k][i];
-  olp[i] = acc ? lpp : lp0;
-  oll[i] = acc ? llp : ll0;
+          for (int k = 0; k < KT_NPARAMS; ++k) oth.p[k][i] = th.p[k][i];
+          olp[i] = lp[i];
+          oll[i] = ll[i];
+        }
+        return valid;
+      });
+  float* stage = s_dyn + (threadIdx.x >> 5) * kStageFloats;
+  int g = threadIdx.x / L, r = threadIdx.x % L, groups = blockDim.x / L;
+  int g0 = (threadIdx.x >> 5) * (32 / L);  // the warp's first group
+  for (int base = 0; phase2_turn<L>(base, g, g0, p); base += groups) {
+    bool own = base + g < p;
+    int i = s_walker[own ? base + g : base + g0];
+    float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
+    ais_propose<kStub>(th, comp, shifts, i, h, seed, c, sb_rows, prop,
+                       pushed, &lpp, &corr, &u_acc);
+    float m[KT_NSTATS];
+    simulate_lanes<kStub, L>(pushed, ndraws, chunk, c.inv_n,
+                             coords(i, sb_rows), seed, kStreamGenAisSim,
+                             (uint32_t)i, r, g - g0, stage, m);
+    if (r == 0 && own) {
+      float t = reduce_cost(pushed, m) * c.inv_scale;
+      float llp = -0.5f * (t * t);
+      float lp0 = lp[i], ll0 = ll[i];
+      float lw = (corr + (lpp + llp)) - (lp0 + ll0);
+      bool acc = log1pf(-u_acc) <= lw;
+#pragma unroll
+      for (int k = 0; k < KT_NPARAMS; ++k)
+        oth.p[k][i] = acc ? prop[k] : th.p[k][i];
+      olp[i] = acc ? lpp : lp0;
+      oll[i] = acc ? llp : ll0;
+    }
+  }
 }
 #endif
 
@@ -395,49 +693,89 @@ __global__ void fused_ais_sweep_kernel(
 // depends on the simulation, as in the TPU kernel, which simulates every
 // walker and masks.
 //
+// What bounds it on the H100: ~32% of the walkers pass the gate. At
+// ABCDE's production width, 16384 walkers x 1000 draws, that is ~5300
+// simulated walkers, ~40 an SM: one thread each left the kernel bound by
+// the latency of one walker's chain of ~48750 instructions (0.054-0.084
+// ms, the chain alone 0.025 ms), on 128 blocks for 132 SMs, with a warp's
+// lanes ~32% busy. At 131072 walkers the masked lanes were the cost. Now
+// phase 1 gates and writes the walkers that fail, blocks of 64 walkers
+// spread the grid over every SM, and each compacted walker's draws are
+// split over a group of 4 lanes, which cuts the chain ~4-fold (0.0245 ms
+// on the H100); at 131072 the compacted walkers keep ~96% of the loop's
+// lanes busy, on 1 lane each for a light model (see the lane-group
+// kernels above, ops/lane_groups.py pick).
+//
 // Gate uniform: stub counter 40000 on the (TR, 128) super-tile, or word 0
 // of Philox counter (0, w, kStreamAbcdeWalker, 0); the simulator is
 // simulate() at the same (program, row, lane), on kStreamAbcdeSim.
 constexpr uint32_t kStreamAbcdeWalker = 11u;
 constexpr uint32_t kStreamAbcdeSim = 12u;
 
+// The steps before the simulator for walker w: the proposal, its push and
+// logpdf. Returns the gate.
 template <bool kStub>
-__global__ void fused_abcde_generation_kernel(
-    Leaves th, Leaves ts, Leaves ta, Leaves tb, const float* __restrict__ lps,
-    const float* __restrict__ ds, const float* __restrict__ active,
-    const float* __restrict__ eps_i, const long long* __restrict__ seed_ptr,
-    OutLeaves oth, float* __restrict__ olps, float* __restrict__ ods,
-    float* __restrict__ ogate, int n, int ndraws, float inv_n, float gamma,
-    int push_cost, int sb_rows, int chunk) {
-  int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= n) return;  // no padding walkers: nothing past n is written
-  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
-  Coords c = coords(w, sb_rows);
+__device__ __forceinline__ bool abcde_gate(
+    Leaves ts, Leaves ta, Leaves tb, const float* __restrict__ lps,
+    const float* __restrict__ active, int w, uint32_t seed, float gamma,
+    int sb_rows, float* prop, float* pushed, float* lpp) {
   uint32_t bu;
   if constexpr (kStub) {
+    Coords c = coords(w, sb_rows);
     bu = stub_bits(c.pid, seed, 40000u, c.row, c.lane);
   } else {
     bu = philox4x32_10(0u, (uint32_t)w, kStreamAbcdeWalker, 0u, seed).x0;
   }
   float lprob = log1pf(-to_unit(bu));  // log U(0,1]
-
-  float prop[KT_NPARAMS];
 #pragma unroll
   for (int k = 0; k < KT_NPARAMS; ++k)
     prop[k] = ts.p[k][w] + gamma * (ta.p[k][w] - tb.p[k][w]);
-  float pushed[KT_NPARAMS];
   prior_push(prop, pushed);
-  float lpp = prior_logpdf(pushed);
-  float lp = lps[w];
-  float dl = lpp - lp;
+  *lpp = prior_logpdf(pushed);
+  float dl = *lpp - lps[w];
   // min(dl, 0) with NaN kept (fminf would drop it): -inf - -inf never
   // passes, as jnp.minimum
   float lm = (dl > 0.0f) ? 0.0f : dl;
-  bool gate = (active[w] > 0.5f) && (lprob <= lm);
+  return (active[w] > 0.5f) && (lprob <= lm);
+}
 
-  bool commit = false;
-  float dp = 0.0f;
-  if (gate) {  // the outputs depend on the simulation only here
+template <bool kStub, int L>
+__global__ void __launch_bounds__(kGroupMaxThreads)
+    fused_abcde_generation_kernel(
+        Leaves th, Leaves ts, Leaves ta, Leaves tb,
+        const float* __restrict__ lps, const float* __restrict__ ds,
+        const float* __restrict__ active, const float* __restrict__ eps_i,
+        const long long* __restrict__ seed_ptr, OutLeaves oth,
+        float* __restrict__ olps, float* __restrict__ ods,
+        float* __restrict__ ogate, int n, int ndraws, float inv_n,
+        float gamma, int push_cost, int sb_rows, int chunk, int walkers) {
+  extern __shared__ float s_dyn[];  // each warp's staging, then the slots
+  int* s_walker = reinterpret_cast<int*>(
+      s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  int p = compact_walkers(
+      blockIdx.x * walkers, walkers, n, s_walker, [&](int w) {
+        float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp;
+        bool gate = abcde_gate<kStub>(ts, ta, tb, lps, active, w, seed,
+                                      gamma, sb_rows, prop, pushed, &lpp);
+        if (!gate) {  // no output depends on the simulation
+#pragma unroll
+          for (int k = 0; k < KT_NPARAMS; ++k) oth.p[k][w] = th.p[k][w];
+          olps[w] = lps[w];
+          ods[w] = ds[w];
+          ogate[w] = 0.0f;
+        }
+        return gate;
+      });
+  float* stage = s_dyn + (threadIdx.x >> 5) * kStageFloats;
+  int g = threadIdx.x / L, r = threadIdx.x % L, groups = blockDim.x / L;
+  int g0 = (threadIdx.x >> 5) * (32 / L);  // the warp's first group
+  for (int base = 0; phase2_turn<L>(base, g, g0, p); base += groups) {
+    bool own = base + g < p;
+    int w = s_walker[own ? base + g : base + g0];
+    float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp;
+    abcde_gate<kStub>(ts, ta, tb, lps, active, w, seed, gamma, sb_rows, prop,
+                      pushed, &lpp);
     // selected leaf by leaf (a pointer to one array or the other would
     // put both on the stack)
     float sim[KT_NPARAMS];
@@ -445,20 +783,99 @@ __global__ void fused_abcde_generation_kernel(
     for (int k = 0; k < KT_NPARAMS; ++k)
       sim[k] = push_cost ? pushed[k] : prop[k];
     float m[KT_NSTATS];
-    simulate<kStub>(sim, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
-                    kStreamAbcdeSim, (uint32_t)w, m);
-    dp = reduce_cost(sim, m);
-    float e = eps_i[w], d = ds[w];
-    // max(eps_i, ds) with NaN kept, as jnp.maximum
-    float hi = (e != e || d != d) ? (e + d) : fmaxf(e, d);
-    commit = dp <= hi;
-  }
+    simulate_lanes<kStub, L>(sim, ndraws, chunk, inv_n, coords(w, sb_rows),
+                             seed, kStreamAbcdeSim, (uint32_t)w, r, g - g0,
+                             stage, m);
+    if (r == 0 && own) {
+      float dp = reduce_cost(sim, m);
+      float e = eps_i[w], d = ds[w];
+      // max(eps_i, ds) with NaN kept, as jnp.maximum
+      float hi = (e != e || d != d) ? (e + d) : fmaxf(e, d);
+      bool commit = dp <= hi;
 #pragma unroll
-  for (int k = 0; k < KT_NPARAMS; ++k)
-    oth.p[k][w] = commit ? prop[k] : th.p[k][w];
-  olps[w] = commit ? lpp : lp;
-  ods[w] = commit ? dp : ds[w];
-  ogate[w] = gate ? 1.0f : 0.0f;
+      for (int k = 0; k < KT_NPARAMS; ++k)
+        oth.p[k][w] = commit ? prop[k] : th.p[k][w];
+      olps[w] = commit ? lpp : lps[w];
+      ods[w] = commit ? dp : d;
+      ogate[w] = 1.0f;
+    }
+  }
+}
+#endif
+
+#if KT_HAS_GROUPS
+// Dynamic shared memory of a lane-group block: for L > 1 each warp's
+// staging, then the walkers' slots.
+inline size_t group_smem(int walkers, int threads, int lanes) {
+  size_t bytes = (size_t)walkers * sizeof(int);
+  if (lanes > 1)
+    bytes += (size_t)(threads / 32) * kStageFloats * sizeof(float);
+  return bytes;
+}
+
+// The lanes a unit instantiates: 1 and 4, the two that
+// ops/lane_groups.py pick chooses. A unit that defines KT_GROUP_ALL_LANES
+// (the geometry grid of tools/time_geometry.py, the host tests) also has
+// 2, 8 and 16; each instantiation is two kernels (Philox, stub bits) of
+// the unrolled draw loop, compiled into every user model's library.
+#if defined(KT_GROUP_ALL_LANES) && KT_GROUP_ALL_LANES
+inline bool group_lanes(int lanes) {
+  return lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8 || lanes == 16;
+}
+#else
+inline bool group_lanes(int lanes) { return lanes == 1 || lanes == 4; }
+#endif
+
+// 0 for a geometry the lane-group kernels take, else
+// cudaErrorInvalidConfiguration: threads a multiple of 32 up to
+// kGroupMaxThreads, 1 to kGroupMaxWalkers walkers a block, L one of the
+// unit's (group_lanes) and the shared memory within a block's.
+inline int group_check(int walkers, int threads, int lanes) {
+  bool ok = threads >= 32 && threads <= kGroupMaxThreads &&
+            threads % 32 == 0 && walkers >= 1 &&
+            walkers <= kGroupMaxWalkers && group_lanes(lanes) &&
+            group_smem(walkers, threads, lanes) <= (size_t)kGroupMaxSmem;
+  return ok ? 0 : (int)cudaErrorInvalidConfiguration;
+}
+
+// The instantiation of a lane-group kernel for `lanes` (checked by
+// group_check): pick(Int<L>()).
+template <typename Pick>
+auto by_lanes(int lanes, Pick pick) -> decltype(pick(Int<1>())) {
+  switch (lanes) {
+    case 4:
+      return pick(Int<4>());
+#if defined(KT_GROUP_ALL_LANES) && KT_GROUP_ALL_LANES
+    case 2:
+      return pick(Int<2>());
+    case 8:
+      return pick(Int<8>());
+    case 16:
+      return pick(Int<16>());
+#endif
+    default:
+      return pick(Int<1>());
+  }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB a
+// block must ask for it).
+template <typename Kernel>
+int group_smem_opt_in(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Blocks of the Philox instantiation `kernel` resident on one SM.
+template <typename Kernel>
+int group_occupancy(Kernel kernel, int walkers, int threads, int lanes,
+                    int* blocks_per_sm) {
+  size_t smem = group_smem(walkers, threads, lanes);
+  int err = group_smem_opt_in(kernel, smem);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads, smem);
 }
 #endif
 
@@ -519,11 +936,16 @@ extern "C" int kt_fused_smc_sweep_occupancy(int threads, int* blocks_per_sm) {
 #endif
 
 #if defined(KT_HAS_AIS) && KT_HAS_AIS
+// walkers, threads and lanes from the wrapper (ops/lane_groups.py
+// geometry); the grid is ceil(h / walkers) blocks.
 extern "C" int kt_fused_ais_sweep(
     const float* const* th, const float* lp, const float* ll,
     const float* const* comp, const long long* shifts, const long long* seed,
     float* const* oth, float* olp, float* oll, int h, int ndraws,
-    const float* fconsts, int stub, int sb_rows, int chunk, void* stream) {
+    const float* fconsts, int stub, int sb_rows, int chunk, int walkers,
+    int threads, int lanes, void* stream) {
+  int err = group_check(walkers, threads, lanes);
+  if (err) return err;
   Leaves leaves, partners;
   OutLeaves outs;
   for (int k = 0; k < KT_NPARAMS; ++k) {
@@ -535,23 +957,46 @@ extern "C" int kt_fused_ais_sweep(
   AisGenConsts c = {f[0], f[1], f[2], f[3], f[4],
                     f[5], f[6], f[7], f[8], f[9]};
   if (h > 0) {
-    auto kernel = stub ? &fused_ais_sweep_kernel<true>
-                       : &fused_ais_sweep_kernel<false>;
-    kernel<<<grid_for(h), kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = by_lanes(lanes, [&](auto l) {
+      constexpr int L = decltype(l)::value;
+      return stub ? &fused_ais_sweep_kernel<true, L>
+                  : &fused_ais_sweep_kernel<false, L>;
+    });
+    size_t smem = group_smem(walkers, threads, lanes);
+    err = group_smem_opt_in(kernel, smem);
+    if (err) return err;
+    int blocks = (int)(((long long)h + walkers - 1) / walkers);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         leaves, lp, ll, partners, shifts, seed, outs, olp, oll, h, ndraws, c,
-        sb_rows, chunk);
+        sb_rows, chunk, walkers);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int kt_fused_ais_sweep_occupancy(int walkers, int threads,
+                                            int lanes, int* blocks_per_sm) {
+  int err = group_check(walkers, threads, lanes);
+  if (err) return err;
+  return group_occupancy(by_lanes(lanes, [](auto l) {
+                           return &fused_ais_sweep_kernel<
+                               false, decltype(l)::value>;
+                         }),
+                         walkers, threads, lanes, blocks_per_sm);
 }
 #endif
 
 #if defined(KT_HAS_ABCDE) && KT_HAS_ABCDE
+// walkers, threads and lanes from the wrapper (ops/lane_groups.py
+// geometry); the grid is ceil(n / walkers) blocks.
 extern "C" int kt_fused_abcde_generation(
     const float* const* th, const float* const* bases, const float* lps,
     const float* ds, const float* active, const float* eps_i,
     const long long* seed, float* const* oth, float* olps, float* ods,
     float* ogate, int n, int ndraws, float inv_n, float gamma, int push_cost,
-    int stub, int sb_rows, int chunk, void* stream) {
+    int stub, int sb_rows, int chunk, int walkers, int threads, int lanes,
+    void* stream) {
+  int err = group_check(walkers, threads, lanes);
+  if (err) return err;
   // bases: the K leaves of ts, then of ta, then of tb
   Leaves leaves, s, a, b;
   OutLeaves outs;
@@ -563,13 +1008,32 @@ extern "C" int kt_fused_abcde_generation(
     outs.p[k] = oth[k];
   }
   if (n > 0) {
-    auto kernel = stub ? &fused_abcde_generation_kernel<true>
-                       : &fused_abcde_generation_kernel<false>;
-    kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = by_lanes(lanes, [&](auto l) {
+      constexpr int L = decltype(l)::value;
+      return stub ? &fused_abcde_generation_kernel<true, L>
+                  : &fused_abcde_generation_kernel<false, L>;
+    });
+    size_t smem = group_smem(walkers, threads, lanes);
+    err = group_smem_opt_in(kernel, smem);
+    if (err) return err;
+    int blocks = (int)(((long long)n + walkers - 1) / walkers);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         leaves, s, a, b, lps, ds, active, eps_i, seed, outs, olps, ods,
-        ogate, n, ndraws, inv_n, gamma, push_cost, sb_rows, chunk);
+        ogate, n, ndraws, inv_n, gamma, push_cost, sb_rows, chunk, walkers);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int kt_fused_abcde_generation_occupancy(int walkers, int threads,
+                                                   int lanes,
+                                                   int* blocks_per_sm) {
+  int err = group_check(walkers, threads, lanes);
+  if (err) return err;
+  return group_occupancy(by_lanes(lanes, [](auto l) {
+                           return &fused_abcde_generation_kernel<
+                               false, decltype(l)::value>;
+                         }),
+                         walkers, threads, lanes, blocks_per_sm);
 }
 #endif
 

@@ -10,9 +10,12 @@ runs the rest per walker: the DE proposal ``ts + gamma * (ta - tb)``, the
 push and the prior's logpdf, the prior-MH gate ``active and log U <=
 min(lpp - lps, 0)``, then, only for the walkers that pass it, the user's
 streamed simulator on the raw or the pushed proposal (``cost_on``),
-``reduce_cost`` and the commit ``dp <= max(eps_i, ds)``. The user's
-``draw``, ``stats`` and ``reduce_cost`` and the prior's push and logpdf
-are compiled into it by ``ops/codegen.py``. Beside the kernel,
+``reduce_cost`` and the commit ``dp <= max(eps_i, ds)``. Each block
+compacts the walkers that pass the gate and gives each a group of lanes
+that share its draws; ``lane_groups.geometry`` picks the walkers a block
+covers, its threads and the lanes from ``n`` (``ops/lane_groups.py``).
+The user's ``draw``, ``stats`` and ``reduce_cost`` and the prior's push
+and logpdf are compiled into it by ``ops/codegen.py``. Beside the kernel,
 ``FusedABCDEGeneration.generation_plain`` repeats its arithmetic:
 
 - a wrapper given CPU tensors runs the plain version;
@@ -27,11 +30,13 @@ is Philox4x32-10.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..utils.rng import uint32_words
-from . import _build, codegen
+from . import _build, codegen, lane_groups
 from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
                       stub_bits, to_unit)
 from .streaming import (NOISE_OPS, leaves_of, streaming_moment_cost_plain,
@@ -142,15 +147,25 @@ class FusedABCDEGeneration:
                gate.to(torch.float32))
         return out + (dp,) if terms else out
 
-    def launch(self, leaves, bases, ins, seed, outs):
+    def geometry(self, n):
+        """``lane_groups.geometry`` for this model on the current card."""
+        return lane_groups.geometry(
+            n, self.nstats, lane_groups.sm_count(torch.cuda.current_device()),
+            lane_groups.is_light(self.unit))
+
+    def launch(self, leaves, bases, ins, seed, outs, geometry=None):
         """Launch ``kt_fused_abcde_generation`` on checked CUDA buffers of
         length n: ``bases`` the 3K leaves of ts, ta, tb; ``ins`` = (lps,
         ds, active as float 0/1, eps_i); ``outs`` = (theta leaves, lps,
-        ds, gate)."""
+        ds, gate); ``geometry`` a ``lane_groups.Geometry`` (default
+        ``self.geometry(n)``)."""
         lib = _build.load_generated(self.unit.source)
         lps, ds, active, eps_i = ins
         oth, olps, ods, ogate = outs
         n = leaves[0].shape[0]
+        g = self.geometry(n) if geometry is None else lane_groups.check(
+            n, geometry.walkers, geometry.threads, geometry.lanes,
+            self.nstats, lane_groups.unit_lanes(self.unit.source))
         err = lib.kt_fused_abcde_generation(
             _build.pointers(leaves), _build.pointers(bases), lps.data_ptr(),
             ds.data_ptr(), active.data_ptr(), eps_i.data_ptr(),
@@ -158,14 +173,25 @@ class FusedABCDEGeneration:
             ods.data_ptr(), ogate.data_ptr(), n, self.ndraws,
             float(np.float32(1.0 / self.ndraws)), self.gam,
             int(self.push_cost), int(self.bits == "stub"), self._sb_rows(n),
-            self.chunk, _stream())
+            self.chunk, g.walkers, g.threads, g.lanes, _stream())
         _build.check(lib, err, "fused_abcde_generation")
         launches["fused_abcde_generation"] += 1
 
-    def run(self, leaves, bases, lps, ds, active, eps_i, seed):
+    def occupancy(self, geometry):
+        """Blocks of ``geometry`` of the kernel (Philox bits) resident on
+        one SM of the current card."""
+        lib = _build.load_generated(self.unit.source)
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.kt_fused_abcde_generation_occupancy(
+            geometry.walkers, geometry.threads, geometry.lanes,
+            ctypes.byref(out)), "fused_abcde_generation occupancy")
+        return out.value
+
+    def run(self, leaves, bases, lps, ds, active, eps_i, seed,
+            geometry=None):
         """One generation with a given seed: the plain version for CPU
-        tensors, the kernel for CUDA tensors. Returns (theta leaves,
-        lps, ds, gate)."""
+        tensors, the kernel for CUDA tensors (``geometry`` as ``launch``
+        takes it). Returns (theta leaves, lps, ds, gate)."""
         n = leaves[0].shape[0]
         dev = leaves[0].device
         if dev.type not in ("cpu", "cuda"):
@@ -193,7 +219,7 @@ class FusedABCDEGeneration:
         outs = ([torch.empty_like(x) for x in leaves],
                 *(torch.empty_like(vec[0]) for _ in range(3)))
         self.launch(leaves, [x for b in bases for x in b], vec,
-                    _seed_tensor(seed, dev), outs)
+                    _seed_tensor(seed, dev), outs, geometry)
         return outs
 
     def __call__(self, gen, thetas, bases, lps, ds, active, eps_i):

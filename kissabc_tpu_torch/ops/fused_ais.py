@@ -10,7 +10,9 @@ kernels of ``kissabc_tpu/ops/pallas_kernels.py``:
 - ``make_fused_ais_sweep`` (``half_call``, pallas_call at :1440): the
   generic half-update with the user's prior, ``draw``, ``stats`` and
   ``reduce_cost`` compiled in by ``ops/codegen.py``,
-  ``kt_fused_ais_sweep`` (``csrc/generic.cuh``).
+  ``kt_fused_ais_sweep`` (``csrc/generic.cuh``); each block compacts
+  its walkers inside the prior and gives each a group of lanes that
+  share its draws (``ops/lane_groups.py``).
 
 Per walker of the updated half each kernel makes the 4:2:1 stretch /
 DE / walk proposal against six partners ``comp[(i + r_j) % h]`` of the
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.rng import uint32_words
-from . import _build, codegen
+from . import _build, codegen, lane_groups
 from .kernels import (OPS_PER_DRAW, _box_muller, _check_bits, _moments_philox,
                       _moments_stub, _seed_tensor, _stream, _summary_cost,
                       fused_sweep_constants, philox4x32_10, plan_tiles,
@@ -557,26 +559,49 @@ class FusedAISSweep(MixtureHalfSweep):
                torch.where(acc, lpp, lp), torch.where(acc, llp, ll))
         return out + ((valid, margin),) if terms else out
 
-    def launch(self, upd, lp, ll, comp, shifts, seed, outs):
+    def geometry(self, h):
+        """``lane_groups.geometry`` of a half of ``h`` walkers for this
+        model on the current card."""
+        return lane_groups.geometry(
+            h, self.nstats, lane_groups.sm_count(torch.cuda.current_device()),
+            lane_groups.is_light(self.unit))
+
+    def launch(self, upd, lp, ll, comp, shifts, seed, outs, geometry=None):
         """Launch ``kt_fused_ais_sweep`` on checked CUDA buffers of one
-        half: ``outs`` = (theta leaves, lp, ll)."""
+        half: ``outs`` = (theta leaves, lp, ll); ``geometry`` a
+        ``lane_groups.Geometry`` (default ``self.geometry(h)``)."""
         lib = _build.load_generated(self.unit.source)
         oth, olp, oll = outs
         h = upd[0].shape[0]
+        g = self.geometry(h) if geometry is None else lane_groups.check(
+            h, geometry.walkers, geometry.threads, geometry.lanes,
+            self.nstats, lane_groups.unit_lanes(self.unit.source))
         err = lib.kt_fused_ais_sweep(
             _build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
             _build.pointers(comp), shifts.data_ptr(), seed.data_ptr(),
             _build.pointers(oth), olp.data_ptr(), oll.data_ptr(), h,
             self.ndraws, self.fconsts.ctypes.data_as(ctypes.c_void_p),
             int(self.bits == "stub"), self._sb_rows(h), self.chunk,
-            _stream())
+            g.walkers, g.threads, g.lanes, _stream())
         _build.check(lib, err, "fused_ais_sweep")
         launches["fused_ais_sweep"] += 1
 
-    def half(self, upd, lp, ll, comp, shifts, seed, outs=None):
+    def occupancy(self, geometry):
+        """Blocks of ``geometry`` of the kernel (Philox bits) resident on
+        one SM of the current card."""
+        lib = _build.load_generated(self.unit.source)
+        out = ctypes.c_int(0)
+        _build.check(lib, lib.kt_fused_ais_sweep_occupancy(
+            geometry.walkers, geometry.threads, geometry.lanes,
+            ctypes.byref(out)), "fused_ais_sweep occupancy")
+        return out.value
+
+    def half(self, upd, lp, ll, comp, shifts, seed, outs=None,
+             geometry=None):
         """One half-update with given ``shifts`` (six, int64) and ``seed``:
-        the plain version for CPU tensors, the kernel for CUDA tensors.
-        Returns (theta leaves, lp, ll); ``outs`` are written when given."""
+        the plain version for CPU tensors, the kernel for CUDA tensors
+        (``geometry`` as ``launch`` takes it). Returns (theta leaves, lp,
+        ll); ``outs`` are written when given."""
         dev = upd[0].device
         if dev.type == "cpu":
             res = self.half_plain(upd, lp, ll, comp, shifts, seed)
@@ -591,7 +616,8 @@ class FusedAISSweep(MixtureHalfSweep):
                     torch.empty_like(ll))
         shifts = torch.as_tensor(shifts, device=dev).to(torch.int64)
         self.launch(upd, lp.contiguous(), ll.contiguous(), comp,
-                    shifts.contiguous(), _seed_tensor(seed, dev), outs)
+                    shifts.contiguous(), _seed_tensor(seed, dev), outs,
+                    geometry)
         return outs
 
     def sweep_halves(self, gen, th, ld):

@@ -12,7 +12,9 @@ floor), whatever the operations are.
 finds each loop that holds a Box-Muller angle (``sincos_2pi``'s
 ``floorf`` is one ``FRND.FLOOR`` per pair of normals, i.e. per two
 draws) and no such loop inside it, and counts its instructions per
-draw. A loop is the span from a backward branch's target to the branch.
+draw, its shuffles, its shared-memory loads and stores and its warp
+barriers. In a lane group's loop (one lane's share of the draws) the
+count is per draw per lane. A loop is the span from a backward branch's target to the branch.
 Where a loop body branches (a guard that skips code), the count is of
 every instruction in the span, an upper bound on what one pass issues.
 Nothing here needs a card; ``disassemble`` needs the CUDA toolkit.
@@ -101,10 +103,17 @@ def draw_loops(instrs) -> list[dict]:
     for a, b in sorted(inner):
         body = instrs[a:b + 1]
         ops = Counter(opcode(t) for _, t in body)
+
+        def count(*prefixes):
+            return sum(n for op, n in ops.items()
+                       if op.split(".")[0] in prefixes)
+
         out.append(dict(start=hex(body[0][0]), end=hex(body[-1][0]),
                         instructions=len(body), angles=ops[ANGLE_OP],
                         per_draw=len(body) / (2 * ops[ANGLE_OP]),
                         stub=any(STUB_MULTIPLIER in t for _, t in body),
+                        shuffles=count("SHFL"), shared=count("STS", "LDS"),
+                        syncs=count("WARPSYNC", "BAR", "NANOSLEEP"),
                         top=dict(ops.most_common(10))))
     return out
 

@@ -1,0 +1,183 @@
+// A host emulation of the CUDA features that the lane-group kernels of
+// kissabc_tpu_torch/csrc/generic.cuh use, for tests/test_torch_lane_groups.py:
+// one std::thread per CUDA thread, blocks one after another, static
+// __shared__ variables shared by the block's threads, __syncthreads a
+// block barrier, and each warp collective (__syncwarp, __ballot_sync,
+// __shfl_sync, __shfl_xor_sync) a rendezvous of the lanes of its mask that
+// aborts on a lane outside the mask or a wait of 20 s (a deadlock). The
+// float intrinsics round as plain float arithmetic: the emulation checks
+// the kernels' control flow and index arithmetic, not the card's
+// arithmetic.
+#pragma once
+#include <algorithm>
+#include <chrono>
+#include <cmath>
+#include <condition_variable>
+#include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __shared__ static
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+
+struct float2 {
+  float x, y;
+};
+struct kt_uint3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+inline thread_local kt_uint3 threadIdx;
+inline kt_uint3 blockIdx, blockDim;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidConfiguration = 9 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+using std::max;
+using std::min;
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline int __float_as_int(float f) { return (int)__float_as_uint(f); }
+inline float __int_as_float(int i) { return __uint_as_float((uint32_t)i); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+inline float __fadd_rz(float a, float b) { return a + b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
+inline float __int2float_rn(int i) { return (float)i; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+struct KtWarp {
+  std::mutex m;
+  std::condition_variable cv;
+};
+struct KtBlock {
+  std::mutex m;
+  std::condition_variable cv;
+  int nthreads = 0, arrived = 0;
+  long gen = 0;
+  std::vector<KtWarp> warps;
+  std::vector<std::vector<uint32_t>> sent;  // per thread, per collective
+  std::vector<char> smem;
+};
+inline KtBlock* kt_block;
+
+inline void __syncthreads() {
+  std::unique_lock<std::mutex> lk(kt_block->m);
+  long g = kt_block->gen;
+  if (++kt_block->arrived == kt_block->nthreads) {
+    kt_block->arrived = 0;
+    ++kt_block->gen;
+    kt_block->cv.notify_all();
+  } else {
+    kt_block->cv.wait(lk, [&] { return kt_block->gen != g; });
+  }
+}
+
+[[noreturn]] inline void kt_fail(const char* what, int t, unsigned mask) {
+  std::fprintf(stderr, "emulated CUDA: %s (thread %d, mask %08x)\n", what, t,
+               mask);
+  std::abort();
+}
+
+// One warp collective: send v and return what every lane of the mask sent
+// to its collective of the same index.
+inline std::vector<uint32_t> kt_collective(unsigned mask, uint32_t v) {
+  int t = threadIdx.x, lane = t & 31, w0 = t - lane;
+  if (!(mask >> lane & 1u)) kt_fail("lane outside its mask", t, mask);
+  KtWarp& warp = kt_block->warps[t / 32];
+  std::unique_lock<std::mutex> lk(warp.m);
+  size_t k = kt_block->sent[t].size();
+  kt_block->sent[t].push_back(v);
+  warp.cv.notify_all();
+  bool ok = warp.cv.wait_for(lk, std::chrono::seconds(20), [&] {
+    for (int l = 0; l < 32; ++l)
+      if ((mask >> l & 1u) && kt_block->sent[w0 + l].size() <= k)
+        return false;
+    return true;
+  });
+  if (!ok) kt_fail("a warp collective waits for ever", t, mask);
+  std::vector<uint32_t> out(32, 0u);
+  for (int l = 0; l < 32; ++l)
+    if (mask >> l & 1u) out[l] = kt_block->sent[w0 + l][k];
+  return out;
+}
+inline void __syncwarp(unsigned mask) { kt_collective(mask, 0u); }
+inline unsigned __ballot_sync(unsigned mask, bool p) {
+  std::vector<uint32_t> v = kt_collective(mask, p ? 1u : 0u);
+  unsigned b = 0;
+  for (int l = 0; l < 32; ++l)
+    if (v[l]) b |= 1u << l;
+  return b;
+}
+inline float __shfl_sync(unsigned mask, float x, int src) {
+  std::vector<uint32_t> v = kt_collective(mask, __float_as_uint(x));
+  if (!(mask >> (src & 31) & 1u))
+    kt_fail("a shuffle from outside its mask", threadIdx.x, mask);
+  return __uint_as_float(v[src & 31]);
+}
+inline float __shfl_xor_sync(unsigned mask, float x, int lane_mask) {
+  return __shfl_sync(mask, x, (int)(threadIdx.x & 31u) ^ lane_mask);
+}
+
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return 0;
+}
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, T*, int,
+                                                          size_t) {
+  *b = 1;
+  return 0;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+
+// the block's dynamic shared memory (extern __shared__), filled with a
+// pattern so that a read before a write shows
+template <class T>
+T* kt_dyn_smem() {
+  return reinterpret_cast<T*>(kt_block->smem.data());
+}
+
+// kernel<<<blocks, threads, smem>>>(args...)
+template <class K, class... A>
+void kt_launch(K kernel, int blocks, int threads, size_t smem, A... args) {
+  for (int b = 0; b < blocks; ++b) {
+    KtBlock block;
+    block.nthreads = threads;
+    block.sent.assign(threads, {});
+    block.warps = std::vector<KtWarp>((threads + 31) / 32);
+    block.smem.assign(smem + 64, (char)0x7f);
+    kt_block = &block;
+    blockIdx.x = b;
+    blockDim.x = threads;
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([=] {
+        threadIdx.x = t;
+        kernel(args...);
+      });
+    for (auto& th : ts) th.join();
+  }
+}

@@ -1,0 +1,143 @@
+"""The lane-group kernels #6 (``fused_ais_sweep_kernel``) and #10
+(``fused_abcde_generation_kernel``) of ``kissabc_tpu_torch/csrc/
+generic.cuh``, compiled for the host with ``g++`` against the emulation
+in ``tests/host_cuda/cuda_runtime.h`` (one thread per CUDA thread, the
+warp collectives as rendezvous that fail on a lane outside the mask or a
+deadlock). Every launch geometry, walkers a block from 1 to 512, threads
+from 32 to 256 and 1 to 16 lanes a walker, must give the outputs of one
+thread per walker (lanes = 1) bit for bit, on Philox and stub bits, with
+ragged draw counts, on the flagship model (2 statistics) and with 3 and
+1 statistics. The emulation checks the kernels' control flow and index
+arithmetic; their arithmetic on the card is held against the plain
+versions by chip_smoke.py. The units are built with every lane count
+(``lane_groups.with_all_lanes``); one built as the wrappers build it
+must take lanes 1 and 4 with the same bits and refuse the others.
+Skipped without a host C++ compiler.
+"""
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import pytest
+import torch
+
+import kissabc_tpu_torch as kt
+from kissabc_tpu_torch import models
+from kissabc_tpu_torch.ops import lane_groups as LG
+
+HOST = Path(__file__).parent / "host_cuda"
+GEOMETRIES = [(64, 64, 1), (64, 64, 2), (64, 64, 4), (64, 128, 8),
+              (128, 64, 16), (32, 256, 4), (200, 32, 2), (100, 96, 4),
+              (512, 128, 8), (5, 32, 16), (7, 64, 8), (3, 32, 1)]
+
+
+def _model(stats):
+    prior, draw, reduce_cost = models.flagship()
+    if stats == 3:
+        return prior, draw, (lambda th, m: m[0] + m[1] + m[2]), dict(
+            stats=[lambda x, t=t: (x < t).to(torch.float32)
+                   for t in (1.95, 2.0, 2.05)])
+    if stats == 1:
+        return prior, draw, (lambda th, m: torch.abs(m[0] - 2.0)), dict(
+            nmoments=1)
+    return prior, draw, reduce_cost, {}
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    """kind, statistics -> the emulated program's executable (every
+    lane count; statistics "default": 2, the lanes of the wrappers' unit)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulation")
+    root = tmp_path_factory.mktemp("lane_groups")
+    csrc = Path(kt.__file__).parent / "csrc"
+    for f in csrc.glob("*.cuh"):
+        text = f.read_text()
+        text = text.replace("extern __shared__ float s_dyn[];",
+                            "float* s_dyn = kt_dyn_smem<float>();")
+        text = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*"
+                      r"\(cudaStream_t\)stream>>>\(",
+                      r"kt_launch(\1, \2, \3, \4, ", text)
+        text = text.replace(
+            'asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(v));',
+            "rs = 1.0f / sqrtf(v);")
+        (root / f.name).write_text(text)
+    shutil.copy(HOST / "cuda_runtime.h", root)
+    procs, exes = {}, {}
+    for kind, stats in [(k, s) for k in ("abcde", "ais") for s in (2, 3, 1)
+                        ] + [("abcde", "default")]:
+        prior, draw, rc, kw = _model(2 if stats == "default" else stats)
+        if kind == "abcde":
+            unit = kt.make_fused_abcde_generation(prior, draw, rc,
+                                                  gamma=1.19, **kw).unit
+        else:
+            unit = kt.make_fused_ais_sweep(prior, draw, rc, scale=0.5,
+                                           **kw).unit
+        if stats != "default":
+            unit = LG.with_all_lanes(unit)
+        src = root / f"{kind}{stats}.cpp"
+        src.write_text(unit.source + f'\n#include "{HOST}/'
+                       'lane_groups_main.cpp"\n')
+        exes[kind, stats] = root / f"{kind}{stats}"
+        procs[kind, stats] = subprocess.Popen(
+            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-pthread",
+             "-w", "-I", str(root), str(src), "-o", str(exes[kind, stats])],
+            stderr=subprocess.PIPE, text=True)
+    for key, p in procs.items():
+        _, err = p.communicate()
+        assert p.returncode == 0, f"g++ failed on {key}:\n{err}"
+    return exes
+
+
+def _run(exe, n, ndraws, chunk, stub, geometries):
+    args = [str(x) for g in geometries for x in g]
+    out = subprocess.run([str(exe), str(n), str(ndraws), str(chunk),
+                          str(stub), *args], capture_output=True, text=True,
+                         timeout=600, check=True).stdout
+    return [line.split() for line in out.splitlines()]
+
+
+@pytest.mark.parametrize("kind", ["abcde", "ais"])
+@pytest.mark.parametrize("stub,ndraws,chunk", [(0, 130, 32), (1, 130, 32),
+                                               (0, 77, 512), (1, 1, 512)])
+def test_every_geometry_gives_the_bits_of_one_thread_per_walker(
+        built, kind, stub, ndraws, chunk):
+    rows = _run(built[kind, 2], 200, ndraws, chunk, stub, GEOMETRIES)
+    assert len(rows) == len(GEOMETRIES)
+    assert all(r[3] == "0" for r in rows)           # launched
+    assert {r[4] for r in rows} == {rows[0][4]}     # the same bits
+    assert int(rows[0][5]) > 0                      # some walkers commit
+
+
+@pytest.mark.parametrize("kind", ["abcde", "ais"])
+@pytest.mark.parametrize("stats", [3, 1])
+def test_other_statistic_counts(built, kind, stats):
+    """3 statistics: 6 accumulators, so with 2 or 4 lanes a lane owns
+    several; 1 statistic: 2 accumulators, so most lanes own none."""
+    rows = _run(built[kind, stats], 200, 130, 32, 1, GEOMETRIES[:8])
+    assert all(r[3] == "0" for r in rows)
+    assert {r[4] for r in rows} == {rows[0][4]}
+
+
+def test_entry_points_refuse_what_the_kernel_cannot_take(built):
+    """cudaErrorInvalidConfiguration (9), and nothing written."""
+    rows = _run(built["abcde", 2], 64, 10, 512, 0,
+                [(64, 48, 4), (0, 64, 4), (4097, 64, 4), (64, 64, 3),
+                 (64, 64, 32), (64, 1024, 1)])
+    assert [r[3] for r in rows] == ["9"] * 6
+    assert {r[4] for r in rows} == {rows[0][4]}
+
+
+def test_the_wrappers_unit_has_lanes_1_and_4(built):
+    """Built as the wrappers build it, the unit takes lanes 1 and 4 with
+    the bits of the unit of every lane count, and refuses 2, 8 and 16
+    (cudaErrorInvalidConfiguration, 9)."""
+    geometries = [(64, 64, 1), (32, 256, 4), (64, 64, 2), (64, 128, 8),
+                  (128, 64, 16)]
+    rows = _run(built["abcde", "default"], 200, 130, 32, 1, geometries)
+    assert [r[3] for r in rows] == ["0", "0", "9", "9", "9"]
+    every = _run(built["abcde", 2], 200, 130, 32, 1, geometries[:2])
+    assert {r[4] for r in rows[:2]} == {r[4] for r in every} == {
+        every[0][4]}

@@ -65,7 +65,25 @@ def test_draw_loops_are_the_innermost_with_angles():
     assert philox["per_draw"] == 5 / 4 and not philox["stub"]
     assert stub["per_draw"] == 3 / 2 and stub["stub"]
     assert philox["top"]["FRND.FLOOR"] == 2
+    assert (philox["shuffles"], philox["shared"], philox["syncs"]) == (0, 0,
+                                                                       0)
     assert sass.draw_loops(sass.functions(LISTING)["_Z5otherv"]) == []
+
+
+def test_draw_loops_count_shuffles_shared_memory_and_barriers():
+    listing = """
+                Function : _Z5groupv
+        /*0000*/                   FRND.FLOOR R0, R2 ;
+        /*0010*/                   STS.64 [R3], R4 ;
+        /*0020*/                   WARPSYNC R7 ;
+        /*0030*/                   LDS.64 R8, [R9] ;
+        /*0040*/                   SHFL.BFLY PT, R10, R11, 0x1, 0x1f ;
+        /*0050*/                   FRND.FLOOR R1, R2 ;
+        /*0060*/               @P0 BRA 0x0 ;
+"""
+    (loop,) = sass.draw_loops(sass.functions(listing)["_Z5groupv"])
+    assert (loop["shuffles"], loop["shared"], loop["syncs"]) == (1, 2, 1)
+    assert loop["per_draw"] == 7 / 4
 
 
 def test_issue_floor():

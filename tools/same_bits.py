@@ -12,8 +12,10 @@ stub bits), #2 ``fused_sweep``, #3 ``fused_smc_sweep`` (the flagship
 model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
 #4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub),
 #5 ``streaming_scan_cost`` (AR(1)), #6 ``fused_ais_sweep`` (flagship and
-g-and-k, Philox and stub), #7 ``fused_ais_half``, #8 ``fused_ais_full``
-and #10 ``fused_abcde_generation`` (flagship, Philox and stub). Prints
+g-and-k, Philox and stub; flagship on an odd half of 32771), #7
+``fused_ais_half``, #8 ``fused_ais_full`` and #10
+``fused_abcde_generation`` (flagship, Philox and stub at n, and at 16384
+and 16384 + 37, a width that is no multiple of a block). Prints
 one JSON line per case with the count of output values that differ (0:
 the same bits), then the card and its power limit; exits 1 if any case
 differs. Needs one card and nvcc; imports nothing of JAX.
@@ -133,7 +135,7 @@ def cases(torch, n, big):
         return p.make_streaming_scan_cost(step, init, reduce_cost,
                                           nsteps=1000).means(tuple(ar), seed)
 
-    def k6(model, bits):
+    def k6(model, bits, half=h):
         def run(p):
             if model == "flagship":
                 prior, draw, reduce_cost = p.models.flagship()
@@ -143,9 +145,10 @@ def cases(torch, n, big):
                 leaves = gk
             sw = p.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
                                         bits=bits)
-            return sw.half([x[:h] for x in leaves], lp_ll[0][:h],
-                           lp_ll[1][:h], [x[h:] for x in leaves], shifts6,
-                           seed)
+            return sw.half([x[:half] for x in leaves], lp_ll[0][:half],
+                           lp_ll[1][:half],
+                           [x[half:2 * half] for x in leaves],
+                           shifts6 % half, seed)
         return run
 
     def k7(bits, full):
@@ -163,17 +166,17 @@ def cases(torch, n, big):
             return outs
         return run
 
-    def k10(bits):
+    def k10(bits, m=n):
         def run(p):
             prior, draw, reduce_cost = p.models.flagship()
             g = p.make_fused_abcde_generation(
                 prior, draw, reduce_cost, gamma=2.38 / math.sqrt(4.0),
                 bits=bits)
-            leaves = [mu[:n], sg[:n]]
-            bases = [[x[i] for x in leaves] for i in idx]
+            leaves = [mu[:m], sg[:m]]
+            bases = [[x[i[:m] % m] for x in leaves] for i in idx]
             lps = g.prior.logpdf_tree(tuple(leaves)).float().contiguous()
-            eps_i = torch.where(ds <= 0.3, 0.3, 0.8)
-            return g.run(leaves, bases, lps, ds, active, eps_i, seed)
+            eps_i = torch.where(ds[:m] <= 0.3, 0.3, 0.8)
+            return g.run(leaves, bases, lps, ds[:m], active[:m], eps_i, seed)
         return run
 
     return [("#1 hw", k1("hw")), ("#1 stub", k1("stub")), ("#2 hw", k2),
@@ -185,8 +188,11 @@ def cases(torch, n, big):
             ("#6 flagship hw", k6("flagship", "hw")),
             ("#6 g-and-k stub", k6("gk", "stub")),
             ("#7 hw", k7("hw", False)), ("#7 stub", k7("stub", False)),
+            ("#6 flagship hw, odd half 32771", k6("flagship", "hw", 32771)),
             ("#8 hw", k7("hw", True)), ("#10 hw", k10("hw")),
-            ("#10 stub", k10("stub"))]
+            ("#10 stub", k10("stub")), ("#10 hw 16384", k10("hw", 16384)),
+            ("#10 hw 16384 + 37", k10("hw", 16384 + 37)),
+            ("#10 stub 16384 + 37", k10("stub", 16384 + 37))]
 
 
 def main():

@@ -12,7 +12,11 @@ streaming cost), the generic AIS sweep and the ABC-DE generation, runs
 one JSON line per kernel with a draw loop: each innermost loop's
 instructions, its Box-Muller angles (two draws each), instructions per
 draw, its commonest opcodes, and the issue floor of 1000 draws for 2**20
-walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``).
+walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``),
+and, for the lane-group kernels (#6, #10; their template arguments
+<stub, lanes> parsed from the name), the floor for the walkers they
+simulate at their production widths (``--sim``; the loop's count is per
+draw per lane, so the floor counts every lane's share).
 Then, on the card, it runs kernel #1 (``normal_summary_cost``, 2**20
 walkers x 1000 Philox draws) back to back for about two seconds while
 ``nvidia-smi`` samples the SM clock every 50 ms, and prints the kernel's
@@ -25,9 +29,16 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+
+# the walkers the lane-group kernels simulate at their production widths
+# on the H100: #10 at 16384 and 131072 walkers of an ABCDE generation
+# (tools/time_geometry.py), #6 over one sweep of 131072 from the prior
+# (chip_smoke.py ais-kernel-times)
+SIMULATED = ["abcde:16384:5318", "abcde:131072:42876", "ais:131072:77645"]
 
 
 def smi(query):
@@ -43,7 +54,12 @@ def main():
     ap.add_argument("--repo", default=here)
     ap.add_argument("--out", default=os.path.join(here, "chiprun_out",
                                                   "sass"))
+    ap.add_argument("--sim", action="append", default=None,
+                    help="LIB:LABEL:WALKERS, an issue floor of LIB's loops "
+                    "for that many simulated walkers x 1000 draws")
     args = ap.parse_args()
+    if args.sim is None:
+        args.sim = SIMULATED
     sys.path.insert(0, os.path.abspath(args.repo))
     import kissabc_tpu_torch as kt
     from kissabc_tpu_torch import models
@@ -65,6 +81,10 @@ def main():
     jobs = {"flagship": _build.start()}
     jobs.update({k: _build.start(u.source) for k, u in units.items()})
     clock = float(smi("clocks.max.sm") or "nan")
+    sims = {}   # lib -> {label: simulated walkers}
+    for item in args.sim:
+        lib, label, count = item.split(":")
+        sims.setdefault(lib, {})[label] = int(count)
     os.makedirs(args.out, exist_ok=True)
     for name, job in jobs.items():
         lib = job.wait()[0]
@@ -78,8 +98,15 @@ def main():
             for loop in found:
                 loop["floor_ms_2p20x1000"] = sass.issue_floor_ms(
                     loop["per_draw"], 1000, 1 << 20, clock)
+                for label, count in sims.get(name, {}).items():
+                    loop[f"floor_ms_{label}"] = sass.issue_floor_ms(
+                        loop["per_draw"], 1000, count, clock)
+            # the lane-group kernels' template arguments: <stub, lanes>
+            m = re.search(r"ILb([01])ELi(\d+)EE", fn)
+            extra = dict(stub=m.group(1) == "1", lanes=int(m.group(2))) \
+                if m else {}
             print(json.dumps(dict(lib=name, kernel=fn,
-                                  instructions=len(instrs),
+                                  instructions=len(instrs), **extra,
                                   loops=found)), flush=True)
     print(json.dumps(dict(load=clock_under_load())), flush=True)
     print(json.dumps(dict(card=smi("name,power.limit"),

@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""Times the lane-group kernels, #10 ``fused_abcde_generation`` and #6
+``fused_ais_sweep``, over a grid of launch geometries (walkers a block
+covers, threads a block, lanes a walker) at their production widths, and
+checks that every geometry gives the outputs of the default one bit for
+bit.
+
+    python3 tools/time_geometry.py [--parent DIR] [--quick]
+
+The grid runs on copies of the units built with every lane count
+(``lane_groups.with_all_lanes``: 1, 2, 4, 8 and 16); the default geometry
+and the parent's turns run on the units as the wrappers build them (1
+and 4), and the default geometry is timed on the grid's build too
+(``all_lanes_ms``). First, the cost of the extra lanes in build time:
+each flagship unit (#10, #6) compiled alone, as the wrappers build it
+and with every lane count, one nvcc after the other.
+
+#10: the flagship model at 16384 and 131072 walkers x 1000 draws, Philox,
+on the inputs of an ABCDE generation (chip_smoke.py ``abcde-kernel-times``).
+#6: one sweep (two half-updates of 65536) of the flagship model from the
+prior (chip_smoke.py ``ais-kernel-times``) and of g-and-k from the init of
+``sample`` (``ais-fused-generic``), and of each after 100 fused sweeps
+from the init of ``sample`` (the states a run's sweeps meet), with the
+share of walkers inside the prior along the way. Each geometry's time is
+the kernel's own by ``torch.profiler`` (``chip_smoke.device_ms``, per
+generation or sweep) and by events around launches queued behind a spin
+(``chip_smoke.queued_ms``, which drops no launch), beside the lane share
+its compaction gives by the plain model (``lane_groups.lane_share``, not
+measured) and the blocks an SM holds. With ``--parent``, the kernels of the
+checkout under DIR run on the same inputs in the same process, in turns
+with this checkout's default geometry (parent, this, this, parent), and
+must give the same bits.
+Prints one JSON line per geometry, then the card and its power limit.
+Needs one card and nvcc; imports nothing of JAX.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "tools"))
+
+import chip_smoke as CS                      # noqa: E402
+from same_bits import flat, load_package     # noqa: E402
+
+
+def grids(quick):
+    """(n, [(walkers, threads, lanes)]) per case."""
+    if quick:
+        return {"abcde 16384": [(64, 256, 8), (64, 256, 1), (32, 128, 16)],
+                "abcde 131072": [(512, 256, 4), (1024, 512, 2)],
+                "ais": [(256, 256, 4), (512, 256, 1), (128, 128, 8)]}
+    return {
+        "abcde 16384": [(w, t, l) for w in (32, 64, 128) for t in (128, 256)
+                        for l in (1, 4, 8, 16)],
+        "abcde 131072": [(w, t, l) for w in (256, 512, 1024)
+                         for t in (256, 512) for l in (1, 2, 4, 8)],
+        "ais": [(w, t, l) for w in (128, 256, 512) for t in (256, 512)
+                for l in (1, 2, 4, 8)],
+    }
+
+
+def nvcc_seconds(build, text):
+    """Seconds of one nvcc of a generated unit on its own, into a fresh
+    library (one built before is not reused), then removed."""
+    lib = build.generated_path(text)
+    fresh = lib.with_name(f"buildcost-{os.getpid()}-{lib.name}")
+    src = fresh.with_suffix(".cu")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    seconds = build._Job(fresh, (src,), build.GEN_FLAGS).wait()[1]
+    fresh.unlink()
+    src.unlink()
+    return seconds
+
+
+def ptxas(log):
+    """The registers and spills lines of an nvcc -Xptxas -v log."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent")
+    ap.add_argument("--quick", action="store_true")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_geometry: no CUDA device", file=sys.stderr)
+        return 1
+    import kissabc_tpu_torch as kt
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.core import abcde as AB
+    from kissabc_tpu_torch.core import ais as AI
+    from kissabc_tpu_torch.ops import fused_abcde as FD
+    from kissabc_tpu_torch.ops import lane_groups as LG
+    old = load_package(args.parent, "kt_parent") if args.parent else None
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seed = torch.tensor([2024], dtype=torch.int64, device=dev)
+    fprior, fdraw, freduce = models.flagship()
+    gprior, gdraw, greduce = models.g_and_k()
+    grid = grids(args.quick)
+    bad = 0
+
+    def report(**kw):
+        print(json.dumps(kw), flush=True)
+
+    g10 = kt.make_fused_abcde_generation(fprior, fdraw, freduce,
+                                         gamma=2.38 / 2.0)
+    p10 = old.make_fused_abcde_generation(
+        *old.models.flagship(), gamma=2.38 / 2.0) if old else None
+    ais = {"flagship": (fprior, fdraw, freduce, 0.005),
+           "g-and-k": (gprior, gdraw, greduce, 0.05)}
+    sweeps = {name: kt.make_fused_ais_sweep(pr, dr, rc, scale=scale)
+              for name, (pr, dr, rc, scale) in ais.items()}
+    psweeps = {name: old.make_fused_ais_sweep(
+        *(old.models.flagship() if name == "flagship"
+          else old.models.g_and_k()), scale=ais[name][3])
+        for name in ais} if old else {}
+    # the build time of the lanes 2, 8 and 16: each flagship unit as the
+    # wrappers build it, then with every lane count, one nvcc at a time
+    from kissabc_tpu_torch.ops import _build
+    for name, unit in (("abcde", g10.unit),
+                       ("ais flagship", sweeps["flagship"].unit)):
+        report(unit=name, nvcc_seconds={
+            f"lanes {lanes}": nvcc_seconds(_build, u.source)
+            for lanes, u in ((LG.LANES, unit),
+                             (LG.ALL_LANES, LG.with_all_lanes(unit)))})
+    grid10 = kt.make_fused_abcde_generation(fprior, fdraw, freduce,
+                                            gamma=2.38 / 2.0)
+    grid10.unit = LG.with_all_lanes(grid10.unit)
+    grid_sweeps = {name: kt.make_fused_ais_sweep(pr, dr, rc, scale=scale)
+                   for name, (pr, dr, rc, scale) in ais.items()}
+    for sw in grid_sweeps.values():
+        sw.unit = LG.with_all_lanes(sw.unit)
+    # every nvcc at once; the ptxas lines of this checkout's units
+    jobs = {"abcde": _build.start(g10.unit.source),
+            "abcde, every lane count": _build.start(grid10.unit.source)}
+    jobs.update({f"ais {k}": _build.start(v.unit.source)
+                 for k, v in sweeps.items()})
+    jobs.update({f"ais {k}, every lane count": _build.start(v.unit.source)
+                 for k, v in grid_sweeps.items()})
+    if old:
+        for x in [p10] + list(psweeps.values()):
+            old.ops._build.start(x.unit.source)
+    for name, job in jobs.items():
+        report(unit=name, ptxas=ptxas(job.wait()[2]))
+
+    # ---- #10 -------------------------------------------------------------
+    cost = kt.make_streaming_moment_cost(fdraw, freduce)
+    for n in (16384, 131072):
+        th = [x.contiguous() for x in fprior.sample_tree(gen, n)]
+        lps = fprior.logpdf_tree(tuple(th)).float()
+        ds = cost(tuple(th), gen)
+        eps_i = torch.clamp(ds.min(), min=1e-6).expand(n).contiguous()
+        order, count = AB.rank_count(ds)
+        v = FD.uint32_words(gen, 3 * n).reshape(3, n)
+        parents = AB.bases_from_words(v, ds, eps_i, order, count)
+        bases = [[x[i] for x in th] for i in parents]
+        act = torch.ones(n, device=dev)
+        a10 = (th, bases, lps, ds, act, eps_i, seed)
+        gate = g10.gate_plain(bases, lps, act, seed)[3]
+        ref = g10.run(*a10)
+        default = g10.geometry(n)
+        rec = dict(case=f"abcde {n}", default=default._asdict(),
+                   passes=int(gate.sum()),
+                   lane_share_uncompacted=LG.lane_share(
+                       gate, LG.check(n, 32, 32, 1, 2)),
+                   all_lanes_ms=CS.device_ms(
+                       torch, lambda: grid10.run(*a10, geometry=default), 20,
+                       "fused_abcde_generation_kernel"))
+        if p10 is not None:
+            pout = p10.run(*a10)
+            rec["parent_same_bits"] = CS.same_bits(pout, ref)
+            bad += not rec["parent_same_bits"]
+            ts = []
+            for who in ("parent", "this", "this", "parent"):
+                g = p10 if who == "parent" else g10
+                ts.append(CS.device_ms(torch, lambda g=g: g.run(*a10), 20,
+                                       "fused_abcde_generation_kernel"))
+            rec["parent_ms"], rec["this_ms"] = [ts[0], ts[3]], ts[1:3]
+        report(**rec)
+        for w, t, lanes in grid[f"abcde {n}"]:
+            geo = LG.check(n, w, t, lanes, 2, LG.ALL_LANES)
+            out = grid10.run(*a10, geometry=geo)
+            ok = CS.same_bits(out, ref)
+            bad += not ok
+            report(case=f"abcde {n}", walkers=w, threads=t, lanes=lanes,
+                   same_bits=ok, ms=CS.device_ms(
+                       torch, lambda: grid10.run(*a10, geometry=geo), 20,
+                       "fused_abcde_generation_kernel"),
+                   queued_ms=CS.queued_ms(
+                       torch, lambda: grid10.run(*a10, geometry=geo), 20),
+                   lane_share=LG.lane_share(gate, geo),
+                   blocks_per_sm=grid10.occupancy(geo))
+
+    # ---- #6 --------------------------------------------------------------
+    n, h = 131072, 65536
+    sh = torch.tensor([5, 77, 1000, 3, 40000, 65001, 11, 2, 65000, 9, 123,
+                       4567], dtype=torch.int64, device=dev) % h
+    flagship_cost = kt.make_flagship_cost_batched()
+    starts = {}
+    th0 = fprior.sample_tree(gen, n)
+    lds0 = kt.ApproxKernelizedPosterior(
+        fprior, flagship_cost, 0.005, cost_vectorized=True).loglike_batch(
+        th0, gen)
+    starts["flagship"] = ([x.contiguous() for x in th0], lds0,
+                          (fprior, fdraw, freduce, 0.005))
+    model_g = kt.ApproxKernelizedPosterior(
+        gprior, kt.make_streaming_moment_cost(gdraw, greduce), 0.05,
+        cost_vectorized=True)
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    thg, ldg, _ = AI._init_ensemble(model_g, g3, n, 100)
+    starts["g-and-k"] = ([x.contiguous() for x in thg], ldg,
+                         (gprior, gdraw, greduce, 0.05))
+    # the states the sweeps of a sample run meet: 100 fused sweeps from
+    # the init of sample(key=0) (flagship, tools/profile_torch_ais.py) and
+    # from g-and-k's init, with the share of half A's walkers inside the
+    # prior along the way
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    model_k = kt.ApproxKernelizedPosterior(fprior, flagship_cost, 0.005,
+                                           cost_vectorized=True)
+    thk, ldk, _ = AI._init_ensemble(model_k, g0, n, 100)
+    for name, (th, ld) in (("flagship", (thk, ldk)), ("g-and-k", (thg, ldg))):
+        sw = sweeps[name]
+        g7 = torch.Generator(device=dev).manual_seed(7)
+        shares = {}
+        for k in range(101):
+            if k in (0, 1, 5, 10, 25, 50, 100):
+                shares[k] = float(sw.proposal_plain(
+                    [x[:h] for x in th], [x[h:] for x in th], sh[:6],
+                    seed)[3].float().mean())
+            if k < 100:
+                th, ld = sw(g7, th, ld)
+        report(case=f"ais {name} inside share by sweep", shares=shares)
+        starts[f"{name} after 100 sweeps"] = (
+            [x.contiguous() for x in th], ld, None)
+    for name, (th, (lp, ll), _) in starts.items():
+        model = name.split()[0]
+        sw, psw = sweeps[model], psweeps.get(model)
+        lp, ll = lp.contiguous(), ll.contiguous()
+        outs = ([torch.empty_like(x) for x in th], torch.empty_like(lp),
+                torch.empty_like(ll))
+
+        def sweep(s=sw, geo=None, keep=True):
+            oa = ([o[:h] for o in outs[0]], outs[1][:h], outs[2][:h])
+            ob = ([o[h:] for o in outs[0]], outs[1][h:], outs[2][h:])
+            if geo is None:
+                s.half([x[:h] for x in th], lp[:h], ll[:h],
+                       [x[h:] for x in th], sh[:6], seed, outs=oa)
+                s.half([x[h:] for x in th], lp[h:], ll[h:], oa[0], sh[6:],
+                       seed, outs=ob)
+            else:
+                s.half([x[:h] for x in th], lp[:h], ll[:h],
+                       [x[h:] for x in th], sh[:6], seed, outs=oa,
+                       geometry=geo)
+                s.half([x[h:] for x in th], lp[h:], ll[h:], oa[0], sh[6:],
+                       seed, outs=ob, geometry=geo)
+            return [x.clone() for x in flat(outs)] if keep else None
+
+        ref = sweep()
+        # the walkers inside the prior in both halves: half B proposes
+        # against the updated half A
+        inside = torch.cat([
+            sw.proposal_plain([x[:h] for x in th], [x[h:] for x in th],
+                              sh[:6], seed)[3],
+            sw.proposal_plain([x[h:] for x in th], [x[:h] for x in ref[:2]],
+                              sh[6:], seed)[3]])
+        default = sw.geometry(h)
+        gsw = grid_sweeps[model]
+        rec = dict(case=f"ais {name}", default=default._asdict(),
+                   inside=int(inside.sum()),
+                   lane_share_uncompacted=LG.lane_share(
+                       inside, LG.check(n, 32, 32, 1, 2)),
+                   all_lanes_ms=CS.device_ms(
+                       torch, lambda: sweep(gsw, default), 20,
+                       "fused_ais_sweep_kernel", per_call=2))
+        if psw is not None:
+            rec["parent_same_bits"] = CS.same_bits(sweep(psw), ref)
+            bad += not rec["parent_same_bits"]
+            ts = []
+            for who in ("parent", "this", "this", "parent"):
+                s = psw if who == "parent" else sw
+                ts.append(CS.device_ms(torch, lambda s=s: sweep(s), 20,
+                                       "fused_ais_sweep_kernel", per_call=2))
+            rec["parent_ms"], rec["this_ms"] = [ts[0], ts[3]], ts[1:3]
+        report(**rec)
+        for w, t, lanes in grid["ais"]:
+            geo = LG.check(h, w, t, lanes, sw.nstats, LG.ALL_LANES)
+            ok = CS.same_bits(sweep(gsw, geo), ref)
+            bad += not ok
+            report(case=f"ais {name}", walkers=w, threads=t, lanes=lanes,
+                   same_bits=ok, ms=CS.device_ms(
+                       torch, lambda: sweep(gsw, geo), 20,
+                       "fused_ais_sweep_kernel", per_call=2),
+                   queued_ms=CS.queued_ms(
+                       torch, lambda: sweep(gsw, geo, keep=False), 20),
+                   lane_share=LG.lane_share(inside, LG.check(
+                       n, w, t, lanes, sw.nstats, LG.ALL_LANES)),
+                   blocks_per_sm=gsw.occupancy(geo))
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(json.dumps(dict(card=card, unequal_geometries=bad)))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
