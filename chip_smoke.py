@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of kissabc_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-ais-inputs PATH]
 
 Builds the CUDA kernels with nvcc — ``kissabc_tpu_torch/csrc/flagship.cu``
 and, one nvcc each and all at once, the generic kernels of
@@ -29,7 +29,9 @@ tsmc, pfilter and ABCDE and their kernels). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
 and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads,
-which must give equal outputs. Every
+which must give equal outputs; ``ais-stub`` and ``ais-kernel-times`` hand
+#7 and #8 raw words (their kernels derive the shifts) and check and time
+them at each geometry of ``GEOMETRIES_78``. Every
 phase prints one line with its result and seconds; any failed check
 raises and the script exits non-zero. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
@@ -40,6 +42,7 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Without a card, or
 run from a directory without the package, it exits 1 and prints no result.
 """
 
+import argparse
 import ctypes
 import json
 import math
@@ -291,6 +294,9 @@ GEOMETRIES_10 = [(64, 256, 1), (32, 256, 4), (128, 256, 4), (512, 512, 4),
                  (1024, 512, 1), (1024, 512, 4)]
 GEOMETRIES_6 = [(512, 512, 1), (512, 512, 4), (1024, 512, 4), (256, 512, 4),
                 (128, 512, 4), (64, 256, 4)]
+# (walkers, threads) of #7 and #8 (one lane a walker)
+GEOMETRIES_78 = [(512, 512), (512, 256), (256, 256), (256, 512), (1024, 512),
+                 (128, 128)]
 
 
 def same_bits(a, b):
@@ -331,6 +337,12 @@ def check_untouched(torch, inputs, outs, commit, what):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save-ais-inputs", metavar="PATH",
+                    help="also save ais-kernel-times' population and word "
+                    "sets to PATH (torch.save), for tools/ais_plain_gap.py "
+                    "--population")
+    opts = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -575,13 +587,15 @@ def main():
             slowest = max(slowest, secs)
         ptxas["ais.cu"] = [line for line in ptxas.get("flagship", [])
                            if "_ais_" in line]
-        per_sm, sms, grid = FA.full_grid(65536)
+        geo78 = FA.flagship_geometry(65536, LG.sm_count(0))
+        per_sm, sms, grid = FA.full_grid(65536, geo78)
         ph.result = (f"ais.cu in {lib_path.name}; {len(ais_units)} generated "
                      f"AIS units, the slowest compiled in {slowest:.2f} s "
                      f"(started with the others); ais.cu ptxas "
                      f"{ptxas['ais.cu']}; kt_fused_ais_full co-resident: "
                      f"{per_sm} blocks/SM x {sms} SMs, grid {grid} blocks of "
-                     f"128 for h=65536")
+                     f"{geo78.threads} threads ({geo78.walkers} walkers a "
+                     f"range) for h=65536")
 
     with Phase("build-tempered-abcde") as ph:
         secs5 = {}
@@ -1237,6 +1251,23 @@ def main():
     shifts12 = torch.cat([shifts6, torch.tensor(
         [11, 2, 65000, 9, 123, 4567], dtype=torch.int64, device=dev)])
     seed_t = torch.tensor([2024], dtype=torch.int64, device=dev)
+    # #7 and #8 take raw words (six shift words a half, then the seed)
+    # and derive the shifts in the kernel; their plain versions take the
+    # shifts rot_shifts6 makes of the same words
+    words13 = torch.cat([FA.uint32_words(
+        torch.Generator(device=dev).manual_seed(5), 12), seed_t])
+    # ais-kernel-times keeps the inputs it had when #7 and #8 took shifts:
+    # these words give, at h = 65536, shifts12 and the seed 2024
+    words_h65536 = torch.tensor([5, 77, 999, 3, 39999, 64999, 11, 2, 64999,
+                                 9, 122, 4565, 2024], dtype=torch.int64,
+                                device=dev)
+
+    def shifts_of(words, h):
+        return torch.cat([FA.rot_shifts6(words[k:k + 6], h)
+                          for k in range(0, len(words) - 1, 6)])
+
+    def words7(half):   # one half's shift words and the seed
+        return torch.cat([words13[6 * half:6 * half + 6], seed_t])
     fl_kw = dict(ndraws=1000, target_mu=2.0, target_sd=0.04, sd_weight=50.0,
                  a_stretch=3.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
                  sg_lo=0.0, sg_hi=100.0, chunk=512)
@@ -1249,19 +1280,31 @@ def main():
         ins = [th[0][:h], th[1][:h], lp[:h], ll[:h]]
         comp = [th[0][h:], th[1][h:]]
         outs = [torch.empty_like(x) for x in ins]
-        m7.launch_half(ins, comp, shifts6[:6] % h, seed_t, outs)
-        want = m7.half_plain(*ins, *comp, shifts6 % h, seed_t)
+        m7.launch_half(ins, comp, words7(0), outs)
+        want = m7.half_plain(*ins, *comp, shifts_of(words7(0), h), seed_t)
         res["#7 half"] = ais_compare(outs, want[:4], ins,
                                      "fused_ais_half stub", want[5])
+        for w, t in GEOMETRIES_78:   # the same bits on each
+            other = [torch.empty_like(x) for x in ins]
+            geo = FA.check_geometry(h, w, t)
+            m7.launch_half(ins, comp, words7(0), other, geo)
+            check(same_bits(other, outs), f"#7 stub: "
+                  f"{geometry_key(geo)} differs from the default")
         # kernel #8: both halves in one launch
         m8 = FA.FlagshipAIS(scale=0.1, block=1024, bits="stub", **fl_kw)
         ins = [th[0], th[1], lp, ll]
         outs = [torch.empty_like(x) for x in ins]
-        m8.launch_full(ins, shifts12 % h, seed_t, outs)
-        want = m8.full_plain(*ins, shifts12 % h, seed_t)
+        m8.launch_full(ins, words13, outs)
+        want = m8.full_plain(*ins, shifts_of(words13, h), seed_t)
         res["#8 full"] = ais_compare(outs, want[:4], ins,
                                      "fused_ais_full stub", want[5])
         check(res["#8 full"][2] > 0, "fused_ais_full stub committed nothing")
+        for w, t in GEOMETRIES_78:
+            other = [torch.empty_like(x) for x in ins]
+            geo = FA.check_geometry(h, w, t)
+            m8.launch_full(ins, words13, other, geo)
+            check(same_bits(other, outs), f"#8 stub: "
+                  f"{geometry_key(geo)} differs from the default")
         # kernel #6 on its three models: one half-update each
         starts = {"flagship": [th[0], th[1]],
                   "g-and-k": list(gprior.sample_tree(gen, n)),
@@ -1291,7 +1334,8 @@ def main():
         ph.result = ("(max|err|, unequal committed values, commits, "
                      "borderline): " + json.dumps(res) + f"; each model's "
                      f"outputs equal bit for bit on {len(GEOMETRIES_6)} "
-                     "more geometries of #6")
+                     f"more geometries of #6, #7's and #8's on "
+                     f"{len(GEOMETRIES_78)} of theirs")
 
     with Phase("ais-kernel-times") as ph:
         # the main-path shapes: n = 131072 walkers x 1000 draws, Philox
@@ -1301,17 +1345,23 @@ def main():
                                                0.005, cost_vectorized=True)
         lds0 = model_k.loglike_batch(th0, gen)
         ins = [th0[0].contiguous(), th0[1].contiguous(), lds0[0], lds0[1]]
+        if opts.save_ais_inputs:
+            torch.save(dict(ins=[x.cpu() for x in ins], words={
+                "words13": words13.cpu(),
+                "words_h65536": words_h65536.cpu()}), opts.save_ais_inputs)
         times, plain_ms = {}, {}   # plain: one whole sweep, the same inputs
         m7 = FA.FlagshipAIS(scale=0.005, block=2048, bits="hw", **fl_kw)
         m8 = FA.FlagshipAIS(scale=0.005, block=1024, bits="hw", **fl_kw)
-        sh = shifts12 % h
+        sh = shifts_of(words_h65536, h)
+        check(torch.equal(sh, shifts12), "words_h65536 give other shifts")
+        wa, wb = (torch.cat([words_h65536[k:k + 6], seed_t]) for k in (0, 6))
         outs7 = [torch.empty_like(x) for x in ins]
 
-        def sweep7():
+        def sweep7(geo=None):
             m7.launch_half([x[:h] for x in ins], [x[h:] for x in ins[:2]],
-                           sh[:6], seed_t, [o[:h] for o in outs7])
+                           wa, [o[:h] for o in outs7], geo)
             m7.launch_half([x[h:] for x in ins], [o[:h] for o in outs7[:2]],
-                           sh[6:], seed_t, [o[h:] for o in outs7])
+                           wb, [o[h:] for o in outs7], geo)
 
         def plain7():   # half B against the updated half A, as sweep7
             a = m7.half_plain(*(x[:h] for x in ins), ins[0][h:], ins[1][h:],
@@ -1327,14 +1377,50 @@ def main():
         nsim7 = int(a7[4].sum() + b7[4].sum())
         times["fused_ais_half"] = cuda_ms(torch, sweep7, 20)
         outs8 = [torch.empty_like(x) for x in ins]
-        m8.launch_full(ins, sh, seed_t, outs8)
+
+        def sweep8(geo=None):
+            m8.launch_full(ins, words_h65536, outs8, geo)
+
+        sweep8()
         want8, plain_ms["fused_ais_full"] = cuda_timed(
             torch, lambda: m8.full_plain(*ins, sh, seed_t))
         err8 = ais_compare(outs8, list(want8[:4]), ins, "fused_ais_full hw",
                            want8[5])
         nsim8 = int(want8[4].sum())
-        times["fused_ais_full"] = cuda_ms(
-            torch, lambda: m8.launch_full(ins, sh, seed_t, outs8), 20)
+        times["fused_ais_full"] = cuda_ms(torch, sweep8, 20)
+        # #7's and #8's own time by the profiler and by queued events, at
+        # the default geometry and at each of GEOMETRIES_78, which must give
+        # the default's outputs bit for bit
+        geo78 = FA.flagship_geometry(h, LG.sm_count(0))
+        extra78 = {}
+        for name, run, outs_, kernel, per_call in (
+                ("fused_ais_half", sweep7, outs7, "fused_ais_half_kernel", 2),
+                ("fused_ais_full", sweep8, outs8, "fused_ais_full_kernel",
+                 1)):
+            ref = [x.clone() for x in outs_]
+            by_geometry = {}
+            for w, t in [(geo78.walkers, geo78.threads)] + [
+                    g for g in GEOMETRIES_78
+                    if g != (geo78.walkers, geo78.threads)]:
+                geo = FA.check_geometry(h, w, t)
+                run(geo)
+                check(same_bits(outs_, ref), f"{name} hw: "
+                      f"{geometry_key(geo)} differs from "
+                      f"{geometry_key(geo78)}")
+                by_geometry[geometry_key(geo)] = dict(
+                    device_ms=device_ms(torch, lambda: run(geo), 20, kernel,
+                                        per_call=per_call),
+                    queued_ms=queued_ms(torch, lambda: run(geo), 20),
+                    **({"blocks_per_sm": FA.full_grid(h, geo)[0]}
+                       if name == "fused_ais_full" else {}))
+            default = by_geometry[geometry_key(geo78)]
+            extra78[name] = dict(
+                device_ms=default["device_ms"],
+                queued_ms=default["queued_ms"],
+                geometry=geometry_key(geo78),
+                registers=[line for line in ptxas.get("ais.cu", [])
+                           if kernel in line],
+                by_geometry=by_geometry)
         sw6 = ais_sweeps["flagship"][0]
         outs6 = ([torch.empty_like(x) for x in ins[:2]],
                  torch.empty_like(ins[2]), torch.empty_like(ins[3]))
@@ -1419,7 +1505,10 @@ def main():
             for k in times) + (
             f"; inside the prior {nsim7}, {nsim8}, {nsim6} of {n}; "
             f"(max|err|, unequal committed values, commits, borderline) "
-            f"#7 {err7}, #8 {err8}, #6 {err6}; #6 on the card "
+            f"#7 {err7}, #8 {err8}, #6 {err6}; #7, #8 on the card by the "
+            f"profiler and by queued events, by geometry "
+            f"{json.dumps({k: v['by_geometry'] for k, v in extra78.items()})}"
+            f"; #6 on the card "
             f"{extra6['device_ms']:.4f} ms/sweep by the profiler, "
             f"{extra6['queued_ms']:.4f} by queued events; by geometry "
             f"{json.dumps(by_geometry6)}; modelled lane shares "
@@ -1624,7 +1713,8 @@ def main():
             launches=launched, max_abs_err=ais_err[name], matched=True,
             ms=times[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], library_ms=None,
-            **(extra6 if name == "fused_ais_sweep" else {})))
+            **(extra6 if name == "fused_ais_sweep" else
+               extra78[name])))
 
     # ---- slice 5: tsmc, pfilter, ABCDE; kernels #9 and #10 -------------
     with Phase("tempered-stub") as ph:

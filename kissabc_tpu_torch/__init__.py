@@ -21,7 +21,8 @@ SMC-ABC:
   ``smc(..., sweep_fused=make_fused_smc_sweep(prior, draw,
   reduce_cost))``;
 - ``smc_stepped``, the same program stepped from the host, with
-  ``IterLog`` records and checkpoint/resume; ``trace`` profiles a block;
+  ``IterLog`` records and checkpoint/resume (``checkpoint``);
+  ``trace`` profiles a block;
 - the priors ``Uniform``, ``Normal``, ``Truncated``/``TruncatedNormal``,
   ``DiscreteUniform``, ``MvNormal`` and ``Factored``.
 
@@ -31,7 +32,9 @@ AIS (slice 4):
   ``MCMCThreads()``/``MCMCDistributed()`` form, ``thinning=`` and
   ``schedule="sequential"``) and ``sample_raw``, on the three density
   models ``ApproxKernelizedPosterior``, ``ApproxPosterior`` and
-  ``CommonLogDensity``, with a per-walker or a batched cost;
+  ``CommonLogDensity``, with a per-walker or a batched cost; the
+  program and its sweeps ``make_run``, ``make_sweep`` and
+  ``make_sweep_halves``, with the JAX package's parameters in its order;
 - the fused AIS sweeps, each a CUDA kernel: ``make_fused_ais_sweep``
   (user models), ``make_fused_flagship_ais_sweep`` (one launch per
   half) and ``make_fused_flagship_ais_sweep_onekernel`` (one
@@ -53,7 +56,8 @@ It imports nothing of JAX or of the JAX package.
 
 from .core.abcde import ABCDE, ABCDEResult  # noqa: F401
 from .core.ais import (  # noqa: F401
-    AIS, MCMCDistributed, MCMCThreads, sample, sample_raw)
+    AIS, MCMCDistributed, MCMCThreads, make_run, make_sweep,
+    make_sweep_halves, sample, sample_raw)
 from .core.density import (  # noqa: F401
     ApproxKernelizedPosterior, ApproxPosterior, CommonLogDensity)
 from .core.pfilter import PFilterResult, pfilter  # noqa: F401
@@ -73,6 +77,7 @@ from .ops.kernels import (  # noqa: F401
 from .ops.scan import make_streaming_scan_cost  # noqa: F401
 from .ops.streaming import make_streaming_moment_cost  # noqa: F401
 from .particles import Particles  # noqa: F401
+from .utils import checkpoint  # noqa: F401
 from .utils.logging import IterLog, trace  # noqa: F401
 
 __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
@@ -81,7 +86,8 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "make_fused_flagship_sweep", "make_streaming_moment_cost",
            "make_streaming_scan_cost", "make_fused_smc_sweep", "IterLog",
            "trace", "AIS", "sample", "sample_raw", "MCMCThreads",
-           "MCMCDistributed", "ApproxKernelizedPosterior", "ApproxPosterior",
+           "MCMCDistributed", "make_run", "make_sweep", "make_sweep_halves",
+           "checkpoint", "ApproxKernelizedPosterior", "ApproxPosterior",
            "CommonLogDensity", "make_fused_ais_sweep",
            "make_fused_flagship_ais_sweep",
            "make_fused_flagship_ais_sweep_onekernel", "tsmc", "TSMCResult",

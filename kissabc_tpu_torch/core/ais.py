@@ -93,6 +93,12 @@ def _half_update(model, gen, upd, upd_lds, comp, kernel, scheme):
     return tselect(acc, props, upd), tselect(acc, new_lds, upd_lds)
 
 
+def _no_mesh(mesh, caller):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{caller}(mesh=...): walker sharding is not ported yet")
+
+
 def _halves(tree, h):
     return (tree_map(lambda x: x[:h], tree), tree_map(lambda x: x[h:], tree))
 
@@ -101,12 +107,17 @@ def _unhalves(pair):
     return tree_map(lambda a, b: torch.cat([a, b]), *pair)
 
 
-def make_sweep_halves(model, n, kernel=mixture_one, partner_scheme="auto"):
+def make_sweep_halves(model, n, kernel=mixture_one, constrain=lambda t: t,
+                      partner_scheme="auto", mesh=None):
     """One red/black sweep over the ensemble carried as two half trees:
     ``sweep(gen, (th_a, th_b), (ld_a, ld_b)) -> (th, ld)`` in the same
-    form. ``partner_scheme``: ``"roll"`` (rotation partners), ``"gather"``
-    (per-walker random partners, the reference's law) or ``"auto"``."""
+    form. The parameters are the JAX package's, in its order:
+    ``constrain`` is applied to each half (on one device the identity);
+    ``partner_scheme``: ``"roll"`` (rotation partners), ``"gather"``
+    (per-walker random partners, the reference's law) or ``"auto"``;
+    ``mesh=`` raises ``NotImplementedError``."""
     del n
+    _no_mesh(mesh, "make_sweep_halves")
 
     def sweep(gen, th, ld):
         tha, thb = th
@@ -115,21 +126,24 @@ def make_sweep_halves(model, n, kernel=mixture_one, partner_scheme="auto"):
                                 partner_scheme)
         thb, ldb = _half_update(model, gen, thb, ldb, tha, kernel,
                                 partner_scheme)
-        return (tha, thb), (lda, ldb)
+        return ((constrain(tha), constrain(thb)),
+                (constrain(lda), constrain(ldb)))
 
     return sweep
 
 
-def make_sweep(model, n, kernel=mixture_one, partner_scheme="auto"):
+def make_sweep(model, n, kernel=mixture_one, constrain=lambda t: t,
+               partner_scheme="auto", mesh=None):
     """One red/black sweep over a single ``[n]``-leading ensemble:
     ``sweep(gen, thetas, lds) -> (thetas, lds)``; splits into halves,
-    sweeps and concatenates."""
+    sweeps and concatenates. Parameters as ``make_sweep_halves``."""
+    _no_mesh(mesh, "make_sweep")
     h = n // 2
-    sweep2 = make_sweep_halves(model, n, kernel, partner_scheme)
+    sweep2 = make_sweep_halves(model, n, kernel, constrain, partner_scheme)
 
     def sweep(gen, thetas, lds):
         th, ld = sweep2(gen, _halves(thetas, h), _halves(lds, h))
-        return _unhalves(th), _unhalves(ld)
+        return constrain(_unhalves(th)), constrain(_unhalves(ld))
 
     return sweep
 
@@ -200,12 +214,6 @@ def make_sequential_run(model, sampler: AIS, ns: int, *,
 # KissABC.jl:106-175)
 # ---------------------------------------------------------------------------
 
-def _no_mesh(mesh, caller):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{caller}(mesh=...): walker sharding is not ported yet")
-
-
 def make_run(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
              discard_initial: int = 0, retry_sampling: int = 100,
              kernel=mixture_one, mesh=None, partner_scheme="auto",
@@ -219,7 +227,8 @@ def make_run(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
     _check_n(model, n)
     if thinning < 1:
         raise ValueError("thinning must be >= 1")
-    sweep = make_sweep_halves(model, n, kernel, partner_scheme)
+    sweep = make_sweep_halves(model, n, kernel,
+                              partner_scheme=partner_scheme)
     h = n // 2
     burn_sweeps = max(0, math.ceil(discard_initial * ntransitions / n))
     blocks = max(1, math.ceil(ns / n))

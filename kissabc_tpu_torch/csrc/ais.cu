@@ -16,26 +16,49 @@
 // its summary cost; then the kernelized MH accept on lp + ll and the
 // commit of the raw proposal.
 //
-// Design. One thread per walker of the updated half, as the flagship smc
-// kernels: the draws stay in registers and a walker moves ~48 bytes
-// against ~47 operations per draw, so both kernels are bound by
-// arithmetic. The TPU kernels take six rolled copies of the complementary
-// half; here a walker reads its partners by index, comp[(i + r_j) % h],
-// so nothing is copied. A walker outside the prior skips the simulator:
-// its llp is its lpp (-inf) and it never commits, the outputs the TPU
-// kernel gives after simulating it anyway.
+// What bounds them on the H100: the draw loop's issue (moments.cuh,
+// ~43 SASS instructions a draw; a walker moves ~48 bytes). One thread per
+// walker masked the ~41% of the walkers that propose outside the prior at
+// the init of a run, so a warp ran the loop with ~59% of its lanes busy.
+// Design: a block covers `walkers` walkers of the half with blockDim.x
+// threads in two phases, as the lane-group kernels of generic.cuh do:
+// - phase 1, one thread per walker (in passes of blockDim.x): the words,
+//   the six partners, the proposal and the prior. A walker outside the
+//   prior never commits, so it writes its inputs as its outputs at once
+//   (the TPU kernel's outputs after simulating it anyway). The walkers
+//   inside get slots in walker order (compact_walkers, compact.cuh);
+// - phase 2, one thread per compacted walker (the draws of this model are
+//   light: one lane a walker, ops/lane_groups.py pick): the simulator,
+//   the cost and the accept. The proposal crosses the barrier in shared
+//   memory (20 bytes a walker): recomputing it in phase 2 instead gave
+//   the same bits and was 5-8% slower on the H100 (PERF.md section 6).
+// About one block of 512 threads an SM at the production width
+// (ops/fused_ais.py flagship_geometry). On a run's converged ensemble
+// every walker lies inside the prior; there the gain is the geometry's.
 //
-// Half B of a sweep proposes against the UPDATED half A. kt_fused_ais_half
-// is launched twice on one stream; kt_fused_ais_full does both halves in
-// one cooperative launch: a grid-stride loop over half A, a grid-wide
-// barrier (cooperative_groups::this_grid().sync()), then half B, which
-// reads half A's outputs with ld.global.cg (through L2, past any stale L1
-// line). The grid is the co-resident maximum from the occupancy API; a
-// refused cooperative launch is returned as an error, never replaced by
-// two launches.
+// The six partner shifts of a half are derived in the kernel from the six
+// raw uint32 words the wrapper draws, by _rot_shifts6's rule
+// (pallas_kernels.py:1116-1135): word k modulo h, h - 1 or h - 2, each
+// bumped past the earlier draws of its move (derive_shifts); thread 0 of
+// each block writes them to shared memory before phase 1. So a sweep
+// costs the host one draw of words and one launch a half (or a sweep),
+// and nothing in between. Walkers read their partners by index,
+// comp[(i + r_j) % h], so nothing is copied.
 //
-// Random bits. stub = 1 replays the JAX package's _stub_bits at the TPU
-// kernels' coordinates:
+// Half B of a sweep proposes against the UPDATED half A.
+// kt_fused_ais_half is launched twice on one stream; kt_fused_ais_full
+// does both halves in one cooperative launch: each block runs the two
+// phases over its ranges of half A (a grid-stride loop over ranges), a
+// grid-wide barrier (cooperative_groups::this_grid().sync()), then half B,
+// which reads half A's outputs with ld.global.cg (through L2, past any
+// stale L1 line). The grid is the co-resident maximum from the occupancy
+// API, at most the ranges a half has; a refused cooperative launch is
+// returned as an error, never replaced by two launches.
+//
+// Random bits. Every walker's bits are keyed by its index, never by its
+// thread, so the geometry leaves every output's bits as one thread per
+// walker gives them. stub = 1 replays the JAX package's _stub_bits at the
+// TPU kernels' coordinates:
 //   half kernel: words k = 0..8 at counter 20000 + k, program w / block,
 //     (block/128, 128) column view; the simulator at counters 2j, 2j + 1,
 //     sublane w % block, lane = draw index (kernel #2's layout);
@@ -55,13 +78,15 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "compact.cuh"
 #include "moments.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;   // threads a block
+constexpr int kMaxWalkers = 1024;  // walkers a block covers at most
 constexpr uint32_t kStreamAisWalker = 6u;
 constexpr uint32_t kStreamAisSim = 7u;
 constexpr int kNumF = 18;
@@ -81,11 +106,77 @@ __device__ __forceinline__ float load(const float* p, int i) {
   return kFresh ? __ldcg(p + i) : p[i];
 }
 
+__device__ __forceinline__ uint32_t word32(long long w) {
+  return (uint32_t)(unsigned long long)w;
+}
+
+// The six rotation shifts of a half of h >= 3 walkers from six raw uint32
+// words, distinct within each move: stretch r0; DE r1 != r2; walk r3, r4,
+// r5 distinct. Draw j of a move is word % (h - j), bumped past each
+// earlier draw of the move in ascending order (ops/moves.py
+// _distinct_shifts).
+__device__ void derive_shifts(const long long* words, int h, int* r) {
+  uint32_t u = (uint32_t)h;
+  r[0] = (int)(word32(words[0]) % u);
+  int d1 = (int)(word32(words[1]) % u);
+  int d2 = (int)(word32(words[2]) % (u - 1u));
+  d2 += d2 >= d1;
+  r[1] = d1;
+  r[2] = d2;
+  int a = (int)(word32(words[3]) % u);
+  int b = (int)(word32(words[4]) % (u - 1u));
+  b += b >= a;
+  int c = (int)(word32(words[5]) % (u - 2u));
+  c += c >= min(a, b);
+  c += c >= max(a, b);
+  r[3] = a;
+  r[4] = b;
+  r[5] = c;
+}
+
 // Where a walker's bits come from.
 struct Bits {
   uint32_t seed, pid, cbase, sub, lane;  // stub words
   uint32_t sim_pid, sim_ctr0, sim_sub;   // stub simulator
   uint32_t walker;                       // Philox counter word 1
+};
+
+// The bits of walker i of the half kernel.
+struct HalfBits {
+  uint32_t seed;
+  int block;
+  __device__ Bits operator()(int i) const {
+    Bits b;
+    b.seed = seed;
+    b.pid = (uint32_t)(i / block);
+    b.cbase = 20000u;
+    b.sub = (uint32_t)((i % block) / 128);
+    b.lane = (uint32_t)(i % 128);
+    b.sim_pid = b.pid;
+    b.sim_ctr0 = 0u;
+    b.sim_sub = (uint32_t)(i % block);
+    b.walker = (uint32_t)i;
+    return b;
+  }
+};
+
+// The bits of walker i of half `half` (of h walkers) of the full kernel.
+struct FullBits {
+  uint32_t seed, cbase;
+  int block, nchunks, base;
+  __device__ Bits operator()(int i) const {
+    Bits b;
+    b.seed = seed;
+    b.pid = 0u;
+    b.cbase = cbase;
+    b.sub = (uint32_t)(i / 128);
+    b.lane = (uint32_t)(i % 128);
+    b.sim_pid = 0u;
+    b.sim_ctr0 = cbase + 16u + 2u * (uint32_t)(i / block) * (uint32_t)nchunks;
+    b.sim_sub = (uint32_t)(i % block);
+    b.walker = (uint32_t)(base + i);
+    return b;
+  }
 };
 
 __device__ __forceinline__ void walker_words(const Bits& b, int stub,
@@ -121,16 +212,23 @@ __device__ __forceinline__ float propose(bool is_s, bool is_d, float z,
   return is_s ? p_s : (is_d ? p_d : p_w);
 }
 
-// One walker of a half-update: upd[i] against comp[(i + r_j) % h]; the
-// outputs go to out[i].
+// A walker's proposal and what its accept needs besides the simulator.
+struct Proposal {
+  float mu, sg, lpp, corr, u_acc;
+};
+
+// The steps before the simulator for walker i of a half-update: upd[i]
+// against comp[(i + r_j) % h]. Returns whether the proposal lies inside
+// the prior.
 template <bool kFresh>
-__device__ void ais_walker(int i, int h, const float* __restrict__ mu,
-                           const float* __restrict__ sg,
-                           const float* __restrict__ lp,
-                           const float* __restrict__ ll, const float* cmu,
-                           const float* csg, const int* r, const Bits& b,
-                           const AisConsts& c, float* omu, float* osg,
-                           float* olp, float* oll) {
+__device__ __forceinline__ bool ais_propose(int i, int h,
+                                            const float* __restrict__ mu,
+                                            const float* __restrict__ sg,
+                                            const float* cmu,
+                                            const float* csg, const int* r,
+                                            const Bits& b,
+                                            const AisConsts& c,
+                                            Proposal* q) {
   uint32_t wd[9];
   walker_words(b, c.stub, wd);
   float u_mid = to_unit(wd[0]), u_z = to_unit(wd[1]);
@@ -138,13 +236,13 @@ __device__ void ais_walker(int i, int h, const float* __restrict__ mu,
   box_muller(wd[2], wd[3], &gam_n, &nz_mu);
   box_muller(wd[4], wd[5], &nz_sg, &r1);
   box_muller(wd[6], wd[7], &r2, &r3);
-  float u_acc = to_unit(wd[8]);
+  q->u_acc = to_unit(wd[8]);
 
   bool is_s = u_mid < c.p_s_hi;
   bool is_d = (u_mid >= c.p_s_hi) && (u_mid < c.p_d_hi);
   float zroot = u_z * c.g_span + c.g_lo;
-  float z = zroot * zroot;                        // cdf_g_inv(u, a)
-  float corr = is_s ? 2.0f * logf(zroot) : 0.0f;  // (d - 1) log z, d = 2
+  float z = zroot * zroot;                           // cdf_g_inv(u, a)
+  q->corr = is_s ? 2.0f * logf(zroot) : 0.0f;        // (d - 1) log z, d = 2
   float gamma = c.de_scale * expf(0.1f * gam_n);
 
   float pm[6], ps[6];
@@ -155,95 +253,129 @@ __device__ void ais_walker(int i, int h, const float* __restrict__ mu,
     pm[j] = load<kFresh>(cmu, k);
     ps[j] = load<kFresh>(csg, k);
   }
-  float mu0 = mu[i], sg0 = sg[i];
-  float pmu = propose(is_s, is_d, z, gamma, r1, r2, r3, nz_mu, mu0, pm, c);
-  float psg = propose(is_s, is_d, z, gamma, r1, r2, r3, nz_sg, sg0, ps, c);
+  float pmu = propose(is_s, is_d, z, gamma, r1, r2, r3, nz_mu, mu[i], pm, c);
+  float psg = propose(is_s, is_d, z, gamma, r1, r2, r3, nz_sg, sg[i], ps, c);
+  q->mu = pmu;
+  q->sg = psg;
   bool inside = (pmu >= c.mu_lo) && (pmu <= c.mu_hi) && (psg >= c.sg_lo) &&
                 (psg <= c.sg_hi);
-  float neg_inf = __int_as_float(0xff800000);
-  float lpp = inside ? c.lp_const - (psg * psg) * c.half_inv_var : neg_inf;
-  float llp = lpp;
-  if (inside) {  // no output of a walker outside the prior depends on it
-    float s1, s2;
-    if (c.stub) {
-      moments_stub(b.sim_pid, b.seed, b.sim_ctr0, b.sim_sub, c.ndraws,
-                   c.chunk, &s1, &s2);
-    } else {
-      moments_philox(b.seed, kStreamAisSim, b.walker, c.ndraws, &s1, &s2);
-    }
-    float cost = summary_cost(pmu, psg, s1, s2, c.inv_n, c.tmu, c.tsd, c.sdw);
-    float t = cost * c.inv_scale;
-    llp = -0.5f * (t * t);
+  q->lpp = inside ? c.lp_const - (psg * psg) * c.half_inv_var
+                  : __int_as_float(0xff800000);
+  return inside;
+}
+
+// The simulator, the cost and the MH accept of a walker inside the prior,
+// and its outputs.
+__device__ __forceinline__ void ais_accept(
+    int i, const Proposal& q, const Bits& b, const AisConsts& c,
+    const float* __restrict__ mu, const float* __restrict__ sg,
+    const float* __restrict__ lp, const float* __restrict__ ll, float* omu,
+    float* osg, float* olp, float* oll) {
+  float s1, s2;
+  if (c.stub) {
+    moments_stub(b.sim_pid, b.seed, b.sim_ctr0, b.sim_sub, c.ndraws, c.chunk,
+                 &s1, &s2);
+  } else {
+    moments_philox(b.seed, kStreamAisSim, b.walker, c.ndraws, &s1, &s2);
   }
+  float cost = summary_cost(q.mu, q.sg, s1, s2, c.inv_n, c.tmu, c.tsd, c.sdw);
+  float t = cost * c.inv_scale;
+  float llp = -0.5f * (t * t);
   float lp0 = lp[i], ll0 = ll[i];
-  float lw = (corr + (lpp + llp)) - (lp0 + ll0);
-  bool acc = inside && (log1pf(-u_acc) <= lw);
-  omu[i] = acc ? pmu : mu0;
-  osg[i] = acc ? psg : sg0;
-  olp[i] = acc ? lpp : lp0;
+  float lw = (q.corr + (q.lpp + llp)) - (lp0 + ll0);
+  bool acc = log1pf(-q.u_acc) <= lw;
+  omu[i] = acc ? q.mu : mu[i];
+  osg[i] = acc ? q.sg : sg[i];
+  olp[i] = acc ? q.lpp : lp0;
   oll[i] = acc ? llp : ll0;
 }
 
-__global__ void fused_ais_half_kernel(
+// The block's shared memory: the half's shifts, the slots and the
+// proposals of the walkers inside the prior (by walker index in the
+// range).
+struct Shared {
+  int r[6];
+  int walker[kMaxWalkers];
+  Proposal prop[kMaxWalkers];
+};
+
+// One block's half-update over the walkers [first, first + walkers) of a
+// half of h: upd against comp[(i + r_j) % h], the outputs to out[i];
+// sh.r holds the half's shifts. Every thread reaches every barrier.
+template <bool kFresh, typename BitsOf>
+__device__ void half_range(int first, int walkers, int h,
+                           const float* __restrict__ mu,
+                           const float* __restrict__ sg,
+                           const float* __restrict__ lp,
+                           const float* __restrict__ ll, const float* cmu,
+                           const float* csg, Shared& sh,
+                           BitsOf bits_of, const AisConsts& c, float* omu,
+                           float* osg, float* olp, float* oll) {
+  const int* r = sh.r;
+  int* s_walker = sh.walker;
+  Proposal* s_prop = sh.prop;
+  int p = compact_walkers<kMaxThreads>(
+      first, walkers, h, s_walker, [&](int i) {
+        Proposal q;
+        bool inside = ais_propose<kFresh>(i, h, mu, sg, cmu, csg, r,
+                                          bits_of(i), c, &q);
+        if (!inside) {  // never commits: the inputs go through
+          omu[i] = mu[i];
+          osg[i] = sg[i];
+          olp[i] = lp[i];
+          oll[i] = ll[i];
+        } else {
+          s_prop[i - first] = q;
+        }
+        return inside;
+      });
+  for (int slot = threadIdx.x; slot < p; slot += blockDim.x) {
+    int i = s_walker[slot];
+    ais_accept(i, s_prop[i - first], bits_of(i), c, mu, sg, lp, ll, omu,
+               osg, olp, oll);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads) fused_ais_half_kernel(
     const float* __restrict__ mu, const float* __restrict__ sg,
     const float* __restrict__ lp, const float* __restrict__ ll,
     const float* __restrict__ cmu, const float* __restrict__ csg,
-    const long long* __restrict__ shifts, const long long* __restrict__ seed,
-    float* __restrict__ omu, float* __restrict__ osg,
-    float* __restrict__ olp, float* __restrict__ oll, int h, AisConsts c) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= h) return;  // no padding walkers: nothing past h is written
-  int r[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) r[j] = (int)shifts[j];
-  Bits b;
-  b.seed = (uint32_t)(unsigned long long)seed[0];
-  b.pid = (uint32_t)(i / c.block);
-  b.cbase = 20000u;
-  b.sub = (uint32_t)((i % c.block) / 128);
-  b.lane = (uint32_t)(i % 128);
-  b.sim_pid = b.pid;
-  b.sim_ctr0 = 0u;
-  b.sim_sub = (uint32_t)(i % c.block);
-  b.walker = (uint32_t)i;
-  ais_walker<false>(i, h, mu, sg, lp, ll, cmu, csg, r, b, c, omu, osg, olp,
-                    oll);
+    const long long* __restrict__ words, float* __restrict__ omu,
+    float* __restrict__ osg, float* __restrict__ olp,
+    float* __restrict__ oll, int h, int walkers, AisConsts c) {
+  __shared__ Shared sh;
+  if (threadIdx.x == 0) derive_shifts(words, h, sh.r);
+  __syncthreads();
+  HalfBits bits{word32(words[6]), c.block};
+  half_range<false>(blockIdx.x * walkers, walkers, h, mu, sg, lp, ll, cmu,
+                    csg, sh, bits, c, omu, osg, olp, oll);
 }
 
-__global__ void fused_ais_full_kernel(
+__global__ void __launch_bounds__(kMaxThreads) fused_ais_full_kernel(
     const float* __restrict__ mu, const float* __restrict__ sg,
     const float* __restrict__ lp, const float* __restrict__ ll,
-    const long long* __restrict__ shifts, const long long* __restrict__ seed,
-    float* omu, float* osg, float* olp, float* oll, int h, AisConsts c) {
+    const long long* __restrict__ words, float* omu, float* osg, float* olp,
+    float* oll, int h, int walkers, AisConsts c) {
+  __shared__ Shared sh;
   cg::grid_group grid = cg::this_grid();
-  int stride = gridDim.x * blockDim.x;
+  int ranges = (h + walkers - 1) / walkers;
   int nchunks = (c.ndraws + 2 * c.chunk - 1) / (2 * c.chunk);
-  uint32_t s = (uint32_t)(unsigned long long)seed[0];
+  uint32_t seed = word32(words[12]);
   for (int half = 0; half < 2; ++half) {
-    int base = half * h;
-    int r[6];
-#pragma unroll
-    for (int j = 0; j < 6; ++j) r[j] = (int)shifts[6 * half + j];
-    uint32_t cbase = half ? 200000u : 100000u;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < h; i += stride) {
-      Bits b;
-      b.seed = s;
-      b.pid = 0u;
-      b.cbase = cbase;
-      b.sub = (uint32_t)(i / 128);
-      b.lane = (uint32_t)(i % 128);
-      b.sim_pid = 0u;
-      b.sim_ctr0 = cbase + 16u + 2u * (uint32_t)(i / c.block) *
-                                     (uint32_t)nchunks;
-      b.sim_sub = (uint32_t)(i % c.block);
-      b.walker = (uint32_t)(base + i);
+    if (threadIdx.x == 0) derive_shifts(words + 6 * half, h, sh.r);
+    __syncthreads();
+    FullBits bits{seed, half ? 200000u : 100000u, c.block, nchunks,
+                  half * h};
+    for (int g = blockIdx.x; g < ranges; g += gridDim.x) {
       if (half == 0) {  // half A against the old half B
-        ais_walker<false>(i, h, mu, sg, lp, ll, mu + h, sg + h, r, b, c, omu,
-                          osg, olp, oll);
+        half_range<false>(g * walkers, walkers, h, mu, sg, lp, ll, mu + h,
+                          sg + h, sh, bits, c, omu, osg, olp, oll);
       } else {          // half B against the updated half A
-        ais_walker<true>(i, h, mu + h, sg + h, lp + h, ll + h, omu, osg, r,
-                         b, c, omu + h, osg + h, olp + h, oll + h);
+        half_range<true>(g * walkers, walkers, h, mu + h, sg + h, lp + h,
+                         ll + h, omu, osg, sh, bits, c, omu + h, osg + h,
+                         olp + h, oll + h);
       }
+      __syncthreads();  // the slots are free again
     }
     if (half == 0) grid.sync();
   }
@@ -257,73 +389,85 @@ AisConsts make_consts(const float* f, const int* n) {
                        &c.mu_lo,  &c.mu_hi,  &c.sg_lo,    &c.sg_hi,
                        &c.lp_const, &c.half_inv_var};
   for (int k = 0; k < kNumF; ++k) *dst[k] = f[k];
-  c.ndraws = n[0];
-  c.chunk = n[1];
-  c.block = n[2];
-  c.stub = n[3];
+  int* idst[kNumI] = {&c.ndraws, &c.chunk, &c.block, &c.stub};
+  for (int k = 0; k < kNumI; ++k) *idst[k] = n[k];
   return c;
 }
 
+// A geometry the kernels take: threads a multiple of 32 up to
+// kMaxThreads, 1 to kMaxWalkers walkers a block.
+bool geometry_ok(int walkers, int threads) {
+  return threads >= 32 && threads <= kMaxThreads && threads % 32 == 0 &&
+         walkers >= 1 && walkers <= kMaxWalkers;
+}
+
 // The cooperative grid of the full kernel: blocks per SM times SMs, no
-// more than h needs.
-int full_grid(int h, int* blocks_per_sm, int* sms) {
+// more than the ranges of `walkers` a half of h has.
+int full_grid(int h, int walkers, int threads, int* blocks_per_sm,
+              int* sms) {
   int dev = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, fused_ais_full_kernel, kThreads, 0);
-  int need = (h + kThreads - 1) / kThreads;
+      blocks_per_sm, fused_ais_full_kernel, threads, 0);
+  int need = (h + walkers - 1) / walkers;
   int grid = (*blocks_per_sm) * (*sms);
   return grid < need ? grid : need;
 }
 
 }  // namespace
 
+// words: the half's six shift words and the seed (int64 holding uint32).
+// walkers, threads: the geometry.
 extern "C" int kt_fused_ais_half(const float* mu, const float* sg,
                                  const float* lp, const float* ll,
                                  const float* cmu, const float* csg,
-                                 const long long* shifts,
-                                 const long long* seed, float* omu,
+                                 const long long* words, float* omu,
                                  float* osg, float* olp, float* oll, int h,
                                  const float* fconsts, const int* iconsts,
-                                 void* stream) {
+                                 int walkers, int threads, void* stream) {
+  if (!geometry_ok(walkers, threads) || h < 3)
+    return (int)cudaErrorInvalidConfiguration;
   AisConsts c = make_consts(fconsts, iconsts);
-  if (h > 0) {
-    fused_ais_half_kernel<<<(h + kThreads - 1) / kThreads, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        mu, sg, lp, ll, cmu, csg, shifts, seed, omu, osg, olp, oll, h, c);
-  }
+  int blocks = (h + walkers - 1) / walkers;
+  fused_ais_half_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      mu, sg, lp, ll, cmu, csg, words, omu, osg, olp, oll, h, walkers, c);
   return (int)cudaGetLastError();
 }
 
+// words: half A's six shift words, half B's six, then the seed.
 extern "C" int kt_fused_ais_full(const float* mu, const float* sg,
                                  const float* lp, const float* ll,
-                                 const long long* shifts,
-                                 const long long* seed, float* omu,
+                                 const long long* words, float* omu,
                                  float* osg, float* olp, float* oll, int h,
                                  const float* fconsts, const int* iconsts,
-                                 void* stream) {
+                                 int walkers, int threads, void* stream) {
+  if (!geometry_ok(walkers, threads) || h < 3)
+    return (int)cudaErrorInvalidConfiguration;
   AisConsts c = make_consts(fconsts, iconsts);
   int dev = 0, coop = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   int per_sm = 0, sms = 0;
-  int grid = full_grid(h, &per_sm, &sms);
+  int grid = full_grid(h, walkers, threads, &per_sm, &sms);
   if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&mu,  (void*)&sg,     (void*)&lp,  (void*)&ll,
-                  (void*)&shifts, (void*)&seed, (void*)&omu, (void*)&osg,
-                  (void*)&olp, (void*)&oll,    (void*)&h,   (void*)&c};
+  void* args[] = {(void*)&mu,  (void*)&sg,  (void*)&lp,      (void*)&ll,
+                  (void*)&words, (void*)&omu, (void*)&osg,   (void*)&olp,
+                  (void*)&oll, (void*)&h,   (void*)&walkers, (void*)&c};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)fused_ais_full_kernel, dim3(grid), dim3(kThreads), args, 0,
+      fused_ais_full_kernel, dim3(grid), dim3(threads), args, 0,
       (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // (blocks per SM, SMs, grid) of the full kernel's cooperative launch for a
-// half of h walkers.
-extern "C" int kt_fused_ais_full_grid(int h, int* out) {
-  out[2] = full_grid(h, &out[0], &out[1]);
+// half of h walkers at a geometry.
+extern "C" int kt_fused_ais_full_grid(int h, int walkers, int threads,
+                                      int* out) {
+  if (!geometry_ok(walkers, threads))
+    return (int)cudaErrorInvalidConfiguration;
+  out[2] = full_grid(h, walkers, threads, &out[0], &out[1]);
   return (int)cudaGetLastError();
 }

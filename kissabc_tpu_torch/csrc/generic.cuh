@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "compact.cuh"
 #include "walkers.cuh"
 
 namespace {
@@ -348,7 +349,7 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 //   before the simulator; a walker that does not need it writes its
 //   outputs at once. A ballot per warp and a prefix over the block's warps
 //   give each walker that needs it a slot, in walker order
-//   (compact_walkers);
+//   (compact_walkers, compact.cuh);
 // - phase 2, groups of L lanes (L divides 32, so a group lies inside one
 //   warp): the block's groups take its compacted walkers in turn. Each
 //   group recomputes its walker's proposal from the walker index (the
@@ -528,41 +529,6 @@ __device__ __forceinline__ void simulate_lanes(
   }
 }
 
-// Phase 1 over the block's walkers [first, first + walkers), in passes of
-// blockDim.x threads: needs(w) runs once for each walker w < n (and
-// writes the outputs of a walker that does not need the simulator); the
-// walkers for which it returns true get slots s_walker[0 .. p) in walker
-// order. Every thread reaches every barrier. Returns p.
-template <typename Needs>
-__device__ int compact_walkers(int first, int walkers, int n, int* s_walker,
-                               Needs needs) {
-  __shared__ int s_base[kGroupMaxThreads / 32];
-  __shared__ int s_pass;
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_pass = 0;
-  for (int pass = 0; pass < walkers; pass += blockDim.x) {
-    int i = pass + (int)threadIdx.x, w = first + i;
-    bool sim = (i < walkers && w < n) ? needs(w) : false;
-    unsigned ballot = __ballot_sync(0xffffffffu, sim);
-    if (lane == 0) s_base[warp] = __popc(ballot);
-    __syncthreads();
-    if (threadIdx.x == 0) {  // exclusive prefix over the warps, from s_pass
-      int sum = s_pass;
-      for (int q = 0; q < (int)(blockDim.x >> 5); ++q) {
-        int count = s_base[q];
-        s_base[q] = sum;
-        sum += count;
-      }
-      s_pass = sum;
-    }
-    __syncthreads();
-    if (sim)
-      s_walker[s_base[warp] + __popc(ballot & ((1u << lane) - 1u))] = w;
-    __syncthreads();
-  }
-  return s_pass;
-}
-
 // Phase 2's turn `base` for the group g (the warp's first group g0) of a
 // block with p compacted walkers: whether the group has a walker, and the
 // walker it simulates. With L = 1 a thread runs while it has one; with
@@ -638,7 +604,7 @@ __global__ void __launch_bounds__(kGroupMaxThreads) fused_ais_sweep_kernel(
   int* s_walker = reinterpret_cast<int*>(
       s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
   uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
-  int p = compact_walkers(
+  int p = compact_walkers<kGroupMaxThreads>(
       blockIdx.x * walkers, walkers, h, s_walker, [&](int i) {
         float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
         bool valid = ais_propose<kStub>(th, comp, shifts, i, h, seed, c,
@@ -753,7 +719,7 @@ __global__ void __launch_bounds__(kGroupMaxThreads)
   int* s_walker = reinterpret_cast<int*>(
       s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
   uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
-  int p = compact_walkers(
+  int p = compact_walkers<kGroupMaxThreads>(
       blockIdx.x * walkers, walkers, n, s_walker, [&](int w) {
         float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp;
         bool gate = abcde_gate<kStub>(ts, ta, tb, lps, active, w, seed,

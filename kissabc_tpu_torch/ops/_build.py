@@ -37,8 +37,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flagship.cu", CSRC / "ais.cu")
-HEADERS = (CSRC / "common.cuh", CSRC / "generic.cuh", CSRC / "scan.cuh",
-           CSRC / "moments.cuh", CSRC / "walkers.cuh", CSRC / "tempered.cuh")
+HEADERS = (CSRC / "common.cuh", CSRC / "compact.cuh", CSRC / "generic.cuh",
+           CSRC / "scan.cuh", CSRC / "moments.cuh", CSRC / "walkers.cuh",
+           CSRC / "tempered.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kissabc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,9 +54,9 @@ _SIGNATURES = {
     "kt_normal_summary_cost": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
                                _I, _I, _I, _P],
     "kt_fused_sweep": [_P] * 13 + [_I, _I] + [_F] * 11 + [_I, _I, _I, _P],
-    "kt_fused_ais_half": [_P] * 12 + [_I, _P, _P, _P],
-    "kt_fused_ais_full": [_P] * 10 + [_I, _P, _P, _P],
-    "kt_fused_ais_full_grid": [_I, _P],
+    "kt_fused_ais_half": [_P] * 11 + [_I, _P, _P, _I, _I, _P],
+    "kt_fused_ais_full": [_P] * 9 + [_I, _P, _P, _I, _I, _P],
+    "kt_fused_ais_full_grid": [_I, _I, _I, _P],
 }
 GEN_SIGNATURES = {
     "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],

@@ -6,7 +6,10 @@ kernels of ``kissabc_tpu/ops/pallas_kernels.py``:
   flagship model, ``kt_fused_ais_half`` (``csrc/ais.cu``);
 - ``make_fused_flagship_ais_sweep_onekernel`` (``_fused_ais_full_call``,
   pallas_call at :1022): both halves in one cooperative launch,
-  ``kt_fused_ais_full`` (``csrc/ais.cu``);
+  ``kt_fused_ais_full`` (``csrc/ais.cu``); each block of #7 and #8
+  compacts its walkers inside the prior (about one block an SM,
+  ``flagship_geometry``), and the kernels derive the partner shifts from
+  the raw words themselves;
 - ``make_fused_ais_sweep`` (``half_call``, pallas_call at :1440): the
   generic half-update with the user's prior, ``draw``, ``stats`` and
   ``reduce_cost`` compiled in by ``ops/codegen.py``,
@@ -27,8 +30,11 @@ repeats its arithmetic (the int64-emulated uint32 stub and Philox bits of
 - a wrapper given CUDA tensors launches the kernel or raises;
 - ``launches`` counts each kernel's launches.
 
-The sweeps' shifts and seeds are drawn on the generator's device, so a
-sweep reads nothing on the host. ``bits="stub"`` replays the TPU
+The sweeps' words (shifts and seeds) are drawn on the generator's
+device, so a sweep reads nothing on the host; #7 and #8 take the raw
+words and derive the shifts by ``rot_shifts6``'s rule in the kernel, so
+their sweeps issue one draw of words and one launch a half (#7) or a
+sweep (#8). ``bits="stub"`` replays the TPU
 kernels' stub stream at their coordinates (see ``csrc/ais.cu`` and
 ``csrc/generic.cuh``); ``bits="hw"`` is Philox4x32-10.
 """
@@ -53,6 +59,9 @@ from .streaming import (NOISE_OPS, leaves_of, streaming_moment_cost_plain,
 
 # launches of each CUDA kernel since the last reset (plain ints)
 launches = {"fused_ais_half": 0, "fused_ais_full": 0, "fused_ais_sweep": 0}
+
+# as in csrc/ais.cu: threads a block, walkers a block at most
+AIS_MAX_THREADS, AIS_MAX_WALKERS = 512, 1024
 
 # Philox streams (third counter word), as in csrc/ais.cu and generic.cuh
 STREAM_AIS_WALKER, STREAM_AIS_SIM = 6, 7
@@ -281,28 +290,37 @@ class FlagshipAIS:
                 sub=i // 128, lane=i % 128, walker=lo + i, sim=sim))
         return tuple(torch.cat([a, b]) for a, b in zip(*out))
 
-    def launch_half(self, ins, comp, shifts, seed, outs):
+    def launch_half(self, ins, comp, words, outs, geometry=None):
         """Launch ``kt_fused_ais_half`` on checked CUDA buffers: ``ins`` =
         (mu, sg, lp, ll) of the updated half, ``comp`` = (mu, sg) of the
-        other half, ``shifts`` int64 [6], ``seed`` int64 [1], ``outs``
-        four buffers of the half's length."""
+        other half, ``words`` int64 [7] (the six raw shift words, then the
+        seed), ``outs`` four buffers of the half's length; ``geometry``
+        one of ``check_geometry`` (default ``flagship_geometry`` on the
+        walkers' card)."""
+        h = ins[0].shape[0]
+        g = geometry or flagship_geometry(
+            h, lane_groups.sm_count(ins[0].device.index))
         lib = _build.load()
         err = lib.kt_fused_ais_half(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in comp),
-            shifts.data_ptr(), seed.data_ptr(),
-            *(t.data_ptr() for t in outs), ins[0].shape[0], *self._consts(),
-            _stream())
+            words.data_ptr(), *(t.data_ptr() for t in outs), h,
+            *self._consts(), g.walkers, g.threads, _stream())
         _build.check(lib, err, "fused_ais_half")
         launches["fused_ais_half"] += 1
 
-    def launch_full(self, ins, shifts, seed, outs):
+    def launch_full(self, ins, words, outs, geometry=None):
         """Launch ``kt_fused_ais_full`` (one cooperative launch) on checked
-        CUDA buffers of length n: ``shifts`` int64 [12]."""
+        CUDA buffers of length n: ``words`` int64 [13] (half A's six shift
+        words, half B's six, the seed); ``geometry`` as ``launch_half``
+        takes it."""
+        h = ins[0].shape[0] // 2
+        g = geometry or flagship_geometry(
+            h, lane_groups.sm_count(ins[0].device.index))
         lib = _build.load()
         err = lib.kt_fused_ais_full(
-            *(t.data_ptr() for t in ins), shifts.data_ptr(), seed.data_ptr(),
-            *(t.data_ptr() for t in outs), ins[0].shape[0] // 2,
-            *self._consts(), _stream())
+            *(t.data_ptr() for t in ins), words.data_ptr(),
+            *(t.data_ptr() for t in outs), h, *self._consts(), g.walkers,
+            g.threads, _stream())
         _build.check(lib, err, "fused_ais_full")
         launches["fused_ais_full"] += 1
 
@@ -317,12 +335,39 @@ class FlagshipAIS:
                               + nsim * (self.ndraws * OPS_PER_DRAW + 16))
 
 
-def full_grid(h):
+def check_geometry(h, walkers, threads):
+    """The geometry of a launch of #7 or #8 over a half of ``h`` walkers,
+    as a ``lane_groups.Geometry`` of one lane a walker, or ``ValueError``
+    for what the kernels cannot take (they return
+    ``cudaErrorInvalidConfiguration``): threads a multiple of 32 in [32,
+    ``AIS_MAX_THREADS``], 1 to ``AIS_MAX_WALKERS`` walkers a block."""
+    if threads % 32 or not 32 <= threads <= AIS_MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 in [32, "
+                         f"{AIS_MAX_THREADS}], got {threads}")
+    if not 1 <= walkers <= AIS_MAX_WALKERS:
+        raise ValueError(f"walkers per block must be in [1, "
+                         f"{AIS_MAX_WALKERS}], got {walkers}")
+    return lane_groups.Geometry(-(-h // walkers), walkers, threads, 1)
+
+
+def flagship_geometry(h, sms=lane_groups.H100_SMS):
+    """The launch of #7 or #8 over a half of ``h`` walkers on a card of
+    ``sms`` SMs: ``lane_groups.pick`` for a light model (the flagship
+    draw), whose draws run on one lane a walker, with no more threads than
+    walkers. At h = 65536 on the H100: blocks of 512 walkers on 512
+    threads, about one an SM."""
+    walkers, threads, _ = lane_groups.pick(h, sms, light=True)
+    return check_geometry(h, walkers, min(threads, walkers))
+
+
+def full_grid(h, geometry):
     """(blocks per SM, SMs, grid) of ``kt_fused_ais_full``'s cooperative
-    launch for halves of ``h`` walkers."""
+    launch for halves of ``h`` walkers at ``geometry`` on the current
+    card."""
     lib = _build.load()
     out = (ctypes.c_int * 3)()
-    _build.check(lib, lib.kt_fused_ais_full_grid(h, out), "fused_ais_full")
+    _build.check(lib, lib.kt_fused_ais_full_grid(
+        h, geometry.walkers, geometry.threads, out), "fused_ais_full")
     return tuple(out)
 
 
@@ -360,8 +405,9 @@ def make_fused_flagship_ais_sweep(n, *, scale: float = 0.005,
     """Fused AIS red/black sweep of the flagship model with the kernelized
     density: ``sweep(gen, (mu, sg), (lp, ll)) -> ((mu, sg), (lp, ll))``,
     one ``kt_fused_ais_half`` launch per half. Each half draws seven words
-    from ``gen`` (six partner shifts by ``rot_shifts6`` and the kernel
-    seed). Outputs are fresh tensors; inputs are not written."""
+    from ``gen``: six partner shifts by ``rot_shifts6``'s rule (which the
+    kernel applies to the raw words) and the kernel seed. Outputs are
+    fresh tensors; inputs are not written."""
     kw = dict(locals())   # the model's keywords: every argument but n
     del kw["n"]
     if n % 2:
@@ -380,18 +426,17 @@ def make_fused_flagship_ais_sweep(n, *, scale: float = 0.005,
         outs = [torch.empty_like(t) for t in ins]
         for half in (0, 1):
             words = _sweep_words(gen, 7, dev)
-            shifts, seed = rot_shifts6(words[:6], h), words[6:]
             sl, co = (slice(0, h), slice(h, n)) if half == 0 else (
                 slice(h, n), slice(0, h))
             comp = [(ins if half == 0 else outs)[k][co] for k in (0, 1)]
             upd = [t[sl] for t in ins]
             if dev.type == "cpu":
-                for o, v in zip(outs, model.half_plain(*upd, *comp, shifts,
-                                                       seed)[:4]):
+                for o, v in zip(outs, model.half_plain(
+                        *upd, *comp, rot_shifts6(words[:6], h),
+                        words[6:])[:4]):
                     o[sl] = v
             else:
-                model.launch_half(upd, comp, shifts, seed,
-                                  [o[sl] for o in outs])
+                model.launch_half(upd, comp, words, [o[sl] for o in outs])
         return (outs[0], outs[1]), (outs[2], outs[3])
 
     sweep.model = model
@@ -408,7 +453,7 @@ def make_fused_flagship_ais_sweep_onekernel(
     """The flagship AIS sweep with both halves in one cooperative launch
     (``kt_fused_ais_full``): half B proposes against the updated half A
     after a grid-wide barrier. Thirteen words per sweep from ``gen``: the
-    two halves' shifts and the seed. Same contract as
+    two halves' shift words and the seed. Same contract as
     ``make_fused_flagship_ais_sweep``."""
     kw = dict(locals())
     del kw["n"]
@@ -424,14 +469,13 @@ def make_fused_flagship_ais_sweep_onekernel(
     def sweep(gen, thetas, lds):
         ins, dev = _check_flagship(thetas, lds, n)
         words = _sweep_words(gen, 13, dev)
-        shifts = torch.cat([rot_shifts6(words[0:6], h),
-                            rot_shifts6(words[6:12], h)])
-        seed = words[12:]
         if dev.type == "cpu":
-            outs = model.full_plain(*ins, shifts, seed)[:4]
+            shifts = torch.cat([rot_shifts6(words[0:6], h),
+                                rot_shifts6(words[6:12], h)])
+            outs = model.full_plain(*ins, shifts, words[12:])[:4]
         else:
             outs = [torch.empty_like(t) for t in ins]
-            model.launch_full(ins, shifts, seed, outs)
+            model.launch_full(ins, words, outs)
         return (outs[0], outs[1]), (outs[2], outs[3])
 
     sweep.model = model

@@ -1,13 +1,21 @@
 // A host emulation of the CUDA features that the lane-group kernels of
-// kissabc_tpu_torch/csrc/generic.cuh use, for tests/test_torch_lane_groups.py:
-// one std::thread per CUDA thread, blocks one after another, static
-// __shared__ variables shared by the block's threads, __syncthreads a
-// block barrier, and each warp collective (__syncwarp, __ballot_sync,
-// __shfl_sync, __shfl_xor_sync) a rendezvous of the lanes of its mask that
-// aborts on a lane outside the mask or a wait of 20 s (a deadlock). The
-// float intrinsics round as plain float arithmetic: the emulation checks
-// the kernels' control flow and index arithmetic, not the card's
-// arithmetic.
+// kissabc_tpu_torch/csrc/generic.cuh and the flagship AIS sweeps of
+// csrc/ais.cu use, for tests/test_torch_lane_groups.py and
+// tests/test_torch_ais_compaction.py: one std::thread per CUDA thread,
+// blocks one after another, static __shared__ variables shared by the
+// block's threads, __syncthreads a block barrier, and each warp collective
+// (__syncwarp, __ballot_sync, __shfl_sync, __shfl_xor_sync) a rendezvous of
+// the lanes of its mask that aborts on a lane outside the mask or a wait
+// of 20 s (a deadlock). A cooperative launch (cudaLaunchCooperativeKernel)
+// starts every block's threads at once, but runs one block at a time: the
+// grid barrier (cooperative_groups.h, grid_group::sync) hands the turn to
+// the next block, and past the last block back to the first, so every
+// block has passed the barrier's earlier side before any block runs on.
+// The static __shared__ variables are then reused from block to block, so
+// nothing in shared memory may stay live across the grid barrier (what the
+// card would keep). The float intrinsics round as plain float arithmetic:
+// the emulation checks the kernels' control flow and index arithmetic,
+// not the card's arithmetic.
 #pragma once
 #include <algorithm>
 #include <chrono>
@@ -20,6 +28,8 @@
 #include <cstring>
 #include <mutex>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -36,12 +46,29 @@ struct float2 {
 struct kt_uint3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local kt_uint3 threadIdx;
-inline kt_uint3 blockIdx, blockDim;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+inline thread_local kt_uint3 threadIdx, blockIdx;
+inline kt_uint3 blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaErrorInvalidConfiguration = 9 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorCooperativeLaunchTooLarge = 82,
+  cudaErrorNotSupported = 801
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount,
+  cudaDevAttrCooperativeLaunch
+};
+// the SMs the emulated card reports (a cooperative grid is this many
+// blocks: the emulated occupancy is one block an SM)
+inline int kt_emu_sms = 1;
 using std::max;
 using std::min;
 
@@ -66,6 +93,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline float __ldcg(const float* p) { return *p; }
 
 struct KtWarp {
   std::mutex m;
@@ -79,8 +107,9 @@ struct KtBlock {
   std::vector<KtWarp> warps;
   std::vector<std::vector<uint32_t>> sent;  // per thread, per collective
   std::vector<char> smem;
+  int at_grid = 0;  // threads at the grid barrier or done (cooperative)
 };
-inline KtBlock* kt_block;
+inline thread_local KtBlock* kt_block;
 
 inline void __syncthreads() {
   std::unique_lock<std::mutex> lk(kt_block->m);
@@ -151,6 +180,14 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, T*, int,
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? kt_emu_sms : 1;
+  return 0;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 // the block's dynamic shared memory (extern __shared__), filled with a
@@ -169,15 +206,93 @@ void kt_launch(K kernel, int blocks, int threads, size_t smem, A... args) {
     block.sent.assign(threads, {});
     block.warps = std::vector<KtWarp>((threads + 31) / 32);
     block.smem.assign(smem + 64, (char)0x7f);
-    kt_block = &block;
-    blockIdx.x = b;
     blockDim.x = threads;
+    gridDim.x = blocks;
     std::vector<std::thread> ts;
     for (int t = 0; t < threads; ++t)
-      ts.emplace_back([=] {
+      ts.emplace_back([=, &block] {
+        kt_block = &block;
+        blockIdx.x = b;
         threadIdx.x = t;
         kernel(args...);
       });
     for (auto& th : ts) th.join();
   }
+}
+
+// The cooperative launch's turn: step = round * blocks + the block that
+// runs. A block's last thread to reach the grid barrier, or to finish,
+// hands the turn on.
+struct KtGrid {
+  std::mutex m;
+  std::condition_variable cv;
+  long step = 0;
+  int blocks = 0;
+};
+inline KtGrid* kt_grid;
+inline thread_local long kt_round;
+
+inline void kt_wait_turn() {
+  std::unique_lock<std::mutex> lk(kt_grid->m);
+  long want = kt_round * kt_grid->blocks + blockIdx.x;
+  if (!kt_grid->cv.wait_for(lk, std::chrono::seconds(60),
+                            [&] { return kt_grid->step == want; }))
+    kt_fail("a block waits for its turn for ever", threadIdx.x, 0u);
+}
+
+inline void kt_pass_turn() {
+  bool last;
+  {
+    std::lock_guard<std::mutex> lk(kt_block->m);
+    last = ++kt_block->at_grid == kt_block->nthreads;
+    if (last) kt_block->at_grid = 0;
+  }
+  if (last) {
+    std::lock_guard<std::mutex> lk(kt_grid->m);
+    ++kt_grid->step;
+    kt_grid->cv.notify_all();
+  }
+}
+
+inline void kt_grid_sync() {
+  kt_pass_turn();
+  ++kt_round;
+  kt_wait_turn();
+}
+
+template <class... A, size_t... I>
+void kt_call(void (*kernel)(A...), void** args, std::index_sequence<I...>) {
+  kernel(*static_cast<std::remove_reference_t<A>*>(args[I])...);
+}
+
+template <class... A>
+cudaError_t cudaLaunchCooperativeKernel(void (*kernel)(A...), dim3 grid,
+                                        dim3 threads, void** args, size_t,
+                                        cudaStream_t) {
+  int blocks = grid.x, nthreads = threads.x;
+  KtGrid g;
+  g.blocks = blocks;
+  kt_grid = &g;
+  blockDim.x = nthreads;
+  gridDim.x = blocks;
+  std::vector<KtBlock> bs(blocks);
+  std::vector<std::thread> ts;
+  for (int b = 0; b < blocks; ++b) {
+    bs[b].nthreads = nthreads;
+    bs[b].sent.assign(nthreads, {});
+    bs[b].warps = std::vector<KtWarp>((nthreads + 31) / 32);
+    for (int t = 0; t < nthreads; ++t)
+      ts.emplace_back([=, &bs] {
+        kt_block = &bs[b];
+        blockIdx.x = b;
+        threadIdx.x = t;
+        kt_round = 0;
+        kt_wait_turn();
+        kt_call(kernel, args, std::index_sequence_for<A...>());
+        kt_pass_turn();
+      });
+  }
+  for (auto& th : ts) th.join();
+  kt_grid = nullptr;
+  return 0;
 }

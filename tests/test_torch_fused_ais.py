@@ -355,27 +355,30 @@ def test_validation_messages():
 def test_flagship_sweeps_hand_the_kernel_words_on_the_walkers_device(
         monkeypatch):
     """A generator may live on another device than the walkers (a CPU
-    generator beside CUDA tensors): the shifts and the seed that the
-    sweeps of #7 and #8 hand their launches lie on the walkers' device,
-    where the kernel reads them. The walkers' device is reported as
+    generator beside CUDA tensors): the raw words (shift words and seed)
+    that the sweeps of #7 and #8 hand their launches lie on the walkers'
+    device, where the kernel reads them: seven a half, thirteen a sweep,
+    and no ``rot_shifts6`` on the way. The walkers' device is reported as
     ``meta`` here, and the launches record what they are given."""
     n = 256
     seen = []
     monkeypatch.setattr(FA, "_check_flagship", lambda thetas, lds, n: (
         [*thetas, *lds], torch.device("meta")))
+    monkeypatch.setattr(FA, "rot_shifts6", lambda *a: pytest.fail(
+        "rot_shifts6 on the CUDA path: the kernels derive the shifts"))
     monkeypatch.setattr(FA.FlagshipAIS, "launch_half",
-                        lambda self, ins, comp, shifts, seed, outs:
-                        seen.append(("half", shifts.device, seed.device)))
+                        lambda self, ins, comp, words, outs:
+                        seen.append(("half", words.device, words.shape)))
     monkeypatch.setattr(FA.FlagshipAIS, "launch_full",
-                        lambda self, ins, shifts, seed, outs:
-                        seen.append(("full", shifts.device, seed.device)))
+                        lambda self, ins, words, outs:
+                        seen.append(("full", words.device, words.shape)))
     th = (torch.ones(n), torch.ones(n))
     ld = (torch.zeros(n), torch.zeros(n))
     kt.make_fused_flagship_ais_sweep(n, block=128)(torch.Generator(), th, ld)
     kt.make_fused_flagship_ais_sweep_onekernel(n, block=128)(
         torch.Generator(), th, ld)
     meta = torch.device("meta")
-    assert seen == [("half", meta, meta)] * 2 + [("full", meta, meta)]
+    assert seen == [("half", meta, (7,))] * 2 + [("full", meta, (13,))]
 
 
 def test_wrappers_refuse_what_they_cannot_launch():
@@ -390,6 +393,10 @@ def test_wrappers_refuse_what_they_cannot_launch():
     if shutil.which("nvcc") is None:
         model = FA.FlagshipAIS(bits="hw", **FL)
         x = torch.ones(128)
+        geo = FA.flagship_geometry(128)
         with pytest.raises(RuntimeError, match="nvcc"):
-            model.launch_half([x] * 4, [x] * 2, torch.zeros(6, dtype=int),
-                              torch.zeros(1, dtype=int), [x] * 4)
+            model.launch_half([x] * 4, [x] * 2, torch.zeros(7, dtype=int),
+                              [x] * 4, geometry=geo)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            model.launch_full([x] * 4, torch.zeros(13, dtype=int), [x] * 4,
+                              geometry=geo)

@@ -13,7 +13,10 @@ model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
 #4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub),
 #5 ``streaming_scan_cost`` (AR(1)), #6 ``fused_ais_sweep`` (flagship and
 g-and-k, Philox and stub; flagship on an odd half of 32771), #7
-``fused_ais_half``, #8 ``fused_ais_full`` and #10
+``fused_ais_half`` and #8 ``fused_ais_full`` (Philox and stub, and on
+Philox at each geometry ``chip_smoke.GEOMETRIES_78`` times; a tree whose
+launches take raw words gets the words, a tree whose launches take
+shifts gets ``rot_shifts6`` of the same words) and #10
 ``fused_abcde_generation`` (flagship, Philox and stub at n, and at 16384
 and 16384 + 37, a width that is no multiple of a block). Prints
 one JSON line per case with the count of output values that differ (0:
@@ -23,6 +26,7 @@ differs. Needs one card and nvcc; imports nothing of JAX.
 
 import argparse
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -30,6 +34,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+from chip_smoke import GEOMETRIES_78  # noqa: E402
 
 
 def load_package(root, name):
@@ -53,6 +60,32 @@ def flat(out):
     return [out]
 
 
+def ais_args(m, fa, torch, words, h, full):
+    """What #7 (``full`` False) or #8 of ``m``'s tree takes besides its
+    buffers, for halves of ``h`` walkers: the raw words, or the shifts
+    ``rot_shifts6`` makes of them and the seed (made here once, so a
+    timed launch makes none)."""
+    fn = m.launch_full if full else m.launch_half
+    if "words" in inspect.signature(fn).parameters:
+        return (words,)
+    return (torch.cat([fa.rot_shifts6(words[k:k + 6], h)
+                       for k in range(0, len(words) - 1, 6)]), words[-1:])
+
+
+def launch_ais(m, fa, ins, comp, args, outs, geometry):
+    """#7 (``comp`` given) or #8 on ``ais_args``'s ``args``, at
+    ``geometry`` (``(walkers, threads)`` or None for the default; a tree
+    that takes shifts has one geometry)."""
+    h = ins[0].shape[0] if comp is not None else ins[0].shape[0] // 2
+    fn = m.launch_half if comp is not None else m.launch_full
+    head = [ins] + ([comp] if comp is not None else [])
+    if len(args) == 1:
+        fn(*head, *args, outs, geometry and fa.check_geometry(h, *geometry))
+    else:
+        fn(*head, *args, outs)
+    return outs
+
+
 def cases(torch, n, big):
     """(name, fn(pkg) -> outputs) for every kernel, on inputs made once."""
     dev = torch.device("cuda")
@@ -73,8 +106,6 @@ def cases(torch, n, big):
     h = n // 2
     shifts6 = torch.tensor([5, 77, 1000, 3, 40000, 65001], dtype=torch.int64,
                            device=dev) % h
-    shifts12 = torch.cat([shifts6, torch.tensor(
-        [11, 2, 65000, 9, 123, 4567], dtype=torch.int64, device=dev) % h])
     idx = [torch.randint(0, n, (n,), generator=gen, device=dev)
            for _ in range(3)]
     active = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
@@ -151,19 +182,23 @@ def cases(torch, n, big):
                            shifts6 % half, seed)
         return run
 
-    def k7(bits, full):
+    words13 = torch.cat([torch.randint(0, 1 << 32, (12,), generator=gen,
+                                       device=dev), seed])
+
+    def k7(bits, full, geometry=None):
         def run(p):
-            m = p.ops.fused_ais.FlagshipAIS(scale=0.1, block=2048, bits=bits,
-                                            **fl_kw)
+            fa = p.ops.fused_ais
+            m = fa.FlagshipAIS(scale=0.1, block=2048, bits=bits, **fl_kw)
             if full:
                 ins = [mu[:n], sg[:n], lp_ll[0][:n], lp_ll[1][:n]]
-                outs = [torch.empty_like(x) for x in ins]
-                m.launch_full(ins, shifts12, seed, outs)
+                comp, words = None, words13
             else:
                 ins = [mu[:h], sg[:h], lp_ll[0][:h], lp_ll[1][:h]]
-                outs = [torch.empty_like(x) for x in ins]
-                m.launch_half(ins, [mu[h:n], sg[h:n]], shifts6, seed, outs)
-            return outs
+                comp = [mu[h:n], sg[h:n]]
+                words = torch.cat([words13[:6], seed])
+            return launch_ais(m, fa, ins, comp,
+                              ais_args(m, fa, torch, words, h, full),
+                              [torch.empty_like(x) for x in ins], geometry)
         return run
 
     def k10(bits, m=n):
@@ -192,7 +227,10 @@ def cases(torch, n, big):
             ("#8 hw", k7("hw", True)), ("#10 hw", k10("hw")),
             ("#10 stub", k10("stub")), ("#10 hw 16384", k10("hw", 16384)),
             ("#10 hw 16384 + 37", k10("hw", 16384 + 37)),
-            ("#10 stub 16384 + 37", k10("stub", 16384 + 37))]
+            ("#10 stub 16384 + 37", k10("stub", 16384 + 37)),
+            ("#8 stub", k7("stub", True))] + [
+        (f"#{k} hw, {w} walkers {t} threads", k7("hw", k == 8, (w, t)))
+        for k in (7, 8) for w, t in GEOMETRIES_78]
 
 
 def main():

@@ -13,10 +13,10 @@ one JSON line per kernel with a draw loop: each innermost loop's
 instructions, its Box-Muller angles (two draws each), instructions per
 draw, its commonest opcodes, and the issue floor of 1000 draws for 2**20
 walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``),
-and, for the lane-group kernels (#6, #10; their template arguments
-<stub, lanes> parsed from the name), the floor for the walkers they
-simulate at their production widths (``--sim``; the loop's count is per
-draw per lane, so the floor counts every lane's share).
+and, for the compacting kernels (#6, #10, whose template arguments
+<stub, lanes> are parsed from the name, and #7, #8), the floor for the
+walkers they simulate at their production widths (``--sim``; the loop's
+count is per draw per lane, so the floor counts every lane's share).
 Then, on the card, it runs kernel #1 (``normal_summary_cost``, 2**20
 walkers x 1000 Philox draws) back to back for about two seconds while
 ``nvidia-smi`` samples the SM clock every 50 ms, and prints the kernel's
@@ -34,11 +34,13 @@ import subprocess
 import sys
 import time
 
-# the walkers the lane-group kernels simulate at their production widths
+# the walkers the compacting kernels simulate at their production widths
 # on the H100: #10 at 16384 and 131072 walkers of an ABCDE generation
-# (tools/time_geometry.py), #6 over one sweep of 131072 from the prior
-# (chip_smoke.py ais-kernel-times)
-SIMULATED = ["abcde:16384:5318", "abcde:131072:42876", "ais:131072:77645"]
+# (tools/time_geometry.py), #6, #7 and #8 over one sweep of 131072 from the
+# prior (chip_smoke.py ais-kernel-times; #7's and #8's loops are in the
+# hand-written library)
+SIMULATED = ["abcde:16384:5318", "abcde:131072:42876", "ais:131072:77645",
+             "flagship:ais7:77996", "flagship:ais8:77883"]
 
 
 def smi(query):

@@ -1,11 +1,21 @@
 #!/usr/bin/env python3
-"""Times the lane-group kernels, #10 ``fused_abcde_generation`` and #6
-``fused_ais_sweep``, over a grid of launch geometries (walkers a block
+"""Times the compacting kernels, #10 ``fused_abcde_generation``, #6
+``fused_ais_sweep`` and the flagship AIS sweeps #7 ``fused_ais_half`` and
+#8 ``fused_ais_full``, over a grid of launch geometries (walkers a block
 covers, threads a block, lanes a walker) at their production widths, and
 checks that every geometry gives the outputs of the default one bit for
 bit.
 
     python3 tools/time_geometry.py [--parent DIR] [--quick]
+                                   [--kernels all|78]
+
+#7 and #8 (``--kernels 78`` times them alone): one sweep at 131072
+walkers from the init of ``sample(key=0)`` (59% inside the prior) and
+from the ensemble after 100 sweeps of #8 from there (100% inside), at
+256, 512 and 1024 walkers a block on 256 or 512 threads, each by the
+profiler and by queued events; with ``--parent``,
+the parent's kernels through its own interface (shifts instead of words)
+in turns with this checkout's default.
 
 The grid runs on copies of the units built with every lane count
 (``lane_groups.with_all_lanes``: 1, 2, 4, 8 and 16); the default geometry
@@ -44,8 +54,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tools"))
 
-import chip_smoke as CS                      # noqa: E402
-from same_bits import flat, load_package     # noqa: E402
+import chip_smoke as CS                                  # noqa: E402
+from same_bits import (ais_args, flat, launch_ais,         # noqa: E402
+                       load_package)
 
 
 def grids(quick):
@@ -53,7 +64,8 @@ def grids(quick):
     if quick:
         return {"abcde 16384": [(64, 256, 8), (64, 256, 1), (32, 128, 16)],
                 "abcde 131072": [(512, 256, 4), (1024, 512, 2)],
-                "ais": [(256, 256, 4), (512, 256, 1), (128, 128, 8)]}
+                "ais": [(256, 256, 4), (512, 256, 1), (128, 128, 8)],
+                "flagship ais": [(256, 256), (1024, 512)]}
     return {
         "abcde 16384": [(w, t, l) for w in (32, 64, 128) for t in (128, 256)
                         for l in (1, 4, 8, 16)],
@@ -61,7 +73,114 @@ def grids(quick):
                          for t in (256, 512) for l in (1, 2, 4, 8)],
         "ais": [(w, t, l) for w in (128, 256, 512) for t in (256, 512)
                 for l in (1, 2, 4, 8)],
+        "flagship ais": [(w, t) for w in (256, 512, 1024)
+                         for t in (256, 512)],
     }
+
+
+def flagship_ais(torch, kt, old, grid, report):
+    """#7 and #8 over ``grid`` (walkers, threads) on the two
+    ensembles of a sample run; returns the count of geometries (and
+    parent runs) whose bits differ from this checkout's default."""
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.core import ais as AI
+    from kissabc_tpu_torch.ops import fused_ais as FA
+    from kissabc_tpu_torch.ops import lane_groups as LG
+
+    dev = torch.device("cuda")
+    n, h = 131072, 65536
+    seed = torch.tensor([2024], dtype=torch.int64, device=dev)
+    words13 = torch.cat([FA.uint32_words(
+        torch.Generator(device=dev).manual_seed(5), 12), seed])
+    prior = models.flagship()[0]
+    model_k = kt.ApproxKernelizedPosterior(
+        prior, kt.make_flagship_cost_batched(), 0.005, cost_vectorized=True)
+    th, ld, _ = AI._init_ensemble(
+        model_k, torch.Generator(device=dev).manual_seed(0), n, 100)
+    ensembles = {"init of sample(key=0)": (th, ld)}
+    sweep8 = kt.make_fused_flagship_ais_sweep_onekernel(n, scale=0.005)
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(100):
+        th, ld = sweep8(g7, th, ld)
+    ensembles["after 100 sweeps"] = (th, ld)
+    trees = {"this": (FA, kt)} | ({"parent": (old.ops.fused_ais, old)}
+                                  if old else {})
+    models_ = {(who, full): (mk(n, scale=0.005).model, fa)
+               for who, (fa, pkg) in trees.items()
+               for full, mk in ((False, pkg.make_fused_flagship_ais_sweep),
+                                (True, pkg.
+                                 make_fused_flagship_ais_sweep_onekernel))}
+    bad = 0
+    for ename, (th, ld) in ensembles.items():
+        ins = [x.contiguous() for x in (*th, *ld)]
+        outs = [torch.empty_like(x) for x in ins]
+        for full in (False, True):
+            name = "#8 fused_ais_full" if full else "#7 fused_ais_half"
+            kernel = "fused_ais_full_kernel" if full else (
+                "fused_ais_half_kernel")
+
+            # each tree's launch arguments, made once: raw words, or the
+            # parent's shifts and seed
+            args = {who: ais_args(m, fa, torch, words13, h, True) if full
+                    else [ais_args(m, fa, torch, torch.cat(
+                        [words13[6 * k:6 * k + 6], seed]), h, False)
+                        for k in (0, 1)]
+                    for (who, f), (m, fa) in models_.items() if f == full}
+
+            def sweep(who="this", geometry=None, keep=True):
+                m, fa = models_[who, full]
+                if full:
+                    launch_ais(m, fa, ins, None, args[who], outs, geometry)
+                else:
+                    for half, (sl, co) in enumerate(
+                            ((slice(0, h), slice(h, n)),
+                             (slice(h, n), slice(0, h)))):
+                        comp = [(ins if half == 0 else outs)[k][co]
+                                for k in (0, 1)]
+                        launch_ais(m, fa, [x[sl] for x in ins], comp,
+                                   args[who][half], [o[sl] for o in outs],
+                                   geometry)
+                return [x.clone() for x in outs] if keep else None
+
+            def times(**kw):
+                return dict(
+                    device_ms=CS.device_ms(
+                        torch, lambda: sweep(keep=False, **kw), 20, kernel,
+                        per_call=1 if full else 2),
+                    queued_ms=CS.queued_ms(
+                        torch, lambda: sweep(keep=False, **kw), 20))
+
+            ref = sweep()
+            m = models_["this", full][0]
+            sh = torch.cat([FA.rot_shifts6(words13[:6], h),
+                            FA.rot_shifts6(words13[6:12], h)])
+            inside = int(m.full_plain(*ins, sh, seed)[4].sum()) if full \
+                else None
+            default = FA.flagship_geometry(h, LG.sm_count(0))
+            rec = dict(case=f"{name}, {ename}", walkers=default.walkers,
+                       threads=default.threads, default=True, inside=inside,
+                       **times())
+            if old:
+                rec["parent_same_bits"] = CS.same_bits(sweep("parent"), ref)
+                bad += not rec["parent_same_bits"]
+                turns = [times(who=who) for who in ("parent", "this",
+                                                    "this", "parent")]
+                rec["parent_ms"] = [turns[0]["device_ms"],
+                                    turns[3]["device_ms"]]
+                rec["this_ms"] = [t["device_ms"] for t in turns[1:3]]
+                rec["parent_queued_ms"] = [turns[0]["queued_ms"],
+                                           turns[3]["queued_ms"]]
+                rec["this_queued_ms"] = [t["queued_ms"] for t in turns[1:3]]
+            report(**rec)
+            for w, t in grid:
+                ok = CS.same_bits(sweep(geometry=(w, t)), ref)
+                bad += not ok
+                report(case=f"{name}, {ename}", walkers=w, threads=t,
+                       same_bits=ok, **times(geometry=(w, t)),
+                       **({"blocks_per_sm": FA.full_grid(
+                           h, FA.check_geometry(h, w, t))[0]}
+                          if full else {}))
+    return bad
 
 
 def nvcc_seconds(build, text):
@@ -88,6 +207,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--kernels", choices=("all", "78"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -112,6 +232,11 @@ def main():
 
     def report(**kw):
         print(json.dumps(kw), flush=True)
+
+    # ---- #7 and #8 -------------------------------------------------------
+    bad += flagship_ais(torch, kt, old, grid["flagship ais"], report)
+    if args.kernels == "78":
+        return finish(bad)
 
     g10 = kt.make_fused_abcde_generation(fprior, fdraw, freduce,
                                          gamma=2.38 / 2.0)
@@ -307,6 +432,11 @@ def main():
                        n, w, t, lanes, sw.nstats, LG.ALL_LANES)),
                    blocks_per_sm=gsw.occupancy(geo))
 
+    return finish(bad)
+
+
+def finish(bad):
+    """The last line: the card, its power limit and the unequal count."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
