@@ -28,10 +28,13 @@ and checks each posterior against its limits (slices 4 and 5 add AIS,
 tsmc, pfilter and ABCDE and their kernels). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
-and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads,
-which must give equal outputs; ``ais-stub`` and ``ais-kernel-times`` hand
-#7 and #8 raw words (their kernels derive the shifts) and check and time
-them at each geometry of ``GEOMETRIES_78``. Every
+and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
+and kernel #2 (which takes the step's raw words and derives its partners)
+at each geometry of ``GEOMETRIES_2``, ``scan-kernel-times`` kernel #5 in
+blocks of ``SCAN_THREADS``, all of which must give equal outputs;
+``ais-stub`` and ``ais-kernel-times`` hand #7 and #8 raw words (their
+kernels derive the shifts) and check them on two word sets and time them
+at each geometry of ``GEOMETRIES_78``. Every
 phase prints one line with its result and seconds; any failed check
 raises and the script exits non-zero. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
@@ -297,6 +300,10 @@ GEOMETRIES_6 = [(512, 512, 1), (512, 512, 4), (1024, 512, 4), (256, 512, 4),
 # (walkers, threads) of #7 and #8 (one lane a walker)
 GEOMETRIES_78 = [(512, 512), (512, 256), (256, 256), (256, 512), (1024, 512),
                  (128, 128)]
+# (walkers, threads) of #2 (one lane a walker), and the block sizes of #5
+GEOMETRIES_2 = [(1024, 512), (1024, 1024), (512, 512), (512, 256),
+                (256, 256), (256, 512), (1024, 256), (128, 128)]
+SCAN_THREADS = (64, 128, 256, 512)
 
 
 def same_bits(a, b):
@@ -368,6 +375,7 @@ def main():
     from kissabc_tpu_torch.ops import fused_tempered as FT
     from kissabc_tpu_torch.ops import kernels as K
     from kissabc_tpu_torch.ops import lane_groups as LG
+    from kissabc_tpu_torch.ops import moves as M
     from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
@@ -639,14 +647,17 @@ def main():
             want = K.normal_summary_cost_plain(mu[:nn], sg[:nn], 42, **kw)
             errs.append(assert_close(torch, got, want,
                                      f"normal_summary_cost stub n={nn}"))
-        dmu, dsg = uniform(n, -0.5, 0.5), uniform(n, -0.02, 0.02)
+        # kernel #2 takes the step's raw words and derives its partners;
+        # its plain version takes the rolls roll_shifts makes of them
         xs = torch.ones(n, device=dev)
         lps = torch.full((n,), -3.0, device=dev)
         skw = dict(ndraws=nd, bits="stub", block=2048, chunk=512)
-        got = K.fused_sweep(mu, sg, dmu, dsg, xs, lps, 0.5, 7, **skw)
         consts = K.fused_sweep_constants(
             max_stretch=2.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05, sg_lo=0.0,
             sg_hi=100.0)
+        words = torch.tensor([4, 75, 7], dtype=torch.int64, device=dev)
+        got = K.fused_sweep_words(mu, sg, xs, lps, 0.5, words, **skw)
+        dmu, dsg = K.sweep_partners(mu, sg, words)
         want = K.fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, 0.5, 7,
                                    consts=consts, target_mu=2.0,
                                    target_sd=0.04, sd_weight=50.0, **skw)
@@ -657,8 +668,16 @@ def main():
                         "fused_sweep stub")
         acc = int(got[4].sum())
         check(0 < acc < n, f"fused_sweep stub accepted {acc} of {n}")
+        for w, t in GEOMETRIES_2:   # the same bits on each
+            geo = K.check_sweep_geometry(n, w, t)
+            other = K.fused_sweep_words(mu, sg, xs, lps, 0.5, words,
+                                        geometry=geo, **skw)
+            check(same_bits(other, got), f"#2 stub: {geometry_key(geo)} "
+                  "differs from the default")
         ph.result = (f"cost max|err| {max(errs):.3g}; sweep max|err| "
-                     f"{err:.3g}, {acc} commits, {border} borderline")
+                     f"{err:.3g}, {acc} commits, {border} borderline; the "
+                     f"sweep's outputs equal bit for bit on "
+                     f"{len(GEOMETRIES_2)} geometries")
 
     with Phase("no-write-past-n") as ph:
         # buffers longer than n, filled with sentinels: a launch over n
@@ -675,9 +694,12 @@ def main():
             target_sd=0.04, sd_weight=50.0, block=1024, chunk=512,
             bits="hw", walker_tiles=8)
         outs = [buf(float("nan")) for _ in range(4)] + [buf(7, torch.uint8)]
+        mu_b = buf(2.0)
+        mu_b[:n] = uniform(n, 1.9, 2.1)
         K.launch_fused_sweep(
-            n, (buf(2.0), buf(0.04), buf(0.01), buf(0.001), buf(1.0),
-                buf(0.0)), outs, torch.tensor([0.5], device=dev), seed,
+            n, (mu_b, buf(0.04), buf(1.0), buf(0.0)), outs,
+            torch.tensor([0.5], device=dev),
+            torch.tensor([3, 17, 5], dtype=torch.int64, device=dev),
             consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
             sd_weight=50.0, block=2048, chunk=512, bits="hw")
         torch.cuda.synchronize()
@@ -1032,39 +1054,79 @@ def main():
 
         n = 131072
         mu, sg = prior.sample_tree(gen, n)
-        r1, r2 = 5, 77
-        dmu = torch.roll(mu, r2) - torch.roll(mu, r1)
-        dsg = torch.roll(sg, r2) - torch.roll(sg, r1)
         xs = uniform(n, 0.0, 1.0)
         lps = prior.logpdf(prior.push_tree((mu, sg)))
-        args = (mu, sg, dmu, dsg, xs, lps, 0.5, seed)
-        got = K.fused_sweep(*args)
-        want = K.fused_sweep_plain(*args, consts=consts, ndraws=nd,
-                                   target_mu=2.0, target_sd=0.04,
-                                   sd_weight=50.0, block=2048, chunk=512,
-                                   bits="hw")
-        err2, border = compare_sweeps(torch, flagship_outputs(got),
-                                      flagship_outputs(want), 0.5,
-                                      "fused_sweep n=131072")
-        check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
-                        "fused_sweep n=131072")
-        ms2 = cuda_ms(torch, lambda: K.fused_sweep(*args), 50)
+        pkw = dict(consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
+                   sd_weight=50.0, block=2048, chunk=512, bits="hw")
+        # kernel #2 on the step's words: [4, 75] give the shifts (5, 77)
+        # of the JAX bench at n = 131072, then random words; each against
+        # the plain version on the rolls of the same words
+        words2 = {"shifts (5, 77)": torch.tensor(
+            [4, 75, 11], dtype=torch.int64, device=dev),
+            "random": FA.uint32_words(gen, 3)}
+        check(M.roll_shifts([4, 75], n) == (5, 77),
+              "words [4, 75] do not give the shifts (5, 77)")
+        err2, border, nsim2 = 0.0, {}, {}
+        for wname, words in words2.items():
+            got = K.fused_sweep_words(mu, sg, xs, lps, 0.5, words)
+            dmu, dsg = K.sweep_partners(mu, sg, words)
+            want = K.fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, 0.5,
+                                       words[2:], **pkw)
+            e, border[wname] = compare_sweeps(
+                torch, flagship_outputs(got), flagship_outputs(want), 0.5,
+                f"fused_sweep n=131072, {wname} words")
+            err2 = max(err2, e)
+            check_untouched(torch, (mu, sg, xs, lps), got[:4], got[4],
+                            f"fused_sweep n=131072, {wname} words")
+            # the bound counts the simulator only for the walkers that
+            # pass gate 1: no other walker's outputs depend on it
+            nsim2[wname] = int(K.fused_sweep_proposal_plain(
+                mu, sg, dmu, dsg, lps, words[2:], consts=consts, block=2048,
+                bits="hw")[3].sum())
+        words = words2["shifts (5, 77)"]
+        ms2 = cuda_ms(torch, lambda: K.fused_sweep_words(
+            mu, sg, xs, lps, 0.5, words), 50)
+        dmu, dsg = K.sweep_partners(mu, sg, words)
         plain2 = cuda_ms(torch, lambda: K.fused_sweep_plain(
-            *args, consts=consts, ndraws=nd, target_mu=2.0, target_sd=0.04,
-            sd_weight=50.0, block=2048, chunk=512, bits="hw"), 2, warmup=1)
-        # the bound counts the simulator only for the walkers that pass
-        # gate 1: no other walker's outputs depend on it
-        nsim2 = int(K.fused_sweep_proposal_plain(
-            mu, sg, dmu, dsg, lps, seed, consts=consts, block=2048,
-            bits="hw")[3].sum())
-        b2, by2 = bound(K.fused_sweep_work(n, nd, nsim2))
+            mu, sg, dmu, dsg, xs, lps, 0.5, words[2:], **pkw), 2, warmup=1)
+        b2, by2 = bound(K.fused_sweep_work(n, nd, nsim2["shifts (5, 77)"]))
+        # the kernel's own time by the profiler and by queued events at
+        # each geometry of GEOMETRIES_2, which must give the default's
+        # outputs bit for bit
+        geo2 = K.sweep_geometry(n, LG.sm_count(0))
+        outs2 = tuple(torch.empty_like(mu) for _ in range(4)) + (
+            torch.empty(n, dtype=torch.bool, device=dev),)
+
+        def sweep2(geo):
+            K.launch_fused_sweep(n, (mu, sg, xs, lps), outs2, 0.5, words,
+                                 geometry=geo, **pkw)
+
+        sweep2(geo2)
+        ref2 = [x.clone() for x in outs2]
+        by_geometry2 = {}
+        for w, t in [(geo2.walkers, geo2.threads)] + [
+                g for g in GEOMETRIES_2 if g != (geo2.walkers, geo2.threads)]:
+            geo = K.check_sweep_geometry(n, w, t)
+            sweep2(geo)
+            check(same_bits(list(outs2), ref2), f"fused_sweep hw: "
+                  f"{geometry_key(geo)} differs from {geometry_key(geo2)}")
+            by_geometry2[geometry_key(geo)] = dict(
+                device_ms=device_ms(torch, lambda: sweep2(geo), 20,
+                                    "fused_sweep_kernel"),
+                queued_ms=queued_ms(torch, lambda: sweep2(geo), 20))
         records.append(dict(
             name="fused_sweep", route="cuda",
             source="kissabc_tpu_torch/csrc/flagship.cu",
             replaces="kissabc_tpu/ops/pallas_kernels.py:295",
             launches=sweep_launches, max_abs_err=err2, matched=True,
             ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
-            library_ms=None, simulated_share=nsim2 / n))
+            library_ms=None, simulated_share=nsim2["shifts (5, 77)"] / n,
+            geometry=geometry_key(geo2),
+            device_ms=by_geometry2[geometry_key(geo2)]["device_ms"],
+            queued_ms=by_geometry2[geometry_key(geo2)]["queued_ms"],
+            by_geometry=by_geometry2,
+            registers=[line for line in ptxas.get("flagship", [])
+                       if "fused_sweep" in line]))
         # the generic kernels at the shapes of the 2**20 generic path. No
         # single PyTorch call streams a user simulator per walker (or fuses
         # a sweep around one), so library_ms is null for both.
@@ -1142,9 +1204,10 @@ def main():
             simulated_share=nsim / n, threads=F.SWEEP_THREADS,
             unequal=unequal_committed(got, want), by_threads=by_threads))
         ph.result = (f"normal_summary_cost {ms1:.3f} ms (bound {b1:.3f}); "
-                     f"fused_sweep {ms2:.3f} ms (bound {b2:.3f}, {nsim2} "
-                     f"of 131072 walkers pass gate 1), "
-                     f"{border} borderline commits; streaming_moment_cost "
+                     f"fused_sweep {ms2:.4f} ms (bound {b2:.4f}, {nsim2} "
+                     f"of 131072 walkers pass gate 1), borderline commits "
+                     f"{border}; by geometry {json.dumps(by_geometry2)}; "
+                     f"streaming_moment_cost "
                      f"{ms3:.3f} ms (bound {b3:.3f}); fused_smc_sweep "
                      f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
                      f"pass gate 1), {border4} borderline, blocks of "
@@ -1170,16 +1233,34 @@ def main():
         b5, by5 = bound(c.work(n, 2))
         regs = [line for names, lines in ptxas.items() if "scan ar1" in names
                 for line in lines]
+        # the kernel's own time by the profiler and by queued events in
+        # blocks of SCAN_THREADS, which must give equal outputs
+        leaves5 = [x.contiguous() for x in th]
+        out5 = torch.empty((2, n), device=dev)
+        by_threads5 = {}
+        for t in SCAN_THREADS:
+            c.launch(n, leaves5, seed, out5, n, structure=2, threads=t)
+            check(same_bits(list(out5), list(got)), f"scan: blocks of {t} "
+                  f"differ from blocks of {SC.SCAN_THREADS}")
+            by_threads5[t] = dict(
+                device_ms=device_ms(torch, lambda: c.launch(
+                    n, leaves5, seed, out5, n, structure=2, threads=t), 20,
+                    "streaming_scan_cost_kernel"),
+                queued_ms=queued_ms(torch, lambda: c.launch(
+                    n, leaves5, seed, out5, n, structure=2, threads=t), 20))
         records.append(dict(
             name="streaming_scan_cost", route="cuda",
             source="kissabc_tpu_torch/csrc/scan.cuh",
             replaces="kissabc_tpu/ops/pallas_kernels.py:2800",
             launches=scan_launches, max_abs_err=err5, matched=True, ms=ms5,
-            plain_ms=plain5, bound_ms=b5, bound_by=by5, library_ms=None))
+            plain_ms=plain5, bound_ms=b5, bound_by=by5, library_ms=None,
+            threads=SC.SCAN_THREADS, by_threads=by_threads5, registers=regs))
         ph.result = (f"n={n} x {nsteps} steps: {ms5:.4f} ms, "
                      f"{n * nsteps / (ms5 / 1e3) / 1e9:.2f} Gsteps/s, bound "
                      f"{b5:.4f} ms ({by5}), plain {plain5:.1f} ms, max|err| "
-                     f"{err5:.3g} ({unequal} unequal values); ptxas {regs}")
+                     f"{err5:.3g} ({unequal} unequal values); blocks of "
+                     f"{SC.SCAN_THREADS}; by block size "
+                     f"{json.dumps(by_threads5)}; ptxas {regs}")
 
     # ---- slice 4: AIS --------------------------------------------------
     def ais_compare(got, want, inputs, what, margin):
@@ -1352,41 +1433,55 @@ def main():
         times, plain_ms = {}, {}   # plain: one whole sweep, the same inputs
         m7 = FA.FlagshipAIS(scale=0.005, block=2048, bits="hw", **fl_kw)
         m8 = FA.FlagshipAIS(scale=0.005, block=1024, bits="hw", **fl_kw)
-        sh = shifts_of(words_h65536, h)
+        sh = shifts_of(words_h65536, h)   # #6 takes shifts
         check(torch.equal(sh, shifts12), "words_h65536 give other shifts")
-        wa, wb = (torch.cat([words_h65536[k:k + 6], seed_t]) for k in (0, 6))
         outs7 = [torch.empty_like(x) for x in ins]
+        outs8 = [torch.empty_like(x) for x in ins]
+        cur = {}   # the word set the sweeps run on
 
         def sweep7(geo=None):
+            wa, wb = (torch.cat([cur["words"][k:k + 6], seed_t])
+                      for k in (0, 6))
             m7.launch_half([x[:h] for x in ins], [x[h:] for x in ins[:2]],
                            wa, [o[:h] for o in outs7], geo)
             m7.launch_half([x[h:] for x in ins], [o[:h] for o in outs7[:2]],
                            wb, [o[h:] for o in outs7], geo)
 
         def plain7():   # half B against the updated half A, as sweep7
+            shw = shifts_of(cur["words"], h)
             a = m7.half_plain(*(x[:h] for x in ins), ins[0][h:], ins[1][h:],
-                              sh[:6], seed_t)
+                              shw[:6], seed_t)
             return a, m7.half_plain(*(x[h:] for x in ins), a[0], a[1],
-                                    sh[6:], seed_t)
-
-        sweep7()
-        (a7, b7), plain_ms["fused_ais_half"] = cuda_timed(torch, plain7)
-        want7 = [torch.cat([a, b]) for a, b in zip(a7, b7)]
-        err7 = ais_compare(outs7, want7[:4], ins, "fused_ais_half hw",
-                           want7[5])
-        nsim7 = int(a7[4].sum() + b7[4].sum())
-        times["fused_ais_half"] = cuda_ms(torch, sweep7, 20)
-        outs8 = [torch.empty_like(x) for x in ins]
+                                    shw[6:], seed_t)
 
         def sweep8(geo=None):
-            m8.launch_full(ins, words_h65536, outs8, geo)
+            m8.launch_full(ins, cur["words"], outs8, geo)
 
-        sweep8()
-        want8, plain_ms["fused_ais_full"] = cuda_timed(
-            torch, lambda: m8.full_plain(*ins, sh, seed_t))
-        err8 = ais_compare(outs8, list(want8[:4]), ins, "fused_ais_full hw",
-                           want8[5])
-        nsim8 = int(want8[4].sum())
+        # #7 and #8 against their plain versions on both word sets (C2:
+        # words13's shifts put a walker near the target); the times on
+        # words13, the last
+        res7, res8 = {}, {}
+        for wname, words in (("words_h65536", words_h65536),
+                             ("words13", words13)):
+            cur["words"] = torch.cat([words[:12], seed_t])
+            sweep7()
+            (a7, b7), plain_ms["fused_ais_half"] = cuda_timed(torch, plain7)
+            want7 = [torch.cat([a, b]) for a, b in zip(a7, b7)]
+            res7[wname] = ais_compare(outs7, want7[:4], ins,
+                                      f"fused_ais_half hw, {wname}",
+                                      want7[5])
+            nsim7 = int(a7[4].sum() + b7[4].sum())
+            sweep8()
+            want8, plain_ms["fused_ais_full"] = cuda_timed(
+                torch, lambda: m8.full_plain(*ins, shifts_of(
+                    cur["words"], h), seed_t))
+            res8[wname] = ais_compare(outs8, list(want8[:4]), ins,
+                                      f"fused_ais_full hw, {wname}",
+                                      want8[5])
+            nsim8 = int(want8[4].sum())
+        err7 = (max(r[0] for r in res7.values()),) + res7["words13"][1:]
+        err8 = (max(r[0] for r in res8.values()),) + res8["words13"][1:]
+        times["fused_ais_half"] = cuda_ms(torch, sweep7, 20)
         times["fused_ais_full"] = cuda_ms(torch, sweep8, 20)
         # #7's and #8's own time by the profiler and by queued events, at
         # the default geometry and at each of GEOMETRIES_78, which must give
@@ -1505,7 +1600,8 @@ def main():
             for k in times) + (
             f"; inside the prior {nsim7}, {nsim8}, {nsim6} of {n}; "
             f"(max|err|, unequal committed values, commits, borderline) "
-            f"#7 {err7}, #8 {err8}, #6 {err6}; #7, #8 on the card by the "
+            f"#7 {json.dumps(res7)}, #8 {json.dumps(res8)}, #6 {err6}; "
+            f"#7, #8 on the card by the "
             f"profiler and by queued events, by geometry "
             f"{json.dumps({k: v['by_geometry'] for k, v in extra78.items()})}"
             f"; #6 on the card "

@@ -271,14 +271,15 @@ __device__ __forceinline__ void ais_accept(
     const float* __restrict__ mu, const float* __restrict__ sg,
     const float* __restrict__ lp, const float* __restrict__ ll, float* omu,
     float* osg, float* olp, float* oll) {
-  float s1, s2;
+  float s1, s2, cost;
   if (c.stub) {
     moments_stub(b.sim_pid, b.seed, b.sim_ctr0, b.sim_sub, c.ndraws, c.chunk,
                  &s1, &s2);
+    cost = summary_cost(q.mu, q.sg, s1, s2, c.inv_n, c.tmu, c.tsd, c.sdw);
   } else {
     moments_philox(b.seed, kStreamAisSim, b.walker, c.ndraws, &s1, &s2);
+    cost = centred_cost(q.mu, q.sg, s1, s2, c.ndraws, c.tmu, c.tsd, c.sdw);
   }
-  float cost = summary_cost(q.mu, q.sg, s1, s2, c.inv_n, c.tmu, c.tsd, c.sdw);
   float t = cost * c.inv_scale;
   float llp = -0.5f * (t * t);
   float lp0 = lp[i], ll0 = ll[i];

@@ -53,7 +53,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "kt_normal_summary_cost": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
                                _I, _I, _I, _P],
-    "kt_fused_sweep": [_P] * 13 + [_I, _I] + [_F] * 11 + [_I, _I, _I, _P],
+    "kt_fused_sweep": [_P] * 5 + [_F] + [_P] * 6 + [_I, _P, _P, _I, _I, _P],
     "kt_fused_ais_half": [_P] * 11 + [_I, _P, _P, _I, _I, _P],
     "kt_fused_ais_full": [_P] * 9 + [_I, _P, _P, _I, _I, _P],
     "kt_fused_ais_full_grid": [_I, _I, _I, _P],
@@ -63,7 +63,8 @@ GEN_SIGNATURES = {
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _I, _I,
                                        _P],
     "kt_fused_smc_sweep_occupancy": [_I, _P],
-    "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _I,
+                                          _P],
     "kt_fused_ais_sweep": [_P] * 9 + [_I, _I, _P] + [_I] * 6 + [_P],
     "kt_fused_ais_sweep_occupancy": [_I, _I, _I, _P],
     "kt_fused_tempered_sweep": [_P] * 10 + [_I, _P, _I, _I, _P],

@@ -25,6 +25,7 @@ nothing overflows.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -32,7 +33,7 @@ import torch
 from scipy import special as sps
 
 from ..utils.rng import uint32_words
-from . import _build
+from . import _build, lane_groups
 from .moves import roll_shifts
 
 # launches of each CUDA kernel since the last reset (plain ints)
@@ -425,57 +426,168 @@ def fused_sweep_proposal_plain(mu, sg, dmu, dsg, lps, seed, *, consts,
     return pmu, psg, lpp, gate1
 
 
+def _sweep_kw(ndraws, target_mu, target_sd, sd_weight, block, chunk, bits):
+    return dict(ndraws=ndraws, target_mu=target_mu, target_sd=target_sd,
+                sd_weight=sd_weight, block=block, chunk=chunk, bits=bits)
+
+
 def fused_sweep(mu, sg, dmu, dsg, xs, lps, eps, seed, *, ndraws=1000,
                 target_mu=2.0, target_sd=0.04, sd_weight=50.0,
                 max_stretch=2.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
                 sg_lo=0.0, sg_hi=100.0, block=2048, chunk=512, bits="hw"):
-    """One fused smc rejuvenation sweep of the flagship model: per
-    walker, the proposal ``theta + dtheta*w`` with ``w ~ N(0,1) *
-    max_stretch/sqrt(2)``, the Uniform x TruncatedNormal prior logpdf,
-    the prior-only MH gate on log u, the simulator, and a commit where
-    the gate passed and the cost is below ``eps``.
+    """One fused smc rejuvenation sweep of the flagship model in the JAX
+    kernel's form (``_fused_sweep_call``): per walker, the proposal
+    ``theta + dtheta*w`` with ``w ~ N(0,1) * max_stretch/sqrt(2)``, the
+    Uniform x TruncatedNormal prior logpdf, the prior-only MH gate on log
+    u, the simulator, and a commit where the gate passed and the cost is
+    below ``eps``.
 
     ``dmu``/``dsg`` are the partner differences (two rolls, made by the
     caller). Returns ``(omu, osg, oxs, olps, commit)``; outputs of
-    walkers that do not commit equal their inputs bit for bit.
+    walkers that do not commit equal their inputs bit for bit. CPU
+    tensors only (the plain version): the kernel takes the step's raw
+    words and makes the partner differences itself, so on the card the
+    sweep is ``fused_sweep_words``.
     """
     n = mu.shape[0]
     dev = _check_vectors(n, mu=mu, sg=sg, dmu=dmu, dsg=dsg, xs=xs, lps=lps)
     _check_bits(bits, block, chunk)
+    if dev.type != "cpu":
+        raise ValueError(
+            "fused_sweep takes partner differences and runs on the CPU; "
+            "on the card the kernel derives them from the step's words: "
+            "call fused_sweep_words")
     consts = fused_sweep_constants(max_stretch=max_stretch, mu_lo=mu_lo,
                                    mu_hi=mu_hi, sg_sigma=sg_sigma,
                                    sg_lo=sg_lo, sg_hi=sg_hi)
-    kw = dict(ndraws=ndraws, target_mu=target_mu, target_sd=target_sd,
-              sd_weight=sd_weight, block=block, chunk=chunk, bits=bits)
+    return fused_sweep_plain(
+        mu, sg, dmu, dsg, xs, lps, eps, seed, consts=consts,
+        **_sweep_kw(ndraws, target_mu, target_sd, sd_weight, block, chunk,
+                    bits))
+
+
+def sweep_partners(mu, sg, words):
+    """The partner differences of a step's two shift words: ``roll(x,
+    r2) - roll(x, r1)`` with ``roll_shifts``' shifts (a host read of the
+    words; the kernel derives them in the card)."""
+    r1, r2 = roll_shifts([int(w) for w in words[:2].tolist()], mu.shape[0])
+    return (torch.roll(mu, r2) - torch.roll(mu, r1),
+            torch.roll(sg, r2) - torch.roll(sg, r1))
+
+
+def fused_sweep_words(mu, sg, xs, lps, eps, words, *, ndraws=1000,
+                      target_mu=2.0, target_sd=0.04, sd_weight=50.0,
+                      max_stretch=2.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
+                      sg_lo=0.0, sg_hi=100.0, block=2048, chunk=512,
+                      bits="hw", geometry=None):
+    """``fused_sweep`` on the step's raw words: ``words`` int64 [3], two
+    uint32 shift words and the seed. The partners are the rolls of
+    ``roll_shifts(words[:2], n)`` (``sweep_partners``). CPU tensors run
+    the plain version on those rolls; CUDA tensors launch
+    ``kt_fused_sweep``, which derives the shifts and the differences
+    itself (``words`` and a tensor ``eps`` must lie on the walkers' card;
+    a float ``eps`` is passed as an argument). ``geometry``: a
+    ``check_sweep_geometry`` result (default ``sweep_geometry``). This is
+    the sweep ``make_fused_flagship_sweep`` runs."""
+    n = mu.shape[0]
+    dev = _check_vectors(n, mu=mu, sg=sg, xs=xs, lps=lps)
+    _check_bits(bits, block, chunk)
+    if n < 3:
+        raise ValueError(f"the fused sweep needs n >= 3 walkers, got {n}")
+    if words.dtype != torch.int64 or words.shape != (3,):
+        raise ValueError(f"words must be int64 of shape (3,), got "
+                         f"{words.dtype} of shape {tuple(words.shape)}")
+    consts = fused_sweep_constants(max_stretch=max_stretch, mu_lo=mu_lo,
+                                   mu_hi=mu_hi, sg_sigma=sg_sigma,
+                                   sg_lo=sg_lo, sg_hi=sg_hi)
+    kw = _sweep_kw(ndraws, target_mu, target_sd, sd_weight, block, chunk,
+                   bits)
     if dev.type == "cpu":
-        return fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, eps, seed,
+        dmu, dsg = sweep_partners(mu, sg, words)
+        return fused_sweep_plain(mu, sg, dmu, dsg, xs, lps, eps, words[2:],
                                  consts=consts, **kw)
     outs = tuple(torch.empty_like(mu) for _ in range(4)) + (
         torch.empty(n, dtype=torch.bool, device=dev),)
-    launch_fused_sweep(
-        n, (mu, sg, dmu, dsg, xs, lps), outs,
-        torch.as_tensor(eps, dtype=torch.float32, device=dev).reshape(1),
-        _seed_tensor(seed, dev), consts=consts, **kw)
-    launches["fused_sweep"] += 1
+    launch_fused_sweep(n, (mu, sg, xs, lps), outs, eps, words,
+                       consts=consts, geometry=geometry, **kw)
     return outs
 
 
-def launch_fused_sweep(n, ins, outs, eps, seed, *, consts, ndraws,
-                       target_mu, target_sd, sd_weight, block, chunk, bits):
+# as in csrc/flagship.cu: threads a block, walkers a block at most
+SWEEP_MAX_THREADS, SWEEP_MAX_WALKERS = 1024, 1024
+
+
+def check_sweep_geometry(n, walkers, threads):
+    """The geometry of a launch of ``kt_fused_sweep`` over ``n`` walkers,
+    as a ``lane_groups.Geometry`` of one lane a walker, or ``ValueError``
+    for what the kernel cannot take (it returns
+    ``cudaErrorInvalidConfiguration``): threads a multiple of 32 in [32,
+    ``SWEEP_MAX_THREADS``], 1 to ``SWEEP_MAX_WALKERS`` walkers a block."""
+    if threads % 32 or not 32 <= threads <= SWEEP_MAX_THREADS:
+        raise ValueError(f"threads must be a multiple of 32 in [32, "
+                         f"{SWEEP_MAX_THREADS}], got {threads}")
+    if not 1 <= walkers <= SWEEP_MAX_WALKERS:
+        raise ValueError(f"walkers per block must be in [1, "
+                         f"{SWEEP_MAX_WALKERS}], got {walkers}")
+    return lane_groups.Geometry(-(-n // walkers), walkers, threads, 1)
+
+
+def sweep_geometry(n, sms=lane_groups.H100_SMS):
+    """The launch of ``kt_fused_sweep`` over ``n`` walkers on a card of
+    ``sms`` SMs: the walkers a block of ``lane_groups.pick`` for a light
+    model (about one block an SM, at most 1024 walkers), one thread each.
+    At n = 131072 on the H100, 1024 walkers on 1024 threads was the
+    fastest of the timed geometries on both the prior (44% pass gate 1)
+    and the population after 50 steps of ``fused-sweep`` (67%) (PERF.md
+    section 6): every compacted walker of a block then has its thread in
+    one pass."""
+    walkers = lane_groups.pick(n, sms, light=True)[0]
+    return check_sweep_geometry(n, walkers, walkers)
+
+
+def sweep_consts(consts, *, ndraws, target_mu, target_sd, sd_weight, block,
+                 chunk, bits):
+    """The float32 and int32 constant arrays ``kt_fused_sweep`` takes."""
+    f = np.array([np.float32(1.0 / ndraws), target_mu, target_sd, sd_weight,
+                  consts["inv_sqrt_d"], consts["mu_lo"], consts["mu_hi"],
+                  consts["sg_lo"], consts["sg_hi"], consts["lp_const"],
+                  consts["half_inv_var"]], np.float32)
+    i = np.array([ndraws, block, chunk, int(bits == "stub")], np.int32)
+    return f, i
+
+
+def launch_fused_sweep(n, ins, outs, eps, words, *, consts, ndraws,
+                       target_mu, target_sd, sd_weight, block, chunk, bits,
+                       geometry=None):
     """Launch ``kt_fused_sweep`` over the first ``n`` walkers: ``ins`` =
-    (mu, sg, dmu, dsg, xs, lps), ``outs`` = (omu, osg, oxs, olps, commit)
-    already-checked CUDA buffers, ``eps`` float32 and ``seed`` int64
-    one-element CUDA tensors; raises on a launch error."""
+    (mu, sg, xs, lps), ``outs`` = (omu, osg, oxs, olps, commit)
+    already-checked CUDA buffers, ``words`` the step's int64 [3] words
+    and ``eps`` a float or a one-element float32 tensor, both on the
+    walkers' card; raises on a launch error. Counts one launch."""
+    dev = ins[0].device
+    if words.device != dev:
+        raise ValueError(f"words lie on {words.device}, the walkers on {dev}")
+    if torch.is_tensor(eps):
+        if eps.device != dev or eps.dtype != torch.float32 or \
+                eps.numel() != 1:
+            raise ValueError(f"eps must be a float or a one-element float32 "
+                             f"tensor on {dev}, got {eps.dtype} on "
+                             f"{eps.device}")
+        eps_ptr, eps_value = eps.data_ptr(), 0.0
+    else:
+        eps_ptr, eps_value = None, float(eps)
+    g = geometry or sweep_geometry(n, lane_groups.sm_count(dev.index))
+    f, i = sweep_consts(consts, ndraws=ndraws, target_mu=target_mu,
+                        target_sd=target_sd, sd_weight=sd_weight, block=block,
+                        chunk=chunk, bits=bits)
     lib = _build.load()
     err = lib.kt_fused_sweep(
-        *(t.data_ptr() for t in ins), eps.data_ptr(), seed.data_ptr(),
-        *(t.data_ptr() for t in outs), n, ndraws,
-        float(np.float32(1.0 / ndraws)), target_mu, target_sd, sd_weight,
-        consts["inv_sqrt_d"], consts["mu_lo"], consts["mu_hi"],
-        consts["sg_lo"], consts["sg_hi"], consts["lp_const"],
-        consts["half_inv_var"], int(bits == "stub"), block, chunk,
-        _stream())
+        *(t.data_ptr() for t in ins), eps_ptr, eps_value,
+        words.contiguous().data_ptr(), *(t.data_ptr() for t in outs), n,
+        f.ctypes.data_as(ctypes.c_void_p), i.ctypes.data_as(ctypes.c_void_p),
+        g.walkers, g.threads, _stream())
     _build.check(lib, err, "fused_sweep")
+    launches["fused_sweep"] += 1
 
 
 def make_fused_flagship_sweep(n, *, ndraws: int = 1000,
@@ -488,9 +600,12 @@ def make_fused_flagship_sweep(n, *, ndraws: int = 1000,
                               bits: str = "hw"):
     """Fused one-kernel smc sweep for the flagship model. Returns
     ``step(gen, (mu, sg), xs, lps, eps) -> ((mu, sg), xs, lps, acc)``.
-    ``gen`` gives the two rotation shifts and the kernel seed; the
-    partner differences are two ``torch.roll``s. There is no ``alive``
-    or ``flag``: this step is not an ``smc(sweep_fused=)`` sweep."""
+    ``gen`` gives three uint32 words a step, the two rotation shifts'
+    words and the kernel seed; the step is ``fused_sweep_words`` on them:
+    on the card one draw of words and one launch, nothing read on the
+    host. ``eps`` a float or a one-element float32 tensor on the walkers'
+    device. There is no ``alive`` or ``flag``: this step is not an
+    ``smc(sweep_fused=)`` sweep."""
     if n < 3:
         raise ValueError(f"the fused sweep needs n >= 3 walkers, got {n}")
     kw = dict(ndraws=ndraws, target_mu=target_mu, target_sd=target_sd,
@@ -500,12 +615,9 @@ def make_fused_flagship_sweep(n, *, ndraws: int = 1000,
 
     def step(gen, thetas, xs, lps, eps):
         mu, sg = thetas
-        words = uint32_words(gen, 3)
-        r1, r2 = roll_shifts(words[:2].tolist(), n)
-        dmu = torch.roll(mu, r2) - torch.roll(mu, r1)
-        dsg = torch.roll(sg, r2) - torch.roll(sg, r1)
-        omu, osg, oxs, olps, commit = fused_sweep(
-            mu, sg, dmu, dsg, xs, lps, eps, words[2:], **kw)
+        words = uint32_words(gen, 3).to(mu.device)
+        omu, osg, oxs, olps, commit = fused_sweep_words(
+            mu, sg, xs, lps, eps, words, **kw)
         return (omu, osg), oxs, olps, commit.sum()
 
     return step

@@ -55,6 +55,10 @@ launches = {"streaming_scan_cost": 0}
 
 # Philox stream (third counter word) of the scan kernel, as in csrc/scan.cuh
 STREAM_SCAN = 6
+# threads a block of the scan kernel (one walker a thread): 512 was the
+# fastest of 64 to 512 at 131072 x 1000 steps on the H100 in two calls
+# (PERF.md section 6)
+SCAN_THREADS = 512
 
 
 def reset_launch_counts() -> None:
@@ -228,9 +232,10 @@ class StreamingScanCost:
         launches["streaming_scan_cost"] += 1
         return tuple(out)
 
-    def launch(self, n, leaves, seed, out, ld, *, structure):
+    def launch(self, n, leaves, seed, out, ld, *, structure, threads=None):
         """Launch over the first ``n`` walkers of checked CUDA buffers:
-        mean p of walker w goes to ``out.view(-1)[p*ld + w]``."""
+        mean p of walker w goes to ``out.view(-1)[p*ld + w]``; blocks of
+        ``threads`` (default ``SCAN_THREADS``). Counts no launch."""
         unit = self.unit(structure)
         sb_rows, sr = slab_rows(n, self.block, self.walker_tiles,
                                 self.sub_rows)
@@ -242,7 +247,7 @@ class StreamingScanCost:
             _build.pointers(leaves), seed.data_ptr(), series,
             out.data_ptr(), ld, n, self.nsteps,
             float(np.float32(1.0 / self.nsteps)), int(self.bits == "stub"),
-            sb_rows, sr, _stream())
+            sb_rows, sr, threads or SCAN_THREADS, _stream())
         _build.check(lib, err, "streaming_scan_cost")
 
     def __call__(self, thetas, gen):

@@ -13,9 +13,10 @@
 // block has passed the barrier's earlier side before any block runs on.
 // The static __shared__ variables are then reused from block to block, so
 // nothing in shared memory may stay live across the grid barrier (what the
-// card would keep). The float intrinsics round as plain float arithmetic:
-// the emulation checks the kernels' control flow and index arithmetic,
-// not the card's arithmetic.
+// card would keep). The float intrinsics round as plain float arithmetic
+// (but __fmaf_rn rounds once, as the card's FFMA, where KT_EMU_FUSED_FMA
+// is defined): the emulation checks the kernels' control flow and index
+// arithmetic, not the card's arithmetic.
 #pragma once
 #include <algorithm>
 #include <chrono>
@@ -90,10 +91,16 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) {
 inline float __fadd_rz(float a, float b) { return a + b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+#ifdef KT_EMU_FUSED_FMA
+// a fused multiply-add, one rounding, as the card's FFMA
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+#else
 inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
+#endif
 inline float __int2float_rn(int i) { return (float)i; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __ldcg(const float* p) { return *p; }
+inline float __ldg(const float* p) { return *p; }
 
 struct KtWarp {
   std::mutex m;

@@ -26,19 +26,15 @@ coordinates; their arithmetic on the card is held against the plain
 versions by chip_smoke.py. Skipped without a host C++ compiler.
 """
 
-import re
-import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import kissabc_tpu_torch as kt
+from host_cuda.build import build_program
 from kissabc_tpu_torch.ops import fused_ais as FA
 
-HOST = Path(__file__).parent / "host_cuda"
 H = 1100             # walkers a half: no block size divides it
 RTOL, ATOL, BORDER = 2e-4, 2e-5, 1e-4
 FL = dict(scale=0.1, target_mu=2.0, target_sd=0.04, sd_weight=50.0,
@@ -52,27 +48,8 @@ GEOMETRIES = [(512, 512), (512, 256), (256, 256), (256, 32), (1024, 512),
 @pytest.fixture(scope="module")
 def program(tmp_path_factory):
     """The emulated program's executable."""
-    if shutil.which("g++") is None:
-        pytest.skip("no host C++ compiler (g++) to build the emulation")
-    root = tmp_path_factory.mktemp("ais_compaction")
-    csrc = Path(kt.__file__).parent / "csrc"
-    for f in list(csrc.glob("*.cuh")) + [csrc / "ais.cu"]:
-        text = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*"
-                      r"\(cudaStream_t\)stream>>>\(",
-                      r"kt_launch(\1, \2, \3, \4, ", f.read_text())
-        text = text.replace(
-            'asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(v));',
-            "rs = 1.0f / sqrtf(v);")
-        (root / f.name).write_text(text)
-    for name in ("cuda_runtime.h", "cooperative_groups.h", "ais_main.cpp"):
-        shutil.copy(HOST / name, root)
-    exe = root / "ais_main"
-    p = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
-                        "-pthread", "-w", "-I", str(root),
-                        str(root / "ais_main.cpp"), "-o", str(exe)],
-                       capture_output=True, text=True)
-    assert p.returncode == 0, f"g++ failed:\n{p.stderr}"
-    return exe
+    return build_program(tmp_path_factory.mktemp("ais_compaction"),
+                         "ais.cu", "ais_main.cpp")
 
 
 def _words(rng, count):

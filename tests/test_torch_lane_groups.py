@@ -15,7 +15,6 @@ must take lanes 1 and 4 with the same bits and refuse the others.
 Skipped without a host C++ compiler.
 """
 
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +23,7 @@ import pytest
 import torch
 
 import kissabc_tpu_torch as kt
+from host_cuda.build import emulated
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import lane_groups as LG
 
@@ -54,16 +54,7 @@ def built(tmp_path_factory):
     root = tmp_path_factory.mktemp("lane_groups")
     csrc = Path(kt.__file__).parent / "csrc"
     for f in csrc.glob("*.cuh"):
-        text = f.read_text()
-        text = text.replace("extern __shared__ float s_dyn[];",
-                            "float* s_dyn = kt_dyn_smem<float>();")
-        text = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*"
-                      r"\(cudaStream_t\)stream>>>\(",
-                      r"kt_launch(\1, \2, \3, \4, ", text)
-        text = text.replace(
-            'asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(rs) : "f"(v));',
-            "rs = 1.0f / sqrtf(v);")
-        (root / f.name).write_text(text)
+        (root / f.name).write_text(emulated(f.read_text()))
     shutil.copy(HOST / "cuda_runtime.h", root)
     procs, exes = {}, {}
     for kind, stats in [(k, s) for k in ("abcde", "ais") for s in (2, 3, 1)

@@ -5,6 +5,14 @@ and its plain version on Philox bits, and which side of it is off.
     python3 tools/ais_plain_gap.py [--seeds N]
     python3 chip_smoke.py --save-ais-inputs P && \\
         python3 tools/ais_plain_gap.py --population P
+    python3 tools/ais_plain_gap.py --candidates
+
+With ``--candidates``: the float32 moment sums tried for the repair of
+ROADMAP C2 (``CANDIDATES``; the last is what ``csrc/moments.cuh``
+ships), each against float64 over its own draws beside the plain
+version against float64 over its own, at 65536 walkers whose proposals
+lie near the target, with each candidate's SASS instructions a draw
+(``ops/sass.py``; needs ``cuobjdump``).
 
 Without ``--population``: for each seed, a population of 131072 walkers
 from the flagship prior with its kernelized log-likelihoods (scale
@@ -38,6 +46,7 @@ limit. Needs one card and nvcc; imports nothing of JAX.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -164,10 +173,217 @@ def sweep_halves(torch, K, FA, m, ins, words, seed, label):
            {"plain": pb, "plain on the kernel's half A": pk}, seed)
 
 
+# The float32 moment sums and costs tried for the repair of C2, each as
+# a kernel over walkers of one Philox stream; candidate 4 is what
+# csrc/moments.cuh ships. kRef adds float64 sums of the same draws (a
+# separate instance, so the float instance's SASS is the candidate's).
+CANDIDATES = {0: "parent: one sum of squares, draw after draw",
+              1: "four partial sums, one per draw slot of a group",
+              2: "centred sum, fmaf(z, z, -1) a draw, vz = s2c/n + 1 - mz^2",
+              3: "compensated (Kahan) sum of squares",
+              4: "centred sum a group, cost on sd - 1 (shipped)"}
+CANDIDATE_SOURCE = r"""
+#include "common.cuh"
+#include "moments.cuh"
+namespace {
+template <int kCand, bool kRef>
+__global__ void candidate_kernel(const float* mu, const float* sg, int m,
+                                 uint32_t seed, uint32_t stream, int ndraws,
+                                 float* out, double* out64) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= m) return;
+  const float tmu = 2.0f, tsd = 0.04f, sdw = 50.0f;
+  float inv_n = 1.0f / (float)ndraws;
+  float s1 = 0.0f, s2 = 0.0f, cost;
+  if (kCand == 4) {
+    moments_philox(seed, stream, (uint32_t)w, ndraws, &s1, &s2);
+    cost = centred_cost(mu[w], sg[w], s1, s2, ndraws, tmu, tsd, sdw);
+    out[3 * w + 1] = s2;
+  } else {
+    PhiloxKey key = philox_key(seed);
+    float p[4] = {0.0f, 0.0f, 0.0f, 0.0f}, comp = 0.0f;
+    for (int q = 0; q < ndraws / 4; ++q) {
+      Words4 b = philox4x32_10((uint32_t)q, (uint32_t)w, stream, 0u, key);
+      float z[4];
+      box_muller(b.x0, b.x1, &z[0], &z[1]);
+      box_muller(b.x2, b.x3, &z[2], &z[3]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s1 += z[k];
+        if (kCand == 0) s2 = __fmaf_rn(z[k], z[k], s2);
+        if (kCand == 1) p[k] = __fmaf_rn(z[k], z[k], p[k]);
+        if (kCand == 2) s2 = __fadd_rn(s2, __fmaf_rn(z[k], z[k], -1.0f));
+        if (kCand == 3) {
+          float y = __fmaf_rn(z[k], z[k], -comp);
+          float t = __fadd_rn(s2, y);
+          comp = __fsub_rn(__fsub_rn(t, s2), y);
+          s2 = t;
+        }
+      }
+    }
+    if (kCand == 1) s2 = (p[0] + p[1]) + (p[2] + p[3]);
+    float mz = s1 * inv_n;
+    float vz = kCand == 2 ? __fmaf_rn(-mz, mz, __fmaf_rn(s2, inv_n, 1.0f))
+                          : __fmaf_rn(-mz, mz, s2 * inv_n);
+    float sd = sqrtf(fmaxf(vz, 0.0f));
+    float d1 = __fmaf_rn(sg[w], mz, mu[w]) - tmu;
+    float d2 = __fmul_rn(__fmaf_rn(sg[w], sd, -tsd), sdw);
+    cost = kCand == 0  // the parent's cost, as its kernels compiled it
+               ? summary_cost(mu[w], sg[w], s1, s2, inv_n, tmu, tsd, sdw)
+               : sqrtf(__fmaf_rn(d1, d1, __fmul_rn(d2, d2)));
+    out[3 * w + 1] = s2;
+  }
+  out[3 * w] = s1;
+  out[3 * w + 2] = cost;
+  if (kRef) {  // float64 over the same draws
+    PhiloxKey key = philox_key(seed);
+    double d1 = 0.0, d2 = 0.0;
+    for (int q = 0; q < ndraws / 4; ++q) {
+      Words4 b = philox4x32_10((uint32_t)q, (uint32_t)w, stream, 0u, key);
+      float z[4];
+      box_muller(b.x0, b.x1, &z[0], &z[1]);
+      box_muller(b.x2, b.x3, &z[2], &z[3]);
+      for (int k = 0; k < 4; ++k) {
+        d1 += z[k];
+        d2 += (double)z[k] * (double)z[k];
+      }
+    }
+    double mz = d1 / ndraws, vz = fmax(d2 / ndraws - mz * mz, 0.0);
+    out64[3 * w] = d1;
+    out64[3 * w + 1] = d2;
+    out64[3 * w + 2] = hypot((double)mu[w] + (double)sg[w] * mz - 2.0,
+                             ((double)sg[w] * sqrt(vz) - 0.04) * 50.0);
+  }
+}
+template <int kCand, bool kRef>
+int launch(const float* mu, const float* sg, int m, unsigned seed,
+           unsigned philox_stream, int ndraws, float* out, double* out64,
+           void* stream) {
+  auto kernel = candidate_kernel<kCand, kRef>;
+  kernel<<<(m + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      mu, sg, m, seed, philox_stream, ndraws, out, out64);
+  return (int)cudaGetLastError();
+}
+}  // namespace
+extern "C" int kt_candidate(int cand, int ref, const float* mu,
+                            const float* sg, int m, unsigned seed,
+                            unsigned stream, int ndraws, float* out,
+                            double* out64, void* st) {
+  typedef int (*Fn)(const float*, const float*, int, unsigned, unsigned, int,
+                    float*, double*, void*);
+  Fn fns[5][2] = {{launch<0, false>, launch<0, true>},
+                  {launch<1, false>, launch<1, true>},
+                  {launch<2, false>, launch<2, true>},
+                  {launch<3, false>, launch<3, true>},
+                  {launch<4, false>, launch<4, true>}};
+  return fns[cand][ref](mu, sg, m, seed, stream, ndraws, out, out64, st);
+}
+extern "C" const char* kt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+"""
+
+
+def candidates(torch, K, FA, m=65536, ndraws=1000):
+    """Each candidate's gap to float64 over its own draws against the
+    plain version's over its own, for walkers 0..m-1 of the AIS
+    simulator's stream (seed 2024; walker 33906 is C2's) at proposals
+    whose costs lie near the target (sigma within 1e-4 / sd_z of
+    target_sd / sd_z, mu within 3e-3 of the target mean): the 99th
+    percentile and the maximum of the sum of squares' absolute error and
+    of the cost's and ll's relative error; whether the candidate meets
+    the requirement (no farther off than the plain version at both); and
+    its SASS instructions a draw."""
+    import ctypes
+
+    from kissabc_tpu_torch.ops import _build, sass
+
+    dev = torch.device("cuda")
+    seed = torch.tensor([2024], dtype=torch.int64, device=dev)
+    # the plain version's draws and sums, and float64 over its draws
+    q = torch.arange(ndraws // 4, device=dev)
+    zs64, p1, p2 = [], [], []
+    for w0 in range(0, m, 8192):
+        w = torch.arange(w0, w0 + 8192, device=dev)
+        x0, x1, x2, x3 = K.philox4x32_10(q[None, :], w[:, None],
+                                         FA.STREAM_AIS_SIM, 0, seed)
+        za, zb = K._box_muller(x0, x1)
+        zc, zd = K._box_muller(x2, x3)
+        z = torch.stack((za, zb, zc, zd), 2).flatten(1).double()
+        zs64.append(torch.stack((z.sum(1), (z * z).sum(1)), 1))
+    z64 = torch.cat(zs64)
+    ps1, ps2 = K._moments_philox(seed, FA.STREAM_AIS_SIM, m, ndraws, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    mz = z64[:, 0] / ndraws
+    sd = torch.sqrt(z64[:, 1] / ndraws - mz * mz)
+    u = torch.rand((2, m), generator=gen, device=dev, dtype=torch.float64)
+    sg = ((0.04 + (2 * u[0] - 1) * 1e-4) / sd).float()
+    mu = (2.0 - sg.double() * mz + (2 * u[1] - 1) * 3e-3).float()
+
+    def f64_cost(s1, s2):
+        mzz = s1 / ndraws
+        vz = torch.clamp(s2 / ndraws - mzz * mzz, min=0.0)
+        return torch.hypot(mu.double() + sg.double() * mzz - 2.0,
+                           (sg.double() * torch.sqrt(vz) - 0.04) * 50.0)
+
+    def gaps(s2, s2_64, cost, cost64):
+        ll = lambda c: -0.5 * (c / SCALE) ** 2   # noqa: E731
+        e = {"s2_abs": (s2 - s2_64).abs(),
+             "cost_rel": (cost - cost64).abs() / cost64,
+             "ll_rel": (ll(cost) - ll(cost64)).abs() / ll(cost64).abs()}
+        return {k: [float(v.quantile(0.99)), float(v.max())]
+                for k, v in e.items()}
+
+    plain = gaps(ps2.double(), z64[:, 1],
+                 K._summary_cost(mu, sg, ps1, ps2, ndraws, *TARGET).double(),
+                 f64_cost(z64[:, 0], z64[:, 1]))
+    print(json.dumps(dict(candidate="plain version", walkers=m,
+                          **plain)), flush=True)
+    # built with the hand-written library's flags (FMA contraction on),
+    # so the draws and the loops are those of the shipped kernels
+    digest = _build._digest(*(h.read_bytes() for h in _build.HEADERS),
+                            CANDIDATE_SOURCE.encode(),
+                            " ".join(_build.NVCC_FLAGS).encode())
+    lib_path = _build.BUILD_DIR / f"libc2-candidates-{digest}.so"
+    src = lib_path.with_suffix(".cu")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(CANDIDATE_SOURCE)
+    _build._Job(lib_path, (src,), _build.NVCC_FLAGS).wait()
+    lib = _build._bind(lib_path, {})
+    fn = lib.kt_candidate
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int] + [
+        ctypes.c_void_p] * 3
+    per_draw = {}
+    for name, instrs in sass.functions(sass.disassemble(lib_path)).items():
+        t = re.search(r"candidate_kernelILi(\d)ELb0E", name)
+        loops = sass.draw_loops(instrs) if t else []
+        if loops:
+            per_draw[int(t.group(1))] = loops[0]["per_draw"]
+    for cand, what in CANDIDATES.items():
+        out = torch.empty((m, 3), device=dev)
+        out64 = torch.empty((m, 3), dtype=torch.float64, device=dev)
+        _build.check(lib, fn(cand, 1, mu.data_ptr(), sg.data_ptr(), m, 2024,
+                             FA.STREAM_AIS_SIM, ndraws, out.data_ptr(),
+                             out64.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream),
+                     "candidate")
+        s2 = out[:, 1].double() + (ndraws if cand in (2, 4) else 0)
+        g = gaps(s2, out64[:, 1], out[:, 2].double(), out64[:, 2])
+        meets = all(g[k][i] <= plain[k][i] for k in ("s2_abs", "cost_rel")
+                    for i in (0, 1))
+        print(json.dumps(dict(candidate=cand, what=what, walkers=m,
+                              sass_per_draw=per_draw.get(cand),
+                              meets_requirement=meets, **g)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=6)
     ap.add_argument("--population", metavar="PATH")
+    ap.add_argument("--candidates", action="store_true",
+                    help="only the float32 sums tried for C2, against the "
+                    "plain version")
     args = ap.parse_args()
     import torch
 
@@ -183,7 +399,9 @@ def main():
     n, h = 131072, 65536
     seed = torch.tensor([2024], dtype=torch.int64, device=dev)
     m = kt.make_fused_flagship_ais_sweep(n, scale=SCALE).model
-    if args.population:
+    if args.candidates:
+        candidates(torch, K, FA)
+    elif args.population:
         saved = torch.load(args.population)
         ins = [x.to(dev) for x in saved["ins"]]
         for name, words in saved["words"].items():

@@ -3,8 +3,8 @@
 goes on one CUDA card.
 
     python3 tools/profile_torch_smc.py
-        [--path flagship|generic|both|scan|perwalker|tsmc|abcde|all]
-        [--trace-dir DIR]
+        [--path flagship|generic|both|scan|perwalker|tsmc|abcde|sweep|all]
+        [--parent DIR] [--trace-dir DIR]
 
 Runs ``smc`` once warm without the profiler for the wall time, then once
 under ``torch.profiler``. ``--path flagship`` (the default) runs slice
@@ -21,8 +21,12 @@ with the split rejuvenation and with the fused tempered sweep (kernel
 #9) (``chip_smoke.py``'s ``tsmc-conjugate``); ``--path abcde`` runs
 ``ABCDE`` on the flagship model with the streaming cost at 16384
 particles for 100 generations at an unreachable eps, split and through
-the fused generation (kernel #10) (``abcde-fused``). ``all`` runs all
-six. For each run it prints one JSON line with
+the fused generation (kernel #10) (``abcde-fused``). ``--path sweep``
+runs ``chip_smoke.py``'s ``fused-sweep``, 100 steps of
+``make_fused_flagship_sweep`` (kernel #2) at 131072 walkers, with
+``--parent DIR`` in turns with the checkout under DIR (parent, this,
+this, parent), and adds updates/s and sync-or-copy calls per step.
+``all`` runs all seven. For each run it prints one JSON line with
 the wall time, the iterations (generations for ABCDE), the device busy
 time (the union of all CUDA kernel and copy intervals), the device idle
 share of the profiled window, the CUDA events and the port's kernel
@@ -148,14 +152,15 @@ def _modules():
     return (kernels, streaming, fused_smc, scan, fused_tempered, fused_abcde)
 
 
-def measure(torch, call, trace):
+def measure(torch, call, trace, modules=None):
     """Runs ``call()`` (one whole run of a sampler) warm, then timed,
     then under ``torch.profiler``. Returns (result, wall seconds, the
-    port's kernel launches of the timed run, the profiler, the profiled
-    wall seconds); ``trace`` names a Chrome trace to write, or None."""
+    kernel launches of the timed run counted by ``modules`` (default the
+    port's), the profiler, the profiled wall seconds); ``trace`` names a
+    Chrome trace to write, or None."""
     from torch.profiler import ProfilerActivity, profile
 
-    modules = _modules()
+    modules = modules or _modules()
 
     def run():
         for m in modules:
@@ -243,6 +248,46 @@ def profile_sampler(torch, kt, path, trace_dir):
     return out
 
 
+def profile_sweep(torch, trees, trace_dir, n=131072, steps=100):
+    """``chip_smoke.py``'s ``fused-sweep``: ``steps`` steps of
+    ``make_fused_flagship_sweep(n)`` at eps 0.5 from the prior, once warm
+    for the wall and updates/s, then under the profiler, for each tree of
+    ``trees`` (name -> package) in turn: one dict each."""
+    import importlib
+
+    out = []
+    for who, pkg in trees:
+        step = pkg.make_fused_flagship_sweep(n)
+        prior = importlib.import_module(
+            f"{pkg.__name__}.models").flagship()[0]
+        th0 = prior.sample_tree(torch.Generator(device="cuda").manual_seed(0),
+                                n)
+
+        def call():
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            th, xs = th0, torch.ones(n, device="cuda")
+            lps = torch.zeros(n, device="cuda")
+            acc = torch.zeros((), dtype=torch.int64, device="cuda")
+            for _ in range(steps):
+                th, xs, lps, a = step(gen, th, xs, lps, 0.5)
+                acc += a
+            return acc
+
+        trace = (os.path.join(trace_dir, f"sweep_{who}_{n}.json")
+                 if trace_dir else None)
+        acc, wall, launches, prof, wall_prof = measure(
+            torch, call, trace, modules=(pkg.ops.kernels,))
+        summary = device_summary(torch, prof, wall_prof, steps)
+        out.append({"path": "sweep", "tree": who, "nparticles": n,
+                    "steps": steps, "wall_s": wall,
+                    "updates_per_s": n * steps / wall,
+                    "accept_fraction": int(acc) / (n * steps), **summary,
+                    "sync_or_copy_per_step":
+                        summary["sync_or_copy_calls"] / steps,
+                    "kernel_launches": launches, "trace": trace})
+    return out
+
+
 def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
     prior, cost, base, _ = spec
     kw = dict(base, **kw)
@@ -269,8 +314,12 @@ def profile_run(torch, kt, path, spec, nparticles, trace_dir, **kw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("flagship", "generic", "both", "scan",
-                                       "perwalker", "tsmc", "abcde", "all"),
+                                       "perwalker", "tsmc", "abcde", "sweep",
+                                       "all"),
                     default="flagship")
+    ap.add_argument("--parent", default=None,
+                    help="with --path sweep: also the checkout under DIR, "
+                    "in turns (parent, this, this, parent)")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     import torch
@@ -288,8 +337,19 @@ def main():
     print(smi.stdout.strip(), flush=True)
     paths = {"both": ("flagship", "generic"),
              "all": ("flagship", "generic", "scan", "perwalker", "tsmc",
-                     "abcde")}.get(args.path, (args.path,))
+                     "abcde", "sweep")}.get(args.path, (args.path,))
     for path in paths:
+        if path == "sweep":
+            trees = [("this", kt)]
+            if args.parent:
+                sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+                from same_bits import load_package
+                old = load_package(args.parent, "kt_parent")
+                trees = [("parent", old), ("this", kt), ("this", kt),
+                         ("parent", old)]
+            for row in profile_sweep(torch, trees, args.trace_dir):
+                print(json.dumps(row), flush=True)
+            continue
         if path in ("tsmc", "abcde"):
             for row in profile_sampler(torch, kt, path, args.trace_dir):
                 print(json.dumps(row), flush=True)

@@ -7,7 +7,9 @@ CUDA kernels, and the issue floor they set.
 Builds (with the checkout at ``--repo``, default this one) the
 hand-written library (``csrc/flagship.cu`` + ``csrc/ais.cu``) and the
 generated units of the flagship model for the fused smc sweep (with the
-streaming cost), the generic AIS sweep and the ABC-DE generation, runs
+streaming cost), the generic AIS sweep and the ABC-DE generation, and the
+scan kernel's units of AR(1) and SIR (whose loops count per step: an
+angle gives the noise of two steps), runs
 ``cuobjdump -sass`` on each, writes the listings to ``--out``, and prints
 one JSON line per kernel with a draw loop: each innermost loop's
 instructions, its Box-Muller angles (two draws each), instructions per
@@ -15,7 +17,8 @@ draw, its commonest opcodes, and the issue floor of 1000 draws for 2**20
 walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``),
 and, for the compacting kernels (#6, #10, whose template arguments
 <stub, lanes> are parsed from the name, and #7, #8), the floor for the
-walkers they simulate at their production widths (``--sim``; the loop's
+walkers they simulate at their production widths (#2 at 131072 from the
+prior, the scan kernel at 131072 x 1000 steps; ``--sim``; the loop's
 count is per draw per lane, so the floor counts every lane's share).
 Then, on the card, it runs kernel #1 (``normal_summary_cost``, 2**20
 walkers x 1000 Philox draws) back to back for about two seconds while
@@ -40,7 +43,9 @@ import time
 # prior (chip_smoke.py ais-kernel-times; #7's and #8's loops are in the
 # hand-written library)
 SIMULATED = ["abcde:16384:5318", "abcde:131072:42876", "ais:131072:77645",
-             "flagship:ais7:77996", "flagship:ais8:77883"]
+             "flagship:ais7:77996", "flagship:ais8:77883",
+             "flagship:sweep2:58068", "scan ar1:131072:131072",
+             "scan sir:131072:131072"]
 
 
 def smi(query):
@@ -80,6 +85,16 @@ def main():
                                       scale=0.005).unit,
         "abcde": kt.make_fused_abcde_generation(
             prior, draw, reduce_cost, gamma=1.19).unit}
+    # the scan kernel's units: AR(1) (bench.py's streaming-scan) and SIR
+    # with a series; a step loop's count is per step (each Box-Muller
+    # angle gives the noise of two steps)
+    _, astep, ainit, areduce = models.ar1()
+    _, sstep, sinit, sobs, sreduce, series = models.sir()
+    units["scan ar1"] = kt.make_streaming_scan_cost(
+        astep, ainit, areduce, nsteps=1000).unit(2)
+    units["scan sir"] = kt.make_streaming_scan_cost(
+        sstep, sinit, sreduce, observe=sobs, series=series,
+        nsteps=len(series)).unit(2)
     jobs = {"flagship": _build.start()}
     jobs.update({k: _build.start(u.source) for k, u in units.items()})
     clock = float(smi("clocks.max.sm") or "nan")
@@ -91,7 +106,8 @@ def main():
     for name, job in jobs.items():
         lib = job.wait()[0]
         text = sass.disassemble(lib)
-        with open(os.path.join(args.out, f"{name}.sass"), "w") as f:
+        with open(os.path.join(args.out, f"{name.replace(' ', '_')}.sass"),
+                  "w") as f:
             f.write(text)
         for fn, instrs in sorted(sass.functions(text).items()):
             found = sass.draw_loops(instrs)

@@ -7,7 +7,17 @@ checks that every geometry gives the outputs of the default one bit for
 bit.
 
     python3 tools/time_geometry.py [--parent DIR] [--quick]
-                                   [--kernels all|78]
+                                   [--kernels all|78|2|5]
+
+#2 ``fused_sweep`` (``--kernels 2``, alone): one sweep at 131072 walkers
+on the prior (``chip_smoke.py`` ``kernel-times``' inputs) and on the
+population after 50 steps of ``fused-sweep``, at 256, 512 and 1024
+walkers a block on 256 or 512 threads and at 128 on 128, each by the
+profiler and by queued events; with ``--parent``, the parent's kernel on
+the rolls of the same words in turns with this checkout's default. #5
+``streaming_scan_cost`` (``--kernels 5``, alone): AR(1) at 131072 x 1000
+steps in blocks of 64 to 512 threads, the parent in turns, after the
+``ptxas`` registers of each tree's AR(1) and SIR units.
 
 #7 and #8 (``--kernels 78`` times them alone): one sweep at 131072
 walkers from the init of ``sample(key=0)`` (59% inside the prior) and
@@ -45,6 +55,7 @@ Needs one card and nvcc; imports nothing of JAX.
 """
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -56,7 +67,7 @@ sys.path.insert(0, os.path.join(HERE, "tools"))
 
 import chip_smoke as CS                                  # noqa: E402
 from same_bits import (ais_args, flat, launch_ais,         # noqa: E402
-                       load_package)
+                       load_package, philox_moments_changed)
 
 
 def grids(quick):
@@ -65,7 +76,8 @@ def grids(quick):
         return {"abcde 16384": [(64, 256, 8), (64, 256, 1), (32, 128, 16)],
                 "abcde 131072": [(512, 256, 4), (1024, 512, 2)],
                 "ais": [(256, 256, 4), (512, 256, 1), (128, 128, 8)],
-                "flagship ais": [(256, 256), (1024, 512)]}
+                "flagship ais": [(256, 256), (1024, 512)],
+                "sweep": [(512, 512), (128, 128)]}
     return {
         "abcde 16384": [(w, t, l) for w in (32, 64, 128) for t in (128, 256)
                         for l in (1, 4, 8, 16)],
@@ -75,10 +87,12 @@ def grids(quick):
                 for l in (1, 2, 4, 8)],
         "flagship ais": [(w, t) for w in (256, 512, 1024)
                          for t in (256, 512)],
+        "sweep": [(w, t) for w in (256, 512, 1024) for t in (256, 512, 1024)
+                  if t <= w] + [(128, 128)],
     }
 
 
-def flagship_ais(torch, kt, old, grid, report):
+def flagship_ais(torch, kt, old, grid, report, c2=False):
     """#7 and #8 over ``grid`` (walkers, threads) on the two
     ensembles of a sample run; returns the count of geometries (and
     parent runs) whose bits differ from this checkout's default."""
@@ -162,7 +176,7 @@ def flagship_ais(torch, kt, old, grid, report):
                        **times())
             if old:
                 rec["parent_same_bits"] = CS.same_bits(sweep("parent"), ref)
-                bad += not rec["parent_same_bits"]
+                bad += not (rec["parent_same_bits"] or c2)
                 turns = [times(who=who) for who in ("parent", "this",
                                                     "this", "parent")]
                 rec["parent_ms"] = [turns[0]["device_ms"],
@@ -180,6 +194,158 @@ def flagship_ais(torch, kt, old, grid, report):
                        **({"blocks_per_sm": FA.full_grid(
                            h, FA.check_geometry(h, w, t))[0]}
                           if full else {}))
+    return bad
+
+
+def fused_sweep(torch, kt, old, grid, report, c2=False):
+    """#2 over ``grid`` (walkers, threads) on two populations at 131072:
+    the prior (``chip_smoke.py`` ``kernel-times``) and the population
+    after 50 steps of ``fused-sweep``; one sweep on the words [4, 75, 11]
+    (the shifts 5 and 77). Returns the count of geometries (and parent
+    runs) whose bits differ from this checkout's default."""
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import kernels as K
+    from kissabc_tpu_torch.ops import lane_groups as LG
+
+    dev = torch.device("cuda")
+    n = 131072
+    prior = models.flagship()[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mu, sg = prior.sample_tree(gen, n)
+    xs = torch.rand(n, generator=gen, device=dev)
+    lps = prior.logpdf(prior.push_tree((mu, sg))).float()
+    pops = {"the prior": [mu, sg, xs, lps]}
+    step = kt.make_fused_flagship_sweep(n)
+    th, x, lp = prior.sample_tree(gen, n), torch.ones(n, device=dev), \
+        torch.zeros(n, device=dev)
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(50):
+        th, x, lp, _ = step(g7, th, x, lp, 0.5)
+    pops["after 50 steps of fused-sweep"] = [th[0], th[1], x, lp]
+    words = torch.tensor([4, 75, 11], dtype=torch.int64, device=dev)
+    consts = K.fused_sweep_constants(max_stretch=2.0, mu_lo=1.0, mu_hi=3.0,
+                                     sg_sigma=0.05, sg_lo=0.0, sg_hi=100.0)
+    pkw = dict(consts=consts, ndraws=1000, target_mu=2.0, target_sd=0.04,
+               sd_weight=50.0, block=2048, chunk=512, bits="hw")
+    bad = 0
+    for pname, ins in pops.items():
+        ins = [t.contiguous() for t in ins]
+        outs = tuple(torch.empty_like(mu) for _ in range(4)) + (
+            torch.empty(n, dtype=torch.bool, device=dev),)
+        dmu, dsg = K.sweep_partners(ins[0], ins[1], words)
+        nsim = int(K.fused_sweep_proposal_plain(
+            ins[0], ins[1], dmu, dsg, ins[3], words[2:], consts=consts,
+            block=2048, bits="hw")[3].sum())
+
+        def sweep(geo=None):
+            K.launch_fused_sweep(n, ins, outs, 0.5, words, geometry=geo,
+                                 **pkw)
+            return [o.clone() for o in outs]
+
+        eps_t = torch.tensor(0.5, device=dev)
+
+        def parent():   # the parent's kernel on the same words or rolls
+            # (eps on the card: a float would be copied there, which
+            # waits for a spin)
+            PK = old.ops.kernels
+            if hasattr(PK, "fused_sweep_words"):
+                return PK.fused_sweep_words(*ins, eps_t, words)
+            return PK.fused_sweep(ins[0], ins[1], dmu, dsg, ins[2], ins[3],
+                                  eps_t, words[2:])
+
+        def times(fn):
+            return dict(device_ms=CS.device_ms(torch, fn, 20,
+                                               "fused_sweep_kernel"),
+                        queued_ms=CS.queued_ms(torch, fn, 20))
+
+        ref = sweep()
+        default = K.sweep_geometry(n, LG.sm_count(0))
+        rec = dict(case=f"#2 fused_sweep, {pname}", walkers=default.walkers,
+                   threads=default.threads, default=True, gate1=nsim,
+                   **times(sweep))
+        if old:
+            rec["parent_same_bits"] = CS.same_bits(list(parent()), ref)
+            bad += not (rec["parent_same_bits"] or c2)
+            turns = [times(parent if who == "parent" else sweep)
+                     for who in ("parent", "this", "this", "parent")]
+            for key in ("device_ms", "queued_ms"):
+                rec[f"parent_{key}"] = [turns[0][key], turns[3][key]]
+                rec[f"this_{key}"] = [t[key] for t in turns[1:3]]
+        report(**rec)
+        for w, t in grid:
+            geo = K.check_sweep_geometry(n, w, t)
+            ok = CS.same_bits(sweep(geo), ref)
+            bad += not ok
+            report(case=f"#2 fused_sweep, {pname}", walkers=w, threads=t,
+                   same_bits=ok, **times(lambda: sweep(geo)))
+    return bad
+
+
+def scan_threads(torch, kt, old, threads, report):
+    """#5 on AR(1) at 131072 x 1000 steps in blocks of each of
+    ``threads``; with a parent, its kernel (one block size) in turns
+    with this checkout's default. Returns the count of block sizes (and
+    parent runs) whose bits differ from this checkout's default."""
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import scan as SC
+
+    dev = torch.device("cuda")
+    n = 131072
+    # the registers of the AR(1) and SIR units of each tree (ptxas -v of
+    # this call's builds; a library built before prints nothing)
+    for who, pkg in [("this", kt)] + ([("parent", old)] if old else []):
+        pm = importlib.import_module(f"{pkg.__name__}.models")
+        _, astep, ainit, areduce = pm.ar1()
+        _, sstep, sinit, sobs, sreduce, series = pm.sir()
+        units = {"ar1": pkg.make_streaming_scan_cost(
+            astep, ainit, areduce, nsteps=1000).unit(2),
+            "sir": pkg.make_streaming_scan_cost(
+                sstep, sinit, sreduce, observe=sobs, series=series,
+                nsteps=len(series)).unit(2)}
+        build = importlib.import_module(f"{pkg.__name__}.ops._build")
+        jobs = {k: build.start(u.source) for k, u in units.items()}
+        report(tree=who, scan_ptxas={k: ptxas(j.wait()[2])
+                                     for k, j in jobs.items()})
+    prior, step, init, reduce_cost = models.ar1()
+    th = [x.contiguous() for x in prior.sample_tree(
+        torch.Generator(device=dev).manual_seed(0), n)]
+    seed = torch.tensor([13], dtype=torch.int64, device=dev)
+    c = kt.make_streaming_scan_cost(step, init, reduce_cost, nsteps=1000)
+    out = torch.empty((2, n), device=dev)
+
+    def run(t=None):
+        c.launch(n, th, seed, out, n, structure=2, threads=t)
+        return [out.clone()]
+
+    def times(fn):
+        return dict(device_ms=CS.device_ms(torch, fn, 20,
+                                           "streaming_scan_cost_kernel"),
+                    queued_ms=CS.queued_ms(torch, fn, 20))
+
+    ref = run()
+    rec = dict(case="#5 streaming_scan_cost, AR(1) 131072 x 1000",
+               threads=SC.SCAN_THREADS, default=True, **times(run))
+    bad = 0
+    if old:
+        _, pstep, pinit, preduce = old.models.ar1()
+        pc = old.make_streaming_scan_cost(pstep, pinit, preduce, nsteps=1000)
+
+        def parent():
+            return [torch.stack(pc.means(tuple(th), seed))]
+
+        rec["parent_same_bits"] = CS.same_bits(parent(), ref)
+        bad += not rec["parent_same_bits"]
+        turns = [times(parent if who == "parent" else run)
+                 for who in ("parent", "this", "this", "parent")]
+        for key in ("device_ms", "queued_ms"):
+            rec[f"parent_{key}"] = [turns[0][key], turns[3][key]]
+            rec[f"this_{key}"] = [t[key] for t in turns[1:3]]
+    report(**rec)
+    for t in threads:
+        ok = CS.same_bits(run(t), ref)
+        bad += not ok
+        report(case="#5 streaming_scan_cost, AR(1) 131072 x 1000",
+               threads=t, same_bits=ok, **times(lambda: run(t)))
     return bad
 
 
@@ -207,7 +373,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent")
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--kernels", choices=("all", "78"), default="all")
+    ap.add_argument("--kernels", choices=("all", "78", "2", "5"),
+                    default="all")
     args = ap.parse_args()
     import torch
 
@@ -233,8 +400,18 @@ def main():
     def report(**kw):
         print(json.dumps(kw), flush=True)
 
+    # ---- #2, #5 (alone) ---------------------------------------------------
+    # a parent from before the repair of the Philox moment sums (ROADMAP
+    # C2) gives other bits on Philox on purpose: reported, not counted
+    c2 = bool(old) and philox_moments_changed(args.parent)
+    report(parent=args.parent, philox_moments_changed=c2)
+    if args.kernels == "2":
+        return finish(fused_sweep(torch, kt, old, grid["sweep"], report, c2))
+    if args.kernels == "5":
+        return finish(scan_threads(torch, kt, old, CS.SCAN_THREADS, report))
+
     # ---- #7 and #8 -------------------------------------------------------
-    bad += flagship_ais(torch, kt, old, grid["flagship ais"], report)
+    bad += flagship_ais(torch, kt, old, grid["flagship ais"], report, c2)
     if args.kernels == "78":
         return finish(bad)
 
