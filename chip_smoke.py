@@ -32,9 +32,13 @@ and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
 and kernel #2 (which takes the step's raw words and derives its partners)
 at each geometry of ``GEOMETRIES_2``, ``scan-kernel-times`` kernel #5 in
 blocks of ``SCAN_THREADS``, all of which must give equal outputs;
-``ais-stub`` and ``ais-kernel-times`` hand #7 and #8 raw words (their
-kernels derive the shifts) and check them on two word sets and time them
-at each geometry of ``GEOMETRIES_78``. Every
+``ais-stub`` and ``ais-kernel-times`` hand #6, #7 and #8 raw words
+(their kernels derive the shifts) and check #7 and #8 on two word sets
+and time them at each geometry of ``GEOMETRIES_78``; ``tempered-stub``
+and ``tempered-kernel-times`` hand #9 raw words and the latter times its
+sweep (two launches) at 4096 and 131072 walkers; ``kernel-times`` (2^20) and
+``cost-kernel-times`` (1000, 16384, and g-and-k at 131072) time #4 at
+each geometry of ``GEOMETRIES_4``, which must give equal outputs. Every
 phase prints one line with its result and seconds; any failed check
 raises and the script exits non-zero. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
@@ -304,6 +308,11 @@ GEOMETRIES_78 = [(512, 512), (512, 256), (256, 256), (256, 512), (1024, 512),
 GEOMETRIES_2 = [(1024, 512), (1024, 1024), (512, 512), (512, 256),
                 (256, 256), (256, 512), (1024, 256), (128, 128)]
 SCAN_THREADS = (64, 128, 256, 512)
+# (walkers, threads, lanes) of #4 timed at each width: one thread per
+# walker in blocks of 32 to 256, and groups of 4 lanes (the lanes a unit
+# has besides 1) on 32 to 512 threads, one turn a group
+GEOMETRIES_4 = [(128, 128, 1), (32, 32, 1), (256, 256, 1), (8, 32, 4),
+                (16, 64, 4), (32, 128, 4), (64, 256, 4), (128, 512, 4)]
 
 
 def same_bits(a, b):
@@ -1033,6 +1042,45 @@ def main():
 
     # ---- timing and checks at the main-path shapes ----------------------
     records = []
+
+    def time_cost(c, th, seed, what):
+        """Kernel #4 on ``th``: its max|err| against the plain version
+        and the plain version's ms (one call), the kernel's own time by
+        the profiler (and by queued events) at its default geometry and
+        at each of ``GEOMETRIES_4``, which must give the default's
+        outputs bit for bit, the time by events around calls of
+        ``moments`` (the host's launches included) and the bound."""
+        structure, n = len(th), th[0].shape[0]
+        got = torch.stack(c.moments(th, seed))
+        want, plain = cuda_timed(torch, lambda: c.moments_plain(th, seed))
+        err = max(assert_close(torch, g, w, f"streaming moment {p} {what}")
+                  for p, (g, w) in enumerate(zip(got, want)))
+        leaves = [x.contiguous() for x in th]
+        out = torch.empty_like(got)
+
+        def run(geo):
+            c.launch(n, leaves, seed, out, n, structure=structure,
+                     geometry=geo)
+
+        default = c.geometry(n, structure)
+        by_geometry = {}
+        for w, t, lanes in [tuple(default[1:])] + [
+                g for g in GEOMETRIES_4 if g != tuple(default[1:])]:
+            geo = LG.cost_check(n, w, t, lanes, c.nstats)
+            run(geo)
+            check(same_bits(out, got), f"streaming_moment_cost {what}: "
+                  f"{geometry_key(geo)} differs from "
+                  f"{geometry_key(default)}")
+            by_geometry[geometry_key(geo)] = dict(
+                device_ms=device_ms(torch, lambda: run(geo), 20,
+                                    "streaming_moment_cost_kernel"),
+                queued_ms=queued_ms(torch, lambda: run(geo), 20))
+        b, by = bound(c.work(n, structure))
+        return dict(max_abs_err=err, plain_ms=plain, bound_ms=b, bound_by=by,
+                    geometry=geometry_key(default),
+                    ms=by_geometry[geometry_key(default)]["device_ms"],
+                    events_ms=cuda_ms(torch, lambda: c.moments(th, seed), 20),
+                    by_geometry=by_geometry)
     with Phase("kernel-times") as ph:
         n, nd = 1 << 20, 1000
         mu, sg = prior.sample_tree(gen, n)
@@ -1131,22 +1179,10 @@ def main():
         # single PyTorch call streams a user simulator per walker (or fuses
         # a sweep around one), so library_ms is null for both.
         n = 1 << 20
-        cost = costs["flagship"][0]
         th = fprior.sample_tree(gen, n)
-        got, want = cost.moments(th, seed), cost.moments_plain(th, seed)
-        err3 = max(assert_close(torch, g, w, f"streaming moment {p} n=2^20")
-                   for p, (g, w) in enumerate(zip(got, want)))
-        ms3 = cuda_ms(torch, lambda: cost.moments(th, seed), 10)
-        plain3 = cuda_ms(torch, lambda: cost.moments_plain(th, seed), 1,
-                         warmup=0)
-        b3, by3 = bound(cost.work(n, 2))
-        records.append(dict(
-            name="streaming_moment_cost", route="cuda",
-            source="kissabc_tpu_torch/csrc/generic.cuh",
-            replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
-            launches=generic_launches["streaming_moment_cost"],
-            max_abs_err=err3, matched=True, ms=ms3, plain_ms=plain3,
-            bound_ms=b3, bound_by=by3, library_ms=None))
+        times4 = {n: time_cost(costs["flagship"][0], th, seed,
+                               "flagship n=2^20")}
+        ms3, b3 = times4[n]["ms"], times4[n]["bound_ms"]
 
         sw = sweeps["flagship"]
         th = [x.contiguous() for x in th]
@@ -1208,7 +1244,10 @@ def main():
                      f"of 131072 walkers pass gate 1), borderline commits "
                      f"{border}; by geometry {json.dumps(by_geometry2)}; "
                      f"streaming_moment_cost "
-                     f"{ms3:.3f} ms (bound {b3:.3f}); fused_smc_sweep "
+                     f"{ms3:.3f} ms (bound {b3:.3f}, "
+                     f"{times4[n]['geometry']}; by geometry "
+                     f"{json.dumps(times4[n]['by_geometry'])}); "
+                     f"fused_smc_sweep "
                      f"{ms4:.3f} ms (bound {b4:.3f}, {nsim} of {n} walkers "
                      f"pass gate 1), {border4} borderline, blocks of "
                      f"{F.SWEEP_THREADS}; by block size "
@@ -1261,6 +1300,24 @@ def main():
                      f"{err5:.3g} ({unequal} unequal values); blocks of "
                      f"{SC.SCAN_THREADS}; by block size "
                      f"{json.dumps(by_threads5)}; ptxas {regs}")
+
+    with Phase("cost-kernel-times") as ph:
+        # kernel #4 at the widths of its other paths: 1000 (smc-fused-
+        # generic's init) and 16384 (abcde-fused's split generations) on
+        # the flagship model, 131072 on g-and-k (streaming-gk, the split
+        # AIS sweeps of ais-fused-generic)
+        for n, (name, pr) in ((1000, ("flagship", fprior)),
+                              (16384, ("flagship", fprior)),
+                              (131072, ("g-and-k", gprior))):
+            times4[n] = time_cost(costs[name][0], pr.sample_tree(gen, n),
+                                  torch.tensor([17], dtype=torch.int64,
+                                               device=dev), f"{name} n={n}")
+        ph.result = "; ".join(
+            f"n={n}: {t['ms']:.5f} ms on the card ({t['geometry']}), "
+            f"{t['events_ms']:.5f} ms by events, bound {t['bound_ms']:.5f} "
+            f"ms ({t['bound_by']}), plain {t['plain_ms']:.1f} ms, max|err| "
+            f"{t['max_abs_err']:.3g}; by geometry "
+            f"{json.dumps(t['by_geometry'])}" for n, t in times4.items())
 
     # ---- slice 4: AIS --------------------------------------------------
     def ais_compare(got, want, inputs, what, margin):
@@ -1398,17 +1455,19 @@ def main():
             lp6 = sw.prior.logpdf_tree(sw.pushed(leaves)).to(torch.float32)
             ll6 = uniform(n, -20.0, -1.0)
             upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
-            got = sw.half(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h, seed_t)
-            want = sw.half_plain(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h,
-                                 seed_t, terms=True)
+            # the kernel takes the half's words; the plain version the
+            # shifts rot_shifts6 makes of them
+            got = sw.half_words(upd, lp6[:h], ll6[:h], cmp_, words7(0))
+            want = sw.half_plain(upd, lp6[:h], ll6[:h], cmp_,
+                                 shifts_of(words7(0), h), seed_t, terms=True)
             res[f"#6 {name}"] = ais_compare(
                 flat(got), flat(want), upd + [lp6[:h], ll6[:h]],
                 f"fused_ais_sweep stub {name}", want[3][1])
             check(res[f"#6 {name}"][2] > 0, f"#6 {name} committed nothing")
             for w, t, lanes in GEOMETRIES_6:   # the same bits on each
                 geo = LG.check(h, w, t, lanes, sw.nstats)
-                other = sw.half(upd, lp6[:h], ll6[:h], cmp_, shifts6 % h,
-                                seed_t, geometry=geo)
+                other = sw.half_words(upd, lp6[:h], ll6[:h], cmp_,
+                                      words7(0), geometry=geo)
                 check(same_bits(flat(other), flat(got)),
                       f"#6 {name} stub: {geometry_key(geo)} differs from "
                       f"{geometry_key(sw.geometry(h))}")
@@ -1433,8 +1492,10 @@ def main():
         times, plain_ms = {}, {}   # plain: one whole sweep, the same inputs
         m7 = FA.FlagshipAIS(scale=0.005, block=2048, bits="hw", **fl_kw)
         m8 = FA.FlagshipAIS(scale=0.005, block=1024, bits="hw", **fl_kw)
-        sh = shifts_of(words_h65536, h)   # #6 takes shifts
+        sh = shifts_of(words_h65536, h)   # #6's plain version takes shifts
         check(torch.equal(sh, shifts12), "words_h65536 give other shifts")
+        # #6 (and #9) take each half's six shift words and the seed
+        w6 = [torch.cat([words_h65536[k:k + 6], seed_t]) for k in (0, 6)]
         outs7 = [torch.empty_like(x) for x in ins]
         outs8 = [torch.empty_like(x) for x in ins]
         cur = {}   # the word set the sweeps run on
@@ -1526,12 +1587,12 @@ def main():
 
         def sweep6(geo=None):
             oa, ob = halves6(outs6)
-            sw6.half([ins[0][:h], ins[1][:h]], ins[2][:h], ins[3][:h],
-                     [ins[0][h:], ins[1][h:]], sh[:6], seed_t,
-                     outs=(list(oa[:2]), oa[2], oa[3]), geometry=geo)
-            sw6.half([ins[0][h:], ins[1][h:]], ins[2][h:], ins[3][h:],
-                     list(oa[:2]), sh[6:], seed_t,
-                     outs=(list(ob[:2]), ob[2], ob[3]), geometry=geo)
+            sw6.half_words([ins[0][:h], ins[1][:h]], ins[2][:h], ins[3][:h],
+                           [ins[0][h:], ins[1][h:]], w6[0],
+                           outs=(list(oa[:2]), oa[2], oa[3]), geometry=geo)
+            sw6.half_words([ins[0][h:], ins[1][h:]], ins[2][h:], ins[3][h:],
+                           list(oa[:2]), w6[1],
+                           outs=(list(ob[:2]), ob[2], ob[3]), geometry=geo)
 
         def plain6():
             a = sw6.half_plain([ins[0][:h], ins[1][:h]], ins[2][:h],
@@ -1834,10 +1895,13 @@ def main():
             ll5 = ll_(pushed).float()
             upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
             for lam in (0.0, 0.3, 1.0):
-                got = sw.half(upd, lp5[:h], ll5[:h], cmp_, shifts6 % h,
-                              seed_t, lam)
+                # the kernel takes the half's words; the plain version the
+                # shifts rot_shifts6 makes of them
+                got = sw.half_words(upd, lp5[:h], ll5[:h], cmp_, words7(0),
+                                    lam)
                 want = sw.half_plain(upd, lp5[:h], ll5[:h], cmp_,
-                                     shifts6 % h, seed_t, lam, terms=True)
+                                     shifts_of(words7(0), h), seed_t, lam,
+                                     terms=True)
                 r = ais_compare(flat(got), flat(want),
                                 upd + [lp5[:h], ll5[:h]],
                                 f"fused_tempered_sweep stub {name} "
@@ -1948,58 +2012,67 @@ def main():
                      f"{len(GEOMETRIES_10)} more geometries of #10")
 
     with Phase("tempered-kernel-times") as ph:
-        # kernel #9 per sweep (two launches) at 131072 walkers, Philox, the
-        # conjugate loglike at lam = 0.3; the plain version as one whole
-        # sweep on the same inputs
-        n, h = 131072, 65536
+        # kernel #9 per sweep at 131072 walkers, Philox, the conjugate
+        # loglike at lam = 0.3, on each half's words (words_h65536: the
+        # shifts12 of earlier runs); the plain version as one whole sweep
+        # on the same inputs; also at tsmc-conjugate's 4096
         sw9 = tempered["conjugate"][0]
-        th9 = torch.randn(n, generator=gen, device=dev)
-        lp9, ll9 = cprior.logpdf(th9).float(), ll_conj(th9).float()
         lam9 = torch.tensor(0.3, device=dev)
-        sh9 = shifts12 % h
-        outs9 = ([torch.empty_like(th9)], torch.empty_like(lp9),
-                 torch.empty_like(ll9))
+        times9 = {}
+        for n in (131072, 4096):
+            h = n // 2
+            th9 = torch.randn(n, generator=gen, device=dev)
+            lp9, ll9 = cprior.logpdf(th9).float(), ll_conj(th9).float()
+            w9 = [torch.cat([words_h65536[k:k + 6], seed_t]) for k in (0, 6)]
+            outs9 = ([torch.empty_like(th9)], torch.empty_like(lp9),
+                     torch.empty_like(ll9))
+            oa9, ob9 = ([[o[0][0][sl]], o[1][sl], o[2][sl]] for o, sl in (
+                (outs9, slice(0, h)), (outs9, slice(h, n))))
 
-        def part(o, sl):
-            return ([o[0][0][sl]], o[1][sl], o[2][sl])
+            def sweep9():
+                sw9.half_words([th9[:h]], lp9[:h], ll9[:h], [th9[h:]], w9[0],
+                               lam9, outs=oa9)
+                sw9.half_words([th9[h:]], lp9[h:], ll9[h:], oa9[0], w9[1],
+                               lam9, outs=ob9)
 
-        def sweep9():
-            oa, ob = part(outs9, slice(0, h)), part(outs9, slice(h, n))
-            sw9.half([th9[:h]], lp9[:h], ll9[:h], [th9[h:]], sh9[:6], seed_t,
-                     lam9, outs=oa)
-            sw9.half([th9[h:]], lp9[h:], ll9[h:], oa[0], sh9[6:], seed_t,
-                     lam9, outs=ob)
+            sweep9()
+            sh9 = shifts_of(words_h65536, h)
 
-        def plain9():
-            a = sw9.half_plain([th9[:h]], lp9[:h], ll9[:h], [th9[h:]],
-                               sh9[:6], seed_t, lam9, terms=True)
-            return a, sw9.half_plain([th9[h:]], lp9[h:], ll9[h:], a[0],
-                                     sh9[6:], seed_t, lam9, terms=True)
+            def plain9():
+                a = sw9.half_plain([th9[:h]], lp9[:h], ll9[:h], [th9[h:]],
+                                   sh9[:6], seed_t, lam9, terms=True)
+                return a, sw9.half_plain([th9[h:]], lp9[h:], ll9[h:], a[0],
+                                         sh9[6:], seed_t, lam9, terms=True)
 
-        sweep9()
-        (a9, b9), plain9_ms = cuda_timed(torch, plain9)
-        want9 = [torch.cat([a9[0][0], b9[0][0]]), torch.cat([a9[1], b9[1]]),
-                 torch.cat([a9[2], b9[2]])]
-        err9 = ais_compare(flat(outs9), want9, [th9, lp9, ll9],
-                           "fused_tempered_sweep hw",
-                           torch.cat([a9[3][1], b9[3][1]]))
-        # the kernel's own time (two launches) by the profiler, and the
-        # sweep's time by events around 50 calls, the host's wrapper and
-        # launch overhead included
-        ms9 = device_ms(torch, sweep9, 50, "fused_tempered_sweep_kernel",
-                        per_call=2)
-        events9 = cuda_ms(torch, sweep9, 50)
-        w9 = sw9.work(h)
-        bound9 = bound((2 * w9[0], 2 * w9[1]))
+            (a9, b9), plain9_ms = cuda_timed(torch, plain9)
+            want9 = [torch.cat([a9[0][0], b9[0][0]]),
+                     torch.cat([a9[1], b9[1]]), torch.cat([a9[2], b9[2]])]
+            err9 = ais_compare(flat(outs9), want9, [th9, lp9, ll9],
+                               f"fused_tempered_sweep hw n={n}",
+                               torch.cat([a9[3][1], b9[3][1]]))
+            # the kernels' own time by the profiler and by queued events,
+            # and the sweep's time by events around 50 calls, the host's
+            # wrapper and launch overhead included
+            w = sw9.work(h)
+            times9[n] = dict(
+                device_ms=device_ms(torch, sweep9, 50,
+                                    "fused_tempered_sweep_kernel",
+                                    per_call=2),
+                queued_ms=queued_ms(torch, sweep9, 50),
+                events_ms=cuda_ms(torch, sweep9, 50),
+                plain_ms=plain9_ms, bound=bound((2 * w[0], 2 * w[1])),
+                err=err9)
+        t9 = times9[131072]
         regs = {names: lines for names, lines in ptxas.items()
                 if "tempered" in names}
-        ph.result = (f"n={n}: {ms9:.5f} ms/sweep on the card "
-                     f"({n / (ms9 / 1e3):.4g} updates/s), {events9:.4f} ms "
-                     f"per sweep by events with the host's launches, bound "
-                     f"{bound9[0]:.5f} ms ({bound9[1]}), plain "
-                     f"{plain9_ms:.1f} ms/sweep; (max|err|, unequal "
-                     f"committed values, commits, borderline) {err9}; ptxas "
-                     f"{json.dumps(regs)}")
+        ph.result = "; ".join(
+            f"n={n}: {t['device_ms']:.5f} ms/sweep on the card "
+            f"({t['queued_ms']:.5f} queued), {t['events_ms']:.4f} ms by "
+            f"events with the host's launches; bound "
+            f"{t['bound'][0]:.5f} ms ({t['bound'][1]}), plain "
+            f"{t['plain_ms']:.1f} ms/sweep; (max|err|, unequal committed "
+            f"values, commits, borderline) {t['err']}"
+            for n, t in times9.items()) + f"; ptxas {json.dumps(regs)}"
 
     with Phase("abcde-kernel-times") as ph:
         # kernel #10 per generation at 16384 and 131072 walkers x 1000
@@ -2203,6 +2276,7 @@ def main():
             else:
                 check(launched["fused_abcde_generation"] == 0,
                       "the split path launched #10")
+                cost_split_launches = launched["streaming_moment_cost"]
             check(launched["streaming_moment_cost"] > 0,
                   f"ABCDE {label} did not launch kernel #4: {launched}")
             marg = (walls[520] - walls[20]) / 500
@@ -2222,14 +2296,33 @@ def main():
                                            f"{wall:.3f} s")
         ph.result = json.dumps(out)
 
+    t4 = times4[16384]
+    records.append(dict(
+        name="streaming_moment_cost", route="cuda",
+        source="kissabc_tpu_torch/csrc/generic.cuh",
+        replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
+        launches=cost_split_launches, max_abs_err=max(
+            t["max_abs_err"] for t in times4.values()), matched=True,
+        ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
+        bound_by=t4["bound_by"], library_ms=None, library_note="no PyTorch "
+        "call streams a user simulator's moments per walker", width=16384,
+        path="abcde-fused split", events_ms=t4["events_ms"],
+        geometry=t4["geometry"],
+        launches_smc_1m_generic=generic_launches["streaming_moment_cost"],
+        by_width={n: {k: v for k, v in t.items() if k != "max_abs_err"}
+                  for n, t in times4.items()}))
     records.append(dict(
         name="fused_tempered_sweep", route="cuda",
         source="kissabc_tpu_torch/csrc/tempered.cuh",
         replaces="kissabc_tpu/ops/pallas_kernels.py:1585",
-        launches=tempered_launches, max_abs_err=err9[0], matched=True,
-        ms=ms9, plain_ms=plain9_ms, bound_ms=bound9[0], bound_by=bound9[1],
-        library_ms=None, library_note="no PyTorch call fuses a move, a "
-        "prior, a likelihood and an MH accept", events_ms=events9))
+        launches=tempered_launches, max_abs_err=max(
+            t["err"][0] for t in times9.values()), matched=True,
+        ms=t9["events_ms"], plain_ms=t9["plain_ms"],
+        bound_ms=t9["bound"][0], bound_by=t9["bound"][1], library_ms=None,
+        library_note="no PyTorch call fuses a move, a prior, a likelihood "
+        "and an MH accept", device_ms=t9["device_ms"],
+        queued_ms=t9["queued_ms"], by_width={n: {k: v for k, v in t.items() if k not in ("err", "bound")}
+                  for n, t in times9.items()}))
     t10 = times10[16384]
     records.append(dict(
         name="fused_abcde_generation", route="cuda",

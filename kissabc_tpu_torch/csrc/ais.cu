@@ -80,6 +80,7 @@
 #include "common.cuh"
 #include "compact.cuh"
 #include "moments.cuh"
+#include "shifts.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -104,34 +105,6 @@ template <bool kFresh>
 __device__ __forceinline__ float load(const float* p, int i) {
   // kFresh: written earlier in this launch by other blocks
   return kFresh ? __ldcg(p + i) : p[i];
-}
-
-__device__ __forceinline__ uint32_t word32(long long w) {
-  return (uint32_t)(unsigned long long)w;
-}
-
-// The six rotation shifts of a half of h >= 3 walkers from six raw uint32
-// words, distinct within each move: stretch r0; DE r1 != r2; walk r3, r4,
-// r5 distinct. Draw j of a move is word % (h - j), bumped past each
-// earlier draw of the move in ascending order (ops/moves.py
-// _distinct_shifts).
-__device__ void derive_shifts(const long long* words, int h, int* r) {
-  uint32_t u = (uint32_t)h;
-  r[0] = (int)(word32(words[0]) % u);
-  int d1 = (int)(word32(words[1]) % u);
-  int d2 = (int)(word32(words[2]) % (u - 1u));
-  d2 += d2 >= d1;
-  r[1] = d1;
-  r[2] = d2;
-  int a = (int)(word32(words[3]) % u);
-  int b = (int)(word32(words[4]) % (u - 1u));
-  b += b >= a;
-  int c = (int)(word32(words[5]) % (u - 2u));
-  c += c >= min(a, b);
-  c += c >= max(a, b);
-  r[3] = a;
-  r[4] = b;
-  r[5] = c;
 }
 
 // Where a walker's bits come from.

@@ -72,6 +72,7 @@
 #include "common.cuh"
 #include "compact.cuh"
 #include "moments.cuh"
+#include "shifts.cuh"
 
 namespace {
 
@@ -132,19 +133,6 @@ struct SweepArgs {
 struct SweepProposal {
   float mu, sg, lpp;
 };
-
-__device__ __forceinline__ uint32_t word32(long long w) {
-  return (uint32_t)(unsigned long long)w;
-}
-
-// roll_shifts' two distinct rotation shifts in [1, n) for n >= 3.
-__device__ __forceinline__ void derive_rolls(const long long* words, int n,
-                                             int* r) {
-  int r1 = (int)(word32(words[0]) % (uint32_t)(n - 1)) + 1;
-  int r2 = (int)(word32(words[1]) % (uint32_t)(n - 2)) + 1;
-  r[0] = r1;
-  r[1] = r2 + (r2 >= r1);
-}
 
 // Phase 1 for walker w: the proposal, the prior and gate 1. Returns gate
 // 1; a walker that fails it has written its outputs.

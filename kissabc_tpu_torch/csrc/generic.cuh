@@ -53,7 +53,11 @@
 //   and the groups keep the lanes busy. The walkers a block covers, its
 //   threads and L are parameters (the wrappers pick them by measurement:
 //   ops/lane_groups.py), so a block's walkers and the
-//   grid's spread over the SMs are chosen apart from the lanes.
+//   grid's spread over the SMs are chosen apart from the lanes;
+// - kernel #4 (the cost) simulates every walker, so it compacts nothing:
+//   at 2^20 walkers it runs one thread per walker, issue-bound; at
+//   ABCDE's split generations (16384 walkers, ~124 an SM) and below it
+//   runs the same lane groups, which cut the chain of one walker L-fold.
 //
 // Draws keep the TPU kernels' chunk structure: chunk pair j holds draws
 // [2j*chunk, (2j+1)*chunk) (half a, first noise of each pair) and
@@ -85,8 +89,6 @@
 #include "walkers.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // Philox streams (third counter word) of the generic kernels; the
 // flagship kernels use 0..2.
@@ -189,25 +191,6 @@ __device__ void simulate(const float* th, int ndraws, int chunk, float inv_n,
   }
 #pragma unroll
   for (int p = 0; p < KT_NSTATS; ++p) m[p] = s[p] * inv_n;
-}
-
-template <bool kStub>
-__global__ void streaming_moment_cost_kernel(
-    Leaves th, const long long* __restrict__ seed_ptr,
-    float* __restrict__ out, int ld, int n, int ndraws, float inv_n,
-    int sb_rows, int chunk) {
-  int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= n) return;
-  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
-  float t[KT_NPARAMS];
-#pragma unroll
-  for (int k = 0; k < KT_NPARAMS; ++k) t[k] = th.p[k][w];
-  Coords c = coords(w, sb_rows);
-  float m[KT_NSTATS];
-  simulate<kStub>(t, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
-                  kStreamGenCost, (uint32_t)w, m);
-#pragma unroll
-  for (int p = 0; p < KT_NSTATS; ++p) out[(size_t)p * ld + w] = m[p];
 }
 
 #if KT_HAS_SWEEP
@@ -339,11 +322,10 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 }
 #endif
 
-#if (defined(KT_HAS_AIS) && KT_HAS_AIS) || \
-    (defined(KT_HAS_ABCDE) && KT_HAS_ABCDE)
-#define KT_HAS_GROUPS 1
 // The lane-group kernels, #6 (fused_ais_sweep_kernel) and #10
-// (fused_abcde_generation_kernel). A block covers `walkers` walkers with
+// (fused_abcde_generation_kernel), and the cost kernel #4
+// (streaming_moment_cost_kernel: phase 2 alone, one turn, since every
+// walker needs the simulator). A block covers `walkers` walkers with
 // blockDim.x threads in two phases:
 // - phase 1, one thread per walker (in passes of blockDim.x): the steps
 //   before the simulator; a walker that does not need it writes its
@@ -540,7 +522,78 @@ template <int L>
 __device__ __forceinline__ bool phase2_turn(int base, int g, int g0, int p) {
   return base + (L == 1 ? g : g0) < p;
 }
-#endif
+
+// Kernel #4: the moments of every walker w < n, moment p to
+// out[p * ld + w]. A block covers the walkers [blockIdx.x * walkers, +
+// walkers) with one group of L lanes each (threads == walkers * L): L = 1
+// is one thread a walker, the loop of simulate(). Nothing is compacted:
+// every walker needs the simulator. For L > 1 a warp runs while its first
+// group has a walker (phase2_turn's rule, in one turn); a group of that
+// warp past the last walker simulates the first group's walker again, to
+// write nothing.
+//
+// What bounds it on the H100: at 2^20 walkers x 1000 draws the draw
+// loop's issue (one thread per walker in blocks of 128: the flagship
+// model's ~49 SASS instructions a draw run at ~75% of the issue floor).
+// Where few walkers share an SM, at ABCDE's split generations (16384: 124
+// an SM) and below, one thread a walker left each scheduler about one
+// warp, and the kernel ran at the latency of one walker's chain of ~48500
+// instructions; L lanes a walker cut that chain L-fold for ~6 staging
+// instructions a draw (see simulate_group). The geometry comes from
+// ops/lane_groups.py cost_pick, by measurement. The groups take one walker
+// each, not the block's walkers in turns: on the H100 a turn loop around
+// the simulator took more registers and ran slower at every width tried.
+// L = 1 is a kernel of its own, one thread a walker without launch
+// bounds: under __launch_bounds__(kGroupMaxThreads) ptxas scheduled the
+// same loop so that one walker's chain ran slower, which cost 3-20% at
+// 33792-131072 walkers of the flagship model (PERF.md section 6).
+template <bool kStub>
+__global__ void streaming_moment_cost_kernel(
+    Leaves th, const long long* __restrict__ seed_ptr,
+    float* __restrict__ out, int ld, int n, int ndraws, float inv_n,
+    int sb_rows, int chunk, int walkers) {
+  int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= n) return;
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  float t[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k) t[k] = th.p[k][w];
+  Coords c = coords(w, sb_rows);
+  float m[KT_NSTATS];
+  simulate<kStub>(t, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
+                  kStreamGenCost, (uint32_t)w, m);
+#pragma unroll
+  for (int p = 0; p < KT_NSTATS; ++p) out[(size_t)p * ld + w] = m[p];
+}
+
+template <bool kStub, int L>
+__global__ void __launch_bounds__(kGroupMaxThreads)
+    streaming_moment_cost_kernel_lanes(Leaves th,
+                                       const long long* __restrict__ seed_ptr,
+                                       float* __restrict__ out, int ld, int n,
+                                       int ndraws, float inv_n, int sb_rows,
+                                       int chunk, int walkers) {
+  extern __shared__ float s_dyn[];  // each warp's staging
+  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  int first = blockIdx.x * walkers;
+  int p = min(walkers, n - first);
+  int g = threadIdx.x / L, r = threadIdx.x % L;
+  int g0 = (threadIdx.x >> 5) * (32 / L);  // the warp's first group
+  if (!phase2_turn<L>(0, g, g0, p)) return;
+  bool own = g < p;
+  int w = first + (own ? g : g0);
+  float t[KT_NPARAMS];
+#pragma unroll
+  for (int k = 0; k < KT_NPARAMS; ++k) t[k] = th.p[k][w];
+  float m[KT_NSTATS];
+  simulate_lanes<kStub, L>(t, ndraws, chunk, inv_n, coords(w, sb_rows),
+                           seed, kStreamGenCost, (uint32_t)w, r, g - g0,
+                           s_dyn + (threadIdx.x >> 5) * kStageFloats, m);
+  if (r == 0 && own) {
+#pragma unroll
+    for (int q = 0; q < KT_NSTATS; ++q) out[(size_t)q * ld + w] = m[q];
+  }
+}
 
 #if defined(KT_HAS_AIS) && KT_HAS_AIS
 // The generic AIS half-update (make_fused_ais_sweep): per walker i of the
@@ -566,8 +619,11 @@ __device__ __forceinline__ bool phase2_turn(int base, int g, int g0, int p) {
 // the geometry's.
 //
 // The words and the proposal are mixture_propose (walkers.cuh), shared
-// with the tempered sweep; the simulator is simulate() at the same
-// (program, row, lane).
+// with the tempered sweep: the kernel takes the half's seven raw words
+// and thread 0 of each block derives the six partner shifts from the
+// first six (derive_shifts, shifts.cuh), so a half-update is one word
+// draw and one launch; word 6 is the seed. The simulator is simulate() at
+// the same (program, row, lane).
 constexpr uint32_t kStreamGenAisWalker = 8u;
 constexpr uint32_t kStreamGenAisSim = 9u;
 
@@ -581,12 +637,12 @@ struct AisGenConsts {
 // whether the push lies inside the prior.
 template <bool kStub>
 __device__ __forceinline__ bool ais_propose(
-    Leaves th, Leaves comp, const long long* __restrict__ shifts, int i,
-    int h, uint32_t seed, const AisGenConsts& c, int sb_rows, float* prop,
-    float* pushed, float* lpp, float* corr, float* u_acc) {
+    Leaves th, Leaves comp, const int* r, int i, int h, uint32_t seed,
+    const AisGenConsts& c, int sb_rows, float* prop, float* pushed,
+    float* lpp, float* corr, float* u_acc) {
   MixConsts mc = {c.g_lo,  c.g_span, c.de_scale, c.inv300,
                   c.third, c.p_s_hi, c.p_d_hi,   c.corr2};
-  mixture_propose(th, comp, shifts, i, h, seed, coords(i, sb_rows), kStub,
+  mixture_propose(th, comp, r, i, h, seed, coords(i, sb_rows), kStub,
                   kStreamGenAisWalker, mc, prop, corr, u_acc);
   prior_push(prop, pushed);
   *lpp = prior_logpdf(pushed);
@@ -596,14 +652,16 @@ __device__ __forceinline__ bool ais_propose(
 template <bool kStub, int L>
 __global__ void __launch_bounds__(kGroupMaxThreads) fused_ais_sweep_kernel(
     Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
-    Leaves comp, const long long* __restrict__ shifts,
-    const long long* __restrict__ seed_ptr, OutLeaves oth,
+    Leaves comp, const long long* __restrict__ words, OutLeaves oth,
     float* __restrict__ olp, float* __restrict__ oll, int h, int ndraws,
     AisGenConsts c, int sb_rows, int chunk, int walkers) {
   extern __shared__ float s_dyn[];  // each warp's staging, then the slots
+  __shared__ int shifts[6];
   int* s_walker = reinterpret_cast<int*>(
       s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
-  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  if (threadIdx.x == 0) derive_shifts(words, h, shifts);
+  __syncthreads();
+  uint32_t seed = word32(words[6]);
   int p = compact_walkers<kGroupMaxThreads>(
       blockIdx.x * walkers, walkers, h, s_walker, [&](int i) {
         float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
@@ -769,11 +827,11 @@ __global__ void __launch_bounds__(kGroupMaxThreads)
 }
 #endif
 
-#if KT_HAS_GROUPS
 // Dynamic shared memory of a lane-group block: for L > 1 each warp's
-// staging, then the walkers' slots.
-inline size_t group_smem(int walkers, int threads, int lanes) {
-  size_t bytes = (size_t)walkers * sizeof(int);
+// staging, then (slots) the walkers' slots of the compacting kernels.
+inline size_t group_smem(int walkers, int threads, int lanes,
+                         bool slots = true) {
+  size_t bytes = slots ? (size_t)walkers * sizeof(int) : 0;
   if (lanes > 1)
     bytes += (size_t)(threads / 32) * kStageFloats * sizeof(float);
   return bytes;
@@ -795,12 +853,15 @@ inline bool group_lanes(int lanes) { return lanes == 1 || lanes == 4; }
 // 0 for a geometry the lane-group kernels take, else
 // cudaErrorInvalidConfiguration: threads a multiple of 32 up to
 // kGroupMaxThreads, 1 to kGroupMaxWalkers walkers a block, L one of the
-// unit's (group_lanes) and the shared memory within a block's.
-inline int group_check(int walkers, int threads, int lanes) {
+// unit's (group_lanes) and the shared memory (with the walkers' slots,
+// or without for #4) within a block's.
+inline int group_check(int walkers, int threads, int lanes,
+                       bool slots = true) {
   bool ok = threads >= 32 && threads <= kGroupMaxThreads &&
             threads % 32 == 0 && walkers >= 1 &&
             walkers <= kGroupMaxWalkers && group_lanes(lanes) &&
-            group_smem(walkers, threads, lanes) <= (size_t)kGroupMaxSmem;
+            group_smem(walkers, threads, lanes, slots) <=
+                (size_t)kGroupMaxSmem;
   return ok ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
@@ -843,24 +904,41 @@ int group_occupancy(Kernel kernel, int walkers, int threads, int lanes,
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, threads, smem);
 }
-#endif
-
-inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
+// walkers, threads and lanes from the wrapper (ops/lane_groups.py
+// cost_geometry): group_check's without the walkers' slots, and a group of
+// lanes a walker (threads == walkers * lanes); the grid is
+// ceil(n / walkers) blocks.
 extern "C" int kt_streaming_moment_cost(const float* const* th,
                                         const long long* seed, float* out,
                                         int ld, int n, int ndraws,
                                         float inv_n, int stub, int sb_rows,
-                                        int chunk, void* stream) {
+                                        int chunk, int walkers, int threads,
+                                        int lanes, void* stream) {
+  int err = group_check(walkers, threads, lanes, false);
+  if (err) return err;
+  if ((long long)walkers * lanes != threads)
+    return (int)cudaErrorInvalidConfiguration;
   Leaves leaves;
   for (int k = 0; k < KT_NPARAMS; ++k) leaves.p[k] = th[k];
   if (n > 0) {
-    auto kernel = stub ? &streaming_moment_cost_kernel<true>
-                       : &streaming_moment_cost_kernel<false>;
-    kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        leaves, seed, out, ld, n, ndraws, inv_n, sb_rows, chunk);
+    auto kernel = by_lanes(lanes, [&](auto l) {
+      constexpr int L = decltype(l)::value;
+      if constexpr (L == 1)
+        return stub ? &streaming_moment_cost_kernel<true>
+                    : &streaming_moment_cost_kernel<false>;
+      else
+        return stub ? &streaming_moment_cost_kernel_lanes<true, L>
+                    : &streaming_moment_cost_kernel_lanes<false, L>;
+    });
+    size_t smem = group_smem(walkers, threads, lanes, false);
+    err = group_smem_opt_in(kernel, smem);
+    if (err) return err;
+    int blocks = (int)(((long long)n + walkers - 1) / walkers);
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        leaves, seed, out, ld, n, ndraws, inv_n, sb_rows, chunk, walkers);
   }
   return (int)cudaGetLastError();
 }
@@ -902,16 +980,18 @@ extern "C" int kt_fused_smc_sweep_occupancy(int threads, int* blocks_per_sm) {
 #endif
 
 #if defined(KT_HAS_AIS) && KT_HAS_AIS
+// words: the half's six shift words and the seed (int64 holding uint32).
 // walkers, threads and lanes from the wrapper (ops/lane_groups.py
 // geometry); the grid is ceil(h / walkers) blocks.
 extern "C" int kt_fused_ais_sweep(
     const float* const* th, const float* lp, const float* ll,
-    const float* const* comp, const long long* shifts, const long long* seed,
-    float* const* oth, float* olp, float* oll, int h, int ndraws,
-    const float* fconsts, int stub, int sb_rows, int chunk, int walkers,
-    int threads, int lanes, void* stream) {
+    const float* const* comp, const long long* words, float* const* oth,
+    float* olp, float* oll, int h, int ndraws, const float* fconsts,
+    int stub, int sb_rows, int chunk, int walkers, int threads, int lanes,
+    void* stream) {
   int err = group_check(walkers, threads, lanes);
   if (err) return err;
+  if (h > 0 && h < 3) return (int)cudaErrorInvalidConfiguration;
   Leaves leaves, partners;
   OutLeaves outs;
   for (int k = 0; k < KT_NPARAMS; ++k) {
@@ -933,7 +1013,7 @@ extern "C" int kt_fused_ais_sweep(
     if (err) return err;
     int blocks = (int)(((long long)h + walkers - 1) / walkers);
     kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        leaves, lp, ll, partners, shifts, seed, outs, olp, oll, h, ndraws, c,
+        leaves, lp, ll, partners, words, outs, olp, oll, h, ndraws, c,
         sb_rows, chunk, walkers);
   }
   return (int)cudaGetLastError();

@@ -20,12 +20,23 @@
 //   lw = (corr + (valid ? lpp + lam * llp : -inf)) - (lp + lam * ll),
 // in the order of the TPU kernel (pallas_kernels.py:1726-1737). The raw
 // float proposal is committed with the raw (unscaled) lpp and llp, so
-// lam can change between sweeps; lam, the six shifts and the seed are
-// read from device memory, so one compiled kernel serves the whole
-// temperature ladder without a host read. A walker moves about
-// (2K + 4) * 4 bytes (its partners are re-reads of the other half)
-// against a few hundred operations. Walkers i >= h are masked: nothing is
-// padded and nothing past h is written.
+// lam can change between sweeps; lam is read from device memory, so one
+// compiled kernel serves the whole temperature ladder without a host
+// read. A walker moves about (2K + 4) * 4 bytes (its partners are
+// re-reads of the other half) against a few hundred operations. Walkers
+// i >= h are masked: nothing is padded and nothing past h is written.
+//
+// What bounds it on the H100: nothing in the kernel. A half-update of
+// 65536 walkers takes ~0.003 ms, near the launch floor, against 0.0006 ms
+// for its bytes; what a sweep cost was the host's glue around it. The
+// kernel takes the half's seven raw words (the wrapper's one draw): six
+// from which each warp derives the six partner shifts by _rot_shifts6's
+// rule, one modulo a lane (derive_shifts_warp, shifts.cuh; faster on the
+// H100 than thread 0 and a block barrier or six modulos a thread), and the
+// seed. So a half-update is one word draw and one launch, where the shifts
+// made on the host's stream cost ~35 small device operations. A sweep is
+// two launches: both halves in one cooperative launch with a grid barrier
+// was slower on the card at 131072 walkers (PERF.md section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,19 +48,21 @@ namespace {
 constexpr int kThreads = 128;
 constexpr uint32_t kStreamTemperedWalker = 10u;
 
-__global__ void fused_tempered_sweep_kernel(
+__global__ void __launch_bounds__(kThreads) fused_tempered_sweep_kernel(
     Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
-    Leaves comp, const long long* __restrict__ shifts,
-    const long long* __restrict__ seed_ptr, const float* __restrict__ lam_ptr,
-    OutLeaves oth, float* __restrict__ olp, float* __restrict__ oll, int h,
-    MixConsts c, int stub, int sb_rows) {
+    Leaves comp, const long long* __restrict__ words,
+    const float* __restrict__ lam_ptr, OutLeaves oth,
+    float* __restrict__ olp, float* __restrict__ oll, int h, MixConsts c,
+    int stub, int sb_rows) {
+  int r[6];
+  derive_shifts_warp(words, h, r);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= h) return;
-  uint32_t seed = (uint32_t)(unsigned long long)seed_ptr[0];
+  uint32_t seed = word32(words[6]);
   Coords cc = coords(i, sb_rows);
   float prop[KT_NPARAMS], corr, u_acc;
-  mixture_propose(th, comp, shifts, i, h, seed, cc, stub,
-                  kStreamTemperedWalker, c, prop, &corr, &u_acc);
+  mixture_propose(th, comp, r, i, h, seed, cc, stub, kStreamTemperedWalker,
+                  c, prop, &corr, &u_acc);
   float pushed[KT_NPARAMS];
   prior_push(prop, pushed);
   float lpp = prior_logpdf(pushed);
@@ -74,26 +87,28 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// fconsts: g_lo, g_span, de_scale, inv300, third, p_s_hi, p_d_hi, corr2
+// One half-update. words: the half's six shift words and the seed (int64
+// holding uint32); fconsts: g_lo, g_span, de_scale, inv300, third,
+// p_s_hi, p_d_hi, corr2.
 extern "C" int kt_fused_tempered_sweep(
     const float* const* th, const float* lp, const float* ll,
-    const float* const* comp, const long long* shifts, const long long* seed,
-    const float* lam, float* const* oth, float* olp, float* oll, int h,
-    const float* fconsts, int stub, int sb_rows, void* stream) {
-  Leaves leaves, partners;
-  OutLeaves outs;
+    const float* const* comp, const long long* words, const float* lam,
+    float* const* oth, float* olp, float* oll, int h, const float* fconsts,
+    int stub, int sb_rows, void* stream) {
+  if (h > 0 && h < 3) return (int)cudaErrorInvalidConfiguration;
+  Leaves lt, lc;
+  OutLeaves lo;
   for (int k = 0; k < KT_NPARAMS; ++k) {
-    leaves.p[k] = th[k];
-    partners.p[k] = comp[k];
-    outs.p[k] = oth[k];
+    lt.p[k] = th[k];
+    lc.p[k] = comp[k];
+    lo.p[k] = oth[k];
   }
-  const float* f = fconsts;
-  MixConsts c = {f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7]};
+  MixConsts c = {fconsts[0], fconsts[1], fconsts[2], fconsts[3],
+                 fconsts[4], fconsts[5], fconsts[6], fconsts[7]};
   if (h > 0) {
     fused_tempered_sweep_kernel<<<grid_for(h), kThreads, 0,
                                   (cudaStream_t)stream>>>(
-        leaves, lp, ll, partners, shifts, seed, lam, outs, olp, oll, h, c,
-        stub, sb_rows);
+        lt, lp, ll, lc, words, lam, lo, olp, oll, h, c, stub, sb_rows);
   }
   return (int)cudaGetLastError();
 }

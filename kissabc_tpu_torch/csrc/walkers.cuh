@@ -4,7 +4,9 @@
 // stretch / DE / walk mixture proposal of the ensemble half-updates, which
 // the generic AIS sweep (make_fused_ais_sweep) and the tempered sweep
 // (make_fused_tempered_sweep) make alike: the same words, the same stub
-// counters (50000 + k) and the same partners comp[(i + r_j) % h].
+// counters (50000 + k) and the same partners comp[(i + r_j) % h]. Both
+// take the half's seven raw words: six from which the kernel derives the
+// shifts r_j (shifts.cuh) and the seed.
 //
 // Needs KT_NPARAMS (theta leaves K) defined before it is included.
 
@@ -14,6 +16,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "shifts.cuh"
 
 namespace {
 
@@ -49,14 +52,14 @@ struct MixConsts {
 };
 
 // The mixture proposal of walker i of the updated half (leaves th) against
-// the six partners comp[(i + shifts[j]) % h]: writes the raw proposal to
-// prop, the stretch's log-Jacobian (0 for DE and walk) to corr and the
-// accept uniform to u_acc. Every operation in the order of the TPU
-// kernels (pallas_kernels.py:1677-1714).
+// the six partners comp[(i + r[j]) % h]: writes the raw proposal to prop,
+// the stretch's log-Jacobian (0 for DE and walk) to corr and the accept
+// uniform to u_acc. Every operation in the order of the TPU kernels
+// (pallas_kernels.py:1677-1714).
 __device__ __forceinline__ void mixture_propose(
-    Leaves th, Leaves comp, const long long* __restrict__ shifts, int i,
-    int h, uint32_t seed, Coords cc, int stub, uint32_t stream,
-    const MixConsts& c, float* prop, float* corr, float* u_acc) {
+    Leaves th, Leaves comp, const int* r, int i, int h, uint32_t seed,
+    Coords cc, int stub, uint32_t stream, const MixConsts& c, float* prop,
+    float* corr, float* u_acc) {
   uint32_t wd[kMixWords];
   if (stub) {
 #pragma unroll
@@ -90,7 +93,7 @@ __device__ __forceinline__ void mixture_propose(
   int idx[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    int k = i + (int)shifts[j];
+    int k = i + r[j];
     idx[j] = k >= h ? k - h : k;
   }
 #pragma unroll

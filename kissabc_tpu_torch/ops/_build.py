@@ -39,7 +39,7 @@ CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flagship.cu", CSRC / "ais.cu")
 HEADERS = (CSRC / "common.cuh", CSRC / "compact.cuh", CSRC / "generic.cuh",
            CSRC / "scan.cuh", CSRC / "moments.cuh", CSRC / "walkers.cuh",
-           CSRC / "tempered.cuh")
+           CSRC / "tempered.cuh", CSRC / "shifts.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kissabc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,15 +59,16 @@ _SIGNATURES = {
     "kt_fused_ais_full_grid": [_I, _I, _I, _P],
 }
 GEN_SIGNATURES = {
-    "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P],
+    "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
+                                 _I, _I, _I, _P],
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _I, _I,
                                        _P],
     "kt_fused_smc_sweep_occupancy": [_I, _P],
     "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _I,
                                           _P],
-    "kt_fused_ais_sweep": [_P] * 9 + [_I, _I, _P] + [_I] * 6 + [_P],
+    "kt_fused_ais_sweep": [_P] * 8 + [_I, _I, _P] + [_I] * 6 + [_P],
     "kt_fused_ais_sweep_occupancy": [_I, _I, _I, _P],
-    "kt_fused_tempered_sweep": [_P] * 10 + [_I, _P, _I, _I, _P],
+    "kt_fused_tempered_sweep": [_P] * 9 + [_I, _P, _I, _I, _P],
     "kt_fused_abcde_generation": [_P] * 11 + [_I, _I, _F, _F] + [_I] * 7
                                  + [_P],
     "kt_fused_abcde_generation_occupancy": [_I, _I, _I, _P],

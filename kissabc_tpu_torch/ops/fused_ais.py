@@ -31,10 +31,12 @@ repeats its arithmetic (the int64-emulated uint32 stub and Philox bits of
 - ``launches`` counts each kernel's launches.
 
 The sweeps' words (shifts and seeds) are drawn on the generator's
-device, so a sweep reads nothing on the host; #7 and #8 take the raw
-words and derive the shifts by ``rot_shifts6``'s rule in the kernel, so
-their sweeps issue one draw of words and one launch a half (#7) or a
-sweep (#8). ``bits="stub"`` replays the TPU
+device, so a sweep reads nothing on the host; every kernel here (and #9,
+``ops/fused_tempered.py``) takes the raw words and derives the shifts by
+``rot_shifts6``'s rule in the kernel, so a sweep issues one draw of words
+and one launch a half (#6, #7, #9), or one of each a sweep (#8). The plain
+versions take the shifts that ``rot_shifts6`` makes of the same words.
+``bits="stub"`` replays the TPU
 kernels' stub stream at their coordinates (see ``csrc/ais.cu`` and
 ``csrc/generic.cuh``); ``bits="hw"`` is Philox4x32-10.
 """
@@ -509,11 +511,30 @@ class MixtureHalfSweep:
         return plan_tiles(h, self.block, self.walker_tiles)[1] * self.block
 
     @staticmethod
-    def _draws(gen, h):
-        """A half-update's draws from ``gen``: seven words, the six
-        partner shifts (``rot_shifts6``) and the kernel seed."""
-        words = uint32_words(gen, 7)
-        return rot_shifts6(words[:6], h), words[6:]
+    def _draws(gen):
+        """A half-update's one draw from ``gen``: seven uint32 words, six
+        from which the kernel derives the partner shifts by
+        ``rot_shifts6``'s rule, and the kernel seed."""
+        return uint32_words(gen, 7)
+
+    def _device_words(self, words, dev):
+        """A half's seven words as a contiguous int64 vector on ``dev``."""
+        if not (torch.is_tensor(words) and words.device == dev
+                and words.dtype == torch.int64):
+            words = torch.as_tensor(words, device=dev).to(torch.int64)
+        if words.shape != (7,):
+            raise ValueError(f"{self.name}: a half-update takes seven "
+                             f"words, got shape {tuple(words.shape)}")
+        return words.contiguous()
+
+    def _cpu_only(self, dev):
+        """Given shifts run the plain version only: the kernel takes
+        words."""
+        if dev.type != "cpu":
+            raise ValueError(
+                f"{self.name}: given shifts run on the CPU only; on {dev} "
+                "the kernel derives them from the half's words "
+                "(half_words)")
 
     def _check_leaves(self, leaves, what):
         if any(x.dim() != 1 for x in leaves):
@@ -561,8 +582,9 @@ class MixtureHalfSweep:
 class FusedAISSweep(MixtureHalfSweep):
     """``make_fused_ais_sweep``'s sweep: ``sweep(gen, thetas, (lp, ll))``
     over full ``[n]`` tuples, or, with ``halves=True``, ``sweep(gen,
-    (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)))``. ``half`` runs one
-    half-update with given shifts and seed."""
+    (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)))``. ``half_words``
+    runs one half-update from its seven words (CPU or CUDA), ``half``
+    one with given shifts and seed (CPU)."""
 
     def __init__(self, prior, draw, reduce_cost, *, scale, stats, nstats,
                  ndraws, noise, a_stretch, block, chunk, walker_tiles, bits,
@@ -610,10 +632,11 @@ class FusedAISSweep(MixtureHalfSweep):
             h, self.nstats, lane_groups.sm_count(torch.cuda.current_device()),
             lane_groups.is_light(self.unit))
 
-    def launch(self, upd, lp, ll, comp, shifts, seed, outs, geometry=None):
+    def launch(self, upd, lp, ll, comp, words, outs, geometry=None):
         """Launch ``kt_fused_ais_sweep`` on checked CUDA buffers of one
-        half: ``outs`` = (theta leaves, lp, ll); ``geometry`` a
-        ``lane_groups.Geometry`` (default ``self.geometry(h)``)."""
+        half: ``words`` int64 [7], ``outs`` = (theta leaves, lp, ll);
+        ``geometry`` a ``lane_groups.Geometry`` (default
+        ``self.geometry(h)``)."""
         lib = _build.load_generated(self.unit.source)
         oth, olp, oll = outs
         h = upd[0].shape[0]
@@ -622,9 +645,9 @@ class FusedAISSweep(MixtureHalfSweep):
             self.nstats, lane_groups.unit_lanes(self.unit.source))
         err = lib.kt_fused_ais_sweep(
             _build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
-            _build.pointers(comp), shifts.data_ptr(), seed.data_ptr(),
-            _build.pointers(oth), olp.data_ptr(), oll.data_ptr(), h,
-            self.ndraws, self.fconsts.ctypes.data_as(ctypes.c_void_p),
+            _build.pointers(comp), words.data_ptr(), _build.pointers(oth),
+            olp.data_ptr(), oll.data_ptr(), h, self.ndraws,
+            self.fconsts.ctypes.data_as(ctypes.c_void_p),
             int(self.bits == "stub"), self._sb_rows(h), self.chunk,
             g.walkers, g.threads, g.lanes, _stream())
         _build.check(lib, err, "fused_ais_sweep")
@@ -640,27 +663,37 @@ class FusedAISSweep(MixtureHalfSweep):
             ctypes.byref(out)), "fused_ais_sweep occupancy")
         return out.value
 
-    def half(self, upd, lp, ll, comp, shifts, seed, outs=None,
-             geometry=None):
-        """One half-update with given ``shifts`` (six, int64) and ``seed``:
-        the plain version for CPU tensors, the kernel for CUDA tensors
-        (``geometry`` as ``launch`` takes it). Returns (theta leaves, lp,
-        ll); ``outs`` are written when given."""
+    def half(self, upd, lp, ll, comp, shifts, seed, outs=None):
+        """One half-update with given ``shifts`` (six, int64) and ``seed``
+        on CPU tensors, by the plain version (on CUDA tensors it raises:
+        the kernel takes words, ``half_words``). Returns (theta leaves,
+        lp, ll); ``outs`` are written when given."""
+        self._cpu_only(upd[0].device)
+        res = self.half_plain(upd, lp, ll, comp, shifts, seed)
+        if outs is None:
+            return res
+        for o, v in zip(list(outs[0]) + list(outs[1:]),
+                        list(res[0]) + list(res[1:])):
+            o.copy_(v)
+        return outs
+
+    def half_words(self, upd, lp, ll, comp, words, outs=None,
+                   geometry=None):
+        """One half-update from the half's seven ``words`` (six shift
+        words, then the seed): the plain version fed ``rot_shifts6`` of
+        them for CPU tensors, the kernel (which derives the shifts) for
+        CUDA tensors (``geometry`` as ``launch`` takes it). Returns (theta
+        leaves, lp, ll); ``outs`` are written when given."""
         dev = upd[0].device
+        words = self._device_words(words, dev)
         if dev.type == "cpu":
-            res = self.half_plain(upd, lp, ll, comp, shifts, seed)
-            if outs is None:
-                return res
-            for o, v in zip(list(outs[0]) + list(outs[1:]),
-                            list(res[0]) + list(res[1:])):
-                o.copy_(v)
-            return outs
+            return self.half(upd, lp, ll, comp,
+                             rot_shifts6(words[:6], upd[0].shape[0]),
+                             words[6:], outs)
         if outs is None:
             outs = ([torch.empty_like(x) for x in upd], torch.empty_like(lp),
                     torch.empty_like(ll))
-        shifts = torch.as_tensor(shifts, device=dev).to(torch.int64)
-        self.launch(upd, lp.contiguous(), ll.contiguous(), comp,
-                    shifts.contiguous(), _seed_tensor(seed, dev), outs,
+        self.launch(upd, lp.contiguous(), ll.contiguous(), comp, words, outs,
                     geometry)
         return outs
 
@@ -672,10 +705,10 @@ class FusedAISSweep(MixtureHalfSweep):
         h = tha_l[0].shape[0]
         if h < 3:
             raise ValueError("need at least 6 walkers")
-        tha_l, lpa, lla = self.half(tha_l, lpa, lla, thb_l,
-                                    *self._draws(gen, h))
-        thb_l, lpb, llb = self.half(thb_l, lpb, llb, tha_l,
-                                    *self._draws(gen, h))
+        tha_l, lpa, lla = self.half_words(tha_l, lpa, lla, thb_l,
+                                          self._draws(gen))
+        thb_l, lpb, llb = self.half_words(thb_l, lpb, llb, tha_l,
+                                          self._draws(gen))
         return ((tree_of(tha_l, sa), tree_of(thb_l, sa)),
                 ((lpa, lla), (lpb, llb)))
 
@@ -696,9 +729,9 @@ class FusedAISSweep(MixtureHalfSweep):
             sl, co = (slice(0, h), slice(h, n)) if half == 0 else (
                 slice(h, n), slice(0, h))
             comp = [(x if half == 0 else o)[co] for x, o in zip(leaves, oth)]
-            self.half([x[sl] for x in leaves], lp[sl], ll[sl], comp,
-                      *self._draws(gen, h),
-                      outs=([o[sl] for o in oth], olp[sl], oll[sl]))
+            self.half_words([x[sl] for x in leaves], lp[sl], ll[sl], comp,
+                            self._draws(gen),
+                            outs=([o[sl] for o in oth], olp[sl], oll[sl]))
         return tree_of(oth, structure), (olp, oll)
 
     def __call__(self, gen, thetas, lds):

@@ -14,10 +14,12 @@ tempered MH accept at the temperature ``lam``::
 
 The raw float proposal is committed with its raw ``lpp`` and ``llp``.
 ``loglike`` and the prior's logpdf and push are compiled into the kernel
-by ``ops/codegen.py``. ``lam``, the shifts and the seed are read from
-device memory, so a sweep reads nothing on the host. Beside the kernel,
-``FusedTemperedSweep.half_plain`` repeats its arithmetic (the
-int64-emulated uint32 words of ``ops/fused_ais.py``):
+by ``ops/codegen.py``. The kernel takes the half's seven raw words (one
+draw from the generator) and derives the six partner shifts from them by
+``rot_shifts6``'s rule; ``lam`` and the words are read from device
+memory, so a sweep reads nothing on the host and costs one word draw and
+one launch a half. Beside the kernel, ``FusedTemperedSweep.half_plain`` repeats its arithmetic (the
+int64-emulated uint32 words of ``ops/fused_ais.py``) on given shifts:
 
 - a wrapper given CPU tensors runs the plain version;
 - a wrapper given CUDA tensors launches the kernel or raises;
@@ -36,7 +38,7 @@ import torch
 
 from . import _build, codegen
 from .fused_ais import (GEN_AIS_OPS_PER_PAIR, GEN_AIS_OPS_PER_WORD,
-                        MixtureHalfSweep, _f32)
+                        MixtureHalfSweep, _f32, rot_shifts6)
 from .kernels import _check_bits, _seed_tensor, _stream
 from .streaming import leaves_of, tree_of
 
@@ -57,10 +59,20 @@ def reset_launch_counts() -> None:
         launches[name] = 0
 
 
+def _lam_tensor(lam, dev):
+    """The temperature as a float32 [1] tensor on ``dev`` (a view of a
+    float32 scalar tensor there already)."""
+    if not (torch.is_tensor(lam) and lam.device == dev
+            and lam.dtype == torch.float32):
+        lam = torch.as_tensor(lam, device=dev).to(torch.float32)
+    return lam.reshape(1)
+
+
 class FusedTemperedSweep(MixtureHalfSweep):
     """``make_fused_tempered_sweep``'s sweep: ``sweep(gen, (tree_a,
-    tree_b), ((lp_a, ll_a), (lp_b, ll_b)), lam)``. ``half`` runs one
-    half-update with given shifts and seed."""
+    tree_b), ((lp_a, ll_a), (lp_b, ll_b)), lam)``. ``half_words`` runs
+    one half-update from its seven words (CPU or CUDA), ``half`` one with
+    given shifts and seed (CPU)."""
 
     walker_stream = STREAM_TEMPERED_WALKER
     name = "make_fused_tempered_sweep"
@@ -74,6 +86,7 @@ class FusedTemperedSweep(MixtureHalfSweep):
         self.unit = codegen.generate_tempered(loglike, prior)
         self.fconsts = np.array([*self.mc, _f32(2 * (self.d - 1))],
                                 np.float32)
+        self._fconsts_ptr = self.fconsts.ctypes.data_as(ctypes.c_void_p)
         self.mesh = None
 
     def half_plain(self, upd, lp, ll, comp, shifts, seed, lam, terms=False):
@@ -96,43 +109,54 @@ class FusedTemperedSweep(MixtureHalfSweep):
                torch.where(acc, lpp, lp), torch.where(acc, llp, ll))
         return out + ((valid, lw - logu),) if terms else out
 
-    def launch(self, upd, lp, ll, comp, shifts, seed, lam, outs):
+    def launch(self, upd, lp, ll, comp, words, lam, outs):
         """Launch ``kt_fused_tempered_sweep`` on checked CUDA buffers of
-        one half: ``shifts`` int64 [6], ``seed`` int64 [1], ``lam``
-        float32 [1], ``outs`` = (theta leaves, lp, ll)."""
+        one half: ``words`` int64 [7], ``lam`` float32 [1], ``outs`` =
+        (theta leaves, lp, ll)."""
         lib = _build.load_generated(self.unit.source)
         oth, olp, oll = outs
+        h = upd[0].shape[0]
         err = lib.kt_fused_tempered_sweep(
             _build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
-            _build.pointers(comp), shifts.data_ptr(), seed.data_ptr(),
-            lam.data_ptr(), _build.pointers(oth), olp.data_ptr(),
-            oll.data_ptr(), upd[0].shape[0],
-            self.fconsts.ctypes.data_as(ctypes.c_void_p),
-            int(self.bits == "stub"), self._sb_rows(upd[0].shape[0]),
-            _stream())
+            _build.pointers(comp), words.data_ptr(), lam.data_ptr(),
+            _build.pointers(oth), olp.data_ptr(), oll.data_ptr(), h,
+            self._fconsts_ptr,
+            int(self.bits == "stub"), self._sb_rows(h), _stream())
         _build.check(lib, err, "fused_tempered_sweep")
         launches["fused_tempered_sweep"] += 1
 
     def half(self, upd, lp, ll, comp, shifts, seed, lam, outs=None):
         """One half-update with given ``shifts`` (six, int64), ``seed``
-        and temperature ``lam``: the plain version for CPU tensors, the
-        kernel for CUDA tensors. Returns (theta leaves, lp, ll)."""
+        and temperature ``lam`` on CPU tensors, by the plain version (on
+        CUDA tensors it raises: the kernel takes words, ``half_words``).
+        Returns (theta leaves, lp, ll); ``outs`` are written when
+        given."""
         upd, comp, lp, ll, dev = self._checked(upd, comp, lp, ll)
+        self._cpu_only(dev)
+        res = self.half_plain(upd, lp, ll, comp, shifts, seed, lam)
+        if outs is None:
+            return res
+        for o, v in zip(list(outs[0]) + list(outs[1:]),
+                        list(res[0]) + list(res[1:])):
+            o.copy_(v)
+        return outs
+
+    def half_words(self, upd, lp, ll, comp, words, lam, outs=None):
+        """One half-update from the half's seven ``words`` (six shift
+        words, then the seed) at temperature ``lam``: the plain version
+        fed ``rot_shifts6`` of them for CPU tensors, the kernel (which
+        derives the shifts) for CUDA tensors. Returns (theta leaves, lp,
+        ll); ``outs`` are written when given."""
+        upd, comp, lp, ll, dev = self._checked(upd, comp, lp, ll)
+        words = self._device_words(words, dev)
         if dev.type == "cpu":
-            res = self.half_plain(upd, lp, ll, comp, shifts, seed, lam)
-            if outs is None:
-                return res
-            for o, v in zip(list(outs[0]) + list(outs[1:]),
-                            list(res[0]) + list(res[1:])):
-                o.copy_(v)
-            return outs
+            return self.half(upd, lp, ll, comp,
+                             rot_shifts6(words[:6], upd[0].shape[0]),
+                             words[6:], lam, outs)
         if outs is None:
             outs = ([torch.empty_like(x) for x in upd], torch.empty_like(lp),
                     torch.empty_like(ll))
-        shifts = torch.as_tensor(shifts, device=dev).to(torch.int64)
-        lam = torch.as_tensor(lam, device=dev).to(torch.float32).reshape(1)
-        self.launch(upd, lp, ll, comp, shifts.contiguous(),
-                    _seed_tensor(seed, dev), lam.contiguous(), outs)
+        self.launch(upd, lp, ll, comp, words, _lam_tensor(lam, dev), outs)
         return outs
 
     def _checked(self, upd, comp, lp, ll):
@@ -150,7 +174,8 @@ class FusedTemperedSweep(MixtureHalfSweep):
                 f"{self.name}: the halves' leaves, lp and ll must be "
                 f"vectors of one length on {dev} (equal red/black halves), "
                 f"got {[(tuple(t.shape), str(t.device)) for t in vecs]}")
-        vecs = [t.to(torch.float32).contiguous() for t in vecs]
+        vecs = [t if t.dtype == torch.float32 and t.is_contiguous()
+                else t.to(torch.float32).contiguous() for t in vecs]
         k = len(upd)
         return vecs[:k], vecs[k:2 * k], vecs[-2], vecs[-1], dev
 
@@ -162,10 +187,10 @@ class FusedTemperedSweep(MixtureHalfSweep):
         h = tha_l[0].shape[0]
         if h < 3:
             raise ValueError("need at least 6 walkers")
-        tha_l, lpa, lla = self.half(tha_l, lpa, lla, thb_l,
-                                    *self._draws(gen, h), lam)
-        thb_l, lpb, llb = self.half(thb_l, lpb, llb, tha_l,
-                                    *self._draws(gen, h), lam)
+        # seven words a half, half A's first: one draw each
+        wa, wb = self._draws(gen), self._draws(gen)
+        tha_l, lpa, lla = self.half_words(tha_l, lpa, lla, thb_l, wa, lam)
+        thb_l, lpb, llb = self.half_words(thb_l, lpb, llb, tha_l, wb, lam)
         return ((tree_of(tha_l, structure), tree_of(thb_l, structure)),
                 ((lpa, lla), (lpb, llb)))
 

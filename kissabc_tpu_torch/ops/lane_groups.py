@@ -1,17 +1,21 @@
 """Launch geometry of the lane-group kernels, #6 ``kt_fused_ais_sweep`` and
-#10 ``kt_fused_abcde_generation`` (``csrc/generic.cuh``), and plain models
-of what they do with it.
+#10 ``kt_fused_abcde_generation``, and of the cost kernel #4
+``kt_streaming_moment_cost`` (``csrc/generic.cuh``), and plain models of
+what they do with it.
 
-A block covers ``walkers`` walkers with ``threads`` threads. Phase 1 runs
-one thread per walker and compacts the walkers that need the simulator
-onto slots in walker order; phase 2 gives each compacted walker a group
-of ``lanes`` lanes, the block's groups taking its compacted walkers in
-turn, and the group's lanes take the walker's Philox calls in rounds of
-``lanes``. The grid is ``ceil(n / walkers)`` blocks.
+A block covers ``walkers`` walkers with ``threads`` threads. In #6 and
+#10, phase 1 runs one thread per walker and compacts the walkers that
+need the simulator onto slots in walker order; phase 2 gives each
+compacted walker a group of ``lanes`` lanes, the block's groups taking
+its compacted walkers in turn, and the group's lanes take the walker's
+Philox calls in rounds of ``lanes``. #4 has no phase 1 (every walker
+needs the simulator) and one turn: a group of lanes for each of the
+block's walkers. The grid is ``ceil(n / walkers)`` blocks.
 
-- ``geometry`` picks a launch from ``n`` (``pick``) and ``check``
-  refuses what the kernels cannot take, as their entry points do (they
-  return ``cudaErrorInvalidConfiguration``);
+- ``geometry`` (#6, #10) and ``cost_geometry`` (#4) pick a launch from
+  ``n`` (``pick``, ``cost_pick``) and ``check`` (``cost_check``) refuses
+  what the kernels cannot take, as their entry points do (they return
+  ``cudaErrorInvalidConfiguration``);
 - ``lane_share`` is the share of the draw loop's lanes that do useful
   work for a mask of the walkers that need the simulator;
 - ``schedule`` replays a group's rounds, stores and loads (the same index
@@ -52,12 +56,13 @@ class Geometry(NamedTuple):
     lanes: int
 
 
-def smem_bytes(walkers: int, threads: int, lanes: int, nstats: int) -> int:
+def smem_bytes(walkers: int, threads: int, lanes: int, nstats: int,
+               slots: bool = True) -> int:
     """Dynamic shared memory of a block (``group_smem``): for ``lanes >
     1`` each warp's staging, two buffers of a row of 33 float2 cells per
-    (half, statistic), then the walkers' slots."""
+    (half, statistic), then (``slots``: #6, #10) the walkers' slots."""
     stage = (threads // 32) * 2 * (2 * nstats) * 33 * 8 if lanes > 1 else 0
-    return stage + 4 * walkers
+    return stage + (4 * walkers if slots else 0)
 
 
 def unit_lanes(source: str) -> tuple[int, ...]:
@@ -72,12 +77,13 @@ def with_all_lanes(unit):
 
 
 def check(n: int, walkers: int, threads: int, lanes: int, nstats: int,
-          built: tuple[int, ...] = LANES) -> Geometry:
+          built: tuple[int, ...] = LANES, slots: bool = True) -> Geometry:
     """The geometry of one launch over ``n`` walkers, or ``ValueError``
     for what the kernels cannot take: threads a multiple of 32 up to
     ``MAX_THREADS``, 1 to ``MAX_WALKERS`` walkers a block, ``lanes`` one
     of the unit's (``built``, ``unit_lanes``) and the block's shared
-    memory within ``MAX_SMEM``."""
+    memory (with the walkers' slots, or without for #4: ``slots``)
+    within ``MAX_SMEM``."""
     if threads % 32 or not 32 <= threads <= MAX_THREADS:
         raise ValueError(f"threads must be a multiple of 32 in [32, "
                          f"{MAX_THREADS}], got {threads}")
@@ -86,7 +92,7 @@ def check(n: int, walkers: int, threads: int, lanes: int, nstats: int,
                          f", got {walkers}")
     if lanes not in built:
         raise ValueError(f"lanes must be one of {built}, got {lanes}")
-    smem = smem_bytes(walkers, threads, lanes, nstats)
+    smem = smem_bytes(walkers, threads, lanes, nstats, slots)
     if smem > MAX_SMEM:
         raise ValueError(f"{walkers} walkers, {threads} threads and {lanes} "
                          f"lanes with {nstats} statistics need {smem} bytes "
@@ -141,6 +147,64 @@ def geometry(n: int, nstats: int = 2, sms: int = H100_SMS,
     """The launch of #6 or #10 over ``n`` walkers on a card of ``sms``
     SMs: ``pick``, checked for ``nstats`` statistics."""
     return check(n, *pick(n, sms, light), nstats)
+
+
+# kernel #4 runs a light model on one lane in blocks of 128 above this
+# many walkers an SM (cost_pick)
+COST_GROUPS_PER_SM = 128
+
+
+def cost_pick(n: int, sms: int, light: bool = False,
+              nstats: int = 2) -> tuple[int, int, int]:
+    """(walkers, threads, lanes) of a #4 launch over ``n`` walkers on a
+    card of ``sms`` SMs, by measurement on the H100 (PERF.md section 6,
+    ``tools/time_geometry.py --kernels 4``). Every walker simulates, so
+    nothing is compacted and a block's threads are its walkers times its
+    lanes (one turn):
+
+    - a ``light`` model above ``COST_GROUPS_PER_SM`` walkers an SM: one
+      thread per walker in blocks of 128, by the kernel's L = 1 body. The
+      flagship model on one lane against the fastest lane groups of
+      ``time_geometry``'s grid: 0.0681 against 0.0715 ms at 33792 (256
+      an SM), 0.1329 against 0.1401 at 65536, 0.2555 against 0.2842 at
+      131072, 0.5022 against 0.5588 at 262144, 1.95 against 2.20 at
+      2^20. At 25344 (192 an SM) 4 lanes in one block of 128 an SM ran
+      0.0722 against one lane's 0.0681 (blocks of 64, three an SM, ran
+      0.0565: PERF.md section 7); at 16384 (124 an SM) 4 lanes won,
+      0.0370 against 0.0462;
+    - else groups of 4 lanes in about one block an SM: the walkers an SM
+      rounded up to a multiple of 8, at most 128 (512 threads; fewer where
+      the staging of ``nstats`` statistics would not fit). At 16384 one
+      block of 128 an SM ran 0.0370 ms where two of 64 ran 0.0384; a draw
+      with transcendentals (g-and-k) gains from 4 lanes at 65536 and
+      131072 too (0.2633 against one lane's 0.2901, 0.5238 against
+      0.5447), and takes them at every width (unmeasured above 131072)."""
+    per_sm = -(-n // sms)
+    if light and per_sm > COST_GROUPS_PER_SM:
+        return 128, 128, 1
+    # 8 walkers a warp of groups of 4, as many warps as their staging fits
+    top = min(128, MAX_SMEM // smem_bytes(0, 32, 4, nstats, slots=False) * 8)
+    walkers = min(top, -(-per_sm // 8) * 8)
+    return walkers, 4 * walkers, 4
+
+
+def cost_check(n: int, walkers: int, threads: int, lanes: int, nstats: int,
+               built: tuple[int, ...] = LANES) -> Geometry:
+    """``check`` for #4, whose blocks hold no walkers' slots and give
+    each walker one group of lanes (``threads == walkers * lanes``), as
+    its entry point refuses."""
+    if walkers * lanes != threads:
+        raise ValueError(f"a block's threads are its walkers times the "
+                         f"lanes, got {walkers} walkers of {lanes} lanes on "
+                         f"{threads} threads")
+    return check(n, walkers, threads, lanes, nstats, built, slots=False)
+
+
+def cost_geometry(n: int, nstats: int = 2, sms: int = H100_SMS,
+                  light: bool = False) -> Geometry:
+    """The launch of #4 over ``n`` walkers on a card of ``sms`` SMs:
+    ``cost_pick``, checked for ``nstats`` statistics."""
+    return cost_check(n, *cost_pick(n, sms, light, nstats), nstats)
 
 
 def lane_share(mask, geometry: Geometry) -> float:

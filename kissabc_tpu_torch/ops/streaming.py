@@ -19,6 +19,11 @@ summation order with the user's own callables on tensors:
 - a CUDA tensor launches the kernel or raises — there is no fallback;
 - ``launches`` counts the kernel's launches.
 
+The kernel's launch geometry (walkers a block, threads, lanes a walker)
+comes from ``lane_groups.cost_geometry``: one thread per walker where
+many walkers share an SM, groups of lanes sharing a walker's draws where
+few do; every geometry gives the same bits.
+
 ``bits="hw"`` is Philox4x32-10, ``bits="stub"`` the JAX package's stub
 stream at the TPU kernel's coordinates (see ``csrc/generic.cuh``). The
 JAX function's ``interpret=`` has no counterpart here: the plain version
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.rng import uint32_words
-from . import _build, codegen
+from . import _build, codegen, lane_groups
 from .kernels import (_box_muller, _check_bits, _seed_tensor, _stream,
                       philox4x32_10, plan_tiles, stub_bits, to_unit)
 
@@ -215,19 +220,34 @@ class StreamingMomentCost:
         out = torch.empty((self.nstats, n), dtype=torch.float32, device=dev)
         self.launch(n, leaves, _seed_tensor(seed, dev), out, n,
                     structure=structure)
-        launches["streaming_moment_cost"] += 1
         return tuple(out)
 
-    def launch(self, n, leaves, seed, out, ld, *, structure):
+    def geometry(self, n, structure):
+        """``lane_groups.cost_geometry`` of ``n`` walkers for this model
+        on the current card."""
+        unit = self.unit(structure)
+        return lane_groups.cost_geometry(
+            n, self.nstats, lane_groups.sm_count(torch.cuda.current_device()),
+            lane_groups.is_light(unit))
+
+    def launch(self, n, leaves, seed, out, ld, *, structure, geometry=None):
         """Launch over the first ``n`` walkers of checked CUDA buffers:
-        moment p of walker w goes to ``out.view(-1)[p*ld + w]``."""
-        lib = _build.load_generated(self.unit(structure).source)
+        moment p of walker w goes to ``out.view(-1)[p*ld + w]``;
+        ``geometry`` a ``lane_groups.Geometry`` (default
+        ``self.geometry(n, structure)``)."""
+        unit = self.unit(structure)
+        lib = _build.load_generated(unit.source)
+        g = self.geometry(n, structure) if geometry is None else \
+            lane_groups.cost_check(n, geometry.walkers, geometry.threads,
+                                   geometry.lanes, self.nstats,
+                                   lane_groups.unit_lanes(unit.source))
         err = lib.kt_streaming_moment_cost(
             _build.pointers(leaves), seed.data_ptr(), out.data_ptr(), ld, n,
             self.ndraws, float(np.float32(1.0 / self.ndraws)),
             int(self.bits == "stub"), self._sb_rows(n), self.chunk,
-            _stream())
+            g.walkers, g.threads, g.lanes, _stream())
         _build.check(lib, err, "streaming_moment_cost")
+        launches["streaming_moment_cost"] += 1
 
     def __call__(self, thetas, gen):
         leaves, structure = leaves_of(thetas, "make_streaming_moment_cost")

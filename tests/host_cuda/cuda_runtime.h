@@ -172,6 +172,12 @@ inline float __shfl_sync(unsigned mask, float x, int src) {
     kt_fail("a shuffle from outside its mask", threadIdx.x, mask);
   return __uint_as_float(v[src & 31]);
 }
+inline int __shfl_sync(unsigned mask, int x, int src) {
+  std::vector<uint32_t> v = kt_collective(mask, (uint32_t)x);
+  if (!(mask >> (src & 31) & 1u))
+    kt_fail("a shuffle from outside its mask", threadIdx.x, mask);
+  return (int)v[src & 31];
+}
 inline float __shfl_xor_sync(unsigned mask, float x, int lane_mask) {
   return __shfl_sync(mask, x, (int)(threadIdx.x & 31u) ^ lane_mask);
 }

@@ -1,10 +1,16 @@
-// Runs the ABC-DE generation (units with KT_HAS_ABCDE) or one AIS
-// half-update (KT_HAS_AIS) of generic.cuh on the host emulation, on
-// inputs from a fixed LCG, once per geometry given on the command line:
+// Runs the ABC-DE generation (units with KT_HAS_ABCDE), one AIS
+// half-update (KT_HAS_AIS) or the streaming moment cost (a unit with
+// neither) of generic.cuh on the host emulation, on inputs from a fixed
+// LCG, once per geometry given on the command line:
 //   program n ndraws chunk stub [walkers threads lanes]...
 // and prints per geometry one line: walkers threads lanes, the error
 // code, an FNV-1a hash of every output's bits, and the walkers that
-// committed.
+// committed (the cost: the output values written, past n too). With
+// KT_DUMP set, the AIS half-update also writes to that path its inputs
+// (theta leaves, lp, ll of all n walkers, float32) and the first
+// geometry's outputs (theta leaves, lp, ll of the first half).
+#include <cstdlib>
+#include <fstream>
 #include <string>
 
 static uint32_t kt_lcg = 12345u;
@@ -52,7 +58,7 @@ int main(int argc, char** argv) {
         walkers, threads, lanes, nullptr);
     std::vector<float>& ref = ds;   // a walker commits where its ds moves
     std::vector<float>& got = outs[K + 1];
-#else
+#elif defined(KT_HAS_AIS) && KT_HAS_AIS
     int m = n / 2;
     std::vector<std::vector<float>> outs(K + 2, std::vector<float>(m, -7.0f));
     std::vector<float*> op(K);
@@ -61,7 +67,8 @@ int main(int argc, char** argv) {
       op[k] = outs[k].data();
       comp[k] = th[k].data() + m;
     }
-    long long shifts[6] = {5 % m, 77 % m, 100 % m, 3, 40 % m, 65 % m};
+    // six shift words, then the seed
+    long long words[7] = {5, 77, 100, 3, 40, 65, seed};
     float fc[10] = {inv_n,     0.57735026f, 1.1547005f, 1.19f,
                     1.0f / 300, 1.0f / 3,   4.0f / 7,   6.0f / 7,
                     2.0f,      2.0f * (K - 1)};
@@ -69,12 +76,35 @@ int main(int argc, char** argv) {
     for (float& x : lp0)
       if (x == -INFINITY) x = -1.0f;
     int err = kt_fused_ais_sweep(thp.data(), lp0.data(), ll.data(),
-                                 comp.data(), shifts, &seed, op.data(),
+                                 comp.data(), words, op.data(),
                                  outs[K].data(), outs[K + 1].data(), m,
                                  ndraws, fc, stub, 1024, chunk, walkers,
                                  threads, lanes, nullptr);
     std::vector<float>& ref = ll;
     std::vector<float>& got = outs[K + 1];
+    const char* dump = std::getenv("KT_DUMP");
+    if (dump && i == 5) {
+      std::ofstream f(dump, std::ios::binary);
+      for (int k = 0; k < K; ++k)
+        f.write(reinterpret_cast<const char*>(th[k].data()), 4 * n);
+      f.write(reinterpret_cast<const char*>(lp0.data()), 4 * n);
+      f.write(reinterpret_cast<const char*>(ll.data()), 4 * n);
+      for (auto& v : outs)
+        f.write(reinterpret_cast<const char*>(v.data()), 4 * m);
+    }
+#else
+    // the moments of every walker into rows of n + 5 (ld), the tail a
+    // sentinel that must stay
+    int m = n, ld = n + 5;
+    std::vector<std::vector<float>> outs(1, std::vector<float>(
+                                                KT_NSTATS * ld, -7.0f));
+    int err = kt_streaming_moment_cost(thp.data(), &seed, outs[0].data(),
+                                       ld, n, ndraws, inv_n, stub, 1024,
+                                       chunk, walkers, threads, lanes,
+                                       nullptr);
+    std::vector<float> ref(outs[0].size(), -7.0f);
+    std::vector<float>& got = outs[0];
+    m = (int)got.size();
 #endif
     unsigned long long h = 1469598103934665603ull;
     for (auto& v : outs)

@@ -310,6 +310,68 @@ def test_generic_halves_contract_equals_the_full_contract():
     assert isinstance(fth, tuple) and fth[0].shape == (n,)
 
 
+def test_generic_sweep_is_two_half_updates_with_words_from_the_generator():
+    """Each half of #6's sweep draws seven words from ``gen`` in one draw
+    (six shift words, then the seed) and runs ``half_words`` on them,
+    which is ``half`` on the shifts ``rot_shifts6`` makes of the first
+    six; half B proposes against the updated half A; the inputs are not
+    written."""
+    prior, draw, reduce_cost, stats, scale = _models(torch)["discrete"]
+    sw = kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=scale,
+                                 ndraws=100, block=128, chunk=128,
+                                 walker_tiles=2, bits="stub", halves=True)
+    rng = np.random.default_rng(8)
+    n, h = 256, 128
+    th = _generic_start("discrete", n, rng)
+    lp = prior.logpdf_tree(prior.push_tree(tuple(map(_t, th)))).numpy()
+    ll = rng.uniform(-20, -1, n).astype(np.float32)
+    th_t, ld_t = convert.ais_state_from_numpy(th, (lp, ll), halves=True)
+    keep = [x.clone() for x in list(th_t[0]) + list(th_t[1])]
+    (ta, tb), ((lpa, lla), (lpb, llb)) = sw(torch.Generator().manual_seed(4),
+                                            th_t, ld_t)
+    assert all(torch.equal(a, b) for a, b in zip(
+        keep, list(th_t[0]) + list(th_t[1])))
+    g = torch.Generator().manual_seed(4)
+    wa, wb = sw._draws(g), sw._draws(g)
+    a = sw.half_words(list(th_t[0]), *ld_t[0], list(th_t[1]), wa)
+    b = sw.half_words(list(th_t[1]), *ld_t[1], a[0], wb)
+    for got, want in zip(list(ta) + [lpa, lla] + list(tb) + [lpb, llb],
+                         list(a[0]) + [a[1], a[2]] + list(b[0])
+                         + [b[1], b[2]]):
+        assert torch.equal(got, want)
+    a2 = sw.half(list(th_t[0]), *ld_t[0], list(th_t[1]),
+                 FA.rot_shifts6(wa[:6], h), wa[6:])
+    for got, want in zip(list(ta) + [lpa, lla],
+                         list(a2[0]) + [a2[1], a2[2]]):
+        assert torch.equal(got, want)
+    assert bool((ta[0] != th_t[0][0]).any())
+
+
+def test_generic_sweep_hands_the_kernel_words_on_the_walkers_device(
+        monkeypatch):
+    """On the kernel's path each half-update of #6 is one draw of seven
+    words and one launch given them on the walkers' device, with no
+    ``rot_shifts6`` on the way; given shifts run on the CPU only. The
+    walkers' device is ``meta`` here, and the launch records what it is
+    given."""
+    prior, draw, reduce_cost, _, scale = _models(torch)["flagship-linear"]
+    sw = kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=scale,
+                                 block=128, halves=True)
+    meta = torch.device("meta")
+    seen = []
+    monkeypatch.setattr(FA, "rot_shifts6", lambda *a: pytest.fail(
+        "rot_shifts6 on the kernel's path: the kernel derives the shifts"))
+    monkeypatch.setattr(sw, "launch", lambda upd, lp, ll, comp, words, outs,
+                        geometry=None: seen.append((words.device,
+                                                    words.shape)))
+    th = [torch.ones(128, device=meta)] * 2
+    ld = (torch.zeros(128, device=meta), torch.zeros(128, device=meta))
+    sw(torch.Generator(), (th, th), (ld, ld))
+    assert seen == [(meta, (7,))] * 2
+    with pytest.raises(ValueError, match="CPU only.*half_words"):
+        sw.half(th, *ld, th, torch.zeros(6, dtype=torch.int64), 0)
+
+
 # ---------------------------------------------------------------------------
 # validation and the device contract
 # ---------------------------------------------------------------------------

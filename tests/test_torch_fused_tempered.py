@@ -32,6 +32,7 @@ from kissabc_tpu.ops import pallas_kernels as JP
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.ops import codegen as C
+from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.ops import fused_tempered as FT
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -246,9 +247,10 @@ def test_validation_messages():
 
 
 def test_sweep_is_two_half_updates_with_words_from_the_generator():
-    """Each half draws seven words from ``gen`` (six shifts by
-    ``rot_shifts6`` and the seed); half B proposes against the updated
-    half A; the inputs are not written."""
+    """Each half draws seven words from ``gen`` in one draw (six shift
+    words, then the seed) and runs ``half_words`` on them, which is
+    ``half`` on the shifts ``rot_shifts6`` makes of the first six; half B
+    proposes against the updated half A; the inputs are not written."""
     prior, ll_elem, (th, ld) = _conj_state(512, 1)
     sweep = kt.make_fused_tempered_sweep(prior, ll_elem, **KW)
     keep = [x.clone() for x in (th[0], th[1], ld[0][0], ld[0][1])]
@@ -257,11 +259,45 @@ def test_sweep_is_two_half_updates_with_words_from_the_generator():
     assert all(torch.equal(a, b) for a, b in zip(
         keep, (th[0], th[1], ld[0][0], ld[0][1])))
     g = torch.Generator().manual_seed(3)
-    a = sweep.half([th[0]], *ld[0], [th[1]], *sweep._draws(g, 256), 0.7)
-    b = sweep.half([th[1]], *ld[1], a[0], *sweep._draws(g, 256), 0.7)
+    wa, wb = sweep._draws(g), sweep._draws(g)
+    assert wa.shape == wb.shape == (7,)
+    a = sweep.half_words([th[0]], *ld[0], [th[1]], wa, 0.7)
+    b = sweep.half_words([th[1]], *ld[1], a[0], wb, 0.7)
     for got, want in zip((ta, lpa, lla, tb, lpb, llb),
                          (a[0][0], a[1], a[2], b[0][0], b[1], b[2])):
         assert torch.equal(got, want)
+    a2 = sweep.half([th[0]], *ld[0], [th[1]], FA.rot_shifts6(wa[:6], 256),
+                    wa[6:], 0.7)
+    for got, want in zip((ta, lpa, lla), (a2[0][0], a2[1], a2[2])):
+        assert torch.equal(got, want)
+
+
+def test_sweep_hands_the_kernel_words_on_the_walkers_device(monkeypatch):
+    """On the kernel's path a sweep is two draws of seven words from
+    ``gen`` (which may live on another device than the walkers), half A's
+    first, and one launch a half given them on the walkers' device, with
+    no ``rot_shifts6`` on the way; ``half_words`` is one launch. The
+    walkers' device is reported as ``meta`` here, and the launches record
+    what they are given."""
+    prior, ll_elem, (th, ld) = _conj_state(256, 2)
+    sweep = kt.make_fused_tempered_sweep(prior, ll_elem, **KW)
+    meta = torch.device("meta")
+    seen = []
+    monkeypatch.setattr(sweep, "_checked", lambda upd, comp, lp, ll: (
+        [x.to(meta) for x in upd], [x.to(meta) for x in comp], lp.to(meta),
+        ll.to(meta), meta))
+    monkeypatch.setattr(FT, "rot_shifts6", lambda *a: pytest.fail(
+        "rot_shifts6 on the kernel's path: the kernel derives the shifts"))
+    monkeypatch.setattr(sweep, "launch", lambda upd, lp, ll, comp, words,
+                        lam, outs: seen.append((words.device, words.shape,
+                                                lam.shape)))
+    g = torch.Generator().manual_seed(5)
+    th_m = tuple(x.to(meta) for x in th)
+    ld_m = tuple(tuple(x.to(meta) for x in half) for half in ld)
+    sweep(g, th_m, ld_m, 0.5)
+    assert seen == [(meta, (7,), (1,))] * 2
+    sweep.half_words([th_m[0]], *ld_m[0], [th_m[1]], sweep._draws(g), 0.5)
+    assert seen[2:] == [(meta, (7,), (1,))]
 
 
 def test_determinism_and_movement():

@@ -1,6 +1,7 @@
 """The launch geometry of the lane-group kernels #6 and #10
-(``kissabc_tpu_torch/ops/lane_groups.py``, ``geometry``): the grid covers
-every walker, the production width of ABCDE puts a block on every SM,
+(``kissabc_tpu_torch/ops/lane_groups.py``, ``geometry``) and of the cost
+kernel #4 (``cost_geometry``): the grid covers every walker, the
+production width of ABCDE puts a block on every SM,
 ``check`` refuses what the kernels cannot take, a unit has the lanes 1
 and 4 unless it asks for all; the lane share that compaction gives on
 the masks of the plain versions; and a plain replay of the lane-group
@@ -115,6 +116,70 @@ def test_a_unit_has_lanes_1_and_4_unless_it_asks_for_all(lanes):
     for n in (1000, 16384, 131072, 1 << 20):
         for light in (False, True):
             assert LG.geometry(n, light=light).lanes in LG.LANES
+
+
+@pytest.mark.parametrize("n,light,want", [
+    (1000, True, (125, 8, 32, 4)), (1000, False, (125, 8, 32, 4)),
+    (16384, True, (128, 128, 512, 4)), (16384, False, (128, 128, 512, 4)),
+    (16896, True, (132, 128, 512, 4)), (16897, True, (133, 128, 128, 1)),
+    (131072, True, (1024, 128, 128, 1)), (131072, False, (1024, 128, 512, 4)),
+    (1 << 20, True, (8192, 128, 128, 1)),
+    (1 << 20, False, (8192, 128, 512, 4))])
+def test_cost_default_geometry(n, light, want):
+    """Kernel #4 (``cost_geometry``, by measurement on the H100): groups
+    of 4 lanes, one turn each, in about one block an SM (1000:
+    smc-fused-generic's init; 16384: ABCDE's split generations; g-and-k
+    at 131072), but a light model (the flagship draw) above 128 walkers
+    an SM (16896 = 128 x 132) on one lane, one thread a walker in blocks
+    of 128 (2^20: smc-1m-generic)."""
+    g = LG.cost_geometry(n, light=light)
+    assert g == want
+    assert g.blocks * g.walkers >= n > (g.blocks - 1) * g.walkers
+    assert g.threads == g.walkers * g.lanes
+
+
+@pytest.mark.parametrize("n", [1, 31, 300, 1000, 4096, 16384, 16384 + 37,
+                               33792, 33793, 131072])
+def test_cost_grid_covers_every_walker_on_every_sm(n):
+    """About one block an SM: the walkers an SM rounded up to a multiple
+    of 8 in one block where that holds at most 128 (so no SM takes two
+    blocks), blocks of 128 above; the staging of 16 statistics fits."""
+    g = LG.cost_geometry(n)
+    assert g.blocks * g.walkers >= n > (g.blocks - 1) * g.walkers
+    assert g.lanes == 4 and g.threads == 4 * g.walkers
+    per_sm = -(-n // LG.H100_SMS)
+    if per_sm <= 128:
+        assert g.blocks <= LG.H100_SMS
+        assert g.walkers - 8 < per_sm <= g.walkers
+    else:
+        assert g.walkers == 128
+    wide = LG.cost_geometry(n, nstats=16)   # 16 statistics: less staging
+    assert wide.walkers <= g.walkers and wide.walkers <= 104
+    assert wide.blocks * wide.walkers >= n
+
+
+def test_cost_check_counts_no_slots():
+    """#4 has no compaction, so its shared memory is the staging alone:
+    4096 walkers a block fit beside 512 threads' staging of 2 statistics
+    (with slots they need 16384 bytes more), 16 statistics on 512
+    threads of 4 lanes do not."""
+    assert LG.smem_bytes(4096, 512, 4, 2, slots=False) == \
+        LG.smem_bytes(4096, 512, 4, 2) - 4 * 4096
+    assert LG.check(65536, 4096, 512, 4, 2, slots=False).blocks == 16
+    with pytest.raises(ValueError, match="shared memory"):
+        LG.check(65536, 128, 512, 4, 16, slots=False)
+    assert LG.check(65536, 128, 512, 1, 16, slots=False).lanes == 1
+
+
+def test_cost_check_takes_a_group_of_lanes_a_walker():
+    assert LG.cost_check(65536, 128, 128, 1, 2).blocks == 512
+    assert LG.cost_check(65536, 8, 32, 4, 2).blocks == 8192
+    for walkers, threads, lanes in ((128, 256, 1), (256, 128, 1),
+                                    (1, 32, 1), (16, 128, 4), (8, 64, 4)):
+        with pytest.raises(ValueError, match="walkers times the lanes"):
+            LG.cost_check(65536, walkers, threads, lanes, 2)
+    with pytest.raises(ValueError, match="lanes must be one of"):
+        LG.cost_check(65536, 8, 64, 8, 2)
 
 
 def test_limits_match_the_kernel():

@@ -25,7 +25,9 @@ the fused generation (kernel #10) (``abcde-fused``). ``--path sweep``
 runs ``chip_smoke.py``'s ``fused-sweep``, 100 steps of
 ``make_fused_flagship_sweep`` (kernel #2) at 131072 walkers, with
 ``--parent DIR`` in turns with the checkout under DIR (parent, this,
-this, parent), and adds updates/s and sync-or-copy calls per step.
+this, parent), and adds updates/s and sync-or-copy calls per step; with
+``--path tsmc``, ``--parent DIR`` times the tempered sweep alone for both
+trees in the same turns.
 ``all`` runs all seven. For each run it prints one JSON line with
 the wall time, the iterations (generations for ABCDE), the device busy
 time (the union of all CUDA kernel and copy intervals), the device idle
@@ -33,7 +35,9 @@ share of the profiled window, the CUDA events and the port's kernel
 launches per iteration,
 the sync and copy calls (and, for the generic path, those of the fused
 sweep called alone 100 times, each with the Python frames it came from,
-and the blocking syncs torch's sync debug mode reports), and the CUDA
+and the blocking syncs torch's sync debug mode reports; for tsmc's fused
+run, the tempered sweep called alone 100 times: its wall, CUDA events,
+launches and sync or copy calls per sweep), and the CUDA
 kernels that took the most device time. With ``--trace-dir`` a Chrome trace of each profiled
 run is written there (tens of MiB each). Needs one CUDA card; imports
 nothing of JAX.
@@ -115,6 +119,46 @@ def sweep_syncs(torch, prior, sweep, n, calls=100):
             "sync_or_copy_per_call": sync_or_copy_calls(prof) / calls,
             "sources": sources, "blocking_syncs": len(blocking),
             "blocking_examples": blocking[:3]}
+
+
+def tempered_sweep_alone(torch, sweep, n=4096, calls=100):
+    """The fused tempered sweep (#9) called alone ``calls`` times on
+    ``n`` walkers of the conjugate model at lam 0.3 (on the card, as tsmc
+    passes it): its warm wall per sweep, and under the profiler its CUDA
+    events, its #9 launches and its sync or copy calls per sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kissabc_tpu_torch import models
+
+    prior, ll_elem, _, _ = models.conjugate_normal()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    th = torch.randn(n, generator=gen, device="cuda")
+    lp, ll = prior.logpdf(th).float(), ll_elem(th).float()
+    h = n // 2
+    state = ((th[:h], th[h:]), ((lp[:h], ll[:h]), (lp[h:], ll[h:])))
+    lam = torch.tensor(0.3, device="cuda")
+
+    def run():
+        nonlocal state
+        for _ in range(calls):
+            state = sweep(gen, *state, lam)
+        torch.cuda.synchronize()
+
+    run()   # warm
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"calls": calls, "nparticles": n, "wall_ms_per_sweep":
+            wall / calls * 1e3,
+            "cuda_events_per_sweep": len(events) / calls,
+            "kernel_events_per_sweep": sum(
+                "fused_tempered" in e.name for e in events) / calls,
+            "sync_or_copy_per_sweep": sync_or_copy_calls(prof) / calls}
 
 
 def path_spec(torch, kt, path):
@@ -241,10 +285,13 @@ def profile_sampler(torch, kt, path, trace_dir):
         trace = os.path.join(trace_dir, f"{label}_{n}.json") \
             if trace_dir else None
         res, wall, launches, prof, wall_prof = measure(torch, call, trace)
+        alone = (tempered_sweep_alone(torch, sweep)
+                 if path == "tsmc" and fused else None)
         out.append({"path": label, "nparticles": n,
                     "iterations": res.iterations, "wall_s": wall,
                     **device_summary(torch, prof, wall_prof, res.iterations),
-                    "kernel_launches": launches, "trace": trace})
+                    "kernel_launches": launches, "fused_sweep_alone": alone,
+                    "trace": trace})
     return out
 
 
@@ -318,8 +365,9 @@ def main():
                                        "all"),
                     default="flagship")
     ap.add_argument("--parent", default=None,
-                    help="with --path sweep: also the checkout under DIR, "
-                    "in turns (parent, this, this, parent)")
+                    help="with --path sweep (or tsmc: the tempered sweep "
+                    "alone): also the checkout under DIR, in turns (parent, "
+                    "this, this, parent)")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
     import torch
@@ -353,6 +401,16 @@ def main():
         if path in ("tsmc", "abcde"):
             for row in profile_sampler(torch, kt, path, args.trace_dir):
                 print(json.dumps(row), flush=True)
+            if path == "tsmc" and args.parent:
+                sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+                from same_bits import load_package
+                old = load_package(args.parent, "kt_parent")
+                for who, pkg in (("parent", old), ("this", kt), ("this", kt),
+                                 ("parent", old)):
+                    sweep = pkg.make_fused_tempered_sweep(
+                        *pkg.models.conjugate_normal()[:2])
+                    print(json.dumps({"tree": who, **tempered_sweep_alone(
+                        torch, sweep)}), flush=True)
             continue
         spec = path_spec(torch, kt, path)
         for n, kw in spec[3]:

@@ -14,11 +14,18 @@ step's words gets ``fused_sweep_words``, a tree whose kernel takes
 partner differences gets the rolls ``roll_shifts`` makes of the same
 words), #3 ``fused_smc_sweep`` (the flagship
 model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
-#4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub),
+#4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub; the
+flagship model also at 1000, 16384 and 16384 + 37 walkers, each tree at
+its default geometry),
 #5 ``streaming_scan_cost`` (AR(1) at nsteps % 4 of 0, 1 and 3, SIR with a
 series and a two-leaf state, Philox and stub; AR(1) in each block size of
 ``chip_smoke.SCAN_THREADS``), #6 ``fused_ais_sweep`` (flagship and
-g-and-k, Philox and stub; flagship on an odd half of 32771), #7
+g-and-k, Philox and stub; flagship on an odd half of 32771; and one
+whole sweep of the flagship model from a generator state; a tree whose
+kernel takes the half's words gets ``half_words``, a tree whose kernel
+takes shifts gets ``rot_shifts6`` of the same words), #9
+``fused_tempered_sweep`` (one whole sweep of the conjugate model at
+131072 and 4096 walkers from a generator state, Philox and stub), #7
 ``fused_ais_half`` and #8 ``fused_ais_full`` (Philox and stub, and on
 Philox at each geometry ``chip_smoke.GEOMETRIES_78`` times; a tree whose
 launches take raw words gets the words, a tree whose launches take
@@ -114,8 +121,6 @@ def cases(torch, n, big):
     ar = [uniform(n, 0.0, 2.0), uniform(n, 0.3, 2.0)]
     lp_ll = (uniform(big, -5.0, 0.0), uniform(big, -50.0, -1.0))
     h = n // 2
-    shifts6 = torch.tensor([5, 77, 1000, 3, 40000, 65001], dtype=torch.int64,
-                           device=dev) % h
     idx = [torch.randint(0, n, (n,), generator=gen, device=dev)
            for _ in range(3)]
     active = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
@@ -174,11 +179,11 @@ def cases(torch, n, big):
                           torch.tensor(False, device=dev), rs)
         return run
 
-    def k4(model, bits):
+    def k4(model, bits, m=n):
         def run(p):
             if model == "flagship":
                 _, draw, reduce_cost = p.models.flagship()
-                th = (mu[:n], sg[:n])
+                th = (mu[:m], sg[:m])
             else:
                 _, draw, reduce_cost = p.models.g_and_k()
                 th = tuple(gk)
@@ -222,6 +227,17 @@ def cases(torch, n, big):
             return tuple(out)
         return run
 
+    words7 = torch.cat([torch.randint(0, 1 << 32, (6,), generator=gen,
+                                      device=dev), seed])
+
+    def mixture_half(p, sw, half, *args, lam=()):
+        """One half-update of #6 or #9 on ``words7``: the words, or the
+        shifts ``rot_shifts6`` makes of them and the seed."""
+        if hasattr(sw, "half_words"):
+            return sw.half_words(*args, words7, *lam)
+        return sw.half(*args, p.ops.fused_ais.rot_shifts6(words7[:6], half),
+                       words7[6:], *lam)
+
     def k6(model, bits, half=h):
         def run(p):
             if model == "flagship":
@@ -232,10 +248,31 @@ def cases(torch, n, big):
                 leaves = gk
             sw = p.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
                                         bits=bits)
-            return sw.half([x[:half] for x in leaves], lp_ll[0][:half],
-                           lp_ll[1][:half],
-                           [x[half:2 * half] for x in leaves],
-                           shifts6 % half, seed)
+            return mixture_half(
+                p, sw, half, [x[:half] for x in leaves], lp_ll[0][:half],
+                lp_ll[1][:half], [x[half:2 * half] for x in leaves])
+        return run
+
+    def k6_sweep(bits):   # a whole sweep: each tree draws its own words
+        def run(p):
+            prior, draw, reduce_cost = p.models.flagship()
+            sw = p.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
+                                        bits=bits)
+            g = torch.Generator(device=dev).manual_seed(21)
+            return sw(g, (mu[:n], sg[:n]), (lp_ll[0][:n], lp_ll[1][:n]))
+        return run
+
+    def k9_sweep(bits, m=n):
+        def run(p):
+            prior, ll_conj, _, _ = p.models.conjugate_normal()
+            sw = p.make_fused_tempered_sweep(prior, ll_conj, bits=bits)
+            th = mu[:m] - 2.0
+            lp, ll = prior.logpdf(th).float(), ll_conj(th).float()
+            g = torch.Generator(device=dev).manual_seed(22)
+            half = m // 2
+            return sw(g, (th[:half], th[half:]),
+                      ((lp[:half], ll[:half]), (lp[half:], ll[half:])),
+                      torch.tensor(0.3, device=dev))
         return run
 
     words13 = torch.cat([torch.randint(0, 1 << 32, (12,), generator=gen,
@@ -277,6 +314,12 @@ def cases(torch, n, big):
             ("#4 flagship hw", k4("flagship", "hw")),
             ("#4 flagship stub", k4("flagship", "stub")),
             ("#4 g-and-k hw", k4("gk", "hw")),
+            ("#4 flagship hw 1000", k4("flagship", "hw", 1000)),
+            ("#4 flagship hw 16384", k4("flagship", "hw", 16384)),
+            ("#4 flagship hw 16384 + 37", k4("flagship", "hw", 16384 + 37)),
+            ("#4 flagship stub 16384 + 37",
+             k4("flagship", "stub", 16384 + 37)),
+            ("#4 flagship stub 1000", k4("flagship", "stub", 1000)),
             ("#5 ar1 hw", k5("ar1", 1000, "hw")),
             ("#5 ar1 hw, nsteps 1001", k5("ar1", 1001, "hw")),
             ("#5 ar1 stub, nsteps 257", k5("ar1", 257, "stub")),
@@ -289,6 +332,14 @@ def cases(torch, n, big):
             ("#6 g-and-k stub", k6("gk", "stub")),
             ("#7 hw", k7("hw", False)), ("#7 stub", k7("stub", False)),
             ("#6 flagship hw, odd half 32771", k6("flagship", "hw", 32771)),
+            ("#6 flagship hw, a sweep from a generator", k6_sweep("hw")),
+            ("#6 flagship stub, a sweep from a generator",
+             k6_sweep("stub")),
+            ("#9 conjugate hw, a sweep from a generator", k9_sweep("hw")),
+            ("#9 conjugate stub, a sweep from a generator",
+             k9_sweep("stub")),
+            ("#9 conjugate hw 4096, a sweep from a generator",
+             k9_sweep("hw", 4096)),
             ("#8 hw", k7("hw", True)), ("#10 hw", k10("hw")),
             ("#10 stub", k10("stub")), ("#10 hw 16384", k10("hw", 16384)),
             ("#10 hw 16384 + 37", k10("hw", 16384 + 37)),

@@ -18,8 +18,11 @@ walkers at the card's maximum SM clock (``kissabc_tpu_torch/ops/sass.py``),
 and, for the compacting kernels (#6, #10, whose template arguments
 <stub, lanes> are parsed from the name, and #7, #8), the floor for the
 walkers they simulate at their production widths (#2 at 131072 from the
-prior, the scan kernel at 131072 x 1000 steps; ``--sim``; the loop's
-count is per draw per lane, so the floor counts every lane's share).
+prior, the scan kernel at 131072 x 1000 steps, the cost kernel #4, in the
+sweep's unit with its <stub, lanes>, at 16384 and 1000 walkers; ``--sim``;
+the loop's count is per draw per lane, so the floor counts every lane's
+share), and the tempered sweep #9's kernel (no draw loop: every
+instruction once a walker, a sweep of 131072 walkers).
 Then, on the card, it runs kernel #1 (``normal_summary_cost``, 2**20
 walkers x 1000 Philox draws) back to back for about two seconds while
 ``nvidia-smi`` samples the SM clock every 50 ms, and prints the kernel's
@@ -45,7 +48,8 @@ import time
 SIMULATED = ["abcde:16384:5318", "abcde:131072:42876", "ais:131072:77645",
              "flagship:ais7:77996", "flagship:ais8:77883",
              "flagship:sweep2:58068", "scan ar1:131072:131072",
-             "scan sir:131072:131072"]
+             "scan sir:131072:131072", "sweep:cost16384:16384",
+             "sweep:cost1000:1000"]
 
 
 def smi(query):
@@ -95,6 +99,10 @@ def main():
     units["scan sir"] = kt.make_streaming_scan_cost(
         sstep, sinit, sreduce, observe=sobs, series=series,
         nsteps=len(series)).unit(2)
+    # the tempered sweep #9 (conjugate model): no draw loop, one pass a
+    # walker, so its floor counts every instruction once a walker
+    cprior, ll_elem, _, _ = models.conjugate_normal()
+    units["tempered"] = kt.make_fused_tempered_sweep(cprior, ll_elem).unit
     jobs = {"flagship": _build.start()}
     jobs.update({k: _build.start(u.source) for k, u in units.items()})
     clock = float(smi("clocks.max.sm") or "nan")
@@ -111,6 +119,12 @@ def main():
             f.write(text)
         for fn, instrs in sorted(sass.functions(text).items()):
             found = sass.draw_loops(instrs)
+            if name == "tempered":   # a sweep of 131072: 2 x 65536 walkers
+                print(json.dumps(dict(
+                    lib=name, kernel=fn, instructions=len(instrs),
+                    floor_ms_sweep_131072=sass.issue_floor_ms(
+                        len(instrs), 1, 131072, clock))), flush=True)
+                continue
             if not found:
                 continue
             for loop in found:

@@ -7,7 +7,22 @@ checks that every geometry gives the outputs of the default one bit for
 bit.
 
     python3 tools/time_geometry.py [--parent DIR] [--quick]
-                                   [--kernels all|78|2|5]
+                                   [--kernels all|78|2|5|4|9]
+
+#4 ``streaming_moment_cost`` (``--kernels 4``, alone): the flagship model
+at 1000, 16384, 25344 and 33792 (192 and 256 walkers an SM of the
+H100), 65536, 131072, 262144 and 2**20 walkers and g-and-k at 65536 and 131072, 1000 draws, Philox, over a grid of geometries (1, 2, 4, 8 and 16 lanes a
+walker, one turn a group, and one thread per walker in blocks of 32 to
+256), each by the profiler and by queued events; with ``--parent``, the
+parent's kernel (its own geometry) in turns with this checkout's
+default. First, each tree's flagship cost unit and smc sweep unit (#3,
+which holds #4 too) compiled alone, one nvcc after the other: what the
+lane groups in every unit cost in build time. #9 ``fused_tempered_sweep``
+(``--kernels 9``, alone): one sweep of the conjugate model at 4096 and
+131072 walkers, lam 0.3, two launches from the halves' words, by the
+profiler, by queued events and by events around calls (the host's
+launches included); with ``--parent``, the parent's two launches (given
+shifts) in turns with this checkout's.
 
 #2 ``fused_sweep`` (``--kernels 2``, alone): one sweep at 131072 walkers
 on the prior (``chip_smoke.py`` ``kernel-times``' inputs) and on the
@@ -349,6 +364,175 @@ def scan_threads(torch, kt, old, threads, report):
     return bad
 
 
+def cost_grid(quick):
+    """#4's geometries (walkers, threads, lanes): one turn a group, so
+    threads = walkers x lanes, from 32 to 512."""
+    if quick:
+        return [(128, 128, 1), (8, 32, 4), (64, 256, 4), (16, 128, 8)]
+    return [(w, w * lanes, lanes) for lanes in (1, 2, 4, 8, 16)
+            for w in (2, 4, 8, 16, 32, 64, 128, 256)
+            if 32 <= w * lanes <= 512 and (lanes > 1 or w >= 32)]
+
+
+def cost_widths(torch, kt, old, quick, report):
+    """#4 at its paths' widths over ``cost_grid``; returns the count of
+    geometries (and parent runs) whose bits differ from this checkout's
+    default."""
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import _build
+    from kissabc_tpu_torch.ops import lane_groups as LG
+
+    dev = torch.device("cuda")
+    fprior, fdraw, freduce = models.flagship()
+    gprior, gdraw, greduce = models.g_and_k()
+    trees = [("this", kt)] + ([("parent", old)] if old else [])
+    for who, pkg in trees:
+        pm = importlib.import_module(f"{pkg.__name__}.models")
+        build = importlib.import_module(f"{pkg.__name__}.ops._build")
+        _, d, r = pm.flagship()
+        report(tree=who, nvcc_seconds={
+            "cost flagship": nvcc_seconds(
+                build, pkg.make_streaming_moment_cost(d, r).unit(2).source),
+            "smc sweep flagship (#3 and #4)": nvcc_seconds(
+                build, pkg.make_fused_smc_sweep(*pm.flagship()).unit.source)})
+    costs = {"flagship": kt.make_streaming_moment_cost(fdraw, freduce),
+             "g-and-k": kt.make_streaming_moment_cost(gdraw, greduce)}
+    grid_costs = {k: kt.make_streaming_moment_cost(*m[1:])
+                  for k, m in (("flagship", models.flagship()),
+                               ("g-and-k", models.g_and_k()))}
+    for c in grid_costs.values():
+        base = c.unit
+
+        def every_lane(structure, base=base):
+            return LG.with_all_lanes(base(structure))
+
+        c.unit = every_lane
+    pcosts = {"flagship": old.make_streaming_moment_cost(
+        *old.models.flagship()[1:]), "g-and-k": old.make_streaming_moment_cost(
+        *old.models.g_and_k()[1:])} if old else {}
+    jobs = [_build.start(c.unit(k).source) for c, k in (
+        (costs["flagship"], 2), (costs["g-and-k"], 4),
+        (grid_costs["flagship"], 2), (grid_costs["g-and-k"], 4))]
+    if old:
+        for c, k in ((pcosts["flagship"], 2), (pcosts["g-and-k"], 4)):
+            old.ops._build.start(c.unit(k).source)
+    for job in jobs:
+        report(unit=job.lib.name, ptxas=ptxas(job.wait()[2]))
+    seed = torch.tensor([17], dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernel = "streaming_moment_cost_kernel"
+    bad = 0
+    for n, model, prior in ((1000, "flagship", fprior),
+                            (16384, "flagship", fprior),
+                            (25344, "flagship", fprior),
+                            (33792, "flagship", fprior),
+                            (65536, "flagship", fprior),
+                            (131072, "flagship", fprior),
+                            (262144, "flagship", fprior),
+                            (65536, "g-and-k", gprior),
+                            (131072, "g-and-k", gprior),
+                            (1 << 20, "flagship", fprior)):
+        th = [x.contiguous() for x in prior.sample_tree(gen, n)]
+        k = len(th)
+        c, gc = costs[model], grid_costs[model]
+        out = torch.empty((c.nstats, n), device=dev)
+
+        def run(cost=c, geo=None):
+            cost.launch(n, th, seed, out, n, structure=k, geometry=geo)
+            return out
+
+        def times(fn):
+            return dict(device_ms=CS.device_ms(torch, fn, 20, kernel),
+                        queued_ms=CS.queued_ms(torch, fn, 20))
+
+        ref = run().clone()
+        default = c.geometry(n, k)
+        case = f"#4 {model} {n} x 1000"
+        rec = dict(case=case, default=default._asdict(), **times(run))
+        if old:
+            pc = pcosts[model]
+
+            def parent():
+                return torch.stack(pc.moments(tuple(th), seed))
+
+            rec["parent_same_bits"] = CS.same_bits(parent(), ref)
+            bad += not rec["parent_same_bits"]
+            turns = [times(parent if who == "parent" else run)
+                     for who in ("parent", "this", "this", "parent")]
+            for key in ("device_ms", "queued_ms"):
+                rec[f"parent_{key}"] = [turns[0][key], turns[3][key]]
+                rec[f"this_{key}"] = [t[key] for t in turns[1:3]]
+        report(**rec)
+        for w, t, lanes in cost_grid(quick):
+            geo = LG.cost_check(n, w, t, lanes, c.nstats, LG.ALL_LANES)
+            ok = CS.same_bits(run(gc, geo), ref)
+            bad += not ok
+            report(case=case, walkers=w, threads=t, lanes=lanes,
+                   same_bits=ok, **times(lambda: run(gc, geo)))
+    return bad
+
+
+def tempered_sweep(torch, kt, old, report):
+    """#9's sweep (two launches) at 4096 and 131072, with ``old`` in
+    turns with the parent's; returns the count of parent runs whose bits
+    differ."""
+    from kissabc_tpu_torch import models
+    from kissabc_tpu_torch.ops import fused_ais as FA
+
+    dev = torch.device("cuda")
+    prior, ll_conj, _, _ = models.conjugate_normal()
+    sw = kt.make_fused_tempered_sweep(prior, ll_conj)
+    psw = old.make_fused_tempered_sweep(*old.models.conjugate_normal()[:2]) \
+        if old else None
+    lam = torch.tensor([0.3], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bad = 0
+    for n in (4096, 131072):
+        h = n // 2
+        th = torch.randn(n, generator=gen, device=dev)
+        lp, ll = prior.logpdf(th).float(), ll_conj(th).float()
+        words = [FA.uint32_words(gen, 7) for _ in range(2)]
+        shifts = [FA.rot_shifts6(w[:6], h) for w in words]
+        outs = [torch.empty(h, device=dev) for _ in range(6)]
+        oa, ob = ([outs[0]], outs[2], outs[3]), ([outs[1]], outs[4],
+                                                 outs[5])
+
+        def this():
+            sw.half_words([th[:h]], lp[:h], ll[:h], [th[h:]], words[0], lam,
+                          outs=oa)
+            sw.half_words([th[h:]], lp[h:], ll[h:], oa[0], words[1], lam,
+                          outs=ob)
+            return outs
+
+        def parent():
+            psw.half([th[:h]], lp[:h], ll[:h], [th[h:]], shifts[0],
+                     words[0][6:], lam, outs=oa)
+            psw.half([th[h:]], lp[h:], ll[h:], oa[0], shifts[1],
+                     words[1][6:], lam, outs=ob)
+            return outs
+
+        def times(fn, kernel, per_call):
+            return dict(device_ms=CS.device_ms(torch, fn, 50, kernel,
+                                               per_call=per_call),
+                        queued_ms=CS.queued_ms(torch, fn, 50),
+                        events_ms=CS.cuda_ms(torch, fn, 50))
+
+        ref = [x.clone() for x in this()]
+        rec = dict(case=f"#9 conjugate {n}, lam 0.3")
+        forms = {"this": (this, "fused_tempered_sweep_kernel", 2)}
+        if old:
+            rec["parent_same_bits"] = CS.same_bits(parent(), ref)
+            bad += not rec["parent_same_bits"]
+            forms["parent"] = (parent, "fused_tempered_sweep_kernel", 2)
+        order = ("parent", "this", "this", "parent") if old else ("this",)
+        turns = [(who, times(*forms[who])) for who in order]
+        for who in forms:
+            for key in ("device_ms", "queued_ms", "events_ms"):
+                rec[f"{who}_{key}"] = [t[key] for w, t in turns if w == who]
+        report(**rec)
+    return bad
+
+
 def nvcc_seconds(build, text):
     """Seconds of one nvcc of a generated unit on its own, into a fresh
     library (one built before is not reused), then removed."""
@@ -373,7 +557,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent")
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--kernels", choices=("all", "78", "2", "5"),
+    ap.add_argument("--kernels", choices=("all", "78", "2", "5", "4", "9"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -409,6 +593,10 @@ def main():
         return finish(fused_sweep(torch, kt, old, grid["sweep"], report, c2))
     if args.kernels == "5":
         return finish(scan_threads(torch, kt, old, CS.SCAN_THREADS, report))
+    if args.kernels == "4":
+        return finish(cost_widths(torch, kt, old, args.quick, report))
+    if args.kernels == "9":
+        return finish(tempered_sweep(torch, kt, old, report))
 
     # ---- #7 and #8 -------------------------------------------------------
     bad += flagship_ais(torch, kt, old, grid["flagship ais"], report, c2)
@@ -508,6 +696,11 @@ def main():
     n, h = 131072, 65536
     sh = torch.tensor([5, 77, 1000, 3, 40000, 65001, 11, 2, 65000, 9, 123,
                        4567], dtype=torch.int64, device=dev) % h
+    # the halves' words whose rot_shifts6 at h = 65536 are sh: a tree
+    # whose kernel takes words gets them, a parent that takes shifts sh
+    wh = torch.tensor([5, 77, 999, 3, 39999, 64999, 11, 2, 64999, 9, 122,
+                       4565], dtype=torch.int64, device=dev)
+    words6 = [torch.cat([wh[k:k + 6], seed]) for k in (0, 6)]
     flagship_cost = kt.make_flagship_cost_batched()
     starts = {}
     th0 = fprior.sample_tree(gen, n)
@@ -555,17 +748,15 @@ def main():
         def sweep(s=sw, geo=None, keep=True):
             oa = ([o[:h] for o in outs[0]], outs[1][:h], outs[2][:h])
             ob = ([o[h:] for o in outs[0]], outs[1][h:], outs[2][h:])
-            if geo is None:
-                s.half([x[:h] for x in th], lp[:h], ll[:h],
-                       [x[h:] for x in th], sh[:6], seed, outs=oa)
-                s.half([x[h:] for x in th], lp[h:], ll[h:], oa[0], sh[6:],
-                       seed, outs=ob)
-            else:
-                s.half([x[:h] for x in th], lp[:h], ll[:h],
-                       [x[h:] for x in th], sh[:6], seed, outs=oa,
-                       geometry=geo)
-                s.half([x[h:] for x in th], lp[h:], ll[h:], oa[0], sh[6:],
-                       seed, outs=ob, geometry=geo)
+            kw = {} if geo is None else {"geometry": geo}
+            for k, (sl, comp, o) in enumerate((
+                    (slice(0, h), [x[h:] for x in th], oa),
+                    (slice(h, n), oa[0], ob))):
+                args = ([x[sl] for x in th], lp[sl], ll[sl], comp)
+                if hasattr(s, "half_words"):
+                    s.half_words(*args, words6[k], outs=o, **kw)
+                else:
+                    s.half(*args, sh[6 * k:6 * k + 6], seed, outs=o, **kw)
             return [x.clone() for x in flat(outs)] if keep else None
 
         ref = sweep()
