@@ -25,7 +25,13 @@ paths:
   and run stopped at its first checkpoint and resumed;
 
 and checks each posterior against its limits (slices 4 and 5 add AIS,
-tsmc, pfilter and ABCDE and their kernels). For the kernels redesigned
+tsmc, pfilter and ABCDE and their kernels; slice 6 adds
+``abc_rejection``: ``rejection-budget``, the JAX bench's rejection row
+uncut, 4096 kept of 131072 x 1600 draws through the flagship cost
+kernel, and ``rejection-threshold``, eps 0.05 through kernel #4; then
+``host-cost``, smc with a numpy simulator on the host, and
+``prior-battery``, the samplers' prior battery of the new distribution
+families on the card). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
 and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
@@ -359,6 +365,7 @@ def main():
                     "sets to PATH (torch.save), for tools/ais_plain_gap.py "
                     "--population")
     opts = ap.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -377,6 +384,7 @@ def main():
     from kissabc_tpu_torch import models
     from kissabc_tpu_torch.core import ais as AI
     from kissabc_tpu_torch.core import abcde as AB
+    from kissabc_tpu_torch.core import rejection as RJ
     from kissabc_tpu_torch.ops import _build
     from kissabc_tpu_torch.ops import fused_abcde as FD
     from kissabc_tpu_torch.ops import fused_ais as FA
@@ -2296,12 +2304,301 @@ def main():
                                            f"{wall:.3f} s")
         ph.result = json.dumps(out)
 
+    # ---- slice 6: abc_rejection, host_cost, the prior battery ----------
+    def profiled(fn, nchunks):
+        """One run of ``fn`` under torch.profiler: CUDA events a chunk,
+        the host's waits for the card (cudaStreamSynchronize,
+        cudaDeviceSynchronize) and its copies (cudaMemcpyAsync, which
+        includes copies on the card that do not wait), the device's busy
+        time, its idle share of the profiled wall, and device ms a chunk
+        of the kernels whose names hold ``normal_summary_cost``,
+        ``streaming_moment_cost`` or ``sort``."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        devs = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans, end = 0.0, float("-inf")
+        for s, e in sorted((e.time_range.start, e.time_range.end)
+                           for e in devs):
+            spans += max(0.0, e - max(s, end))
+            end = max(end, e)
+        by = {}
+        for e in devs:
+            for key in ("normal_summary_cost", "streaming_moment_cost",
+                        "sort"):
+                if key in e.name.lower():
+                    by[key] = by.get(key, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
+        calls = {e.key: e.count for e in prof.key_averages()}
+        syncs = (calls.get("cudaStreamSynchronize", 0)
+                 + calls.get("cudaDeviceSynchronize", 0))
+        copies = calls.get("cudaMemcpyAsync", 0)
+        return dict(chunks=nchunks, cuda_events_per_chunk=len(devs) / nchunks,
+                    host_syncs=syncs, host_syncs_per_chunk=syncs / nchunks,
+                    memcpy_calls=copies, wall_profiled_s=wall,
+                    device_busy_s=spans / 1e6,
+                    device_idle_share=1 - spans / 1e6 / wall,
+                    device_ms_per_chunk={k: v / 1e3 / nchunks
+                                         for k, v in by.items()})
+
+    def parity(P, what):
+        mu_p, sg_p = P
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"{what}: mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005,
+              f"{what}: mean sigma {sg_p.mean()}")
+
+    with Phase("rejection-budget") as ph:
+        # bench.py:605-632 (row_rejection), uncut: the flagship cost (#1),
+        # 4096 particles, chunks of 131072, 1600 chunks; timed as
+        # _time_scalar_fn(reps=3) times it (two warm calls, three timed)
+        n_r, b_r, nch_r = 4096, 131072, 1600
+        nsims_r = b_r * nch_r
+        rcost = kt.make_flagship_cost_batched()
+
+        def rejection(seed, chunks=nch_r):
+            return kt.abc_rejection(prior, rcost, n_r, nsims=b_r * chunks,
+                                    batch=b_r, cost_vectorized=True, key=seed)
+
+        rejection(101)
+        rejection(102)
+        walls = []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rejection(rep)
+            walls.append(time.perf_counter() - t0)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rejection(7)
+        wall7 = time.perf_counter() - t0
+        launched = counts()
+        rejection_launches = launched["normal_summary_cost"]
+        check(rejection_launches == nch_r,
+              f"budget mode launched #1 {rejection_launches} times")
+        check(sum(launched.values()) == rejection_launches,
+              f"budget mode launched another kernel: {launched}")
+        check(res.naccept == n_r and res.nsims == nsims_r,
+              f"naccept {res.naccept}, nsims {res.nsims}")
+        check(abs(res.log_evidence - math.log(n_r / nsims_r)) < 1e-12,
+              f"log_evidence {res.log_evidence}")
+        cs = res.C.particles
+        check(bool((np.diff(cs) >= 0).all()) and cs[-1] == np.float32(
+            res.eps), "costs not ascending to eps")
+        check(abs(res.eps - 0.007323) < 0.05 * 0.007323,
+              f"eps {res.eps} not within 5% of 0.007323")
+        parity(res.P, "rejection-budget")
+        prof_r = profiled(lambda: rejection(8, 100), 100)
+        # the chunk's two parts alone at the chunk's shapes: #1 on a prior
+        # draw (against its plain version) and the merge with a full buffer
+        th = prior.sample_tree(gen, b_r)
+        seed = torch.tensor([13], dtype=torch.int64, device=dev)
+        got = K.normal_summary_cost(th[0], th[1], seed)
+        err1c = assert_close(torch, got, K.normal_summary_cost_plain(
+            th[0], th[1], seed), "normal_summary_cost n=131072")
+        ms1c = cuda_ms(torch, lambda: K.normal_summary_cost(th[0], th[1],
+                                                            seed), 20)
+        b1c = bound(K.normal_summary_cost_work(b_r, 1000))
+        buf_th = prior.sample_tree(gen, n_r)
+        buf_cs = torch.sort(got[:n_r]).values
+        merge_ms = cuda_ms(torch, lambda: RJ.merge_best(
+            buf_th, buf_cs, th, got, n_r), 50)
+        merge_queued = queued_ms(torch, lambda: RJ.merge_best(
+            buf_th, buf_cs, th, got, n_r), 50)
+        # a whole chunk (prior draw, seed, #1, merge): by events, paced by
+        # the host's launches, and queued behind a spin, the card's time;
+        # 20 chunks (680 launches): the stream's queue of pending launches
+        # (~1000) must not fill while the spin runs, or the host waits
+        draw = RJ._make_draw_chunk(prior, rcost, b_r, True)
+
+        def chunk():
+            RJ.merge_best(buf_th, buf_cs, *draw(gen), n_r)
+
+        chunk_ms, chunk_queued = cuda_ms(torch, chunk, 20), queued_ms(
+            torch, chunk, 20)
+        med = sorted(walls)[1]
+        rejection_budget = dict(
+            sims_per_s_median=nsims_r / med, sims_per_s_best=nsims_r /
+            min(walls), walls_s=walls, wall_counted_s=wall7, eps=res.eps,
+            log_evidence=res.log_evidence, launches=launched,
+            cost_ms_131072=ms1c, cost_bound_ms_131072=b1c[0],
+            cost_max_abs_err_131072=err1c, merge_ms=merge_ms,
+            merge_queued_ms=merge_queued, chunk_ms=chunk_ms,
+            chunk_queued_ms=chunk_queued, profile_100_chunks=prof_r)
+        ph.result = (f"{card}: {nsims_r / med:.4g} sims/s (median of 3 warm "
+                     f"calls; best {nsims_r / min(walls):.4g}; walls "
+                     f"{[round(w, 4) for w in walls]} s); eps {res.eps:.6f}, "
+                     f"mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}; "
+                     f"#1 {ms1c:.4f} ms and the merge {merge_ms:.4f} ms "
+                     f"({merge_queued:.4f} queued) a chunk alone, a whole "
+                     f"chunk {chunk_ms:.4f} ms ({chunk_queued:.4f} queued); "
+                     f"{json.dumps(prof_r)}; launches {launched}")
+
+    with Phase("rejection-threshold") as ph:
+        # threshold mode through kernel #4: the flagship model as a user
+        # model, 4096 particles, eps 0.05, batches of 16384, max_sims 2^24
+        tcost = kt.make_streaming_moment_cost(fdraw, freduce, ndraws=1000)
+
+        def threshold(seed):
+            return kt.abc_rejection(fprior, tcost, 4096, eps=0.05,
+                                    batch=16384, max_sims=1 << 24,
+                                    cost_vectorized=True, key=seed)
+
+        threshold(101)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = threshold(3)
+        wall_t = time.perf_counter() - t0
+        launched = counts()
+        threshold_launches = launched["streaming_moment_cost"]
+        batches = res.nsims // 16384
+        check(threshold_launches == batches,
+              f"{threshold_launches} launches of #4 in {batches} batches")
+        check(sum(launched.values()) == threshold_launches,
+              f"threshold mode launched another kernel: {launched}")
+        cs = res.C.particles
+        check(bool(np.isfinite(cs).all()), "the buffer did not fill")
+        check(bool((cs <= 0.05).all() and (np.diff(cs) >= 0).all()),
+              "costs above eps or not ascending")
+        parity(res.P, "rejection-threshold")
+        prof_t = profiled(lambda: threshold(4), batches)
+        # the acceptance mass of 2^22 fresh prior draws through the cost
+        hits = 0
+        for _ in range(4):
+            th = fprior.sample_tree(gen, 1 << 20)
+            hits += int((tcost(th, gen) <= 0.05).sum())
+        share = hits / (1 << 22)
+        check(abs(res.log_evidence - math.log(share)) < 0.1,
+              f"log_evidence {res.log_evidence} vs log {share}")
+        rejection_threshold = dict(
+            sims_per_s=res.nsims / wall_t, wall_s=wall_t, nsims=res.nsims,
+            naccept=res.naccept, log_evidence=res.log_evidence,
+            log_share_2_22=math.log(share), launches=launched,
+            profile=prof_t)
+        ph.result = (f"{card}: {res.nsims / wall_t:.4g} sims/s ({batches} "
+                     f"batches in {wall_t:.4f} s), naccept {res.naccept}, "
+                     f"log Z {res.log_evidence:.4f} vs {math.log(share):.4f} "
+                     f"from 2^22 draws; mu {res.P[0].mean():.5f} sigma "
+                     f"{res.P[1].mean():.5f}; {json.dumps(prof_t)}; "
+                     f"launches {launched}")
+
+    with Phase("host-cost") as ph:
+        # smc on the README model through host_cost: the cost simulated
+        # with numpy on the host, one round trip a sweep
+        def readme_sim(thetas, seeds):
+            mu, sigma = thetas
+            out = np.empty(len(mu))
+            for i in range(len(mu)):
+                z = np.random.default_rng(int(seeds[i])).standard_normal(1000)
+                x = mu[i] + sigma[i] * z
+                out[i] = np.hypot(x.mean() - 2.0, (x.std() - 0.04) * 50)
+            return out
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(prior, kt.host_cost(readme_sim), cost_vectorized=True,
+                     nparticles=1000, epstol=EPSTOL, key=2)
+        wall = time.perf_counter() - t0
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        parity(res.P, "host-cost")
+        ph.result = (f"n=1000 iterations {res.iterations} eps {res.eps:.6f} "
+                     f"mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f} "
+                     f"wall {wall:.3f} s (numpy on the host; launches "
+                     f"{counts()})")
+
+    with Phase("prior-battery") as ph:
+        # tests/test_sampler_prior_battery.py on the card: smc on each
+        # family at 128 particles (256 for the vector leaves), AIS on the
+        # truncated Poisson and the mixture, with that file's checks
+        def scalar_cost(target):
+            return lambda x, g: torch.abs(x.to(torch.float32) - target)
+
+        cases = [
+            (kt.LogUniform(0.1, 10.0), 2.0,
+             lambda P: abs(P.median() - 2.0) < 0.5),
+            (kt.BetaPrime(3.0, 5.0), 0.5,
+             lambda P: abs(P.median() - 0.5) < 0.3),
+            (kt.Poisson(6.0), 4.0,
+             lambda P: np.all(P.particles == np.round(P.particles))
+             and abs(P.median() - 4.0) <= 1.0),
+            (kt.Truncated(kt.Poisson(6.0), 2, 12), 4.0,
+             lambda P: P.particles.min() >= 2 and P.particles.max() <= 12),
+            (kt.DiscreteNonParametric([0.5, 1.5, 4.0], [0.3, 0.4, 0.3]), 1.5,
+             lambda P: set(np.unique(P.particles)) <= {0.5, 1.5, 4.0}
+             and abs(P.median() - 1.5) < 1e-6),
+            (kt.Truncated(kt.StudentT(4.0), -1.0, 3.0), 1.0,
+             lambda P: P.particles.min() >= -1.0 - 1e-5
+             and P.particles.max() <= 3.0 + 1e-5
+             and abs(P.median() - 1.0) < 0.5),
+            (kt.Mixture([kt.Normal(0.0, 0.5), kt.Normal(5.0, 0.5)],
+                        [0.5, 0.5]), 5.0,
+             lambda P: abs(P.median() - 5.0) < 0.5),
+            (2.0 - 3.0 * kt.Exponential(1.0), 0.0,
+             lambda P: P.particles.max() <= 2.0 + 1e-5
+             and abs(P.median()) < 0.5)]
+        out = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for p_, target, ok in cases:
+                r = kt.smc(p_, scalar_cost(target), nparticles=128,
+                           max_iters=25, key=11)
+                P = r.P
+                check(bool(np.isfinite(P.particles).all()) and ok(P),
+                      f"prior battery: {p_!r}: median {P.median()}")
+                out[repr(p_)[:40]] = round(P.median(), 5)
+            mv_t = torch.tensor([1.0, -1.0, 0.5], device=dev)
+            r = kt.smc(kt.MvNormal(np.zeros(3), np.eye(3) * 4.0),
+                       lambda x, g: torch.linalg.norm(x - mv_t),
+                       nparticles=256, max_iters=30, key=12)
+            med = [p.median() for p in r.P]
+            check(np.allclose(med, [1.0, -1.0, 0.5], atol=0.5),
+                  f"prior battery MvNormal: {med}")
+            out["MvNormal"] = [round(m, 4) for m in med]
+            di_t = torch.tensor([0.6, 0.3, 0.1], device=dev)
+            r = kt.smc(kt.Dirichlet(np.array([2.0, 2.0, 2.0])),
+                       lambda x, g: torch.linalg.norm(x - di_t),
+                       nparticles=256, max_iters=30, key=13)
+        arr = np.stack([p.particles for p in r.P], axis=-1)
+        med = np.median(arr, axis=0)
+        check(bool((arr > 0).all()) and np.allclose(arr.sum(-1), 1.0,
+                                                    atol=1e-4)
+              and np.allclose(med, [0.6, 0.3, 0.1], atol=0.2),
+              f"prior battery Dirichlet: median {med}")
+        out["Dirichlet"] = [round(float(m), 4) for m in med]
+        r = kt.sample(kt.ApproxKernelizedPosterior(
+            kt.Truncated(kt.Poisson(6.0), 2, 12),
+            lambda x: torch.abs(x.to(torch.float32) - 4.0), 0.5),
+            kt.AIS(32), 256, ntransitions=4, key=14)
+        check(bool(np.all(r.particles == np.round(r.particles)))
+              and 2 <= r.particles.min() and r.particles.max() <= 12
+              and abs(r.median() - 4.0) <= 1.0,
+              f"prior battery AIS truncated Poisson: median {r.median()}")
+        r2 = kt.sample(kt.ApproxKernelizedPosterior(
+            kt.Mixture([kt.Normal(0.0, 0.5), kt.Normal(5.0, 0.5)]),
+            lambda x: torch.abs(x - 5.0), 0.2), kt.AIS(32), 256,
+            ntransitions=4, key=15)
+        check(abs(r2.median() - 5.0) < 0.5,
+              f"prior battery AIS mixture: median {r2.median()}")
+        out["AIS"] = [r.median(), round(r2.median(), 5)]
+        ph.result = json.dumps(out)
+
     t4 = times4[16384]
     records.append(dict(
         name="streaming_moment_cost", route="cuda",
         source="kissabc_tpu_torch/csrc/generic.cuh",
         replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
-        launches=cost_split_launches, max_abs_err=max(
+        launches=cost_split_launches + threshold_launches,
+        launches_by_path={"abcde-fused split": cost_split_launches,
+                          "rejection-threshold": threshold_launches},
+        rejection_threshold=rejection_threshold, max_abs_err=max(
             t["max_abs_err"] for t in times4.values()), matched=True,
         ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
         bound_by=t4["bound_by"], library_ms=None, library_note="no PyTorch "
@@ -2339,6 +2636,14 @@ def main():
         at_131072={k: v for k, v in times10[131072][6].items()
                    if k != "repeats_ms"}))
 
+    for rec in records:   # #1 also runs budget mode's chunks
+        if rec["name"] == "normal_summary_cost":
+            rec["launches_by_path"] = {"smc-full": smc_launches,
+                                       "rejection-budget": rejection_launches}
+            rec["launches"] = smc_launches + rejection_launches
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     rejection_budget["cost_max_abs_err_131072"])
+            rec["rejection_budget"] = rejection_budget
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))

@@ -23,8 +23,14 @@ SMC-ABC:
 - ``smc_stepped``, the same program stepped from the host, with
   ``IterLog`` records and checkpoint/resume (``checkpoint``);
   ``trace`` profiles a block;
-- the priors ``Uniform``, ``Normal``, ``Truncated``/``TruncatedNormal``,
-  ``DiscreteUniform``, ``MvNormal`` and ``Factored``.
+- the priors of ``distributions.py``: ``Uniform``, ``Normal``,
+  ``Exponential``, ``Gamma``, ``LogUniform``, ``BetaPrime``,
+  ``StudentT``/``TDist``, ``DiscreteUniform``, ``Poisson``,
+  ``DiscreteNonParametric``, ``Truncated`` (over any base with a
+  quantile; ``TruncatedDiscrete`` over a discrete one)/
+  ``TruncatedNormal``, ``Mixture``/``MixtureModel``, ``Affine`` (also
+  built by ``+ - *`` on a distribution), ``MvNormal``, ``Dirichlet`` and
+  ``Factored``.
 
 AIS (slice 4):
 
@@ -51,6 +57,17 @@ Tempered SMC, the particle filter and ABC-DE (slice 5):
   make_fused_abcde_generation(prior, draw, reduce_cost, gamma=...)``:
   one CUDA kernel per generation.
 
+Rejection ABC and the library surface (slice 6):
+
+- ``abc_rejection`` (budget mode: a streaming best-n over chunks;
+  threshold mode: a masked scatter up to ``max_sims``) and
+  ``RejectionResult``;
+- ``host_cost`` (a numpy simulator on the host as a batched cost);
+- ``ess`` and ``rhat`` (``utils/diagnostics.py``);
+- the ``Particles`` helpers ``chainsstack``, ``pmap_apply``, ``pmean``,
+  ``pstd``, ``pmedian``, ``pquantile``, ``pcov``, ``pcor``,
+  ``sigmapoints`` and ``pm``/``plus_minus``.
+
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -63,9 +80,12 @@ from .core.density import (  # noqa: F401
 from .core.pfilter import PFilterResult, pfilter  # noqa: F401
 from .core.smc import SMCResult, smc, smc_stepped  # noqa: F401
 from .core.tsmc import TSMCResult, tsmc  # noqa: F401
+from .core.rejection import RejectionResult, abc_rejection  # noqa: F401
 from .distributions import (  # noqa: F401
-    DiscreteUniform, Factored, MvNormal, Normal, Truncated, TruncatedNormal,
-    Uniform)
+    Affine, BetaPrime, Dirichlet, DiscreteNonParametric, DiscreteUniform,
+    Exponential, Factored, Gamma, LogUniform, Mixture, MixtureModel,
+    MvNormal, Normal, Poisson, StudentT, TDist, Truncated, TruncatedDiscrete,
+    TruncatedNormal, Uniform)
 from .ops.fused_ais import (  # noqa: F401
     make_fused_ais_sweep, make_fused_flagship_ais_sweep,
     make_fused_flagship_ais_sweep_onekernel)
@@ -76,8 +96,12 @@ from .ops.kernels import (  # noqa: F401
     make_flagship_cost_batched, make_fused_flagship_sweep)
 from .ops.scan import make_streaming_scan_cost  # noqa: F401
 from .ops.streaming import make_streaming_moment_cost  # noqa: F401
-from .particles import Particles  # noqa: F401
+from .particles import (  # noqa: F401
+    Particles, chainsstack, pcor, pcov, pm, pmap_apply, pmean, pmedian,
+    plus_minus, pquantile, pstd, sigmapoints)
 from .utils import checkpoint  # noqa: F401
+from .utils.diagnostics import ess, rhat  # noqa: F401
+from .utils.host_sim import host_cost  # noqa: F401
 from .utils.logging import IterLog, trace  # noqa: F401
 
 __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
@@ -92,4 +116,10 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "make_fused_flagship_ais_sweep",
            "make_fused_flagship_ais_sweep_onekernel", "tsmc", "TSMCResult",
            "pfilter", "PFilterResult", "ABCDE", "ABCDEResult",
-           "make_fused_tempered_sweep", "make_fused_abcde_generation"]
+           "make_fused_tempered_sweep", "make_fused_abcde_generation",
+           "abc_rejection", "RejectionResult", "host_cost", "ess", "rhat",
+           "chainsstack", "pmap_apply", "pmean", "pstd", "pmedian",
+           "pquantile", "pcov", "pcor", "sigmapoints", "pm", "plus_minus",
+           "Exponential", "Gamma", "LogUniform", "BetaPrime", "StudentT",
+           "TDist", "Poisson", "DiscreteNonParametric", "TruncatedDiscrete",
+           "Mixture", "MixtureModel", "Affine", "Dirichlet"]

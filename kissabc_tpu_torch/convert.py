@@ -4,7 +4,11 @@ and numpy arrays only (the port imports nothing of the JAX package).
 - ``prior_from_numpy(spec)`` builds the port's prior from a nested spec
   of family names and parameters, e.g. ``("Factored", [("Uniform",
   {"a": 1, "b": 3}), ("Truncated", {"base": ("Normal", {"mu": 0,
-  "sigma": 0.05}), "lo": 0, "hi": 100})])``;
+  "sigma": 0.05}), "lo": 0, "hi": 100})])``; nested families take their
+  bases as specs too: ``("Mixture", {"components": [("Normal", {"mu":
+  0, "sigma": 0.5}), ("Normal", {"mu": 5, "sigma": 0.5})], "weights":
+  [0.5, 0.5]})``, ``("Affine", {"loc": 2, "scale": -3, "base":
+  ("Exponential", {"theta": 1})})``;
 - ``state_from_numpy(...)`` makes the port's ``_SMCState`` from the numpy
   arrays of a JAX ``_SMCState``;
 - ``ais_state_from_numpy(thetas, lds)`` makes the port's AIS ensemble
@@ -27,13 +31,20 @@ from .utils.rng import as_generator
 
 _FAMILIES = {"Uniform": D.Uniform, "Normal": D.Normal,
              "Truncated": D.Truncated, "DiscreteUniform": D.DiscreteUniform,
-             "MvNormal": D.MvNormal}
+             "MvNormal": D.MvNormal, "Exponential": D.Exponential,
+             "Gamma": D.Gamma, "LogUniform": D.LogUniform,
+             "BetaPrime": D.BetaPrime, "StudentT": D.StudentT,
+             "TDist": D.TDist, "Poisson": D.Poisson,
+             "DiscreteNonParametric": D.DiscreteNonParametric,
+             "Mixture": D.Mixture, "MixtureModel": D.MixtureModel,
+             "Affine": D.Affine, "Dirichlet": D.Dirichlet}
 
 
 def prior_from_numpy(spec):
-    """``(family, params)``: ``params`` is a dict of numbers for a
-    univariate family, a list of specs for ``"Factored"``, and
-    ``"Truncated"`` takes its ``base`` as a spec."""
+    """``(family, params)``: ``params`` is a dict of numbers (or arrays)
+    for a family, a list of specs for ``"Factored"``; ``"Truncated"``
+    and ``"Affine"`` take their ``base``, ``"Mixture"`` its
+    ``components``, as specs."""
     family, params = spec
     if family == "Factored":
         return D.Factored(*(prior_from_numpy(s) for s in params))
@@ -42,8 +53,11 @@ def prior_from_numpy(spec):
             f"{family} is not ported yet (the port has "
             f"{', '.join(sorted(_FAMILIES))} and Factored)")
     params = dict(params)
-    if family == "Truncated":
+    if "base" in params:
         params["base"] = prior_from_numpy(params["base"])
+    if "components" in params:
+        params["components"] = [prior_from_numpy(c)
+                                for c in params["components"]]
     return _FAMILIES[family](**params)
 
 

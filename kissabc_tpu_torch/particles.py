@@ -1,8 +1,11 @@
 """``Particles`` — the posterior-sample result type; the port's own
-numpy copy of ``Particles``, ``particles_from_tree`` and ``hpdi`` from
-``kissabc_tpu/particles.py`` (a cloud of posterior draws with summary
-statistics, elementwise algebra and the statistical ``approx`` of
-MonteCarloMeasurements.jl). Numpy only: results are on the host.
+numpy copy of ``kissabc_tpu/particles.py``: ``Particles`` (a cloud of
+posterior draws with summary statistics, elementwise algebra and the
+statistical ``approx`` of MonteCarloMeasurements.jl),
+``particles_from_tree``, ``hpdi`` and the MonteCarloMeasurements-style
+helpers ``chainsstack``, ``pmap_apply``, ``pmean``, ``pstd``,
+``pmedian``, ``pquantile``, ``pcov``, ``pcor``, ``sigmapoints`` and
+``pm``/``plus_minus``. Numpy only: results are on the host.
 """
 
 from __future__ import annotations
@@ -277,3 +280,96 @@ def hpdi(p, alpha=0.95):
     widths = x[k:] - x[:m - k]
     i = int(np.argmin(widths))
     return float(x[i]), float(x[i + k])
+
+
+def chainsstack(chains):
+    """Concatenate per-chain results particle-wise (KissABC.jl:96-104)."""
+    first = chains[0]
+    if isinstance(first, Particles):
+        return Particles(np.concatenate([c.particles for c in chains]))
+    out = []
+    for i in range(len(first)):
+        out.append(Particles(np.concatenate([c[i].particles for c in chains])))
+    return out
+
+
+def pmap_apply(f, *ps):
+    """Apply an elementwise (numpy-vectorized) function to one or more
+    aligned Particles clouds — the function-propagation idiom of
+    MonteCarloMeasurements (`sim(res)`, reference runtests.jl:84,102)."""
+    arrays = [p.particles if isinstance(p, Particles) else _as_np(p)
+              for p in ps]
+    return Particles(np.asarray(f(*arrays)))
+
+
+def pmean(p):
+    """MCM-style free function: mean of a Particles cloud (or number)."""
+    return p.mean() if isinstance(p, Particles) else float(np.mean(p))
+
+
+def pstd(p):
+    return p.std() if isinstance(p, Particles) else float(np.std(p, ddof=1))
+
+
+def pmedian(p):
+    return p.median() if isinstance(p, Particles) else float(np.median(p))
+
+
+def pquantile(p, q):
+    return p.quantile(q) if isinstance(p, Particles) else np.quantile(p, q)
+
+
+def pcov(ps):
+    """Covariance matrix across a list of aligned Particles clouds (the
+    reference's commented `cov(R)` / sigmapoints usage, smc.jl:234)."""
+    m = np.stack([p.particles for p in ps])
+    return np.cov(m)
+
+
+def pcor(ps):
+    """Correlation matrix across aligned Particles clouds."""
+    m = np.stack([p.particles for p in ps])
+    return np.corrcoef(m)
+
+
+def sigmapoints(m, S=None):
+    """Unscented-transform sigma points from a mean vector and
+    covariance matrix — MonteCarloMeasurements' ``sigmapoints(m, Σ)``,
+    used in the reference's own workflow snippets
+    (the reference's ``src/smc.jl:234,269``).
+
+    Returns ``[2n+1, n]``: the mean row plus ``m ± columns of
+    chol(n·Σ)``. The UNWEIGHTED sample mean/covariance (ddof=1) of the
+    returned points reproduce ``m``/``S`` exactly, so
+    ``Particles(sigmapoints(m, S))`` is a minimal cloud with the right
+    first two moments. ``m`` may be a scalar with scalar variance
+    (n = 1), or a tuple of Particles (mean/cov are taken from the
+    cloud)."""
+    if isinstance(m, (tuple, list)) and m and all(
+            isinstance(p, Particles) for p in m):
+        S = pcov(m)
+        m = np.array([p.mean() for p in m])
+    elif S is None:
+        raise TypeError(
+            "sigmapoints(m, S) needs the covariance S unless m is a "
+            "tuple/list of Particles")
+    m = np.atleast_1d(np.asarray(m, np.float64))
+    n = m.shape[0]
+    S = np.asarray(S, np.float64)
+    if S.ndim == 0:
+        S = S * np.eye(n)
+    L = np.linalg.cholesky(n * S)
+    return np.vstack([m[None, :], m + L.T, m - L.T])
+
+
+def pm(mu, sigma, n=2000, key=None):
+    """``mu ± sigma`` — MCM's ``±`` constructor sugar (Python has no ±
+    operator): a systematic-normal cloud with exact mean ``mu`` and
+    spread ``sigma``. ``plus_minus`` is the spelled-out alias.
+    key=None (default) gives each call an independent permutation, so
+    ``(pm(a, s1) + pm(b, s2)).std()`` combines in quadrature like
+    independent quantities (MCM semantics)."""
+    return mu + sigma * Particles(n, None, key)
+
+
+plus_minus = pm
