@@ -31,7 +31,13 @@ uncut, 4096 kept of 131072 x 1600 draws through the flagship cost
 kernel, and ``rejection-threshold``, eps 0.05 through kernel #4; then
 ``host-cost``, smc with a numpy simulator on the host, and
 ``prior-battery``, the samplers' prior battery of the new distribution
-families on the card). For the kernels redesigned
+families on the card; slice 7 adds ``prior-table``, kernels #3, #6, #9
+and #10 on four priors of 16 marginals that hold every entry of the
+generic kernels' prior table, each against its plain version on stub
+bits at 65536 walkers, ``smc-1m-generic-priors``, smc at 2^20 particles
+on a prior of new families through #4 and #3, ``reference-socks``, the
+reference's socks problem through smc and AIS, and ``statistics``, the
+statistics functions on the card against the CPU). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
 and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
@@ -546,6 +552,85 @@ def main():
             kt.make_fused_abcde_generation(xprior, xdraw, xreduce,
                                            gamma=2.38 / math.sqrt(2.0),
                                            cost_on=cost_on, bits="stub")
+    # slice 7: every family with an entry in the generic kernels' prior
+    # table in one of four priors of 16 marginals, run through #3 (the
+    # continuous ones), #6, #9 and #10 on stub bits: seven units
+    table_priors = {
+        "P1": kt.Factored(
+            kt.Beta(2.0, 5.0), kt.LogNormal(0.3, 0.8), kt.Laplace(1.0, 2.0),
+            kt.Cauchy(0.5, 1.5), kt.Weibull(1.5, 2.0), kt.Chisq(4.0),
+            kt.FDist(8.0, 12.0), kt.Logistic(0.5, 1.2), kt.Rayleigh(2.0),
+            kt.Pareto(3.0, 2.0), kt.InverseGamma(3.0, 2.0),
+            kt.Gumbel(0.5, 2.0), kt.TriangularDist(0.0, 4.0, 1.0),
+            kt.Arcsine(1.0, 3.0), kt.Semicircle(2.0), kt.Frechet(5.0, 2.0)),
+        "P2": kt.Factored(
+            kt.Levy(0.5, 1.5), kt.GeneralizedPareto(0.5, 1.5, 0.2),
+            kt.Kumaraswamy(2.0, 3.0), kt.VonMises(0.5, 2.0),
+            kt.SymTriangularDist(1.0, 2.0), kt.Cosine(1.0, 2.0),
+            kt.Epanechnikov(1.0, 2.0), kt.Biweight(-0.5, 1.5),
+            kt.Triweight(0.0, 2.0), kt.JohnsonSU(0.5, 2.0, 0.3, 1.5),
+            kt.GeneralizedExtremeValue(0.5, 1.5, 0.2),
+            kt.InverseGaussian(2.0, 3.0), kt.Chi(3.0),
+            kt.PGeneralizedGaussian(0.5, 1.5, 3.0), kt.Rician(2.0, 1.5),
+            kt.Lindley(0.7)),
+        "P3": kt.Factored(
+            kt.LogitNormal(0.4, 0.9), kt.Exponential(1.5),
+            kt.Gamma(2.5, 1.5), kt.LogUniform(0.1, 10.0),
+            kt.BetaPrime(3.0, 5.0), kt.StudentT(4.0), kt.Uniform(0.0, 1.0),
+            kt.Normal(0.0, 1.0), kt.TruncatedNormal(0.0, 1.0, -1.0, 2.0),
+            kt.Truncated(kt.Gamma(2.0, 1.0), 0.5, 6.0),
+            2.0 - 3.0 * kt.Exponential(1.0),
+            kt.Mixture([kt.Normal(0.0, 0.5), kt.Normal(5.0, 0.5)]),
+            kt.Poisson(6.0), kt.Bernoulli(0.3), kt.Binomial(10, 0.4),
+            kt.Geometric(0.3)),
+        "P4": kt.Factored(
+            kt.NegativeBinomial(4.0, 0.3), kt.BetaBinomial(10, 2.0, 3.0),
+            kt.Hypergeometric(7, 5, 6), kt.DiscreteUniform(1, 6),
+            kt.Erlang(3, 2.0), kt.NormalCanon(2.0, 4.0),
+            kt.GeneralizedPareto(0.0, 1.0, -0.25),
+            kt.GeneralizedExtremeValue(0.0, 1.0, 0.0),
+            kt.TriangularDist(0.0, 2.0, 0.0),
+            kt.Mixture([kt.Gamma(2.0, 1.0), kt.LogNormal(0.0, 0.5),
+                        kt.Uniform(0.0, 3.0)], [0.2, 0.5, 0.3]),
+            1.0 + 2.0 * kt.Beta(2.0, 2.0),
+            kt.Truncated(kt.StudentT(4.0), -1.0, 3.0), kt.Beta(0.5, 0.7),
+            kt.Rician(6.0, 0.5),
+            kt.Mixture([kt.Poisson(2.0), kt.Poisson(9.0)]),
+            kt.Poisson(2.0)),
+    }
+
+    def ll_table(th):   # #9's conjugate log-likelihood of the first leaf
+        return ll_conj(th[0])
+
+    def tdraw(th, eps):   # the flagship draw on the first two leaves
+        return fdraw(th[:2], eps)
+
+    def treduce(th, m):
+        return freduce(th[:2], m)
+
+    table_sweeps = {   # (kernel, prior): sweep on stub bits
+        ("#3", "P1"): kt.make_fused_smc_sweep(
+            table_priors["P1"], tdraw, treduce, bits="stub"),
+        ("#3", "P2"): kt.make_fused_smc_sweep(
+            table_priors["P2"], tdraw, treduce, bits="stub"),
+        ("#6", "P3"): kt.make_fused_ais_sweep(
+            table_priors["P3"], tdraw, treduce, scale=0.5, bits="stub"),
+        ("#6", "P4"): kt.make_fused_ais_sweep(
+            table_priors["P4"], tdraw, treduce, scale=0.5, bits="stub"),
+        ("#9", "P3"): kt.make_fused_tempered_sweep(
+            table_priors["P3"], ll_table, bits="stub"),
+        ("#10", "P2"): kt.make_fused_abcde_generation(
+            table_priors["P2"], tdraw, treduce, gamma=2.38 / math.sqrt(32.0),
+            bits="stub"),
+        ("#10", "P4"): kt.make_fused_abcde_generation(
+            table_priors["P4"], tdraw, treduce, gamma=2.38 / math.sqrt(32.0),
+            bits="stub"),
+    }
+    # slice 7's path at full width: smc-1m-generic with a prior of new
+    # families (its cost unit is smc-1m-generic's)
+    nprior = kt.Factored(1.0 + 2.0 * kt.Beta(2.0, 2.0),
+                         kt.LogNormal(-3.0, 1.0))
+    nsweep = kt.make_fused_smc_sweep(nprior, fdraw, freduce)
     units = {}   # generated source -> names (stub and hw share a unit)
     for name, (c, k) in costs.items():
         units.setdefault(c.unit(k).source, []).append(f"cost {name}")
@@ -561,6 +646,10 @@ def main():
         t5_units.setdefault(sw.unit.source, []).append(f"tempered {name}")
     for name, g5 in abcde_gens.items():
         t5_units.setdefault(g5.unit.source, []).append(f"abcde {name}")
+    table_units = {sw.unit.source: [f"prior-table {k} {p}"]
+                   for (k, p), sw in table_sweeps.items()}
+    table_units.setdefault(nsweep.unit.source, []).append(
+        "sweep smc-1m-generic-priors")
 
     ptxas = {}   # unit names -> ptxas lines, each after its function
 
@@ -584,6 +673,7 @@ def main():
         jobs = [_build.start()] + [_build.start(text) for text in units]
         ais_jobs = [_build.start(text) for text in ais_units]
         t5_jobs = [_build.start(text) for text in t5_units]
+        table_jobs = [_build.start(text) for text in table_units]
         radius_job = _build.start(RADIUS_CHECK)
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
@@ -632,6 +722,18 @@ def main():
         ph.result = (f"{len(t5_units)} generated units of kernels #9 "
                      f"(tempered.cuh) and #10 (generic.cuh, KT_HAS_ABCDE), "
                      f"started with the others; nvcc seconds {secs5}")
+
+    with Phase("build-prior-table") as ph:
+        secs7 = {}
+        for (text, names), job in zip(table_units.items(), table_jobs):
+            _, secs, log = job.wait()
+            ptxas_lines(log, "/".join(names))
+            _build.load_generated(text)
+            secs7["/".join(names)] = round(secs, 2)
+        ph.result = (f"{len(table_units)} generated units of the prior "
+                     f"table (#3, #6, #9, #10 on four priors of 16 "
+                     f"marginals, and smc-1m-generic-priors' #3), started "
+                     f"with the others; nvcc seconds {secs7}")
 
     with Phase("radius-exhaustive") as ph:
         radius_job.wait()
@@ -2590,6 +2692,237 @@ def main():
         out["AIS"] = [r.median(), round(r2.median(), 5)]
         ph.result = json.dumps(out)
 
+    # ---- slice 7: the prior table, a new prior at 2^20, socks, stats ---
+    def table_population(prior, n):
+        """A population drawn from the prior (float32 leaves, each
+        discrete one moved by U(-0.4, 0.4) so the push rounds it)."""
+        leaves = []
+        for d, x in zip(prior.p, prior.sample_tree(gen, n)):
+            x = x.to(torch.float32)
+            if d.discrete:
+                x = x + uniform(n, -0.4, 0.4)
+            leaves.append(x.contiguous())
+        return leaves
+
+    table_times = {}
+    with Phase("prior-table") as ph:
+        # kernels #3, #6, #9 and #10 at 65536 walkers on stub bits, each
+        # on priors whose marginals cover every entry of the prior table,
+        # against their plain versions with the stub phases' comparisons
+        n, h = 65536, 32768
+        res = {}
+        for (kname, pname), sw in table_sweeps.items():
+            p_ = table_priors[pname]
+            leaves = table_population(p_, n)
+            what = f"prior-table {kname} {pname}"
+            if kname == "#3":
+                lps = p_.logpdf_tree(tuple(leaves)).to(torch.float32)
+                xs = torch.full((n,), 1e6, device=dev)
+                alive = torch.rand(n, generator=gen, device=dev) < 0.9
+                r1, r2, seed = 5, n // 2 + 3, 12345
+                rs = torch.tensor([r1, r2, seed], dtype=torch.int64,
+                                  device=dev)
+                probe = F.fused_smc_sweep_plain(
+                    sw, leaves, xs, lps, torch.ones_like(alive), 1e6, False,
+                    r1, r2, seed)
+                check(bool(probe[3].any()), f"{what}: no walker passes "
+                      "gate 1")
+                eps = float(probe[1][probe[3]].median())
+                got = sw.run(leaves, xs, lps, alive, eps, False, rs)
+                want = F.fused_smc_sweep_plain(sw, leaves, xs, lps, alive,
+                                               eps, False, r1, r2, seed)
+                err, border = compare_sweeps(torch, got, want, eps, what)
+                check_untouched(torch, leaves + [xs, lps], list(got[0])
+                                + list(got[1:3]), got[3], what)
+                acc = int(got[3].sum())
+                check(0 < acc, f"{what} committed nothing")
+                res[f"{kname} {pname}"] = (err, unequal_committed(got, want),
+                                           acc, border)
+                eps_t = torch.tensor(eps, device=dev)
+                flag_t = torch.tensor(False, device=dev)
+                ms = cuda_ms(torch, lambda: sw.run(leaves, xs, lps, alive,
+                                                   eps_t, flag_t, rs), 20)
+                plain = cuda_ms(torch, lambda: F.fused_smc_sweep_plain(
+                    sw, leaves, xs, lps, alive, eps_t, flag_t, r1, r2,
+                    seed), 1, warmup=0)
+                nsim = int(F.proposal_plain(sw, leaves, lps, alive, r1, r2,
+                                            seed)[3].sum())
+                b, by = bound(sw.work(n, nsim))
+                # at 65536 the wrapper's host time (16 leaves) can pass
+                # the kernel's: its own time by the profiler beside
+                dev_ms = device_ms(torch, lambda: sw.run(
+                    leaves, xs, lps, alive, eps_t, flag_t, rs), 20,
+                    "fused_smc_sweep_kernel")
+                table_times[f"#3 {pname}"] = dict(
+                    ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, simulated=nsim, prior_ops=sw.unit.prior_ops,
+                    width=n)
+            elif kname in ("#6", "#9"):
+                pushed = sw.pushed(leaves)
+                lp = p_.logpdf_tree(pushed).to(torch.float32)
+                ll = (uniform(n, -20.0, -1.0) if kname == "#6"
+                      else ll_table(pushed).to(torch.float32))
+                upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
+                extra = () if kname == "#6" else (0.3,)
+                got = sw.half_words(upd, lp[:h], ll[:h], cmp_, words7(0),
+                                    *extra)
+                want = sw.half_plain(upd, lp[:h], ll[:h], cmp_,
+                                     shifts_of(words7(0), h), seed_t,
+                                     *extra, terms=True)
+                r = ais_compare(flat(got), flat(want),
+                                upd + [lp[:h], ll[:h]], what, want[3][1])
+                check(r[2] > 0, f"{what} committed nothing")
+                res[f"{kname} {pname}"] = r
+                if kname == "#6":
+                    ms = cuda_ms(torch, lambda: sw.half_words(
+                        upd, lp[:h], ll[:h], cmp_, words7(0)), 20)
+                    plain = cuda_ms(torch, lambda: sw.half_plain(
+                        upd, lp[:h], ll[:h], cmp_, shifts_of(words7(0), h),
+                        seed_t), 1, warmup=0)
+                    nsim = int(want[3][0].sum())
+                    b, by = bound(sw.work(h, nsim))
+                    dev_ms = device_ms(torch, lambda: sw.half_words(
+                        upd, lp[:h], ll[:h], cmp_, words7(0)), 20,
+                        "fused_ais_sweep_kernel")
+                    table_times[f"#6 {pname}"] = dict(
+                        ms_half=ms, device_ms_half=dev_ms,
+                        plain_ms_half=plain, bound_ms_half=b, bound_by=by,
+                        inside=nsim, prior_ops=sw.unit.prior_ops,
+                        push_ops=sw.unit.push_ops, width=h)
+            else:   # #10
+                # thresholds up to 1000: the flagship cost of these
+                # priors' first two leaves is ~10-100, not the README's
+                # ~0.01-3, so ds from [0, 3) would let no walker commit
+                bases, lps, ds, active, eps_i = abcde_generation_inputs(
+                    sw, leaves, 1000.0)
+                got = sw.run(leaves, bases, lps, ds, active, eps_i, seed_t)
+                want = sw.generation_plain(leaves, bases, lps, ds, active,
+                                           eps_i, seed_t, terms=True)
+                r = abcde_compare(got, want, leaves + [lps, ds],
+                                  torch.maximum(eps_i, ds), what)
+                check(r[4] > 0, f"{what}: no walker passed the gate")
+                res[f"{kname} {pname}"] = r
+        regs = {names: lines for names, lines in ptxas.items()
+                if names.startswith("prior-table")}
+        ph.result = ("(max|err|, unequal committed values, commits, "
+                     "borderline[, gate passes]): " + json.dumps(res)
+                     + "; times " + json.dumps(table_times)
+                     + "; ptxas " + json.dumps(regs))
+
+    with Phase("smc-1m-generic-priors") as ph:
+        # smc-1m-generic with a prior of new families: #4 at the init, #3
+        # every sweep, 2^20 particles
+        _alarm(FULL_SMC_LIMIT_S)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(nprior, costs["flagship"][0], cost_vectorized=True,
+                     sweep_fused=nsweep, nparticles=1 << 20, epstol=EPSTOL,
+                     max_iters=2000, min_r_ess=0.5, key=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        priors_launches = counts()
+        mu_p, sg_p = res.P
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
+        check(priors_launches["streaming_moment_cost"] > 0
+              and priors_launches["fused_smc_sweep"] > 0,
+              "smc-1m-generic-priors did not launch kernels #4 and #3")
+        ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" mu {mu_p.mean():.5f} sigma {sg_p.mean():.5f} wall "
+                     f"{wall:.3f} s launches {priors_launches}")
+        priors_smc = dict(iterations=res.iterations, wall_s=wall,
+                          eps=res.eps,
+                          launches=priors_launches["fused_smc_sweep"])
+
+    with Phase("reference-socks") as ph:
+        # KissABC.jl's runtests socks problem at the reference parity
+        # file's settings and bands (tests/test_reference_parity.py:53-72);
+        # the per-walker cost through torch.func.vmap, no kernel of the port
+        sprior, scost = models.socks()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = kt.smc(sprior, scost, nparticles=2000, alpha=0.95, r_epstol=0,
+                   epstol=0.01, key=11)
+        wall_smc = time.perf_counter() - t0
+        n_post, p_post = r.P
+        check(abs(n_post.mean() - 46.2) < 4.0, f"socks smc n {n_post.mean()}")
+        check(abs(p_post.mean() - 0.866) < 0.03,
+              f"socks smc p {p_post.mean()}")
+        check(bool(np.allclose(n_post.particles,
+                               np.round(n_post.particles))),
+              "socks smc: n_socks particles not integers")
+        t0 = time.perf_counter()
+        ra = kt.sample(kt.ApproxPosterior(sprior, scost, 0.1), kt.AIS(500),
+                       2000, ntransitions=20, discard_initial=4000, key=12)
+        wall_ais = time.perf_counter() - t0
+        an, ap = ra
+        check(abs(an.mean() - 46.2) < 5.0, f"socks AIS n {an.mean()}")
+        check(abs(ap.mean() - 0.866) < 0.04, f"socks AIS p {ap.mean()}")
+        check(bool(np.allclose(an.particles, np.round(an.particles))),
+              "socks AIS: n_socks particles not integers")
+        check(not any(counts().values()), "socks ran a kernel of the port")
+        ph.result = (f"smc: {r.iterations} iterations, eps {r.eps}, n "
+                     f"{n_post.mean():.3f}, p {p_post.mean():.5f}, "
+                     f"{wall_smc:.2f} s; AIS: n {an.mean():.3f}, p "
+                     f"{ap.mean():.5f}, {wall_ais:.2f} s")
+
+    with Phase("statistics") as ph:
+        # the pointwise functions on CUDA tensors equal them on CPU tensors
+        # (the CPU tests' tolerances: logpdf 16 ulps, the rest 4e-6), and
+        # rand draws on the card
+        out = {}
+        xs_c = np.linspace(-0.5, 1.5, 257).astype(np.float32)
+        xs_d = np.arange(-1, 15, dtype=np.float32)
+        q = np.linspace(0.01, 0.99, 99).astype(np.float32)
+        for d, x in ((kt.Beta(2.0, 5.0), xs_c),
+                     (kt.Truncated(kt.Poisson(6.0), 2, 12), xs_d)):
+            xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+            for fname in ("cdf", "logpdf", "insupport", "ccdf"):
+                f = getattr(kt, fname)
+                a, b = f(d, xg), f(d, xc)
+                check(a.device.type == "cuda", f"{fname} left the card")
+                a = a.cpu()
+                if fname == "insupport":
+                    check(bool(torch.equal(a, b)), f"{fname}({d!r})")
+                    continue
+                fin = torch.isfinite(b)
+                check(bool(torch.equal(torch.isfinite(a), fin)),
+                      f"{fname}({d!r}): finite cells differ")
+                tol = (16 * 1.1920929e-07 * b[fin].abs().clamp(min=1.0)
+                       if fname == "logpdf" else 4e-6)
+                e = (a[fin] - b[fin]).abs()
+                check(bool((e <= tol).all()), f"{fname}({d!r}): max err "
+                      f"{float(e.max())}")
+                out[f"{type(d).__name__} {fname}"] = float(e.max())
+            qa = kt.quantile(d, torch.from_numpy(q).to(dev)).cpu()
+            qb = kt.quantile(d, torch.from_numpy(q))
+            check(bool((qa.double() - qb.double()).abs().max() <= 4e-6),
+                  f"quantile({d!r})")
+            out[f"{type(d).__name__} quantile"] = max_err(qa, qb)
+        draw = kt.rand(kt.Gamma(2.0, 1.5), (4, 5), key=3)
+        check(draw.device.type == "cuda" and draw.shape == (4, 5),
+              "rand did not draw on the card")
+        tup = kt.rand(kt.Factored(kt.Beta(2.0, 2.0), kt.Poisson(3.0)), 6,
+                      key=1)
+        check(tup[0].device.type == "cuda" and tup[1].dtype == torch.int32,
+              "rand of a Factored prior")
+        ph.result = "max|err| card vs CPU " + json.dumps(out)
+
+    for rec in records:   # the prior table's times beside #3's and #6's
+        if rec["name"] == "fused_smc_sweep":
+            rec["prior_table"] = {k: v for k, v in table_times.items()
+                                  if k.startswith("#3")}
+            rec["launches_by_path"] = {
+                "smc-1m-generic": rec["launches"],
+                "smc-1m-generic-priors": priors_smc["launches"]}
+            rec["launches"] += priors_smc["launches"]
+            rec["smc_1m_generic_priors"] = priors_smc
+        if rec["name"] == "fused_ais_sweep":
+            rec["prior_table"] = {k: v for k, v in table_times.items()
+                                  if k.startswith("#6")}
     t4 = times4[16384]
     records.append(dict(
         name="streaming_moment_cost", route="cuda",

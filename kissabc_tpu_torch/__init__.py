@@ -23,14 +23,12 @@ SMC-ABC:
 - ``smc_stepped``, the same program stepped from the host, with
   ``IterLog`` records and checkpoint/resume (``checkpoint``);
   ``trace`` profiles a block;
-- the priors of ``distributions.py``: ``Uniform``, ``Normal``,
-  ``Exponential``, ``Gamma``, ``LogUniform``, ``BetaPrime``,
-  ``StudentT``/``TDist``, ``DiscreteUniform``, ``Poisson``,
-  ``DiscreteNonParametric``, ``Truncated`` (over any base with a
-  quantile; ``TruncatedDiscrete`` over a discrete one)/
-  ``TruncatedNormal``, ``Mixture``/``MixtureModel``, ``Affine`` (also
-  built by ``+ - *`` on a distribution), ``MvNormal``, ``Dirichlet`` and
-  ``Factored``.
+- the priors of ``distributions.py``: every univariate family of the
+  JAX package (46 continuous and discrete families from ``Beta`` to
+  ``PoissonBinomial``), ``Truncated`` (over any base with a quantile;
+  ``TruncatedDiscrete`` over a discrete one)/``TruncatedNormal``,
+  ``Mixture``/``MixtureModel``, ``Affine`` (also built by ``+ - *`` on a
+  distribution), ``MvNormal``, ``Dirichlet`` and ``Factored``.
 
 AIS (slice 4):
 
@@ -64,6 +62,8 @@ Rejection ABC and the library surface (slice 6):
   ``RejectionResult``;
 - ``host_cost`` (a numpy simulator on the host as a batched cost);
 - ``ess`` and ``rhat`` (``utils/diagnostics.py``);
+- Distributions.jl's statistics functions (``statistics.py``: ``mean``,
+  ``var``, ``cdf``, ``quantile``, ``fit_mle``, ``rand``, ...);
 - the ``Particles`` helpers ``chainsstack``, ``pmap_apply``, ``pmean``,
   ``pstd``, ``pmedian``, ``pquantile``, ``pcov``, ``pcor``,
   ``sigmapoints`` and ``pm``/``plus_minus``.
@@ -82,10 +82,19 @@ from .core.smc import SMCResult, smc, smc_stepped  # noqa: F401
 from .core.tsmc import TSMCResult, tsmc  # noqa: F401
 from .core.rejection import RejectionResult, abc_rejection  # noqa: F401
 from .distributions import (  # noqa: F401
-    Affine, BetaPrime, Dirichlet, DiscreteNonParametric, DiscreteUniform,
-    Exponential, Factored, Gamma, LogUniform, Mixture, MixtureModel,
-    MvNormal, Normal, Poisson, StudentT, TDist, Truncated, TruncatedDiscrete,
-    TruncatedNormal, Uniform)
+    Affine, Arcsine, Bernoulli, Beta, BetaBinomial, BetaPrime, Binomial,
+    Biweight, Categorical, Cauchy, Chi, Chisq, Cosine, Dirac, Dirichlet,
+    DiscreteNonParametric, DiscreteUniform, Distribution, Epanechnikov,
+    Erlang, Exponential, Factored, FDist, Frechet, Gamma,
+    GeneralizedExtremeValue, GeneralizedPareto, Geometric, Gumbel,
+    Hypergeometric, InverseGamma, InverseGaussian, JohnsonSU, Kumaraswamy,
+    Laplace, Levy, Lindley, Logistic, LogitNormal, LogNormal, LogUniform,
+    Mixture, MixtureModel, MultivariateNormal, MvNormal, NegativeBinomial,
+    NoncentralChisq, Normal, NormalCanon, Pareto, PGeneralizedGaussian,
+    Poisson, PoissonBinomial, Rayleigh, Rician, Semicircle, Skellam,
+    StudentT, SymTriangularDist, TDist, TriangularDist, Triweight,
+    Truncated, TruncatedDiscrete, TruncatedNormal, Uniform, VonMises,
+    Weibull)
 from .ops.fused_ais import (  # noqa: F401
     make_fused_ais_sweep, make_fused_flagship_ais_sweep,
     make_fused_flagship_ais_sweep_onekernel)
@@ -99,6 +108,11 @@ from .ops.streaming import make_streaming_moment_cost  # noqa: F401
 from .particles import (  # noqa: F401
     Particles, chainsstack, pcor, pcov, pm, pmap_apply, pmean, pmedian,
     plus_minus, pquantile, pstd, sigmapoints)
+from .statistics import (  # noqa: F401
+    ccdf, cdf, cor, cov, cquantile, entropy, fit, fit_mle, insupport,
+    kurtosis, logccdf, logcdf, loglikelihood, logpdf, maximum, mean, median,
+    minimum, mode, params, pdf, product_distribution, quantile, rand,
+    skewness, std, support, truncated, var)
 from .utils import checkpoint  # noqa: F401
 from .utils.diagnostics import ess, rhat  # noqa: F401
 from .utils.host_sim import host_cost  # noqa: F401
@@ -122,4 +136,22 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "pquantile", "pcov", "pcor", "sigmapoints", "pm", "plus_minus",
            "Exponential", "Gamma", "LogUniform", "BetaPrime", "StudentT",
            "TDist", "Poisson", "DiscreteNonParametric", "TruncatedDiscrete",
-           "Mixture", "MixtureModel", "Affine", "Dirichlet"]
+           "Mixture", "MixtureModel", "Affine", "Dirichlet",
+           # slice 7: the univariate families and the statistics surface
+           "Distribution", "MultivariateNormal", "Beta", "Erlang",
+           "LogNormal", "Laplace", "Cauchy", "Weibull", "Chisq", "FDist",
+           "Logistic", "Rayleigh", "Pareto", "InverseGamma", "Gumbel",
+           "TriangularDist", "Arcsine", "Semicircle", "Frechet", "Levy",
+           "GeneralizedPareto", "Kumaraswamy", "VonMises",
+           "SymTriangularDist", "Cosine", "Epanechnikov", "Biweight",
+           "Triweight", "JohnsonSU", "GeneralizedExtremeValue",
+           "NormalCanon", "InverseGaussian", "Chi", "PGeneralizedGaussian",
+           "Rician", "Lindley", "LogitNormal", "NoncentralChisq",
+           "Bernoulli", "Binomial", "Geometric", "BetaBinomial",
+           "Hypergeometric", "Skellam", "NegativeBinomial", "Categorical",
+           "Dirac", "PoissonBinomial",
+           "mean", "var", "std", "median", "mode", "skewness", "kurtosis",
+           "entropy", "minimum", "maximum", "insupport", "cov", "params",
+           "cdf", "ccdf", "logcdf", "logccdf", "pdf", "logpdf", "quantile",
+           "cquantile", "fit", "fit_mle", "support", "truncated",
+           "product_distribution", "cor", "loglikelihood", "rand"]

@@ -29,15 +29,22 @@ from . import distributions as D
 from .core.smc import _SMCState
 from .utils.rng import as_generator
 
-_FAMILIES = {"Uniform": D.Uniform, "Normal": D.Normal,
-             "Truncated": D.Truncated, "DiscreteUniform": D.DiscreteUniform,
-             "MvNormal": D.MvNormal, "Exponential": D.Exponential,
-             "Gamma": D.Gamma, "LogUniform": D.LogUniform,
-             "BetaPrime": D.BetaPrime, "StudentT": D.StudentT,
-             "TDist": D.TDist, "Poisson": D.Poisson,
-             "DiscreteNonParametric": D.DiscreteNonParametric,
-             "Mixture": D.Mixture, "MixtureModel": D.MixtureModel,
-             "Affine": D.Affine, "Dirichlet": D.Dirichlet}
+# every family the port has, by its JAX name ("Factored" nests specs)
+_FAMILIES = {name: getattr(D, name) for name in (
+    "Uniform", "Normal", "Truncated", "DiscreteUniform", "MvNormal",
+    "MultivariateNormal", "Exponential", "Gamma", "LogUniform", "BetaPrime",
+    "StudentT", "TDist", "Poisson", "DiscreteNonParametric", "Mixture",
+    "MixtureModel", "Affine", "Dirichlet", "Beta", "Erlang", "LogNormal",
+    "Laplace", "Cauchy", "Weibull", "Chisq", "FDist", "Logistic",
+    "Rayleigh", "Pareto", "InverseGamma", "Gumbel", "TriangularDist",
+    "Arcsine", "Semicircle", "Frechet", "Levy", "GeneralizedPareto",
+    "Kumaraswamy", "VonMises", "SymTriangularDist", "Cosine",
+    "Epanechnikov", "Biweight", "Triweight", "JohnsonSU",
+    "GeneralizedExtremeValue", "NormalCanon", "InverseGaussian", "Chi",
+    "PGeneralizedGaussian", "Rician", "Lindley", "LogitNormal",
+    "NoncentralChisq", "Bernoulli", "Binomial", "Geometric",
+    "BetaBinomial", "Hypergeometric", "Skellam", "NegativeBinomial",
+    "Categorical", "Dirac", "PoissonBinomial")}
 
 
 def prior_from_numpy(spec):

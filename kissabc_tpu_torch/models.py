@@ -24,7 +24,12 @@ examples of a user model.
   variance, the log-likelihood per walker (compiled into the tempered
   sweep) and batched, and the closed-form posterior and evidence;
 - ``mixture_cost`` and ``dirac_cost``: the per-walker costs of the JAX
-  bench's ``pfilter`` and ``abcde`` rows (``bench.py:884-938``).
+  bench's ``pfilter`` and ``abcde`` rows (``bench.py:884-938``);
+- ``socks()``: the reference's socks problem (KissABC.jl's runtests, as
+  ``tests/test_reference_parity.py:14-57``): prior
+  ``Factored(NegativeBinomial(...), Beta(15, 2))``, a per-walker cost
+  that picks 11 socks without replacement (``socks_sim``, its uniforms
+  given) against the observed 0 pairs and 11 odd socks.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distributions import Factored, Normal, TruncatedNormal, Uniform
+from .distributions import (Beta, Factored, NegativeBinomial, Normal,
+                            TruncatedNormal, Uniform)
 
 
 def flagship():
@@ -192,3 +198,47 @@ def mixture_cost(x, gen):
 def dirac_cost(x):
     """``|x^2 + 1 - 1.5|``: the posterior is a point mass at sqrt(0.5)."""
     return torch.abs(x * x + 1 - 1.5)
+
+
+SOCKS_MAXN = 512   # the most socks a walker's drawer holds
+
+
+def socks_sim(n_socks, prop_pairs, r):
+    """Broman's socks simulator per walker, static shapes as the JAX
+    test's: the drawer holds ``n_socks`` socks, ``round(prop_pairs *
+    floor(n_socks / 2))`` pairs first; the ``min(n_socks, 11)`` socks
+    with the smallest of the uniforms ``r`` ([SOCKS_MAXN]) are picked,
+    and the picked pairs and odd socks counted by sorting their ids.
+    Returns (pairs, odds) as int32."""
+    n = n_socks.to(torch.int32)
+    n_pairs = torch.round(prop_pairs * torch.floor(
+        n.to(torch.float32) / 2)).to(torch.int32)
+    idx = torch.arange(SOCKS_MAXN, dtype=torch.int32, device=r.device)
+    ids = torch.where(idx < 2 * n_pairs, idx // 2,
+                      n_pairs + (idx - 2 * n_pairs))
+    order = torch.argsort(torch.where(idx < n, r, float("inf")))
+    npicked = torch.clamp(n, max=11)
+    lane = torch.arange(11, dtype=torch.int32, device=r.device)
+    picked = torch.where(lane < npicked, torch.gather(ids, 0, order[:11]),
+                         -(lane + 1))
+    s = torch.sort(picked).values
+    dup = torch.sum(s[1:] == s[:-1]).to(torch.int32)   # ids at most twice
+    return dup, npicked - 2 * dup
+
+
+def socks():
+    """(prior, cost) of the socks problem: NegativeBinomial with mean 30
+    and sd 15 socks, Beta(15, 2) pairs; the cost ``|pairs - 0| + |odds -
+    11|`` of one simulated pick (``cost(theta, gen)``, the per-walker
+    form)."""
+    mu, sd = 30, 15
+    size = -mu ** 2 / (mu - sd ** 2)
+    prior = Factored(NegativeBinomial(size, size / (mu + size)), Beta(15, 2))
+
+    def cost(theta, gen):
+        n_socks, prop_pairs = theta
+        r = torch.rand(SOCKS_MAXN, generator=gen, device=gen.device)
+        pairs, odds = socks_sim(n_socks, prop_pairs, r)
+        return torch.abs(pairs).to(torch.float32) + torch.abs(odds - 11)
+
+    return prior, cost

@@ -45,6 +45,14 @@ comparisons with integers, promoting as PyTorch does), ``torch.where``,
 the op, when the cost or sweep is built; nothing falls back to the plain
 version.
 
+The prior's ``prior_logpdf`` comes from a per-family table
+(``_marginal_logpdf``): Uniform, Normal, DiscreteUniform and Truncated of
+the first two are written out; every other family with an entry
+(``_TRACED``, and Truncated, Affine and Mixture of such) is its own torch
+``logpdf`` traced by the same tracer, which then also takes ``lgamma``,
+``asinh``, float powers, ``full_like``, ``& | ~`` on booleans and
+``distributions.i0e`` (``kt_i0e`` of ``csrc/common.cuh``).
+
 Each emitted operation repeats what PyTorch does for the same
 expression, so the kernel and the plain version round alike: Python
 numbers become float32 constants, written as exact bit patterns
@@ -70,15 +78,30 @@ from .. import distributions as D
 # C functions of the unary ops (float32 versions from the CUDA math library)
 _UNARY_C = {"sqrt": "sqrtf", "exp": "expf", "log": "logf",
             "log1p": "log1pf", "expm1": "expm1f", "tanh": "tanhf",
-            "sin": "sinf", "cos": "cosf", "abs": "fabsf"}
+            "sin": "sinf", "cos": "cosf", "abs": "fabsf",
+            "lgamma": "lgammaf", "asinh": "asinhf", "i0e": "kt_i0e"}
 _UNARY = tuple(_UNARY_C) + ("square",)
 _COMPARE_C = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
               "ne": "!="}
 _ARITH_C = {"add": "+", "sub": "-", "mul": "*", "div": "/"}
-_TORCH_FUNCS = {getattr(torch, name): name for name in _UNARY + (
+_TORCH_FUNCS = {getattr(torch, name): name for name in tuple(
+    n for n in _UNARY if n != "i0e") + (
     "where", "hypot", "maximum", "minimum", "clamp", "ones_like",
-    "zeros_like")}
+    "zeros_like", "full_like")}
 _MAX_ARGS = 16   # the most theta leaves or moments a traced callable gets
+# torch functions that only the prior table's traced logpdfs may use (a
+# user model's surface stays the one above; float powers, ``& | ~`` and
+# ``i0e`` are checked where they are recorded): allowed while a prior
+# entry is traced
+_PRIOR_ONLY = frozenset({"lgamma", "asinh", "full_like"})
+_tracing_prior = [False]
+
+
+def _prior_only(op):
+    if not _tracing_prior[0]:
+        raise NotImplementedError(
+            f"op {op!r} is not supported in a model compiled into the "
+            f"generic kernels (supported: {', '.join(_supported())})")
 
 
 def _is_number(v):
@@ -150,6 +173,8 @@ class Sym:
                 "a model compiled into the generic kernels (supported: "
                 f"{', '.join(_supported())})")
         kwargs = kwargs or {}
+        if name in _PRIOR_ONLY:
+            _prior_only(name)
         if name in _UNARY:
             return _unary(name, *args, **kwargs)
         if name == "where":
@@ -158,6 +183,9 @@ class Sym:
             return _binary_fn(name, *args, **kwargs)
         if name == "clamp":
             return args[0].clamp(*args[1:], **kwargs)
+        if name == "full_like":   # a constant: its fill value
+            value = args[1] if len(args) > 1 else kwargs["fill_value"]
+            return _number(value)
         return Sym(name, (args[0],))   # ones_like, zeros_like
 
     # arithmetic --------------------------------------------------------
@@ -210,11 +238,14 @@ class Sym:
             raise NotImplementedError(
                 "op 'pow' of the integer step index is not supported in a "
                 "model compiled into the generic kernels")
-        if not (_is_number(p) and float(_number(p)).is_integer()):
+        if not _is_number(p):
             raise NotImplementedError(
                 f"op 'pow' with exponent {p!r}: only integer powers are "
                 "supported in a model compiled into the generic kernels")
-        return Sym("pow", (_as_float(self), int(_number(p))))
+        if float(_number(p)).is_integer():
+            return Sym("pow", (_as_float(self), int(_number(p))))
+        _prior_only("pow")
+        return Sym("powf", (_as_float(self), _number(p)))
 
     def __rpow__(self, o):
         raise NotImplementedError(
@@ -223,6 +254,25 @@ class Sym:
 
     def __abs__(self):
         return _unary("abs", self)
+
+    # boolean logic -----------------------------------------------------
+    def __and__(self, o):
+        return _logic("and", self, o)
+
+    __rand__ = __and__
+
+    def __or__(self, o):
+        return _logic("or", self, o)
+
+    __ror__ = __or__
+
+    def __invert__(self):
+        _prior_only("not")
+        if self.kind != "b":
+            raise NotImplementedError(
+                "op '~' is supported only on a boolean in a model compiled "
+                "into the generic kernels")
+        return Sym("not", (self,), kind="b")
 
     # comparisons -------------------------------------------------------
     def __lt__(self, o):
@@ -270,6 +320,10 @@ class Sym:
 
     def square(self):
         return _unary("square", self)
+
+    def i0e(self):   # distributions.i0e of a traced value: kt_i0e
+        _prior_only("i0e")
+        return _unary("i0e", self)
 
     def abs(self):
         return _unary("abs", self)
@@ -364,6 +418,15 @@ def _compare(op, a, b):
         return NotImplemented
 
 
+def _logic(op, a, b):
+    _prior_only(op)
+    if not all(isinstance(v, Sym) and v.kind == "b" for v in (a, b)):
+        raise NotImplementedError(
+            f"op '{op}' is supported only between booleans in a model "
+            "compiled into the generic kernels")
+    return Sym(op, (a, b), kind="b")
+
+
 def _unary(name, a):
     if not isinstance(a, Sym):
         raise TypeError(f"{name} of a non-traced value in a traced model")
@@ -420,8 +483,14 @@ def _eval_node(v, a, env):
         return a[1] / a[0]
     if op == "neg":
         return -a[0]
-    if op == "pow":
+    if op in ("pow", "powf"):
         return a[0] ** a[1]
+    if op in ("and", "or"):
+        return a[0] & a[1] if op == "and" else a[0] | a[1]
+    if op == "not":
+        return ~a[0]
+    if op == "i0e":
+        return D.i0e(a[0])
     if op in ("tofloat", "itof"):
         return a[0].to(torch.float32)
     if op == "where":
@@ -482,8 +551,9 @@ def _pow_ops(p):
     return {0: 0, 1: 0, 2: 1, 3: 2, -1: 1, -2: 2}.get(p, 1)
 
 
+# kt_i0e: 18 Chebyshev steps of three operations and four more (|x| <= 8)
 _OPS = {"clamp": 2, "clampt": 2, "tofloat": 0, "ones_like": 0,
-        "zeros_like": 0}
+        "zeros_like": 0, "i0e": 58}
 
 
 def _node_expr(v, name):
@@ -513,6 +583,15 @@ def _node_expr(v, name):
         return f"(-{a[0]})"
     if op == "pow":
         return _pow_expr(a[0], v.args[1])
+    if op == "powf":   # torch's pow_tensor_scalar: sqrt at 0.5, else pow
+        p = v.args[1]
+        if p == 0.5:
+            return f"sqrtf({a[0]})"
+        return f"powf({a[0]}, {f32_literal(p)})"
+    if op in ("and", "or"):
+        return f"({a[0]} {'&&' if op == 'and' else '||'} {a[1]})"
+    if op == "not":
+        return f"(!{a[0]})"
     if op in _UNARY_C:
         return f"{_UNARY_C[op]}({a[0]})"
     if op == "square":
@@ -556,9 +635,10 @@ _LEAF_C = {"theta": "th[{}]", "m": "m[{}]", "noise": "e", "x": "x",
 _CTYPE = {"f": "float", "b": "bool", "i": "int"}
 
 
-def _emit_body(outs):
-    """SSA lines computing every graph of ``outs`` (shared nodes once).
-    Returns (lines, C expression of each output, operations)."""
+def _emit_body(outs, prefix="v"):
+    """SSA lines computing every graph of ``outs`` (shared nodes once),
+    their names ``{prefix}0``, ``{prefix}1``, ... Returns (lines, C
+    expression of each output, operations)."""
     names, lines, ops, seen = {}, [], 0, set()
     for out in outs:
         for v in _topo(out):
@@ -569,9 +649,9 @@ def _emit_body(outs):
                 names[id(v)] = _LEAF_C[v.op].format(*v.args)
                 continue
             expr = _node_expr(v, lambda x: names[id(x)])
-            i = len(lines)
-            names[id(v)] = f"v{i}"
-            lines.append(f"  const {_CTYPE[v.kind]} v{i} = {expr};")
+            name = f"{prefix}{len(lines)}"
+            names[id(v)] = name
+            lines.append(f"  const {_CTYPE[v.kind]} {name} = {expr};")
             ops += _pow_ops(v.args[1]) if v.op == "pow" else _OPS.get(v.op, 1)
     exprs = [names[id(o)] if isinstance(o, Sym) else f32_literal(o)
              for o in outs]
@@ -817,11 +897,48 @@ def generate_scan(graphs, *, nseries, noise):
 
 _NEG_INF_C = "__uint_as_float(0xff800000u)"
 
+# families whose entry is their own logpdf, traced on one theta leaf: the
+# port's float32 formula, op for op, on its float32 host constants (a
+# division by a constant a multiply by its float32 reciprocal, as PyTorch
+# divides a CUDA tensor by a scalar). The discrete ones read the pushed
+# (rounded) value. Hypergeometric's logpdf is a host table; its entry is
+# the closed form ``logpdf_closed``, equal to the table at the integers.
+_TRACED = (
+    D.Exponential, D.Gamma, D.LogUniform, D.BetaPrime, D.StudentT, D.Beta,
+    D.LogNormal, D.Laplace, D.Cauchy, D.Weibull, D.Chisq, D.FDist,
+    D.Logistic, D.Rayleigh, D.Pareto, D.InverseGamma, D.Gumbel,
+    D.TriangularDist, D.Arcsine, D.Semicircle, D.Frechet, D.Levy,
+    D.GeneralizedPareto, D.Kumaraswamy, D.VonMises, D.SymTriangularDist,
+    D.Cosine, D.Epanechnikov, D.Biweight, D.Triweight, D.JohnsonSU,
+    D.GeneralizedExtremeValue, D.InverseGaussian, D.Chi,
+    D.PGeneralizedGaussian, D.Rician, D.Lindley, D.LogitNormal,
+    D.Poisson, D.Bernoulli, D.Binomial, D.Geometric, D.NegativeBinomial,
+    D.BetaBinomial, D.Hypergeometric)
+# the first entries, written out (their division by sigma divides, so the
+# kernels keep the bits they had before the traced entries)
+_WRITTEN = (D.Uniform, D.Normal, D.DiscreteUniform)
 
-def _marginal_logpdf(d, x):
-    """(C expression, operations) of one marginal's logpdf, the formula
-    of ``kissabc_tpu_torch/distributions.py`` with its float32 host
-    constants."""
+
+def _missing_entry(d):
+    """The family of ``d`` (or of a base or component inside it) that has
+    no entry in the prior table, or None."""
+    kind = type(d)
+    if kind in _WRITTEN or kind in _TRACED:
+        return None
+    if kind in (D.Truncated, D.Affine):
+        return _missing_entry(d.base)
+    if kind is D.Mixture:
+        for c in d.components:
+            missing = _missing_entry(c)
+            if missing is not None:
+                return missing
+        return None
+    return kind.__name__
+
+
+def _written_logpdf(d, x):
+    """(C expression, operations) of an entry written out: Uniform,
+    Normal, DiscreteUniform and Truncated of the first two."""
     kind = type(d)
     if kind is D.Uniform:
         return (f"(({x} >= {f32_literal(d.a)}) && ({x} <= {f32_literal(d.b)}))"
@@ -832,16 +949,48 @@ def _marginal_logpdf(d, x):
     if kind is D.DiscreteUniform:   # on the pushed (rounded) value
         return (f"(({x} >= {f32_literal(d.a)}) && ({x} <= {f32_literal(d.b)}))"
                 f" ? {f32_literal(-d._lpmf)} : {_NEG_INF_C}", 3)
-    if kind is D.Truncated:
-        base, ops = _marginal_logpdf(d.base, x)
-        return (f"((({x} >= {f32_literal(d.lo)}) && ({x} <= "
-                f"{f32_literal(d.hi)})) ? (({base}) - {f32_literal(d._lz)})"
-                f" : {_NEG_INF_C})", ops + 4)
-    raise NotImplementedError(
-        f"{kind.__name__} has no entry in the generic kernels' prior table "
-        "(Uniform, Normal, Truncated of either, DiscreteUniform): its push "
-        "and logpdf "
-        "cannot be compiled into the fused sweep")
+    base, ops = _written_logpdf(d.base, x)   # Truncated
+    return (f"((({x} >= {f32_literal(d.lo)}) && ({x} <= "
+            f"{f32_literal(d.hi)})) ? (({base}) - {f32_literal(d._lz)})"
+            f" : {_NEG_INF_C})", ops + 4)
+
+
+def _marginal_logpdf(d, k):
+    """(SSA lines, C expression, operations) of marginal ``k``'s logpdf
+    at ``th[k]``: the formula of ``kissabc_tpu_torch/distributions.py``
+    with its float32 host constants. Truncated, Affine and Mixture take
+    any base or components that have entries; a family without one
+    raises ``NotImplementedError`` naming it."""
+    missing = _missing_entry(d)
+    if missing is not None:
+        raise NotImplementedError(
+            f"{missing} has no entry in the generic kernels' prior table "
+            f"(marginal {k}, {d!r}): its push and logpdf cannot be compiled "
+            "into the fused sweep (still without one: Skellam and "
+            "NoncentralChisq (series), PoissonBinomial, Categorical, "
+            "DiscreteNonParametric, Dirac and TruncatedDiscrete (tables or "
+            "atom pushes) and the vector families)")
+    x = f"th[{k}]"
+    if type(d) in _WRITTEN or (type(d) is D.Truncated
+                               and type(d.base) in (D.Uniform, D.Normal)):
+        expr, ops = _written_logpdf(d, x)
+        return [], expr, ops
+    lines, (expr,), ops = _emit_body([trace_marginal(d, k)],
+                                     prefix=f"p{k}_")
+    return lines, expr, ops
+
+
+def trace_marginal(d, k=0):
+    """The graph of a traced entry: ``d``'s logpdf (Hypergeometric's
+    ``logpdf_closed``) recorded on theta leaf ``k``; ``evaluate`` runs it
+    on tensors, the same PyTorch ops as the logpdf."""
+    logpdf = (d.logpdf_closed if type(d) is D.Hypergeometric
+              else d.logpdf)
+    _tracing_prior[0] = True
+    try:
+        return _as_float(_operand(logpdf(Sym("theta", (k,)))))
+    finally:
+        _tracing_prior[0] = False
 
 
 def prior_marginals(prior):
@@ -867,8 +1016,9 @@ def emit_prior(prior, push=False):
             raise NotImplementedError(
                 f"marginal {k} ({d!r}) is not a continuous scalar: the "
                 "generic kernels push only continuous marginals")
-        expr, n = _marginal_logpdf(d, f"th[{k}]")
+        body, expr, n = _marginal_logpdf(d, k)
         ops += n + (k > 0)
+        lines += body
         lines.append(f"  lp = {expr};" if k == 0
                      else f"  lp = lp + ({expr});")
         pushes.append(f"  out[{k}] = rintf(th[{k}]);" if d.discrete

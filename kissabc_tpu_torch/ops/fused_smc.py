@@ -288,8 +288,9 @@ def make_fused_smc_sweep(prior, draw, reduce_cost, *,
     kernel per sweep, for ``smc(..., sweep_fused=...)``.
 
     ``prior``: a ``Factored`` of scalar marginals (or one marginal) from
-    the families of ``ops/codegen.py``'s prior table (Uniform, Normal,
-    Truncated of either). ``draw``, ``stats`` and ``reduce_cost`` follow
+    the continuous families of ``ops/codegen.py``'s prior table (the smc
+    sweep pushes nothing, so a discrete marginal is refused). ``draw``,
+    ``stats`` and ``reduce_cost`` follow
     ``make_streaming_moment_cost``, with ``reduce_cost`` also compiled
     into the kernel: elementwise PyTorch of the supported ops. Anything
     the kernel cannot hold raises when the sweep is built. ``mesh=``

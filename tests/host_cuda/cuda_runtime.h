@@ -97,7 +97,16 @@ inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 #else
 inline float __fmaf_rn(float a, float b, float c) { return a * b + c; }
 #endif
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __int2float_rn(int i) { return (float)i; }
+// lgammaf of the generic kernels' prior table without glibc's global
+// signgam, which every emulated thread would write
+inline float kt_host_lgammaf(float x) {
+  int sign;
+  return ::lgammaf_r(x, &sign);
+}
+#define lgammaf kt_host_lgammaf
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __ldcg(const float* p) { return *p; }
 inline float __ldg(const float* p) { return *p; }

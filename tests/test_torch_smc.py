@@ -125,7 +125,8 @@ def test_convert_state_and_prior():
     assert isinstance(p, kt.Factored) and p.nparams == 2
     assert float(p.p[1].base.sigma) == np.float32(0.05)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        convert.prior_from_numpy(("Beta", {"alpha": 1, "beta": 2}))
+        convert.prior_from_numpy(("Multinomial", {"n": 3,
+                                                  "p": [0.5, 0.5]}))
 
 
 # ---------------------------------------------------------------------------
