@@ -37,7 +37,13 @@ generic kernels' prior table, each against its plain version on stub
 bits at 65536 walkers, ``smc-1m-generic-priors``, smc at 2^20 particles
 on a prior of new families through #4 and #3, ``reference-socks``, the
 reference's socks problem through smc and AIS, and ``statistics``, the
-statistics functions on the card against the CPU). For the kernels redesigned
+statistics functions on the card against the CPU; slice 8 adds #3 on P3
+and P4, whose discrete marginals it pushes in the kernel,
+``smc-1m-generic-discrete``, smc at 2^20 on the mixed discrete prior of
+tests/test_pallas.py:864-890 through #4 and #3, the vector and matrix
+families to ``statistics``, and ``matrix-priors``: smc on ``LKJ(2)``, the
+covariance example, AIS on ``LKJ(2)``, and each family's logpdf and
+10^5 draws on the card). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
 and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
@@ -364,6 +370,116 @@ def check_untouched(torch, inputs, outs, commit, what):
               f"{what}: uncommitted {name} changed")
 
 
+def prior_table_priors(kt):
+    """Four ``Factored`` priors of 16 marginals that hold every entry of
+    the generic kernels' prior table, built from the package ``kt``
+    (``tools/same_bits.py`` builds them from two trees)."""
+    return {
+        "P1": kt.Factored(
+            kt.Beta(2.0, 5.0), kt.LogNormal(0.3, 0.8), kt.Laplace(1.0, 2.0),
+            kt.Cauchy(0.5, 1.5), kt.Weibull(1.5, 2.0), kt.Chisq(4.0),
+            kt.FDist(8.0, 12.0), kt.Logistic(0.5, 1.2), kt.Rayleigh(2.0),
+            kt.Pareto(3.0, 2.0), kt.InverseGamma(3.0, 2.0),
+            kt.Gumbel(0.5, 2.0), kt.TriangularDist(0.0, 4.0, 1.0),
+            kt.Arcsine(1.0, 3.0), kt.Semicircle(2.0), kt.Frechet(5.0, 2.0)),
+        "P2": kt.Factored(
+            kt.Levy(0.5, 1.5), kt.GeneralizedPareto(0.5, 1.5, 0.2),
+            kt.Kumaraswamy(2.0, 3.0), kt.VonMises(0.5, 2.0),
+            kt.SymTriangularDist(1.0, 2.0), kt.Cosine(1.0, 2.0),
+            kt.Epanechnikov(1.0, 2.0), kt.Biweight(-0.5, 1.5),
+            kt.Triweight(0.0, 2.0), kt.JohnsonSU(0.5, 2.0, 0.3, 1.5),
+            kt.GeneralizedExtremeValue(0.5, 1.5, 0.2),
+            kt.InverseGaussian(2.0, 3.0), kt.Chi(3.0),
+            kt.PGeneralizedGaussian(0.5, 1.5, 3.0), kt.Rician(2.0, 1.5),
+            kt.Lindley(0.7)),
+        "P3": kt.Factored(
+            kt.LogitNormal(0.4, 0.9), kt.Exponential(1.5),
+            kt.Gamma(2.5, 1.5), kt.LogUniform(0.1, 10.0),
+            kt.BetaPrime(3.0, 5.0), kt.StudentT(4.0), kt.Uniform(0.0, 1.0),
+            kt.Normal(0.0, 1.0), kt.TruncatedNormal(0.0, 1.0, -1.0, 2.0),
+            kt.Truncated(kt.Gamma(2.0, 1.0), 0.5, 6.0),
+            2.0 - 3.0 * kt.Exponential(1.0),
+            kt.Mixture([kt.Normal(0.0, 0.5), kt.Normal(5.0, 0.5)]),
+            kt.Poisson(6.0), kt.Bernoulli(0.3), kt.Binomial(10, 0.4),
+            kt.Geometric(0.3)),
+        "P4": kt.Factored(
+            kt.NegativeBinomial(4.0, 0.3), kt.BetaBinomial(10, 2.0, 3.0),
+            kt.Hypergeometric(7, 5, 6), kt.DiscreteUniform(1, 6),
+            kt.Erlang(3, 2.0), kt.NormalCanon(2.0, 4.0),
+            kt.GeneralizedPareto(0.0, 1.0, -0.25),
+            kt.GeneralizedExtremeValue(0.0, 1.0, 0.0),
+            kt.TriangularDist(0.0, 2.0, 0.0),
+            kt.Mixture([kt.Gamma(2.0, 1.0), kt.LogNormal(0.0, 0.5),
+                        kt.Uniform(0.0, 3.0)], [0.2, 0.5, 0.3]),
+            1.0 + 2.0 * kt.Beta(2.0, 2.0),
+            kt.Truncated(kt.StudentT(4.0), -1.0, 3.0), kt.Beta(0.5, 0.7),
+            kt.Rician(6.0, 0.5),
+            kt.Mixture([kt.Poisson(2.0), kt.Poisson(9.0)]),
+            kt.Poisson(2.0)),
+    }
+
+
+def matrix_families(kt, np):
+    """The nine vector and matrix families of slice 8 at the settings of
+    tests/test_distributions.py:148-156, :316-343, :1118-1234: name ->
+    (family, points off its support, checks of 10^5 draws x against
+    ``statistics.mean``/``cov`` m/c, each (what, ok))."""
+    S = np.array([[1.0, 0.3], [0.3, 0.8]])
+    Psi = np.array([[2.0, 0.4], [0.4, 1.5]])
+    cov3 = np.array([[1.0, 0.3, 0.0], [0.3, 2.0, 0.5], [0.0, 0.5, 1.5]])
+    bad2 = [[[1.0, 0.0], [0.0, -1.0]], [[1.0, 2.0], [2.0, 1.0]]]
+    eye = np.eye
+
+    def rows_unit(x):   # L L^T of a Cholesky factor has a unit diagonal
+        r = x @ np.swapaxes(x, -1, -2)
+        return np.abs(np.diagonal(r, axis1=-2, axis2=-1) - 1.0).max()
+
+    return {
+        "Product": (kt.Product([kt.Normal(0, 1), kt.Normal(5, 2)]),
+                    [[0.0, np.inf]],
+                    lambda x, m, c: [("mean atol 0.05", np.abs(
+                        x.mean(0) - m).max() < 0.05)]),
+        "IID": (kt.IID(kt.Poisson(3.0), 3), [[-1.0, 2.0, 3.0]],
+                lambda x, m, c: [("mean atol 0.05", np.abs(
+                    x.mean(0) - m).max() < 0.05)]),
+        "Multinomial": (kt.Multinomial(10, [0.2, 0.5, 0.3]),
+                        [[2.0, 5.0, 4.0], [-1.0, 8.0, 3.0]],
+                        lambda x, m, c: [
+                            ("sum n", np.abs(x.sum(-1) - 10.0).max() < 1e-5),
+                            ("mean atol 0.15", np.abs(x.mean(0) - m).max()
+                             < 0.15),
+                            ("cov atol 0.15", np.abs(np.cov(x.T) - c).max()
+                             < 0.15)]),
+        "MvLogNormal": (kt.MvLogNormal([0.2, -0.3], [[0.5, 0.2],
+                                                     [0.2, 0.4]]),
+                        [[1.0, -0.5]],
+                        lambda x, m, c: [("mean rtol 0.05", np.allclose(
+                            x.mean(0), m, rtol=0.05, atol=0))]),
+        "MvTDist": (kt.MvTDist(5.0, [1.0, -2.0, 0.5], cov3), [],
+                    lambda x, m, c: [
+                        ("mean atol 0.1", np.abs(x.mean(0) - m).max() < 0.1),
+                        ("cov rtol 0.15 atol 0.05", np.allclose(
+                            np.cov(x.T), c, rtol=0.15, atol=0.05))]),
+        "Wishart": (kt.Wishart(5.0, S), bad2,
+                    lambda x, m, c: [("mean rtol 0.08", np.allclose(
+                        x.mean(0), m, rtol=0.08, atol=0))]),
+        "InverseWishart": (kt.InverseWishart(6.0, Psi), bad2,
+                           lambda x, m, c: [("mean rtol 0.1", np.allclose(
+                               x.mean(0), m, rtol=0.1, atol=0))]),
+        "LKJ": (kt.LKJ(3, 1.8), [np.full((3, 3), -0.9) + 1.9 * eye(3)],
+                lambda x, m, c: [
+                    ("unit diagonal", np.abs(np.diagonal(
+                        x, axis1=-2, axis2=-1) - 1.0).max() < 1e-5),
+                    ("mean atol 0.03", np.abs(x.mean(0) - m).max() < 0.03)]),
+        "LKJCholesky": (kt.LKJCholesky(4, 2.5), [-eye(4)],
+                        lambda x, m, c: [
+                            ("unit rows", rows_unit(x) < 1e-5),
+                            ("E[L L^T] atol 0.03", np.abs(
+                                (x @ np.swapaxes(x, -1, -2)).mean(0)
+                                - eye(4)).max() < 0.03)]),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--save-ais-inputs", metavar="PATH",
@@ -553,51 +669,9 @@ def main():
                                            gamma=2.38 / math.sqrt(2.0),
                                            cost_on=cost_on, bits="stub")
     # slice 7: every family with an entry in the generic kernels' prior
-    # table in one of four priors of 16 marginals, run through #3 (the
-    # continuous ones), #6, #9 and #10 on stub bits: seven units
-    table_priors = {
-        "P1": kt.Factored(
-            kt.Beta(2.0, 5.0), kt.LogNormal(0.3, 0.8), kt.Laplace(1.0, 2.0),
-            kt.Cauchy(0.5, 1.5), kt.Weibull(1.5, 2.0), kt.Chisq(4.0),
-            kt.FDist(8.0, 12.0), kt.Logistic(0.5, 1.2), kt.Rayleigh(2.0),
-            kt.Pareto(3.0, 2.0), kt.InverseGamma(3.0, 2.0),
-            kt.Gumbel(0.5, 2.0), kt.TriangularDist(0.0, 4.0, 1.0),
-            kt.Arcsine(1.0, 3.0), kt.Semicircle(2.0), kt.Frechet(5.0, 2.0)),
-        "P2": kt.Factored(
-            kt.Levy(0.5, 1.5), kt.GeneralizedPareto(0.5, 1.5, 0.2),
-            kt.Kumaraswamy(2.0, 3.0), kt.VonMises(0.5, 2.0),
-            kt.SymTriangularDist(1.0, 2.0), kt.Cosine(1.0, 2.0),
-            kt.Epanechnikov(1.0, 2.0), kt.Biweight(-0.5, 1.5),
-            kt.Triweight(0.0, 2.0), kt.JohnsonSU(0.5, 2.0, 0.3, 1.5),
-            kt.GeneralizedExtremeValue(0.5, 1.5, 0.2),
-            kt.InverseGaussian(2.0, 3.0), kt.Chi(3.0),
-            kt.PGeneralizedGaussian(0.5, 1.5, 3.0), kt.Rician(2.0, 1.5),
-            kt.Lindley(0.7)),
-        "P3": kt.Factored(
-            kt.LogitNormal(0.4, 0.9), kt.Exponential(1.5),
-            kt.Gamma(2.5, 1.5), kt.LogUniform(0.1, 10.0),
-            kt.BetaPrime(3.0, 5.0), kt.StudentT(4.0), kt.Uniform(0.0, 1.0),
-            kt.Normal(0.0, 1.0), kt.TruncatedNormal(0.0, 1.0, -1.0, 2.0),
-            kt.Truncated(kt.Gamma(2.0, 1.0), 0.5, 6.0),
-            2.0 - 3.0 * kt.Exponential(1.0),
-            kt.Mixture([kt.Normal(0.0, 0.5), kt.Normal(5.0, 0.5)]),
-            kt.Poisson(6.0), kt.Bernoulli(0.3), kt.Binomial(10, 0.4),
-            kt.Geometric(0.3)),
-        "P4": kt.Factored(
-            kt.NegativeBinomial(4.0, 0.3), kt.BetaBinomial(10, 2.0, 3.0),
-            kt.Hypergeometric(7, 5, 6), kt.DiscreteUniform(1, 6),
-            kt.Erlang(3, 2.0), kt.NormalCanon(2.0, 4.0),
-            kt.GeneralizedPareto(0.0, 1.0, -0.25),
-            kt.GeneralizedExtremeValue(0.0, 1.0, 0.0),
-            kt.TriangularDist(0.0, 2.0, 0.0),
-            kt.Mixture([kt.Gamma(2.0, 1.0), kt.LogNormal(0.0, 0.5),
-                        kt.Uniform(0.0, 3.0)], [0.2, 0.5, 0.3]),
-            1.0 + 2.0 * kt.Beta(2.0, 2.0),
-            kt.Truncated(kt.StudentT(4.0), -1.0, 3.0), kt.Beta(0.5, 0.7),
-            kt.Rician(6.0, 0.5),
-            kt.Mixture([kt.Poisson(2.0), kt.Poisson(9.0)]),
-            kt.Poisson(2.0)),
-    }
+    # table in one of four priors of 16 marginals, run through #3, #6, #9
+    # and #10 on stub bits: nine units
+    table_priors = prior_table_priors(kt)
 
     def ll_table(th):   # #9's conjugate log-likelihood of the first leaf
         return ll_conj(th[0])
@@ -613,6 +687,10 @@ def main():
             table_priors["P1"], tdraw, treduce, bits="stub"),
         ("#3", "P2"): kt.make_fused_smc_sweep(
             table_priors["P2"], tdraw, treduce, bits="stub"),
+        ("#3", "P3"): kt.make_fused_smc_sweep(
+            table_priors["P3"], tdraw, treduce, bits="stub"),
+        ("#3", "P4"): kt.make_fused_smc_sweep(
+            table_priors["P4"], tdraw, treduce, bits="stub"),
         ("#6", "P3"): kt.make_fused_ais_sweep(
             table_priors["P3"], tdraw, treduce, scale=0.5, bits="stub"),
         ("#6", "P4"): kt.make_fused_ais_sweep(
@@ -631,6 +709,11 @@ def main():
     nprior = kt.Factored(1.0 + 2.0 * kt.Beta(2.0, 2.0),
                          kt.LogNormal(-3.0, 1.0))
     nsweep = kt.make_fused_smc_sweep(nprior, fdraw, freduce)
+    # slice 8's: the mixed discrete model of tests/test_pallas.py:864-890
+    # at 2^20 through #4 (ndraws 500) and #3, which pushes m in the kernel
+    mprior, mdraw, mreduce = models.mixed_discrete()
+    mcost = kt.make_streaming_moment_cost(mdraw, mreduce, ndraws=500)
+    msweep = kt.make_fused_smc_sweep(mprior, mdraw, mreduce, ndraws=500)
     units = {}   # generated source -> names (stub and hw share a unit)
     for name, (c, k) in costs.items():
         units.setdefault(c.unit(k).source, []).append(f"cost {name}")
@@ -650,6 +733,11 @@ def main():
                    for (k, p), sw in table_sweeps.items()}
     table_units.setdefault(nsweep.unit.source, []).append(
         "sweep smc-1m-generic-priors")
+    # (its cost unit is the flagship cost's: the draw is the same)
+    check(mcost.unit(2).source in units, "smc-1m-generic-discrete's cost "
+          "unit is not the flagship cost's")
+    table_units.setdefault(msweep.unit.source, []).append(
+        "sweep smc-1m-generic-discrete")
 
     ptxas = {}   # unit names -> ptxas lines, each after its function
 
@@ -732,8 +820,9 @@ def main():
             secs7["/".join(names)] = round(secs, 2)
         ph.result = (f"{len(table_units)} generated units of the prior "
                      f"table (#3, #6, #9, #10 on four priors of 16 "
-                     f"marginals, and smc-1m-generic-priors' #3), started "
-                     f"with the others; nvcc seconds {secs7}")
+                     f"marginals), smc-1m-generic-priors' #3 and "
+                     f"smc-1m-generic-discrete's #3, started with the "
+                     f"others; nvcc seconds {secs7}")
 
     with Phase("radius-exhaustive") as ph:
         radius_job.wait()
@@ -2716,7 +2805,8 @@ def main():
             leaves = table_population(p_, n)
             what = f"prior-table {kname} {pname}"
             if kname == "#3":
-                lps = p_.logpdf_tree(tuple(leaves)).to(torch.float32)
+                lps = p_.logpdf_tree(p_.push_tree(tuple(leaves))).to(
+                    torch.float32)
                 xs = torch.full((n,), 1e6, device=dev)
                 alive = torch.rand(n, generator=gen, device=dev) < 0.9
                 r1, r2, seed = 5, n // 2 + 3, 12345
@@ -2736,8 +2826,13 @@ def main():
                                 + list(got[1:3]), got[3], what)
                 acc = int(got[3].sum())
                 check(0 < acc, f"{what} committed nothing")
-                res[f"{kname} {pname}"] = (err, unequal_committed(got, want),
-                                           acc, border)
+                unequal = unequal_committed(got, want)
+                # the kernel repeats its plain version op for op: bit for
+                # bit (P3, P4: the push of the discrete marginals too)
+                check(err == 0 and unequal == 0 and border == 0,
+                      f"{what}: not bit-equal to the plain version (max|err| "
+                      f"{err}, {unequal} unequal, {border} masks differ)")
+                res[f"{kname} {pname}"] = (err, unequal, acc, border)
                 eps_t = torch.tensor(eps, device=dev)
                 flag_t = torch.tensor(False, device=dev)
                 ms = cuda_ms(torch, lambda: sw.run(leaves, xs, lps, alive,
@@ -2837,6 +2932,38 @@ def main():
                           eps=res.eps,
                           launches=priors_launches["fused_smc_sweep"])
 
+    with Phase("smc-1m-generic-discrete") as ph:
+        # tests/test_pallas.py:864-890 at the reference's production width:
+        # the mixed discrete prior through #4 at the init and #3 every
+        # sweep, which pushes m in the kernel; m comes back integral
+        _alarm(FULL_SMC_LIMIT_S)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(mprior, mcost, cost_vectorized=True, sweep_fused=msweep,
+                     nparticles=1 << 20, epstol=0.08, key=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        discrete_launches = counts()
+        m_post, s_post = res.P
+        check(bool(np.all(m_post.particles == np.round(m_post.particles))),
+              "smc-1m-generic-discrete: m particles not integral")
+        check(abs(m_post.mean() - 3.0) < 0.3, f"mean m {m_post.mean()}")
+        check(abs(s_post.mean() - 0.5) < 0.15, f"mean s {s_post.mean()}")
+        check(res.eps <= 0.08, f"eps {res.eps} > 0.08")
+        check(discrete_launches["streaming_moment_cost"] > 0
+              and discrete_launches["fused_smc_sweep"] > 0,
+              "smc-1m-generic-discrete did not launch kernels #4 and #3")
+        ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
+                     f" m {m_post.mean():.5f} s {s_post.mean():.5f} wall "
+                     f"{wall:.3f} s launches #3 "
+                     f"{discrete_launches['fused_smc_sweep']} #4 "
+                     f"{discrete_launches['streaming_moment_cost']}")
+        discrete_smc = dict(iterations=res.iterations, wall_s=wall,
+                            eps=res.eps,
+                            launches=discrete_launches["fused_smc_sweep"])
+
     with Phase("reference-socks") as ph:
         # KissABC.jl's runtests socks problem at the reference parity
         # file's settings and bands (tests/test_reference_parity.py:53-72);
@@ -2869,6 +2996,8 @@ def main():
                      f"{wall_smc:.2f} s; AIS: n {an.mean():.3f}, p "
                      f"{ap.mean():.5f}, {wall_ais:.2f} s")
 
+    families = matrix_families(kt, np)
+    cpu_gen = torch.Generator().manual_seed(16)
     with Phase("statistics") as ph:
         # the pointwise functions on CUDA tensors equal them on CPU tensors
         # (the CPU tests' tolerances: logpdf 16 ulps, the rest 4e-6), and
@@ -2909,7 +3038,145 @@ def main():
                       key=1)
         check(tup[0].device.type == "cuda" and tup[1].dtype == torch.int32,
               "rand of a Factored prior")
+        # slice 8's families: the statistics functions on CUDA tensors
+        # against CPU tensors (logpdf within rtol 1e-5, atol 1e-5, the CPU
+        # tests' tolerance against JAX, -inf in the same places;
+        # insupport equal), mean and cov as host values beside rand's
+        # draws on the card
+        for name, (d, bad, _) in families.items():
+            xc = torch.cat([d.sample(cpu_gen, (1024,)).to(torch.float32),
+                            torch.tensor(np.asarray(bad, np.float32)).reshape(
+                                (-1,) + tuple(d.sample(cpu_gen, ()).shape))])
+            a, b = kt.logpdf(d, xc.to(dev)), kt.logpdf(d, xc)
+            check(a.device.type == "cuda", f"logpdf({name}) left the card")
+            a = a.cpu()
+            fin = torch.isfinite(b)
+            check(bool(torch.equal(torch.isfinite(a), fin))
+                  and bool((a[~fin] == float("-inf")).all()),
+                  f"logpdf({name}): -inf cells differ")
+            check(bool(torch.allclose(a[fin], b[fin], rtol=1e-5,
+                                      atol=1e-5)),
+                  f"logpdf({name}): max err {max_err(a[fin], b[fin])}")
+            out[f"{name} logpdf"] = max_err(a[fin], b[fin])
+            if name in ("Product", "IID", "MvLogNormal", "MvTDist"):
+                check(bool(torch.equal(kt.insupport(d, xc.to(dev)).cpu(),
+                                       kt.insupport(d, xc))),
+                      f"insupport({name}) card vs CPU")
+            if name != "LKJCholesky":
+                x = kt.rand(d, 100_000, key=5).double()
+                check(x.device.type == "cuda", f"rand({name}) left the card")
+                m = torch.as_tensor(np.asarray(kt.mean(d), np.float64),
+                                    device=dev)
+                out[f"{name} mean"] = max_err(x.mean(0), m)
         ph.result = "max|err| card vs CPU " + json.dumps(out)
+
+    with Phase("matrix-priors") as ph:
+        # slice 8's families as priors on the card, through the per-walker
+        # cost (torch.func.vmap; no kernel of the port: the JAX kernels
+        # take only [n] leaves): smc on LKJ(2, 1.0) at the settings of
+        # tests/test_distributions.py:1259-1280; the covariance example
+        # (examples/example_covariance.py:30-74, uncut, ported inline);
+        # AIS on the LKJ prior; then each family's logpdf on the card
+        # against the CPU and 10^5 draws against statistics.mean/cov
+        out = {}
+        reset_counts()
+
+        def corr_cost(R, g):
+            cl, _ = torch.linalg.cholesky_ex(R)
+            z = torch.randn((500, 2), generator=g, device=g.device) @ cl.T
+            r = torch.mean(z[:, 0] * z[:, 1]) / (
+                torch.std(z[:, 0], correction=0)
+                * torch.std(z[:, 1], correction=0))
+            return torch.abs(r - 0.6)
+
+        t0 = time.perf_counter()
+        r = kt.smc(kt.LKJ(2, 1.0), corr_cost, nparticles=128, epstol=0.05,
+                   max_iters=150, key=5)
+        wall = time.perf_counter() - t0
+        P = r.P   # row-major [R00, R01, R10, R11]
+        check(P[0].approx(1.0) and P[0].std() == 0.0, "LKJ smc: R00 != 1")
+        check(abs(P[1].mean() - 0.6) < 0.08, f"LKJ smc: r {P[1].mean()}")
+        check(P[1].particles.max() <= 1.0 + 1e-6, "LKJ smc: r > 1")
+        out["lkj-smc"] = dict(iterations=r.iterations, eps=float(r.eps),
+                              r=P[1].mean(), wall_s=wall)
+
+        true_r, true_s, nobs = 0.6, (1.5, 0.7), 2000
+        true_cov = np.diag(true_s) @ np.array(
+            [[1.0, true_r], [true_r, 1.0]]) @ np.diag(true_s)
+        obs = np.random.default_rng(1).multivariate_normal(
+            [0.0, 0.0], true_cov, size=nobs)
+        obs_s1, obs_s2 = np.std(obs, axis=0)
+        obs_r = np.corrcoef(obs.T)[0, 1]
+        o1, o2, orr = (float(np.float32(v)) for v in (obs_s1, obs_s2,
+                                                      obs_r))
+
+        def cov_cost(theta, g):
+            R, s1, s2 = theta
+            cl, _ = torch.linalg.cholesky_ex(R)
+            x = (torch.randn((nobs, 2), generator=g, device=g.device)
+                 @ cl.T) * torch.stack([s1, s2])
+            sd = torch.std(x, dim=0, correction=0)
+            rh = torch.mean(x[:, 0] * x[:, 1]) / (sd[0] * sd[1])
+            return (torch.abs(sd[0] - o1) / o1 + torch.abs(sd[1] - o2) / o2
+                    + torch.abs(rh - orr))
+
+        t0 = time.perf_counter()
+        r = kt.smc(kt.Factored(kt.LKJ(2, 1.0), kt.LogUniform(0.1, 10.0),
+                               kt.LogUniform(0.1, 10.0)), cov_cost,
+                   nparticles=256, max_iters=400, key=11)
+        wall = time.perf_counter() - t0
+        r_post, s1_post, s2_post = r.P[1], r.P[4], r.P[5]
+        check(abs(r_post.mean() - obs_r) < 0.1, f"covariance r {r_post}")
+        check(abs(s1_post.mean() - obs_s1) < 0.15, f"covariance s1 {s1_post}")
+        check(abs(s2_post.mean() - obs_s2) < 0.1, f"covariance s2 {s2_post}")
+        out["covariance"] = dict(
+            iterations=r.iterations, eps=float(r.eps), r=r_post.mean(),
+            s1=s1_post.mean(), s2=s2_post.mean(), obs=[obs_r, obs_s1, obs_s2],
+            wall_s=wall)
+
+        t0 = time.perf_counter()
+        ra = kt.sample(kt.ApproxKernelizedPosterior(kt.LKJ(2, 1.0), corr_cost,
+                                                    0.05),
+                       kt.AIS(32), 256, ntransitions=4, discard_initial=256,
+                       key=14)
+        wall = time.perf_counter() - t0
+        x = np.stack([p_.particles for p_ in ra], -1).reshape(-1, 2, 2)
+        check(bool(np.array_equal(x, np.swapaxes(x, -1, -2))),
+              "LKJ AIS: a posterior matrix is not symmetric")
+        check(bool((np.diagonal(x, axis1=-2, axis2=-1) == 1.0).all()),
+              "LKJ AIS: a diagonal entry is not 1")
+        check(bool((np.linalg.eigvalsh(x) > 0).all()),
+              "LKJ AIS: a posterior matrix is not positive definite")
+        out["lkj-ais"] = dict(r=ra[1].mean(), r_sd=ra[1].std(), wall_s=wall)
+        check(not any(counts().values()), "matrix-priors ran a kernel")
+
+        for k, (name, (d, bad, checks)) in enumerate(families.items()):
+            xc = torch.cat([d.sample(cpu_gen, (4096,)).to(torch.float32),
+                            torch.tensor(np.asarray(bad, np.float32)).reshape(
+                                (-1,) + tuple(d.sample(cpu_gen, ()).shape))])
+            a, b = d.logpdf(xc.to(dev)).cpu(), d.logpdf(xc)
+            fin = torch.isfinite(b)
+            check(bool(torch.equal(torch.isfinite(a), fin)),
+                  f"{name}: -inf cells differ, card vs CPU")
+            check(len(bad) == int((~fin).sum()),
+                  f"{name}: {int((~fin).sum())} cells -inf, {len(bad)} off "
+                  "the support")
+            check(bool(torch.allclose(a[fin], b[fin], rtol=1e-5, atol=1e-5)),
+                  f"{name} logpdf: max err {max_err(a[fin], b[fin])}")
+            g = torch.Generator(device=dev).manual_seed(100 + k)
+            xd = d.sample(g, (100_000,))
+            check(xd.device.type == "cuda", f"{name} drew off the card")
+            xd = xd.double().cpu().numpy()
+            m = np.asarray(kt.mean(d)) if name != "LKJCholesky" else None
+            c = (np.asarray(kt.cov(d)) if name in ("Product", "IID",
+                                                    "Multinomial", "MvTDist")
+                 else None)
+            for what, ok in checks(xd, m, c):
+                check(bool(ok), f"{name} draws: {what}")
+            out[name] = dict(logpdf_max_abs_err=max_err(a[fin], b[fin]),
+                             neg_inf=len(bad), draws_ok=[
+                                 w for w, _ in checks(xd, m, c)])
+        ph.result = json.dumps(out)
 
     for rec in records:   # the prior table's times beside #3's and #6's
         if rec["name"] == "fused_smc_sweep":
@@ -2917,9 +3184,12 @@ def main():
                                   if k.startswith("#3")}
             rec["launches_by_path"] = {
                 "smc-1m-generic": rec["launches"],
-                "smc-1m-generic-priors": priors_smc["launches"]}
-            rec["launches"] += priors_smc["launches"]
+                "smc-1m-generic-priors": priors_smc["launches"],
+                "smc-1m-generic-discrete": discrete_smc["launches"]}
+            rec["launches"] += (priors_smc["launches"]
+                                + discrete_smc["launches"])
             rec["smc_1m_generic_priors"] = priors_smc
+            rec["smc_1m_generic_discrete"] = discrete_smc
         if rec["name"] == "fused_ais_sweep":
             rec["prior_table"] = {k: v for k, v in table_times.items()
                                   if k.startswith("#6")}
@@ -2928,9 +3198,12 @@ def main():
         name="streaming_moment_cost", route="cuda",
         source="kissabc_tpu_torch/csrc/generic.cuh",
         replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
-        launches=cost_split_launches + threshold_launches,
+        launches=(cost_split_launches + threshold_launches
+                  + discrete_launches["streaming_moment_cost"]),
         launches_by_path={"abcde-fused split": cost_split_launches,
-                          "rejection-threshold": threshold_launches},
+                          "rejection-threshold": threshold_launches,
+                          "smc-1m-generic-discrete":
+                          discrete_launches["streaming_moment_cost"]},
         rejection_threshold=rejection_threshold, max_abs_err=max(
             t["max_abs_err"] for t in times4.values()), matched=True,
         ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],

@@ -28,7 +28,11 @@ SMC-ABC:
   ``PoissonBinomial``), ``Truncated`` (over any base with a quantile;
   ``TruncatedDiscrete`` over a discrete one)/``TruncatedNormal``,
   ``Mixture``/``MixtureModel``, ``Affine`` (also built by ``+ - *`` on a
-  distribution), ``MvNormal``, ``Dirichlet`` and ``Factored``.
+  distribution), the vector families ``MvNormal``, ``Dirichlet``,
+  ``Product``/``IID``, ``Multinomial``, ``MvLogNormal`` and ``MvTDist``,
+  the matrix families ``Wishart``, ``InverseWishart``, ``LKJ`` and
+  ``LKJCholesky``, and ``Factored`` of any of them
+  (``Factored(LKJ(2), LogUniform(0.1, 10), LogUniform(0.1, 10))``).
 
 AIS (slice 4):
 
@@ -87,14 +91,15 @@ from .distributions import (  # noqa: F401
     DiscreteNonParametric, DiscreteUniform, Distribution, Epanechnikov,
     Erlang, Exponential, Factored, FDist, Frechet, Gamma,
     GeneralizedExtremeValue, GeneralizedPareto, Geometric, Gumbel,
-    Hypergeometric, InverseGamma, InverseGaussian, JohnsonSU, Kumaraswamy,
-    Laplace, Levy, Lindley, Logistic, LogitNormal, LogNormal, LogUniform,
-    Mixture, MixtureModel, MultivariateNormal, MvNormal, NegativeBinomial,
-    NoncentralChisq, Normal, NormalCanon, Pareto, PGeneralizedGaussian,
-    Poisson, PoissonBinomial, Rayleigh, Rician, Semicircle, Skellam,
-    StudentT, SymTriangularDist, TDist, TriangularDist, Triweight,
-    Truncated, TruncatedDiscrete, TruncatedNormal, Uniform, VonMises,
-    Weibull)
+    Hypergeometric, IID, InverseGamma, InverseGaussian, InverseWishart,
+    JohnsonSU, Kumaraswamy, Laplace, Levy, Lindley, LKJ, LKJCholesky,
+    Logistic, LogitNormal, LogNormal, LogUniform, Mixture, MixtureModel,
+    Multinomial, MultivariateNormal, MvLogNormal, MvNormal, MvTDist,
+    NegativeBinomial, NoncentralChisq, Normal, NormalCanon, Pareto,
+    PGeneralizedGaussian, Poisson, PoissonBinomial, Product, Rayleigh,
+    Rician, Semicircle, Skellam, StudentT, SymTriangularDist, TDist,
+    TriangularDist, Triweight, Truncated, TruncatedDiscrete,
+    TruncatedNormal, Uniform, VonMises, Weibull, Wishart)
 from .ops.fused_ais import (  # noqa: F401
     make_fused_ais_sweep, make_fused_flagship_ais_sweep,
     make_fused_flagship_ais_sweep_onekernel)
@@ -150,6 +155,9 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "Bernoulli", "Binomial", "Geometric", "BetaBinomial",
            "Hypergeometric", "Skellam", "NegativeBinomial", "Categorical",
            "Dirac", "PoissonBinomial",
+           # slice 8: the vector and matrix families
+           "Product", "IID", "Multinomial", "MvLogNormal", "MvTDist",
+           "Wishart", "InverseWishart", "LKJ", "LKJCholesky",
            "mean", "var", "std", "median", "mode", "skewness", "kurtosis",
            "entropy", "minimum", "maximum", "insupport", "cov", "params",
            "cdf", "ccdf", "logcdf", "logccdf", "pdf", "logpdf", "quantile",

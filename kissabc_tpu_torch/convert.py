@@ -44,14 +44,25 @@ _FAMILIES = {name: getattr(D, name) for name in (
     "PGeneralizedGaussian", "Rician", "Lindley", "LogitNormal",
     "NoncentralChisq", "Bernoulli", "Binomial", "Geometric",
     "BetaBinomial", "Hypergeometric", "Skellam", "NegativeBinomial",
-    "Categorical", "Dirac", "PoissonBinomial")}
+    "Categorical", "Dirac", "PoissonBinomial", "Product", "IID",
+    "Multinomial", "MvLogNormal", "MvTDist", "Wishart", "InverseWishart",
+    "LKJ", "LKJCholesky")}
+
+
+def _is_spec(x):
+    return (isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str)
+            and isinstance(x[1], (dict, list)))
 
 
 def prior_from_numpy(spec):
-    """``(family, params)``: ``params`` is a dict of numbers (or arrays)
-    for a family, a list of specs for ``"Factored"``; ``"Truncated"``
-    and ``"Affine"`` take their ``base``, ``"Mixture"`` its
-    ``components``, as specs."""
+    """``(family, params)``: ``params`` is a dict of numbers, nested
+    lists or arrays (vectors, matrices) for a family, a list of specs
+    for ``"Factored"``. A parameter that is itself a spec, or a list of
+    specs, is built first: ``"Truncated"`` and ``"Affine"`` take their
+    ``base``, ``"Mixture"`` its ``components``, ``"Product"`` its
+    ``dists`` and ``"IID"`` its ``d`` as specs, e.g. ``("Wishart",
+    {"df": 5.0, "S": [[1.0, 0.3], [0.3, 0.8]]})``, ``("Product",
+    {"dists": [("Normal", {"mu": 0, "sigma": 1}), ...]})``."""
     family, params = spec
     if family == "Factored":
         return D.Factored(*(prior_from_numpy(s) for s in params))
@@ -60,11 +71,12 @@ def prior_from_numpy(spec):
             f"{family} is not ported yet (the port has "
             f"{', '.join(sorted(_FAMILIES))} and Factored)")
     params = dict(params)
-    if "base" in params:
-        params["base"] = prior_from_numpy(params["base"])
-    if "components" in params:
-        params["components"] = [prior_from_numpy(c)
-                                for c in params["components"]]
+    for name, value in params.items():
+        if _is_spec(value):
+            params[name] = prior_from_numpy(value)
+        elif (isinstance(value, (list, tuple)) and value
+              and all(_is_spec(v) for v in value)):
+            params[name] = [prior_from_numpy(v) for v in value]
     return _FAMILIES[family](**params)
 
 

@@ -17,7 +17,7 @@
 //   void  stats_of(float x, float* g)           the KT_NSTATS summaries
 //   float reduce_cost(const float* th, const float* m)   (sweeps only)
 //   float prior_logpdf(const float* th)                  (sweeps only)
-//   void  prior_push(const float* th, float* out)        (AIS, ABC-DE)
+//   void  prior_push(const float* th, float* out)        (sweeps only)
 // and then includes this file; ops/_build.py compiles it with nvcc.
 //
 // Design. A walker's draws form one loop that keeps its summaries in
@@ -202,13 +202,15 @@ constexpr int kSweepMaxThreads = 1024;
 // The sweep's steps before the simulator for walker w: the per-walker
 // words (proposal scale N(0,1) * w_scale, MH log-u), the Gaussian-
 // difference proposal against the partners (w - r) mod n, i.e.
-// jnp.roll(x, r)[w], and the prior's logpdf lpp. Returns gate 1: alive,
-// inside the prior's support, and log u < min(lpp - lps, 0).
+// jnp.roll(x, r)[w], its push and the prior's logpdf lpp of the pushed
+// values. Returns gate 1: alive, inside the prior's support, and
+// log u < min(lpp - lps, 0).
 template <bool kStub>
 __device__ __forceinline__ bool sweep_propose(
     Leaves th, const float* __restrict__ lps,
     const unsigned char* __restrict__ alive, int w, int n, int r1, int r2,
-    uint32_t seed, float w_scale, int sb_rows, float* prop, float* lpp) {
+    uint32_t seed, float w_scale, int sb_rows, float* prop, float* pushed,
+    float* lpp) {
   Coords c = coords(w, sb_rows);
   uint32_t bu1, bu2, bu3;
   if constexpr (kStub) {
@@ -235,8 +237,10 @@ __device__ __forceinline__ bool sweep_propose(
     float d = th.p[k][i2] - th.p[k][i1];
     prop[k] = th.p[k][w] + d * wv;
   }
-  // push is the identity for the continuous marginals of the table
-  *lpp = prior_logpdf(prop);
+  // the push rounds the discrete marginals (a copy of a continuous one);
+  // the prior and the simulator see the pushed values, the commit the raw
+  prior_push(prop, pushed);
+  *lpp = prior_logpdf(pushed);
   float dl = *lpp - lps[w];
   float lm = (dl > 0.0f) ? 0.0f : dl;  // min(dl, 0), NaN propagates
   return (alive[w] != 0) && (*lpp > __uint_as_float(0xff800000u)) &&
@@ -248,8 +252,9 @@ __device__ __forceinline__ bool sweep_propose(
 // keeps its inputs. Compaction: a ballot per warp and a prefix over the
 // block's warps give each gate-1 walker a slot, in walker order. Phase 2:
 // threads 0 .. p-1 take the p gate-1 walkers, recompute their proposals
-// (the same bits, ~150 operations against the draws' ~60000), simulate,
-// test gate 2 (< eps, or <= eps by the flag) and write. So a warp runs
+// and pushes (the same bits, ~150 operations against the draws' ~60000),
+// simulate on the pushed values, test gate 2 (< eps, or <= eps by the
+// flag) and commit the raw proposal, as the JAX kernel. So a warp runs
 // the draw loop with all its lanes busy but in the block's last partial
 // warp. Threads past n fail gate 1 and write nothing; every thread
 // reaches the barriers.
@@ -270,12 +275,12 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
   int r1 = (int)rs[0], r2 = (int)rs[1];
   uint32_t seed = (uint32_t)(unsigned long long)rs[2];
   int w = blockIdx.x * blockDim.x + threadIdx.x;
-  float prop[KT_NPARAMS], lpp;
+  float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp;
 
   bool gate1 = false;
   if (w < n) {
     gate1 = sweep_propose<kStub>(th, lps, alive, w, n, r1, r2, seed,
-                                 w_scale, sb_rows, prop, &lpp);
+                                 w_scale, sb_rows, prop, pushed, &lpp);
     if (!gate1) {
 #pragma unroll
       for (int k = 0; k < KT_NPARAMS; ++k) oth.p[k][w] = th.p[k][w];
@@ -305,12 +310,12 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
   if ((int)threadIdx.x >= s_pass) return;
   int v = s_walker[threadIdx.x];
   sweep_propose<kStub>(th, lps, alive, v, n, r1, r2, seed, w_scale, sb_rows,
-                       prop, &lpp);
+                       prop, pushed, &lpp);
   Coords c = coords(v, sb_rows);
   float m[KT_NSTATS];
-  simulate<kStub>(prop, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
+  simulate<kStub>(pushed, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
                   kStreamGenSweepSim, (uint32_t)v, m);
-  float xp = reduce_cost(prop, m);
+  float xp = reduce_cost(pushed, m);
   float eps = eps_ptr[0];
   bool commit = (xp < eps) || ((flag_ptr[0] != 0) && (xp == eps));
 #pragma unroll

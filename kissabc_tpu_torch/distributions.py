@@ -18,12 +18,13 @@
   a ``TruncatedDiscrete``), ``TruncatedNormal``, ``Mixture``/
   ``MixtureModel``, ``Affine`` and the operators ``+ - *`` and unary
   ``-`` that build it (``2.0 - 3.0 * Exponential(1.0)``);
-- ``MvNormal``/``MultivariateNormal``, ``Dirichlet`` (vector leaves) and
-  ``Factored``.
-
-The vector and matrix families (Product/IID, Multinomial, MvLogNormal,
-MvTDist, Wishart, InverseWishart, LKJ, LKJCholesky) come in a later
-slice.
+- the vector families ``MvNormal``/``MultivariateNormal``, ``Dirichlet``,
+  ``Product``/``IID``, ``Multinomial``, ``MvLogNormal`` and ``MvTDist``
+  (``[n, d]`` leaves), the matrix families ``Wishart``,
+  ``InverseWishart``, ``LKJ`` and ``LKJCholesky`` (``[n, d, d]`` leaves,
+  ``push`` a projection onto the support; a non-SPD leaf has logpdf
+  -inf, through ``torch.linalg.cholesky_ex``, so a batch never raises),
+  and ``Factored``, whose marginals may be any of them.
 
 As in the JAX package, parameters and every derived constant are host
 numpy float32 values computed once in ``__init__``; only the sampled and
@@ -2835,9 +2836,440 @@ class Dirichlet(Distribution):
         return f"Dirichlet(alpha={self.alpha})"
 
 
+class Product(Distribution):
+    """Vector of independent univariate marginals of homogeneous support
+    (all continuous or all discrete), sampled and evaluated as one
+    ``[..., d]`` leaf: Distributions.jl's ``Product`` (runtests.jl:30)."""
+
+    event_dim = 1
+
+    def __init__(self, dists):
+        ds = tuple(dists)
+        if len({d.discrete for d in ds}) != 1:
+            raise ValueError(
+                "Product requires homogeneous support; use Factored for "
+                "mixed continuous/discrete parameter packs.")
+        self.dists = ds
+
+    @property
+    def discrete(self):
+        return self.dists[0].discrete
+
+    @property
+    def nparams(self):
+        return len(self.dists)
+
+    def sample(self, gen, shape=()):
+        return torch.stack([d.sample(gen, shape) for d in self.dists], -1)
+
+    def logpdf(self, x):
+        return sum(d.logpdf(x[..., i]) for i, d in enumerate(self.dists))
+
+    def __repr__(self):
+        return f"Product({list(self.dists)!r})"
+
+
+def IID(d: Distribution, n: int) -> Product:
+    return Product([d] * n)
+
+
+class Multinomial(Distribution):
+    """Multinomial(n, p): counts over ``len(p)`` classes that sum to n. A
+    float-evolved count vector is pushed component-wise (half to even);
+    one whose sum is off n by 0.5 or more, or with a count in a class of
+    p = 0, has logpdf -inf, so the prior gate rejects it. A draw is k - 1
+    conditional binomials (float32 counts, as the JAX package's)."""
+
+    discrete = True
+    event_dim = 1
+
+    def __init__(self, n, p):
+        self.n = int(n)
+        self.p = np.asarray(p, _f32)
+        p64 = np.asarray(self.p, np.float64)
+        p64 = p64 / p64.sum()
+        logp = np.full(p64.shape, -np.inf)
+        np.log(p64, out=logp, where=p64 > 0)
+        self._p64 = p64
+        self._pnorm = p64.astype(_f32)
+        self._logp = logp.astype(_f32)
+        self._lgn1 = _f32(sps.gammaln(self.n + 1))
+
+    @property
+    def nparams(self):
+        return self.p.shape[0]
+
+    def sample(self, gen, shape=()):
+        left = torch.full(tuple(shape), float(self.n), device=gen.device)
+        counts, rest = [], 1.0
+        for pi in self._p64[:-1]:
+            q = min(float(pi) / rest, 1.0) if rest > 0 else 0.0
+            c = torch.binomial(left, torch.full_like(left, q), generator=gen)
+            counts.append(c)
+            left = left - c
+            rest -= float(pi)
+        return torch.stack(counts + [left], -1)
+
+    def logpdf(self, x):
+        xf = x.to(torch.float32)
+        pn = self._host("_pnorm", xf)
+        ok = (torch.all(xf >= 0, dim=-1)
+              & (torch.abs(torch.sum(xf, dim=-1) - self.n) < 0.5)
+              & torch.all((pn > 0) | (xf == 0), dim=-1))
+        xs = torch.clamp(xf, min=0.0)
+        logp = torch.where(pn > 0, self._host("_logp", xf), 0.0)
+        lp = (float(self._lgn1) - torch.sum(torch.lgamma(xs + 1.0), dim=-1)
+              + torch.sum(xs * logp, dim=-1))
+        return torch.where(ok, lp, _full(lp, _NEG_INF))
+
+    def __repr__(self):
+        return f"Multinomial(n={self.n}, p={self.p})"
+
+
+class MvLogNormal(Distribution):
+    """Multivariate log-normal: log X ~ MvNormal(mean, cov), with
+    ``MvNormal``'s constructor forms."""
+
+    event_dim = 1
+
+    def __init__(self, mean_or_dim, sigma_or_cov=1.0):
+        self.normal = MvNormal(mean_or_dim, sigma_or_cov)
+
+    @property
+    def nparams(self):
+        return self.normal.nparams
+
+    def sample(self, gen, shape=()):
+        return torch.exp(self.normal.sample(gen, shape))
+
+    def logpdf(self, x):
+        ok = torch.all(x > 0, dim=-1)
+        lx = torch.log(torch.where(x > 0, x, 1.0))
+        lp = self.normal.logpdf(lx) - torch.sum(lx, dim=-1)
+        return torch.where(ok, lp, _full(lp, _NEG_INF))
+
+    def __repr__(self):
+        return f"MvLogNormal(d={self.normal.mean.shape[0]})"
+
+
+class MvTDist(Distribution):
+    """Multivariate Student t (Distributions.jl ``MvTDist(df, mu,
+    Sigma)``) with scale matrix ``Sigma`` (the covariance is
+    df/(df-2) Sigma). The Cholesky factor, its inverse and the log
+    normalizer come from float64 on the host; a draw is a correlated
+    normal over the square root of a chi-square / df."""
+
+    event_dim = 1
+
+    def __init__(self, df, mean, cov):
+        df = float(df)
+        if not df > 0:
+            raise ValueError("MvTDist needs df > 0")
+        mean = np.asarray(mean, _f32)
+        cov = np.asarray(cov, np.float64)
+        if cov.ndim == 0:
+            cov = cov ** 2 * np.eye(mean.shape[0])
+        self.df, self.mean, self.cov = _f32(df), mean, cov.astype(_f32)
+        d = mean.shape[0]
+        chol = np.linalg.cholesky(np.asarray(self.cov, np.float64))
+        self.chol = chol.astype(_f32)
+        self._cholinv = np.linalg.inv(chol).astype(_f32)
+        logdet = 2.0 * np.sum(np.log(np.diag(chol)))
+        self._lc = _f32(sps.gammaln((df + d) / 2.0) - sps.gammaln(df / 2.0)
+                        - 0.5 * d * math.log(df * math.pi) - 0.5 * logdet)
+
+    @property
+    def nparams(self):
+        return self.mean.shape[0]
+
+    def sample(self, gen, shape=()):
+        d = self.mean.shape[0]
+        z = torch.randn(tuple(shape) + (d,), generator=gen,
+                        device=gen.device) @ self._host("chol", gen).T
+        chisq = 2.0 * _std_gamma(gen, 0.5 * float(self.df),
+                                 tuple(shape) + (1,))
+        return self._host("mean", gen) + z * torch.sqrt(float(self.df)
+                                                        / chisq)
+
+    def logpdf(self, x):
+        diff = x - self._host("mean", x)
+        sol = torch.einsum("ij,...j->...i", self._host("_cholinv", x), diff)
+        maha = torch.sum(sol * sol, dim=-1)
+        d = self.mean.shape[0]
+        df = float(self.df)
+        return float(self._lc) - 0.5 * (df + d) * torch.log1p(maha / df)
+
+    def __repr__(self):
+        return f"MvTDist(df={self.df}, d={self.mean.shape[0]})"
+
+
+def _tri_logdet(m):
+    """log |det| from a (batched) Cholesky factor."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(m, dim1=-2, dim2=-1)),
+                           dim=-1)
+
+
+def _symmetrize(x):
+    x = x.to(torch.float32)
+    return 0.5 * (x + x.transpose(-1, -2))
+
+
+def _cholesky(x):
+    """(factor, ok) of the symmetrized ``x`` (JAX's ``cholesky`` reads
+    (x + x^T) / 2): ``ok`` marks the matrices that factor, so a batch
+    with a non-SPD matrix gives -inf there and raises nothing (JAX's
+    factor is NaN there)."""
+    cl, info = torch.linalg.cholesky_ex(_symmetrize(x))
+    return cl, info == 0
+
+
+def _spd_only(lp, ok):
+    """-inf where the factorization failed or ``lp`` is not finite, as
+    the JAX package's ``where(isfinite(lp), lp, -inf)``."""
+    return torch.where(ok & torch.isfinite(lp), lp, _full(lp, _NEG_INF))
+
+
+class Wishart(Distribution):
+    """Wishart(df, S) over d x d SPD matrices, one ``[..., d, d]`` leaf.
+    A draw is the Bartlett decomposition (one batched normal and one
+    batched Gamma); ``logpdf`` uses tr(S^-1 X) = ||L^-1 chol(X)||_F^2 with
+    L = chol(S) from the host. ``push`` symmetrizes a float-evolved leaf
+    (the continuous analogue of the discrete round); a non-SPD one has
+    logpdf -inf."""
+
+    event_dim = 2
+
+    def __init__(self, df, S):
+        S = np.asarray(S, np.float64)
+        if S.ndim != 2 or S.shape[0] != S.shape[1]:
+            raise ValueError("Wishart needs a square scale matrix")
+        d = S.shape[0]
+        df = float(df)
+        if not df > d - 1:
+            raise ValueError("Wishart needs df > d - 1")
+        self.df, self.S = _f32(df), S.astype(_f32)
+        S = np.asarray(self.S, np.float64)
+        L = np.linalg.cholesky(S)
+        self._L = L.astype(_f32)
+        self._Linv = np.linalg.inv(L).astype(_f32)
+        logdet_s = 2.0 * np.sum(np.log(np.diag(L)))
+        self._lnorm = _f32(0.5 * df * d * math.log(2.0) + 0.5 * df * logdet_s
+                           + float(sps.multigammaln(0.5 * df, d)))
+        # the Bartlett diagonal's Gamma shapes (df - i) / 2, i = 0..d-1
+        self._bshapes = ((df - np.arange(d)) / 2.0).astype(_f32)
+
+    @property
+    def nparams(self):
+        return self.S.shape[0] * self.S.shape[1]
+
+    def sample(self, gen, shape=()):
+        d = self.S.shape[0]
+        shape = tuple(shape)
+        z = torch.randn(shape + (d, d), generator=gen, device=gen.device)
+        c = torch._standard_gamma(
+            self._host("_bshapes", gen).expand(shape + (d,)).contiguous(),
+            generator=gen)
+        a = torch.tril(z, -1) + torch.diag_embed(torch.sqrt(2.0 * c))
+        la = torch.einsum("ij,...jk->...ik", self._host("_L", gen), a)
+        return la @ la.transpose(-1, -2)
+
+    def push(self, x):
+        return _symmetrize(x)
+
+    def logpdf(self, x):
+        d = self.S.shape[0]
+        cl, ok = _cholesky(x)
+        m = torch.einsum("ij,...jk->...ik", self._host("_Linv", cl), cl)
+        tr = torch.sum(m * m, dim=(-2, -1))
+        lp = (0.5 * (float(self.df) - d - 1.0) * _tri_logdet(cl) - 0.5 * tr
+              - float(self._lnorm))
+        return _spd_only(lp, ok)
+
+    def __repr__(self):
+        return f"Wishart(df={self.df}, d={self.S.shape[0]})"
+
+
+class InverseWishart(Distribution):
+    """InverseWishart(df, Psi) over d x d SPD matrices: X^-1 ~
+    Wishart(df, Psi^-1). ``push`` symmetrizes; a non-SPD leaf has logpdf
+    -inf."""
+
+    event_dim = 2
+
+    def __init__(self, df, Psi):
+        Psi = np.asarray(Psi, np.float64)
+        if Psi.ndim != 2 or Psi.shape[0] != Psi.shape[1]:
+            raise ValueError("InverseWishart needs a square scale matrix")
+        d = Psi.shape[0]
+        df = float(df)
+        if not df > d - 1:
+            raise ValueError("InverseWishart needs df > d - 1")
+        self.df, self.Psi = _f32(df), Psi.astype(_f32)
+        Psi = np.asarray(self.Psi, np.float64)
+        self._wis = Wishart(df, np.linalg.inv(Psi))
+        LP = np.linalg.cholesky(Psi)
+        self._LP = LP.astype(_f32)
+        logdet_p = 2.0 * np.sum(np.log(np.diag(LP)))
+        self._lnorm = _f32(0.5 * df * d * math.log(2.0) - 0.5 * df * logdet_p
+                           + float(sps.multigammaln(0.5 * df, d)))
+
+    @property
+    def nparams(self):
+        return self.Psi.shape[0] * self.Psi.shape[1]
+
+    def sample(self, gen, shape=()):
+        w = self._wis.sample(gen, shape)
+        cw, _ = torch.linalg.cholesky_ex(w)
+        d = self.Psi.shape[0]
+        eye = torch.eye(d, device=w.device).expand(w.shape)
+        inv_cw = torch.linalg.solve_triangular(cw, eye, upper=False)
+        return inv_cw.transpose(-1, -2) @ inv_cw
+
+    def push(self, x):
+        return _symmetrize(x)
+
+    def logpdf(self, x):
+        d = self.Psi.shape[0]
+        cl, ok = _cholesky(x)
+        # tr(Psi X^-1) = ||cl^-1 L_Psi||_F^2 with cl = chol(X); a failed
+        # factor is made the identity so the solve stays finite
+        eye = torch.eye(d, device=cl.device)
+        cl_safe = torch.where(ok[..., None, None], cl, eye)
+        m = torch.linalg.solve_triangular(
+            cl_safe, self._host("_LP", cl).expand(cl.shape), upper=False)
+        tr = torch.sum(m * m, dim=(-2, -1))
+        lp = (-0.5 * (float(self.df) + d + 1.0) * _tri_logdet(cl_safe)
+              - 0.5 * tr - float(self._lnorm))
+        return _spd_only(lp, ok)
+
+    def __repr__(self):
+        return f"InverseWishart(df={self.df}, d={self.Psi.shape[0]})"
+
+
+class LKJCholesky(Distribution):
+    """LKJ over Cholesky factors of d x d correlation matrices
+    (Distributions.jl ``LKJCholesky(d, eta)``): lower triangular L with
+    unit-norm rows, density over L's free entries
+
+        log p(L) = sum_m (2 eta - 2 + d - 1 - m) log L_mm - log Z
+
+    (rows m = 1..d-1), the normalizer from per-row Beta and sphere-area
+    constants on the host. A draw is the onion method: one Beta and one
+    normal per row, unrolled over the host-known d. ``push`` projects a
+    float-evolved leaf onto lower-triangular unit-norm rows."""
+
+    event_dim = 2
+
+    def __init__(self, d, eta=1.0):
+        d, eta = int(d), float(eta)
+        if d < 2 or eta <= 0:
+            raise ValueError("LKJCholesky needs d >= 2 and eta > 0")
+        self.d, self.eta = d, _f32(eta)
+        eta = float(self.eta)
+        lz, betas = 0.0, []
+        for m in range(1, d):
+            a, b = m / 2.0, eta + (d - 1 - m) / 2.0
+            betas.append((_f32(a), _f32(b)))
+            log_sphere = (math.log(2.0) + 0.5 * m * math.log(math.pi)
+                          - sps.gammaln(0.5 * m))
+            lz += sps.betaln(a, b) + log_sphere - math.log(2.0)
+        self._betas = tuple(betas)
+        self._lz = _f32(lz)
+        # diagonal exponents 2 eta - 2 + d - 1 - m, m = 0..d-1 (row 0 unused)
+        self._dexp = (2.0 * eta - 2.0 + d - 1 - np.arange(d)).astype(_f32)
+
+    @property
+    def nparams(self):
+        return self.d * self.d
+
+    def sample(self, gen, shape=()):
+        d, shape = self.d, tuple(shape)
+        first = torch.zeros(shape + (d,), device=gen.device)
+        first[..., 0] = 1.0
+        rows = [first]
+        for m in range(1, d):
+            a, b = self._betas[m - 1]
+            ga, gb = _std_gamma(gen, a, shape), _std_gamma(gen, b, shape)
+            y = ga / (ga + gb)
+            z = torch.randn(shape + (m,), generator=gen, device=gen.device)
+            u = z / torch.linalg.norm(z, dim=-1, keepdim=True)
+            w = torch.sqrt(y)[..., None] * u
+            lmm = torch.sqrt(torch.clamp(1.0 - y, min=1e-30))[..., None]
+            pad = torch.zeros(shape + (d - 1 - m,), device=gen.device)
+            rows.append(torch.cat([w, lmm, pad], dim=-1))
+        return torch.stack(rows, dim=-2)
+
+    def push(self, x):
+        x = torch.tril(x.to(torch.float32))
+        nrm = torch.linalg.norm(x, dim=-1, keepdim=True)
+        return x / torch.clamp(nrm, min=1e-30)
+
+    def logpdf(self, x):
+        diag = torch.diagonal(x, dim1=-2, dim2=-1)
+        ok = torch.all(diag > 0, dim=-1)
+        ds = torch.where(diag > 0, diag, 1.0)
+        lp = torch.sum(self._host("_dexp", x)[1:] * torch.log(ds[..., 1:]),
+                       dim=-1)
+        return torch.where(ok, lp - float(self._lz), _full(lp, _NEG_INF))
+
+    def __repr__(self):
+        return f"LKJCholesky(d={self.d}, eta={self.eta})"
+
+
+class LKJ(Distribution):
+    """LKJ over d x d correlation matrices (Distributions.jl ``LKJ(d,
+    eta)``): density det(R)^(eta-1) / c_d(eta) with the
+    Lewandowski-Kurowicka-Joe normalizer
+
+        c_d(eta) = 2^{sum_k (2 eta - 2 + d - k)(d - k)}
+                   prod_k B(eta + (d-k-1)/2, eta + (d-k-1)/2)^{d-k}
+
+    (k = 1..d-1). A draw is an ``LKJCholesky`` L, returned as L L^T;
+    ``push`` symmetrizes and pins the unit diagonal; a non-PD leaf has
+    logpdf -inf."""
+
+    event_dim = 2
+
+    def __init__(self, d, eta=1.0):
+        d, eta = int(d), float(eta)
+        if d < 2 or eta <= 0:
+            raise ValueError("LKJ needs d >= 2 and eta > 0")
+        self.d, self.eta = d, _f32(eta)
+        eta = float(self.eta)
+        self._chol = LKJCholesky(d, eta)
+        lc = 0.0
+        for k in range(1, d):
+            lc += (2.0 * eta - 2.0 + d - k) * (d - k) * math.log(2.0)
+            lc += (d - k) * sps.betaln(eta + (d - k - 1) / 2.0,
+                                       eta + (d - k - 1) / 2.0)
+        self._lc = _f32(lc)
+
+    @property
+    def nparams(self):
+        return self.d * self.d
+
+    def sample(self, gen, shape=()):
+        L = self._chol.sample(gen, shape)
+        return L @ L.transpose(-1, -2)
+
+    def push(self, x):
+        eye = torch.eye(self.d, device=x.device)
+        return _symmetrize(x) * (1.0 - eye) + eye
+
+    def logpdf(self, x):
+        cl, ok = _cholesky(x)
+        lp = (float(self.eta) - 1.0) * _tri_logdet(cl) - float(self._lc)
+        return _spd_only(lp, ok)
+
+    def __repr__(self):
+        return f"LKJ(d={self.d}, eta={self.eta})"
+
+
 class Factored(Distribution):
-    """Product of independent univariate marginals (priors.jl:10-49).
-    A population is a tuple of ``[n]`` tensors, one per marginal."""
+    """Product of independent marginals (priors.jl:10-49), each
+    continuous or discrete, scalar, vector or matrix. A population is a
+    tuple of ``[n]`` (``[n, d]``, ``[n, d, d]``) tensors, one per
+    marginal."""
 
     def __init__(self, *dists: Distribution):
         self.p = tuple(dists)

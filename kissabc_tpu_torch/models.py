@@ -8,6 +8,11 @@ examples of a user model.
   prior ``Factored(Uniform(1, 3), TruncatedNormal(0, 0.05, 0, 100))``,
   draw ``mu + sigma * eps``, cost ``hypot(E[x] - 2, (sd(x) - 0.04) * 50)``
   from the raw moments E[x], E[x^2];
+- ``mixed_discrete()``: the mixed discrete prior of
+  ``tests/test_pallas.py:864-890``, ``Factored(DiscreteUniform(1, 10),
+  Uniform(0.1, 1))``, draw ``m + s * eps``, cost ``hypot(E[x] - 3,
+  sd(x) - 0.5)``: the fused sweeps push m (round half to even) for the
+  prior and the simulator;
 - ``g_and_k()``: the four-parameter g-and-k quantile model
   (``bench.py:362-370``): prior ``Uniform(0, 6), Uniform(0.1, 3),
   Uniform(-1, 5), Uniform(0, 0.9)``, draw
@@ -37,8 +42,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distributions import (Beta, Factored, NegativeBinomial, Normal,
-                            TruncatedNormal, Uniform)
+from .distributions import (Beta, DiscreteUniform, Factored,
+                            NegativeBinomial, Normal, TruncatedNormal,
+                            Uniform)
 
 
 def flagship():
@@ -53,6 +59,21 @@ def flagship():
         var = torch.clamp(m[1] - m[0] * m[0], min=0.0)
         return torch.sqrt(torch.square(m[0] - 2.0)
                           + torch.square((torch.sqrt(var) - 0.04) * 50.0))
+
+    return prior, draw, reduce_cost
+
+
+def mixed_discrete():
+    """(prior, draw, reduce_cost) of the mixed discrete model."""
+    prior = Factored(DiscreteUniform(1, 10), Uniform(0.1, 1.0))
+
+    def draw(th, eps):
+        m, s = th
+        return m + s * eps
+
+    def reduce_cost(th, mo):
+        var = torch.maximum(mo[1] - mo[0] * mo[0], torch.zeros_like(mo[0]))
+        return torch.hypot(mo[0] - 3.0, torch.sqrt(var) - 0.5)
 
     return prior, draw, reduce_cost
 

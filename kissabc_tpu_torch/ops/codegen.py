@@ -14,8 +14,7 @@ record an expression graph, which this module emits as
     float stat_j(float x);                    (one per entry of stats)
     float reduce_cost(const float* th, const float* m);
     float prior_logpdf(const float* th);
-    void prior_push(const float* th, float* out);   (the AIS sweep and
-                                                     the ABC-DE generation)
+    void prior_push(const float* th, float* out);
 
 The tempered sweep (``csrc/tempered.cuh``) runs a deterministic
 log-likelihood of the pushed parameters, ``loglike(theta)``, whose data
@@ -969,7 +968,8 @@ def _marginal_logpdf(d, k):
             "into the fused sweep (still without one: Skellam and "
             "NoncentralChisq (series), PoissonBinomial, Categorical, "
             "DiscreteNonParametric, Dirac and TruncatedDiscrete (tables or "
-            "atom pushes) and the vector families)")
+            "atom pushes); a vector or matrix family is refused as the JAX "
+            "kernels refuse it: they take only [n] leaves)")
     x = f"th[{k}]"
     if type(d) in _WRITTEN or (type(d) is D.Truncated
                                and type(d.base) in (D.Uniform, D.Normal)):
@@ -1001,21 +1001,21 @@ def prior_marginals(prior):
     return (prior,), None
 
 
-def emit_prior(prior, push=False):
-    """``prior_logpdf(th)``: the sum of the marginals' logpdfs in
-    ``Factored.logpdf``'s order. Without ``push`` only continuous
-    marginals are taken (the smc sweep's push is the identity); with it,
-    ``prior_push(th, out)`` is emitted too, rounding the discrete
-    marginals half to even (``rintf``, then float, as the JAX kernel's
-    ``push_tree`` and re-cast). Returns (C text, logpdf operations, push
-    operations)."""
+def emit_prior(prior):
+    """``prior_logpdf(th)``, the sum of the marginals' logpdfs in
+    ``Factored.logpdf``'s order, and ``prior_push(th, out)``, which
+    rounds the discrete marginals half to even (``rintf``, then float,
+    as the JAX kernels' ``push_tree`` and re-cast) and copies the
+    continuous ones. Every sweep evaluates the prior on the pushed
+    values. Returns (C text, logpdf operations, push operations)."""
     marginals, _ = prior_marginals(prior)
     lines, pushes, ops, push_ops = [], [], 0, 0
     for k, d in enumerate(marginals):
-        if d.event_dim or (d.discrete and not push):
+        if d.event_dim:
             raise NotImplementedError(
-                f"marginal {k} ({d!r}) is not a continuous scalar: the "
-                "generic kernels push only continuous marginals")
+                f"marginal {k} ({d!r}) is not a scalar: the generic "
+                "kernels, as the JAX package's, take only per-walker scalar "
+                "parameters ([n] leaves)")
         body, expr, n = _marginal_logpdf(d, k)
         ops += n + (k > 0)
         lines += body
@@ -1026,10 +1026,9 @@ def emit_prior(prior, push=False):
         push_ops += int(d.discrete)
     body = "\n".join(lines)
     text = ("__device__ __forceinline__ float prior_logpdf(const float* th) "
-            f"{{\n  float lp;\n{body}\n  return lp;\n}}\n")
-    if push:
-        text += ("__device__ __forceinline__ void prior_push(const float* th,"
-                 " float* out) {\n" + "\n".join(pushes) + "\n}\n")
+            f"{{\n  float lp;\n{body}\n  return lp;\n}}\n"
+            "__device__ __forceinline__ void prior_push(const float* th,"
+            " float* out) {\n" + "\n".join(pushes) + "\n}\n")
     return text, ops, push_ops
 
 
@@ -1060,8 +1059,8 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
     None for one theta leaf, else the tuple length K. With
     ``reduce_cost`` and ``prior`` the unit also holds the fused smc
     sweep, or with ``ais=True`` the fused AIS sweep instead, or with
-    ``abcde=True`` the fused ABC-DE generation (the last two push
-    discrete marginals)."""
+    ``abcde=True`` the fused ABC-DE generation (each pushes discrete
+    marginals)."""
     nparams = 1 if structure is None else structure
     draw_fn, draw_ops = emit_function(
         "draw", "const float* th, float e", trace_draw(draw, structure))
@@ -1079,7 +1078,7 @@ def generate(draw, *, structure, nstats, stats, nmoments, noise,
             "reduce_cost", "const float* th, const float* m",
             trace_reduce(reduce_cost, structure, nstats))
         fns.append(text)
-        text, prior_ops, push_ops = emit_prior(prior, push=ais or abcde)
+        text, prior_ops, push_ops = emit_prior(prior)
         fns.append(text)
     functions = "\n".join(fns)
     source = "\n".join([
@@ -1126,7 +1125,7 @@ def generate_tempered(loglike, prior):
     nparams = 1 if structure is None else structure
     ll_fn, loglike_ops = emit_function(
         "loglike", "const float* th", trace_loglike(loglike, structure))
-    prior_fn, prior_ops, push_ops = emit_prior(prior, push=True)
+    prior_fn, prior_ops, push_ops = emit_prior(prior)
     functions = "\n".join([ll_fn, prior_fn])
     source = "\n".join([
         "// Generated by kissabc_tpu_torch/ops/codegen.py from a user "

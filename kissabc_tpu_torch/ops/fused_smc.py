@@ -7,10 +7,11 @@ the whole rejuvenation sweep per walker: the Gaussian-difference
 proposal against the partners ``(w - r1) mod n`` and ``(w - r2) mod n``
 (``jnp.roll(x, r)[w]``), the prior's push and logpdf, gate 1 (prior-only
 MH), then, for the walkers that pass gate 1, the user's streamed
-simulator, ``reduce_cost``, gate 2 (``<`` or ``<=`` eps by the boundary
-flag) and the commit. Each block of ``SWEEP_THREADS`` threads compacts
-its gate-1 walkers onto its first threads before the simulator
-(``sweep_geometry``, ``lane_share``). The user's ``draw``,
+simulator and ``reduce_cost`` on the pushed proposal, gate 2 (``<`` or
+``<=`` eps by the boundary flag) and the commit of the raw proposal.
+Each block of ``SWEEP_THREADS`` threads compacts its gate-1 walkers onto
+its first threads before the simulator (``sweep_geometry``,
+``lane_share``). The user's ``draw``,
 ``stats`` and ``reduce_cost`` and the prior's logpdf are compiled into it
 by ``ops/codegen.py``. ``fused_smc_sweep_plain`` repeats the kernel's
 arithmetic with the user's callables and the port's prior on tensors;
@@ -216,7 +217,8 @@ class FusedSMCSweep:
         k = u.nparams
         nsim = n if nsim is None else nsim
         per_draw = NOISE_OPS[self.noise] + u.draw_ops + u.stat_ops + u.nstats
-        per_walker = SWEEP_OPS + SWEEP_OPS_PER_LEAF * k + u.prior_ops
+        per_walker = (SWEEP_OPS + SWEEP_OPS_PER_LEAF * k + u.prior_ops
+                      + u.push_ops)
         per_sim = self.ndraws * per_draw + u.reduce_ops + u.nstats
         return n * (8 * k + 17) + 29, n * per_walker + nsim * per_sim
 
@@ -288,9 +290,11 @@ def make_fused_smc_sweep(prior, draw, reduce_cost, *,
     kernel per sweep, for ``smc(..., sweep_fused=...)``.
 
     ``prior``: a ``Factored`` of scalar marginals (or one marginal) from
-    the continuous families of ``ops/codegen.py``'s prior table (the smc
-    sweep pushes nothing, so a discrete marginal is refused). ``draw``,
-    ``stats`` and ``reduce_cost`` follow
+    the families of ``ops/codegen.py``'s prior table; as in the JAX
+    kernel, the proposal is pushed (a discrete marginal rounded half to
+    even) for the prior and the simulator, and the raw proposal is
+    committed. A vector or matrix marginal is refused, as the JAX
+    kernel refuses it. ``draw``, ``stats`` and ``reduce_cost`` follow
     ``make_streaming_moment_cost``, with ``reduce_cost`` also compiled
     into the kernel: elementwise PyTorch of the supported ops. Anything
     the kernel cannot hold raises when the sweep is built. ``mesh=``

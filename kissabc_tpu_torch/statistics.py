@@ -19,9 +19,10 @@ frozen twin (``_twin``, the one registry: ``Truncated``'s host cdf and
 survival function reach it too). Kurtosis is EXCESS kurtosis (both
 Distributions.jl and scipy 'k').
 
-The vector and matrix families of the JAX package that the port does
-not have yet (Product/IID, Multinomial, MvLogNormal, MvTDist, Wishart,
-InverseWishart, LKJ, LKJCholesky) have no branch here.
+The vector and matrix families (``MvNormal``, ``Dirichlet``,
+``Product``, ``Multinomial``, ``MvLogNormal``, ``MvTDist``, ``Wishart``,
+``InverseWishart``, ``LKJ``) have the JAX package's branches: host numpy
+moments, ``insupport`` on tensors.
 """
 
 from __future__ import annotations
@@ -330,11 +331,33 @@ def mean(d):
         return float(np.mean(np.asarray(d)))
     if isinstance(d, D.Factored):
         return tuple(mean(m) for m in d.p)
+    if isinstance(d, D.Product):
+        return np.array([mean(m) for m in d.dists])
     if isinstance(d, D.MvNormal):
         return np.asarray(d.mean, np.float64)
+    if isinstance(d, D.MvLogNormal):
+        n = d.normal
+        mu = np.asarray(n.mean, np.float64)
+        s2 = np.diag(np.asarray(n.cov, np.float64))
+        return np.exp(mu + 0.5 * s2)
+    if isinstance(d, D.MvTDist):
+        mu = np.asarray(d.mean, np.float64)
+        return mu if float(d.df) > 1 else np.full_like(mu, np.nan)
     if isinstance(d, D.Dirichlet):
         a = np.asarray(d.alpha, np.float64)
         return a / a.sum()
+    if isinstance(d, D.Multinomial):
+        return float(d.n) * np.asarray(d.p, np.float64)
+    if isinstance(d, D.Wishart):
+        return float(d.df) * np.asarray(d.S, np.float64)
+    if isinstance(d, D.InverseWishart):
+        psi = np.asarray(d.Psi, np.float64)
+        den = float(d.df) - psi.shape[0] - 1.0
+        if den > 0:
+            return psi / den
+        raise NotImplementedError("mean(InverseWishart) needs df > d + 1")
+    if isinstance(d, D.LKJ):
+        return np.eye(int(d.d))
     if isinstance(d, D.Dirac):
         return float(d.value)
     if isinstance(d, D.Mixture):
@@ -370,7 +393,10 @@ def var(d):
         return float(np.var(np.asarray(d), ddof=1))
     if isinstance(d, D.Factored):
         return tuple(var(m) for m in d.p)
-    if isinstance(d, (D.MvNormal, D.Dirichlet)):
+    if isinstance(d, D.Product):
+        return np.array([var(m) for m in d.dists])
+    if isinstance(d, (D.MvNormal, D.MvLogNormal, D.MvTDist, D.Dirichlet,
+                      D.Multinomial)):
         return np.diag(cov(d)).copy()
     if isinstance(d, D.Dirac):
         return 0.0
@@ -416,8 +442,22 @@ def cov(d):
         return pcov(d)
     if isinstance(d, D.MvNormal):
         return np.asarray(d.cov, np.float64)
+    if isinstance(d, D.MvLogNormal):
+        sig = np.asarray(d.normal.cov, np.float64)
+        m = mean(d)
+        return np.outer(m, m) * np.expm1(sig)
+    if isinstance(d, D.MvTDist):
+        df = float(d.df)
+        if df <= 2:
+            raise NotImplementedError("cov(MvTDist) needs df > 2")
+        return df / (df - 2.0) * np.asarray(d.cov, np.float64)
     if isinstance(d, D.Dirichlet):
         return _dirichlet_cov(d)
+    if isinstance(d, D.Multinomial):
+        p = np.asarray(d.p, np.float64)
+        return float(d.n) * (np.diag(p) - np.outer(p, p))
+    if isinstance(d, D.Product):
+        return np.diag([var(m) for m in d.dists])
     raise NotImplementedError(f"cov({type(d).__name__})")
 
 
@@ -517,6 +557,14 @@ def mode(d):
         if np.all(a > 1):
             return (a - 1.0) / (a.sum() - a.shape[0])
         raise NotImplementedError("mode(Dirichlet) needs all alpha > 1")
+    if isinstance(d, D.Wishart):
+        den = float(d.df) - np.asarray(d.S).shape[0] - 1.0
+        if den >= 0:
+            return den * np.asarray(d.S, np.float64)
+        raise NotImplementedError("mode(Wishart) needs df >= d + 1")
+    if isinstance(d, D.InverseWishart):
+        psi = np.asarray(d.Psi, np.float64)
+        return psi / (float(d.df) + psi.shape[0] + 1.0)
     raise NotImplementedError(f"mode({type(d).__name__})")
 
 
@@ -565,6 +613,8 @@ def entropy(d):
     """Differential entropy in nats (Shannon entropy for discrete)."""
     if isinstance(d, D.Factored):
         return float(sum(entropy(m) for m in d.p))
+    if isinstance(d, D.Product):
+        return float(sum(entropy(m) for m in d.dists))
     if isinstance(d, D.MvNormal):
         return _mvn_entropy(d.cov)
     if isinstance(d, D.Dirac):
@@ -662,8 +712,16 @@ def insupport(d, x):
             f = insupport(m, xi)
             out = f if out is None else out & f
         return out
-    if isinstance(d, D.MvNormal):
+    if isinstance(d, D.Product):
+        out = None
+        for i, m in enumerate(d.dists):
+            f = insupport(m, x[..., i])
+            out = f if out is None else out & f
+        return out
+    if isinstance(d, (D.MvNormal, D.MvTDist)):
         return torch.all(torch.isfinite(_f32_tensor(x)), dim=-1)
+    if isinstance(d, D.MvLogNormal):
+        return torch.all(_f32_tensor(x) > 0, dim=-1)
     if isinstance(d, D.Dirichlet):
         xf = _f32_tensor(x)
         return (torch.all(xf > 0, dim=-1)
@@ -689,8 +747,13 @@ def params(d):
     if isinstance(d, D.MvNormal):
         return (np.asarray(d.mean, np.float64),
                 np.asarray(d.cov, np.float64))
+    if isinstance(d, D.MvTDist):
+        return (float(d.df), np.asarray(d.mean, np.float64),
+                np.asarray(d.cov, np.float64))
     if isinstance(d, D.Dirichlet):
         return (np.asarray(d.alpha, np.float64),)
+    if isinstance(d, D.Multinomial):
+        return (int(d.n), np.asarray(d.p, np.float64))
     if isinstance(d, D.Categorical):
         return (np.asarray(d.p, np.float64),)
     if isinstance(d, (D.Truncated, D.TruncatedDiscrete)):
@@ -849,17 +912,14 @@ def truncated(d, lo=None, hi=None, *, lower=None, upper=None):
 
 
 def product_distribution(dists):
-    """Distributions.jl ``product_distribution([...])``. Mixed
-    continuous/discrete packs and vector entries give the tuple-tree
-    ``Factored``; homogeneous univariate marginals would give the JAX
-    package's vector-valued ``Product``, which the port does not have
-    yet."""
+    """Distributions.jl ``product_distribution([...])``: homogeneous
+    univariate marginals give a vector-valued ``Product``; mixed
+    continuous/discrete packs and vector or matrix entries give the
+    tuple-tree ``Factored``."""
     dists = list(dists)
     univariate = all(getattr(m, "event_dim", 0) == 0 for m in dists)
     if univariate and len({bool(m.discrete) for m in dists}) == 1:
-        raise NotImplementedError(
-            "product_distribution of homogeneous univariate marginals is a "
-            "Product, which is not ported yet; use Factored(*dists)")
+        return D.Product(dists)
     return D.Factored(*dists)
 
 

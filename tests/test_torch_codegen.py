@@ -335,10 +335,14 @@ def test_ais_unit_pushes_discrete_marginals():
                    "void prior_push(", "rintf(th[0])", "out[1] = th[1];"):
         assert needle in unit.source
     assert unit.push_ops == 1 and unit.prior_ops == 7
-    # the smc sweep has no push: a discrete marginal is still refused there
-    with pytest.raises(NotImplementedError, match="continuous"):
-        kt.make_fused_smc_sweep(DISCRETE_PRIOR, flagship_draw,
-                                lambda th, m: m[0])
+    # the smc sweep pushes too, as the JAX kernel: a discrete marginal
+    # builds there
+    sweep = kt.make_fused_smc_sweep(DISCRETE_PRIOR, flagship_draw,
+                                    lambda th, m: m[0])
+    for needle in ("#define KT_HAS_SWEEP 1", "void prior_push(",
+                   "rintf(th[0])", "out[1] = th[1];"):
+        assert needle in sweep.unit.source
+    assert sweep.unit.push_ops == 1
 
 
 def test_emitted_discrete_push_matches_torch_on_host(tmp_path):
@@ -346,12 +350,22 @@ def test_emitted_discrete_push_matches_torch_on_host(tmp_path):
     (``torch.round``) and ``prior_logpdf`` of the pushed value equals
     the port's logpdf of the pushed tree, bit for bit; the continuous
     leaf passes unchanged."""
+    _check_host_push(tmp_path, C.generate(
+        flagship_draw, structure=2, nstats=2, stats=None, nmoments=2,
+        noise="normal", reduce_cost=lambda th, m: torch.abs(m[0] - 3.0),
+        prior=DISCRETE_PRIOR, ais=True))
+
+
+def test_emitted_smc_push_matches_torch_on_host(tmp_path):
+    """The smc sweep's unit (kernel #3) emits the same push: ``rintf``
+    on the discrete marginal, bit for bit ``DiscreteUniform.push``."""
+    _check_host_push(tmp_path, kt.make_fused_smc_sweep(
+        DISCRETE_PRIOR, flagship_draw, lambda th, m: m[0]).unit)
+
+
+def _check_host_push(tmp_path, unit):
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler (g++) to build the emitted code")
-    unit = C.generate(flagship_draw, structure=2, nstats=2, stats=None,
-                      nmoments=2, noise="normal",
-                      reduce_cost=lambda th, m: torch.abs(m[0] - 3.0),
-                      prior=DISCRETE_PRIOR, ais=True)
     src = tmp_path / "unit.cpp"
     src.write_text(_PRELUDE + unit.functions + "#define K 2\n" + _PUSH_RUNNER)
     lib_path = tmp_path / "unit.so"

@@ -49,6 +49,11 @@ GK_SPEC = ("Factored", [("Uniform", {"a": 0, "b": 6}),
                         ("Uniform", {"a": 0.1, "b": 3}),
                         ("Uniform", {"a": -1, "b": 5}),
                         ("Uniform", {"a": 0.0, "b": 0.9})])
+# the mixed discrete prior of tests/test_pallas.py:873: the sweep pushes
+# the proposal (m rounded half to even) for the prior and the simulator
+# and commits the raw one
+MIXED_SPEC = ("Factored", [("DiscreteUniform", {"a": 1, "b": 10}),
+                           ("Uniform", {"a": 0.1, "b": 1.0})])
 
 
 def _jax_prior(spec):
@@ -57,6 +62,8 @@ def _jax_prior(spec):
     for family, p in marginals:
         if family == "Uniform":
             out.append(ka.Uniform(p["a"], p["b"]))
+        elif family == "DiscreteUniform":
+            out.append(ka.DiscreteUniform(p["a"], p["b"]))
         else:
             out.append(ka.TruncatedNormal(p["base"][1]["mu"],
                                           p["base"][1]["sigma"], p["lo"],
@@ -96,8 +103,13 @@ def _models(lib):
         return (lib.square(m[0] - 0.25) + lib.square(m[1] - 0.5)
                 + lib.square(m[2] - 0.75))
 
+    def mixed_reduce(th, mo):   # tests/test_pallas.py:879-881
+        var = lib.maximum(mo[1] - mo[0] * mo[0], lib.zeros_like(mo[0]))
+        return lib.hypot(mo[0] - 3.0, lib.sqrt(var) - 0.5)
+
     ecdf = [lambda x, t=t: f32(x < t) for t in (2.0, 3.0, 4.0)]
     return {"flagship": (flagship_draw, flagship_reduce, None),
+            "mixed": (flagship_draw, mixed_reduce, None),
             "flagship-linear": (flagship_draw, linear_reduce, None),
             "g-and-k-ecdf": (gk_draw, gk_reduce, ecdf)}
 
@@ -111,12 +123,15 @@ CASES = {   # name: (prior spec, model, ndraws, eps quantile, flag,
     "flagship": (FLAGSHIP_SPEC, "flagship", 200, 0.5, False, CANCEL_ATOL),
     "g-and-k-ecdf-ragged": (GK_SPEC, "g-and-k-ecdf", 300, 0.6, False,
                             BORDER),
+    "mixed-discrete": (MIXED_SPEC, "mixed", 200, 0.5, False, BORDER),
 }
 
 
 def _population(spec, n, rng):
     if spec is FLAGSHIP_SPEC:
         th = [rng.uniform(1.6, 2.4, n), rng.uniform(0.0, 0.1, n)]
+    elif spec is MIXED_SPEC:   # float-evolved m, as a population carries it
+        th = [rng.uniform(0.6, 10.4, n), rng.uniform(0.1, 1.0, n)]
     else:
         th = [rng.uniform(lo, hi, n) for lo, hi in
               ((2.0, 4.0), (0.5, 1.5), (-0.5, 0.5), (0.0, 0.5))]
@@ -133,8 +148,8 @@ def test_plain_sweep_matches_jax_interpret_on_stub_bits(name):
     jprior, tprior = _jax_prior(spec), convert.prior_from_numpy(spec)
     rng = np.random.default_rng(11)
     th = _population(spec, n, rng)
-    lps = np.array(jax.vmap(lambda *t: jprior.logpdf_tree(t))(
-        *map(jnp.asarray, th)), np.float32)
+    lps = np.array(jax.vmap(lambda *t: jprior.logpdf_tree(
+        jprior.push_tree(t)))(*map(jnp.asarray, th)), np.float32)
     alive = rng.random(n) < 0.9
     xs = np.full(n, 1e6, np.float32)
 
@@ -187,6 +202,9 @@ def test_plain_sweep_matches_jax_interpret_on_stub_bits(name):
     assert not cm[~alive].any()
     if flag:
         assert (oxs.numpy()[cm] == eps).any()
+    if spec is MIXED_SPEC:   # the raw proposal is committed, not the pushed
+        m = oth[0].numpy()[cm]
+        assert (m != np.rint(m)).all()
 
 
 def test_sweep_contract_on_cpu():
@@ -294,6 +312,27 @@ def test_smc_with_fused_sweep_recovers_readme_posterior():
         assert abs(sg.mean() - 0.04) < 0.01
         assert float(r.eps) <= 0.1
     assert res.C.shape == (512,) and res.ess == len(res.P[0])
+
+
+def test_smc_with_fused_sweep_on_a_discrete_marginal():
+    """tests/test_pallas.py:864-890 with ``sweep_fused``: the mixed
+    discrete prior through the streaming cost and the fused sweep (the
+    plain versions on the CPU), 512 particles to epstol 0.08; the
+    discrete marginal comes back pushed (integral) and the posterior
+    within the JAX test's bands."""
+    prior = convert.prior_from_numpy(MIXED_SPEC)
+    draw, reduce_cost, _ = _models(torch)["mixed"]
+    res = kt.smc(prior,
+                 kt.make_streaming_moment_cost(draw, reduce_cost, ndraws=500),
+                 sweep_fused=kt.make_fused_smc_sweep(prior, draw, reduce_cost,
+                                                     ndraws=500),
+                 nparticles=512, cost_vectorized=True, epstol=0.08, key=5,
+                 device="cpu")
+    m_post, s_post = res.P
+    assert np.allclose(m_post.particles, np.rint(m_post.particles))
+    assert abs(m_post.mean() - 3.0) < 0.3
+    assert abs(s_post.mean() - 0.5) < 0.15
+    assert float(res.eps) <= 0.08
 
 
 def _normal_sweeps():

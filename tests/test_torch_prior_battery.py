@@ -151,13 +151,12 @@ SWEEP_MAKERS = {
 
 
 def _refused(kind, dist):
-    """The sweeps that still refuse a family: one without an entry (a
-    table or an atom push: DiscreteNonParametric, TruncatedDiscrete; a
-    vector leaf: Dirichlet), and the smc sweep, which pushes nothing, on
-    a discrete one."""
-    return (isinstance(dist, (kt.DiscreteNonParametric, kt.TruncatedDiscrete,
-                              kt.Dirichlet))
-            or (kind == "smc" and dist.discrete))
+    """The families every sweep still refuses: one without an entry (a
+    table or an atom push: DiscreteNonParametric, TruncatedDiscrete) and
+    a vector leaf (Dirichlet), which the JAX kernels refuse too. Every
+    sweep, the smc one included, pushes a discrete marginal."""
+    return isinstance(dist, (kt.DiscreteNonParametric, kt.TruncatedDiscrete,
+                             kt.Dirichlet))
 
 
 CASES_48 = [(kind, d) for d in NEW_FAMILIES for kind in sorted(SWEEP_MAKERS)]
@@ -169,8 +168,8 @@ BUILT = [c for c in CASES_48 if not _refused(*c)]
                          ids=[f"{repr(d)[:32]}-{k}" for k, d in REFUSED])
 def test_fused_sweeps_refuse_new_families(kind, dist):
     """A family without an entry in the prior table of
-    ``ops/codegen.py`` (or a discrete one in the smc sweep) raises when
-    the sweep is built, naming the family."""
+    ``ops/codegen.py`` (or a vector one) raises when the sweep is built,
+    naming the family."""
     prior = kt.Factored(dist, kt.Uniform(0.0, 1.0))
     with pytest.raises(NotImplementedError) as err:
         SWEEP_MAKERS[kind](prior)
@@ -182,9 +181,8 @@ def test_fused_sweeps_refuse_new_families(kind, dist):
 @pytest.mark.parametrize("kind,dist", BUILT,
                          ids=[f"{repr(d)[:32]}-{k}" for k, d in BUILT])
 def test_fused_sweeps_build_new_families(kind, dist):
-    """The families with an entry build every sweep (the smc sweep the
-    continuous ones); the entry compiled into the unit is the family's
-    logpdf traced op for op: its graph, run on tensors, equals the
+    """The families with an entry build every sweep; the entry compiled
+    into the unit is the family's logpdf traced op for op: its graph, run on tensors, equals the
     logpdf bit for bit on a grid across the support (the compiled code
     against the logpdf: tests/test_torch_prior_table.py)."""
     from kissabc_tpu_torch.ops import codegen as C

@@ -181,7 +181,7 @@ def library(tmp_path_factory):
     import ctypes
     fns, cases = [], []
     for j, name in enumerate(NAMES):
-        text, _, _ = C.emit_prior(ENTRIES[name][0], push=True)
+        text, _, _ = C.emit_prior(ENTRIES[name][0])
         fns.append(text.replace("prior_logpdf(", f"prior_logpdf_{j}(")
                    .replace("prior_push(", f"prior_push_{j}("))
         cases.append(f"      case {j}: prior_push_{j}(t, p); "
@@ -299,7 +299,7 @@ def _loglike(th):
     return -0.5 * torch.square(th[0] - 1.0)
 
 
-GROUPS = {   # a continuous group (every sweep) and a discrete one
+GROUPS = {   # a continuous group and a discrete one, each through every sweep
     "continuous": kt.Factored(kt.Beta(2.0, 2.0), kt.Rician(2.0, 1.5),
                               kt.Truncated(kt.Gamma(2.0, 1.0), 0.5, 6.0),
                               2.0 - 3.0 * kt.Exponential(1.0),
@@ -320,11 +320,6 @@ def _population(prior, n, seed):
 @pytest.mark.parametrize("group", sorted(GROUPS))
 def test_sweeps_build_and_run_plain(kind, group):
     prior = GROUPS[group]
-    if kind == "smc" and group == "discrete":
-        # the smc sweep pushes nothing: a discrete marginal is refused
-        with pytest.raises(NotImplementedError, match="continuous"):
-            kt.make_fused_smc_sweep(prior, _draw, _reduce)
-        return
     n = 256
     th = _population(prior, n, 3)
     lps = prior.logpdf_tree(prior.push_tree(tuple(th))).to(torch.float32)
@@ -332,6 +327,7 @@ def test_sweeps_build_and_run_plain(kind, group):
     if kind == "smc":
         sw = kt.make_fused_smc_sweep(prior, _draw, _reduce, ndraws=16)
         assert "prior_logpdf" in sw.unit.source
+        assert "prior_push" in sw.unit.source
         out = F.fused_smc_sweep_plain(
             sw, th, torch.full((n,), 1e6), lps, torch.ones(n, dtype=bool),
             1e6, False, 5, 100, 7)

@@ -124,9 +124,10 @@ def test_convert_state_and_prior():
     p = _port_prior()
     assert isinstance(p, kt.Factored) and p.nparams == 2
     assert float(p.p[1].base.sigma) == np.float32(0.05)
+    assert isinstance(convert.prior_from_numpy(
+        ("Multinomial", {"n": 3, "p": [0.5, 0.5]})), kt.Multinomial)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        convert.prior_from_numpy(("Multinomial", {"n": 3,
-                                                  "p": [0.5, 0.5]}))
+        convert.prior_from_numpy(("NoSuchFamily", {"n": 3}))
 
 
 # ---------------------------------------------------------------------------

@@ -440,8 +440,9 @@ def test_convenience_functions():
         kt.product_distribution([kt.Normal(0, 1), kt.Poisson(2.0)]),
         kt.Factored)
     # homogeneous univariate marginals are the JAX package's Product
-    with pytest.raises(NotImplementedError, match="Product"):
-        kt.product_distribution([kt.Normal(0, 1), kt.Normal(2, 3)])
+    assert isinstance(
+        kt.product_distribution([kt.Normal(0, 1), kt.Normal(2, 3)]),
+        kt.Product)
     mv = kt.MvNormal(np.zeros(2), np.array([[4.0, 1.0], [1.0, 1.0]]))
     assert np.allclose(kt.cor(mv), [[1.0, 0.5], [0.5, 1.0]], atol=1e-6)
     xs = torch.tensor([0.5, -0.3])
@@ -536,8 +537,7 @@ def test_one_twin_registry():
     assert kts._twin(kt.Dirac(1.0)) is None
 
 
-NOT_YET_PORTED = ["IID", "Product", "Multinomial", "MvLogNormal", "MvTDist",
-                  "Wishart", "InverseWishart", "LKJ", "LKJCholesky"]
+NOT_YET_PORTED = []
 
 
 def _jax_imports(module):

@@ -14,6 +14,8 @@ step's words gets ``fused_sweep_words``, a tree whose kernel takes
 partner differences gets the rolls ``roll_shifts`` makes of the same
 words), #3 ``fused_smc_sweep`` (the flagship
 model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
+#3 also on the prior table's P1 and P2 (``chip_smoke.prior_table_priors``,
+stub bits, 65536 walkers),
 #4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub; the
 flagship model also at 1000, 16384 and 16384 + 37 walkers, each tree at
 its default geometry),
@@ -53,7 +55,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-from chip_smoke import GEOMETRIES_2, GEOMETRIES_78, SCAN_THREADS  # noqa
+from chip_smoke import (GEOMETRIES_2, GEOMETRIES_78, SCAN_THREADS,  # noqa
+                        prior_table_priors)
 
 
 def load_package(root, name):
@@ -176,6 +179,32 @@ def cases(torch, n, big):
             rs = torch.tensor([5, 77, 11], dtype=torch.int64, device=dev)
             return sw.run(th, xs[:m], lps, alive[:m],
                           torch.tensor(0.5, device=dev),
+                          torch.tensor(False, device=dev), rs)
+        return run
+
+    table_leaves = {}
+
+    def k3_table(pname, m=65536):
+        """#3 on a prior-table prior of 16 continuous marginals (stub
+        bits, the flagship model on the first two leaves), as
+        chip_smoke.py's prior-table: the leaves drawn once from the first
+        tree's prior."""
+        def run(p):
+            prior = prior_table_priors(p)[pname]
+            _, draw, reduce_cost = p.models.flagship()
+            sw = p.make_fused_smc_sweep(
+                prior, lambda th, e: draw(th[:2], e),
+                lambda th, mo: reduce_cost(th[:2], mo), bits="stub")
+            if pname not in table_leaves:
+                g = torch.Generator(device=dev).manual_seed(31)
+                table_leaves[pname] = [x.to(torch.float32).contiguous()
+                                       for x in prior.sample_tree(g, m)]
+            th = table_leaves[pname]
+            lps = prior.logpdf_tree(tuple(th)).to(torch.float32)
+            rs = torch.tensor([5, m // 2 + 3, 12345], dtype=torch.int64,
+                              device=dev)
+            return sw.run(th, xs[:m], lps, alive[:m],
+                          torch.tensor(30.0, device=dev),
                           torch.tensor(False, device=dev), rs)
         return run
 
@@ -311,6 +340,8 @@ def cases(torch, n, big):
             ("#2 hw", k2("hw")), ("#2 stub", k2("stub")),
             ("#3 flagship hw 2^20", k3("flagship", "hw", big)),
             ("#3 g-and-k-ecdf stub", k3("gk", "stub", n)),
+            ("#3 prior-table P1 stub 65536", k3_table("P1")),
+            ("#3 prior-table P2 stub 65536", k3_table("P2")),
             ("#4 flagship hw", k4("flagship", "hw")),
             ("#4 flagship stub", k4("flagship", "stub")),
             ("#4 g-and-k hw", k4("gk", "hw")),
