@@ -682,6 +682,12 @@ def main():
     def treduce(th, m):
         return freduce(th[:2], m)
 
+    # slice 9 (C4): a Dirac marginal, a float atom and an integer one,
+    # pushed to its atom in the kernel; every sweep whose JAX kernel runs
+    # it takes it (#3, #6, #9, #10)
+    table_priors["P5"] = kt.Factored(
+        kt.Uniform(1.5, 2.5), kt.Uniform(0.01, 0.1), kt.Dirac(2.5),
+        kt.Dirac(3.0))
     table_sweeps = {   # (kernel, prior): sweep on stub bits
         ("#3", "P1"): kt.make_fused_smc_sweep(
             table_priors["P1"], tdraw, treduce, bits="stub"),
@@ -702,6 +708,15 @@ def main():
             bits="stub"),
         ("#10", "P4"): kt.make_fused_abcde_generation(
             table_priors["P4"], tdraw, treduce, gamma=2.38 / math.sqrt(32.0),
+            bits="stub"),
+        ("#3", "P5"): kt.make_fused_smc_sweep(
+            table_priors["P5"], tdraw, treduce, bits="stub"),
+        ("#6", "P5"): kt.make_fused_ais_sweep(
+            table_priors["P5"], tdraw, treduce, scale=0.5, bits="stub"),
+        ("#9", "P5"): kt.make_fused_tempered_sweep(
+            table_priors["P5"], ll_table, bits="stub"),
+        ("#10", "P5"): kt.make_fused_abcde_generation(
+            table_priors["P5"], tdraw, treduce, gamma=2.38 / math.sqrt(8.0),
             bits="stub"),
     }
     # slice 7's path at full width: smc-1m-generic with a prior of new
@@ -820,7 +835,8 @@ def main():
             secs7["/".join(names)] = round(secs, 2)
         ph.result = (f"{len(table_units)} generated units of the prior "
                      f"table (#3, #6, #9, #10 on four priors of 16 "
-                     f"marginals), smc-1m-generic-priors' #3 and "
+                     f"marginals and on P5's Dirac marginals), "
+                     f"smc-1m-generic-priors' #3 and "
                      f"smc-1m-generic-discrete's #3, started with the "
                      f"others; nvcc seconds {secs7}")
 
@@ -2897,6 +2913,11 @@ def main():
                                   torch.maximum(eps_i, ds), what)
                 check(r[4] > 0, f"{what}: no walker passed the gate")
                 res[f"{kname} {pname}"] = r
+        for key, r in res.items():   # C4: the Dirac pairs bit for bit
+            if key.endswith("P5"):
+                check(r[0] == 0 and r[1] == 0 and r[3] == 0 and r[2] > 0,
+                      f"prior-table {key}: not bit-equal to the plain "
+                      f"version: {r}")
         regs = {names: lines for names, lines in ptxas.items()
                 if names.startswith("prior-table")}
         ph.result = ("(max|err|, unequal committed values, commits, "
@@ -3178,6 +3199,217 @@ def main():
                                  w for w, _ in checks(xd, m, c)])
         ph.result = json.dumps(out)
 
+    # ---- slice 9: walker sharding, 4 shards on the one card ------------
+    # (four shards on one card measure what sharding costs, not a speed-up)
+    from kissabc_tpu_torch.parallel import distributed as PD
+    from kissabc_tpu_torch.parallel import mesh as PM
+    mesh4 = PM.make_mesh(walker=4, devices=["cuda:0"] * 4)
+    mesh_launches = {}
+
+    with Phase("mesh-roll") as ph:
+        # roll_walkers at 2^20 walkers, 2 leaves: each shift equals
+        # torch.roll of the joined population bit for bit, with exactly 2
+        # shard-sized transfers per leaf and shard
+        n = 1 << 20
+        s_ = n // 4
+        leaves = (uniform(n, 0.0, 1.0), uniform(n, -1.0, 1.0))
+        sh = PM.place(mesh4, leaves)
+        shifts = [0, 1, -1, s_, -s_, s_ + 7, n - 1, -(n + 3)]
+        for shift in shifts:
+            PM.reset_transfer_counts()
+            rolled = PM.roll_walkers(sh, shift, mesh4)
+            moved = PM.transfers["permute"]
+            for a, b in zip(PM.join(rolled), leaves):
+                check(bool(torch.equal(a, torch.roll(b, shift, 0))),
+                      f"mesh-roll: shift {shift} is not torch.roll")
+            check(moved == 2 * 2 * 4, f"mesh-roll: shift {shift} made "
+                  f"{moved} transfers, not 2 per leaf and shard")
+        roll_ms = cuda_ms(torch, lambda: PM.roll_walkers(sh, s_ + 7, mesh4),
+                          20)
+        torch_ms = cuda_ms(torch, lambda: [torch.roll(x, s_ + 7, 0)
+                                           for x in leaves], 20)
+        mesh_roll = dict(n=n, leaves=2, shards=4, shifts=shifts,
+                         transfers_per_leaf_and_shard=2,
+                         roll_walkers_ms=roll_ms, torch_roll_ms=torch_ms)
+        ph.result = json.dumps(mesh_roll)
+
+    with Phase("mesh-smc") as ph:
+        # the smc-perwalker model at 4096 particles, the same key, on one
+        # device and on 4 shards: the same particles (bit for bit with the
+        # roll scheme, rtol 1e-5 otherwise) and iterations
+        out = {}
+        kw = dict(nparticles=4096, epstol=EPSTOL, key=2)
+        for scheme in ("roll", "auto"):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = kt.smc(prior, readme_cost, partner_scheme=scheme, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            b = kt.smc(prior, readme_cost, partner_scheme=scheme, mesh=mesh4,
+                       **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            equal = all(np.array_equal(x.particles, y.particles)
+                        for x, y in zip(a.P, b.P))
+            close = all(np.allclose(x.particles, y.particles, rtol=1e-5)
+                        for x, y in zip(a.P, b.P))
+            check(a.iterations == b.iterations and (equal or (
+                scheme != "roll" and close)),
+                  f"mesh-smc {scheme}: sharded differs: iterations "
+                  f"{a.iterations} vs {b.iterations}, equal {equal}")
+            check(not any(counts().values()), "mesh-smc ran a kernel")
+            check(a.eps <= EPSTOL and abs(a.P[0].mean() - 2.0) < 0.05,
+                  f"mesh-smc {scheme}: eps {a.eps}, mu {a.P[0].mean()}")
+            out[scheme] = dict(iterations=a.iterations, eps=a.eps,
+                               bit_equal=equal, wall_s=t1 - t0,
+                               mesh_wall_s=t2 - t1)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "mesh.npz")
+            skw = dict(kw, partner_scheme="roll", checkpoint_every=5)
+            whole = kt.smc_stepped(prior, readme_cost, mesh=mesh4, **skw)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                cut = kt.smc_stepped(prior, readme_cost, mesh=mesh4,
+                                     checkpoint_path=path, max_iters=5,
+                                     **skw)
+            check(cut.iterations == 5, f"the cut run ran {cut.iterations}")
+            resumed = kt.smc_stepped(prior, readme_cost, checkpoint_path=path,
+                                     resume=True, **skw)   # one device
+        check(all(np.array_equal(x.particles, y.particles)
+                  for x, y in zip(whole.P, resumed.P))
+              and whole.iterations == resumed.iterations,
+              "mesh-smc: smc_stepped stopped on the mesh and resumed on one "
+              "device differs from the uninterrupted sharded run")
+        out["stepped"] = dict(iterations=whole.iterations,
+                              resumed_equal=True)
+        mesh_smc = out
+        ph.result = json.dumps(out)
+
+    with Phase("mesh-costs") as ph:
+        # shard_batched_cost of kernels #1 and #5: one launch per shard,
+        # each shard's costs those of its block with the shard's seed
+        out = {}
+        for name, (base, th, kname) in {
+                "#1": (kt.make_flagship_cost_batched(),
+                       prior.sample_tree(gen, 1 << 20),
+                       "normal_summary_cost"),
+                "#5": (scans["ar1"][0], aprior.sample_tree(gen, 131072),
+                       "streaming_scan_cost")}.items():
+            cost_ = kt.shard_batched_cost(base, mesh4)
+            sh = PM.place(mesh4, th)
+            g2 = torch.Generator(device=dev).manual_seed(31)
+            reset_counts()
+            got = cost_(sh, g2)
+            torch.cuda.synchronize()
+            launched = counts()[kname]
+            check(launched == 4, f"mesh-costs {name}: {launched} launches, "
+                  "not one per shard")
+            mesh_launches[kname] = launched
+            seed = S.uint32_words(torch.Generator(device=dev).manual_seed(31),
+                                  1)
+            err = 0.0
+            for g, block in zip(sh.index, sh.shards):
+                check(got.shards[g].device == mesh4.device_of(g),
+                      f"mesh-costs {name}: shard {g} off its device")
+                want = base.seeded(block, PM.fold_seed(seed, g))
+                check(bool(torch.equal(got.shards[g], want)),
+                      f"mesh-costs {name}: shard {g} differs")
+            seeds = {int(PM.fold_seed(seed, g)) for g in range(4)}
+            check(len(seeds) == 4, f"mesh-costs {name}: shard seeds {seeds}")
+            out[name] = dict(launches=launched, n=len(got.shards) * int(
+                got.shards[0].shape[0]), max_abs_err=err)
+        ph.result = json.dumps(out)
+
+    with Phase("mesh-smc-1m-generic") as ph:
+        # smc-1m-generic at full width on 4 shards: #4 through
+        # shard_batched_cost, #3 built for the mesh; each launches once per
+        # shard a call. Beside it, the unsharded run in this script
+        _alarm(FULL_SMC_LIMIT_S)
+        mcost4 = kt.shard_batched_cost(costs["flagship"][0], mesh4)
+        msweep4 = kt.make_fused_smc_sweep(fprior, fdraw, freduce, mesh=mesh4)
+        kw = dict(cost_vectorized=True, nparticles=1 << 20, epstol=EPSTOL,
+                  max_iters=2000, min_r_ess=0.5, key=2)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = kt.smc(fprior, mcost4, sweep_fused=msweep4, mesh=mesh4, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        n3, n4 = launched["fused_smc_sweep"], launched["streaming_moment_cost"]
+        check(n4 == 4, f"mesh-smc-1m-generic: #4 launched {n4} times, not "
+              "once per shard at the init")
+        check(n3 > 0 and n3 % 4 == 0, f"mesh-smc-1m-generic: #3 launched "
+              f"{n3} times, not once per shard a sweep")
+        check(launched["normal_summary_cost"] == launched["fused_sweep"] == 0,
+              "mesh-smc-1m-generic launched a flagship kernel")
+        mu_p, sg_p = res.P
+        check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
+        check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
+        check(abs(sg_p.mean() - 0.0401) < 0.005, f"mean sigma {sg_p.mean()}")
+        # the population stays on its shards: one sweep's outputs
+        th4 = PM.place(mesh4, fprior.sample_tree(gen, 1 << 20))
+        o = msweep4(gen, th4, PM.place(mesh4, torch.ones(1 << 20,
+                                                         device=dev)),
+                    PM.place(mesh4, torch.zeros(1 << 20, device=dev)),
+                    PM.place(mesh4, torch.ones(1 << 20, dtype=torch.bool,
+                                               device=dev)),
+                    torch.tensor(0.5, device=dev),
+                    torch.tensor(False, device=dev))
+        check(all(t.device == mesh4.device_of(g) and t.shape[0] == 1 << 18
+                  for g, tr in zip(o[0].index, o[0].shards) for t in tr),
+              "mesh-smc-1m-generic: a shard left its device")
+        mesh_launches["fused_smc_sweep"] = n3
+        mesh_launches["streaming_moment_cost"] = n4
+        # the unsharded run, the same settings, in this script
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = kt.smc(fprior, costs["flagship"][0],
+                     sweep_fused=sweeps["flagship"], **kw)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        check(ref.eps <= EPSTOL and abs(ref.P[0].mean() - 2.0) < 0.05
+              and abs(ref.P[1].mean() - 0.0401) < 0.005,
+              "mesh-smc-1m-generic: the unsharded run fails the parity rule")
+        mesh_1m = dict(
+            iterations=res.iterations, eps=res.eps, mu=mu_p.mean(),
+            sigma=sg_p.mean(), wall_s=wall, launches_3=n3, launches_4=n4,
+            unsharded=dict(iterations=ref.iterations, eps=ref.eps,
+                           mu=ref.P[0].mean(), sigma=ref.P[1].mean(),
+                           wall_s=ref_wall))
+        ph.result = json.dumps(mesh_1m)
+
+    with Phase("mesh-distributed") as ph:
+        # one nccl rank on the card (world size 1): global_mesh(walker=1)
+        # runs mesh-smc's roll case through torch.distributed's
+        # collectives, and equals the single-process result
+        with __import__("socket").socket() as so:
+            so.bind(("localhost", 0))
+            port = so.getsockname()[1]
+        check(PD.initialize(f"localhost:{port}", 1, 0), "initialize")
+        try:
+            gm = PD.global_mesh(walker=1)
+            info = PD.process_info()
+            check(gm.distributed and info["process_count"] == 1,
+                  f"mesh-distributed: {info}")
+            t0 = time.perf_counter()
+            r = kt.smc(prior, readme_cost, partner_scheme="roll", mesh=gm,
+                       **dict(nparticles=4096, epstol=EPSTOL, key=2))
+            wall = time.perf_counter() - t0
+        finally:
+            PD.shutdown()
+        a = kt.smc(prior, readme_cost, partner_scheme="roll",
+                   **dict(nparticles=4096, epstol=EPSTOL, key=2))
+        check(all(np.array_equal(x.particles, y.particles)
+                  for x, y in zip(a.P, r.P)) and a.iterations == r.iterations,
+              "mesh-distributed: the one-rank nccl mesh differs")
+        ph.result = (f"nccl, world size 1: iterations {r.iterations}, equal "
+                     f"to one device; wall {wall:.3f} s")
+
     for rec in records:   # the prior table's times beside #3's and #6's
         if rec["name"] == "fused_smc_sweep":
             rec["prior_table"] = {k: v for k, v in table_times.items()
@@ -3185,9 +3417,12 @@ def main():
             rec["launches_by_path"] = {
                 "smc-1m-generic": rec["launches"],
                 "smc-1m-generic-priors": priors_smc["launches"],
-                "smc-1m-generic-discrete": discrete_smc["launches"]}
+                "smc-1m-generic-discrete": discrete_smc["launches"],
+                "mesh-smc-1m-generic": mesh_launches["fused_smc_sweep"]}
             rec["launches"] += (priors_smc["launches"]
-                                + discrete_smc["launches"])
+                                + discrete_smc["launches"]
+                                + mesh_launches["fused_smc_sweep"])
+            rec["mesh_smc_1m_generic"] = mesh_1m
             rec["smc_1m_generic_priors"] = priors_smc
             rec["smc_1m_generic_discrete"] = discrete_smc
         if rec["name"] == "fused_ais_sweep":
@@ -3199,11 +3434,14 @@ def main():
         source="kissabc_tpu_torch/csrc/generic.cuh",
         replaces="kissabc_tpu/ops/pallas_kernels.py:2532",
         launches=(cost_split_launches + threshold_launches
-                  + discrete_launches["streaming_moment_cost"]),
+                  + discrete_launches["streaming_moment_cost"]
+                  + mesh_launches["streaming_moment_cost"]),
         launches_by_path={"abcde-fused split": cost_split_launches,
                           "rejection-threshold": threshold_launches,
                           "smc-1m-generic-discrete":
-                          discrete_launches["streaming_moment_cost"]},
+                          discrete_launches["streaming_moment_cost"],
+                          "mesh-smc-1m-generic":
+                          mesh_launches["streaming_moment_cost"]},
         rejection_threshold=rejection_threshold, max_abs_err=max(
             t["max_abs_err"] for t in times4.values()), matched=True,
         ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"],
@@ -3244,12 +3482,21 @@ def main():
 
     for rec in records:   # #1 also runs budget mode's chunks
         if rec["name"] == "normal_summary_cost":
-            rec["launches_by_path"] = {"smc-full": smc_launches,
-                                       "rejection-budget": rejection_launches}
-            rec["launches"] = smc_launches + rejection_launches
+            rec["launches_by_path"] = {
+                "smc-full": smc_launches,
+                "rejection-budget": rejection_launches,
+                "mesh-costs": mesh_launches["normal_summary_cost"]}
+            rec["launches"] = (smc_launches + rejection_launches
+                               + mesh_launches["normal_summary_cost"])
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      rejection_budget["cost_max_abs_err_131072"])
             rec["rejection_budget"] = rejection_budget
+        if rec["name"] == "streaming_scan_cost":
+            rec.setdefault("launches_by_path", {})["mesh-costs"] = \
+                mesh_launches["streaming_scan_cost"]
+            rec["launches"] += mesh_launches["streaming_scan_cost"]
+    say(json.dumps({"mesh": {"roll": mesh_roll, "smc": mesh_smc,
+                             "smc_1m_generic": mesh_1m}}))
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))

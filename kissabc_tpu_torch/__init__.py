@@ -72,6 +72,12 @@ Rejection ABC and the library surface (slice 6):
   ``pstd``, ``pmedian``, ``pquantile``, ``pcov``, ``pcor``,
   ``sigmapoints`` and ``pm``/``plus_minus``.
 
+Walker sharding (slice 9): ``smc(..., mesh=make_mesh(walker=k))`` and
+``smc_stepped`` shard the population over a mesh
+(``parallel/mesh.py``; several processes through ``parallel/
+distributed.py``); ``shard_batched_cost`` runs a kernel cost once per
+shard and ``make_fused_smc_sweep(..., mesh=)`` the fused sweep.
+
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -110,9 +116,10 @@ from .ops.kernels import (  # noqa: F401
     make_flagship_cost_batched, make_fused_flagship_sweep)
 from .ops.scan import make_streaming_scan_cost  # noqa: F401
 from .ops.streaming import make_streaming_moment_cost  # noqa: F401
+from .parallel.mesh import shard_batched_cost  # noqa: F401
 from .particles import (  # noqa: F401
-    Particles, chainsstack, pcor, pcov, pm, pmap_apply, pmean, pmedian,
-    plus_minus, pquantile, pstd, sigmapoints)
+    Particles, chainsstack, hpdi, particles_from_tree, pcor, pcov, pm,
+    pmap_apply, pmean, pmedian, plus_minus, pquantile, pstd, sigmapoints)
 from .statistics import (  # noqa: F401
     ccdf, cdf, cor, cov, cquantile, entropy, fit, fit_mle, insupport,
     kurtosis, logccdf, logcdf, loglikelihood, logpdf, maximum, mean, median,
@@ -137,6 +144,7 @@ __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "pfilter", "PFilterResult", "ABCDE", "ABCDEResult",
            "make_fused_tempered_sweep", "make_fused_abcde_generation",
            "abc_rejection", "RejectionResult", "host_cost", "ess", "rhat",
+           "shard_batched_cost", "hpdi", "particles_from_tree",
            "chainsstack", "pmap_apply", "pmean", "pstd", "pmedian",
            "pquantile", "pcov", "pcor", "sigmapoints", "pm", "plus_minus",
            "Exponential", "Gamma", "LogUniform", "BetaPrime", "StudentT",

@@ -120,7 +120,8 @@ def ABCDE(prior, cost, eps_target: float, *, nparticles: int = 50,
             "sharded populations")
     if mesh is not None:
         raise NotImplementedError(
-            "ABCDE(mesh=...): walker sharding is not ported yet")
+            "ABCDE(mesh=...): walker sharding of ABCDE comes in a later "
+            "slice")
     del parallel
     n = nparticles
     d = prior.nparams

@@ -22,7 +22,8 @@ the PyTorch counterpart of ``kissabc_tpu/core/ais.py`` (the reference's
 
 The JAX ``lax.scan`` loops are Python loops; the split sweep reads
 nothing on the host, so a block runs without a device sync. ``mesh=``
-raises ``NotImplementedError``: walker sharding is not ported yet.
+raises ``NotImplementedError``: walker sharding of AIS comes in a later
+slice.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def _half_update(model, gen, upd, upd_lds, comp, kernel, scheme):
 def _no_mesh(mesh, caller):
     if mesh is not None:
         raise NotImplementedError(
-            f"{caller}(mesh=...): walker sharding is not ported yet")
+            f"{caller}(mesh=...): walker sharding of AIS comes in a later "
+            "slice")
 
 
 def _halves(tree, h):

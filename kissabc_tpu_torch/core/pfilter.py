@@ -124,7 +124,8 @@ def pfilter(prior, cost, N: int, *, q: float = 0.7, eff_tol: float = 0.1,
     push_cost = _check_cost_on(cost_on)
     if mesh is not None:
         raise NotImplementedError(
-            "pfilter(mesh=...): walker sharding is not ported yet")
+            "pfilter(mesh=...): walker sharding of pfilter comes in a later "
+            "slice")
     d = prior.nparams
     low_n = 4 * d
     if N * q <= low_n:

@@ -179,12 +179,13 @@ def abc_rejection(prior, cost, nparticles: int, *, eps: float | None = None,
     budget ``ceil(nsims/batch) * batch``). ``key``: an int seed or a
     ``torch.Generator`` on the run's device. ``device``: ``None`` runs on
     CUDA (and raises without a card); ``"cpu"`` runs the plain versions.
-    ``mesh=`` raises ``NotImplementedError``: walker sharding is not
-    ported yet.
+    ``mesh=`` raises ``NotImplementedError``: walker sharding of
+    ``abc_rejection`` comes in a later slice.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "abc_rejection(mesh=...): walker sharding is not ported yet")
+            "abc_rejection(mesh=...): walker sharding of abc_rejection "
+            "comes in a later slice")
     if eps is not None and nsims is not None:
         raise ValueError("pass either eps= (threshold mode) or nsims= "
                          "(budget mode), not both")

@@ -36,6 +36,25 @@ Two cost contracts, as in the JAX package:
 ``smc_stepped`` drives the same program one ``body`` at a time from the
 host, with ``IterLog`` records and checkpoint/resume
 (``utils/checkpoint.py``).
+
+``mesh=`` (a ``Mesh`` of ``parallel/mesh.py`` with a ``walker`` axis)
+shards the population: particles, costs, log-priors and the alive mask
+live as ``Sharded`` blocks of n/ndev walkers, each on its device, and
+the loop's scalars on the mesh's home device. The run is the same as
+without a mesh, as in the JAX package, whose per-particle keys come from
+global indices: every population-wide draw (the initial sample, the
+proposal scales and partners, the MH log-u, the resampling offset, and
+the draws of a per-walker or plain batched cost) is made on the whole
+population on the generator's device, as the unsharded run makes it,
+and cut into shards (``utils/rng.py`` ``ShardDraws`` for the cost); the
+roll partners move as shard-sized transfers (``roll_walkers``), the
+quantile is the bisection over scalar reductions, and a gather of
+partners or ancestors joins the population (an all-gather). A kernel
+cost goes through ``shard_batched_cost``: once per shard, with the
+shard folded into its seed, so its parity with the unsharded run is
+statistical, as in the JAX package. The host reads are those of the
+unsharded loop (and, with the roll scheme or a fused sweep, the two
+shifts once a sweep).
 """
 
 from __future__ import annotations
@@ -53,11 +72,12 @@ from ..ops.quantile import (masked_quantile, masked_quantile_bisect,
                             resolve_quantile_impl)
 from ..ops.resampling import replicate_alive, systematic
 from ..ops.tree import tfloat, tgather, tree_map, tselect
+from ..parallel import mesh as M
 from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.rng import as_generator, log_uniform
+from ..utils.rng import ShardDraws, as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
 _f32 = torch.float32
@@ -112,10 +132,12 @@ class _SMCProgram:
         self.retry_n = 1 + mcmc_retrys
         self.tol_count = mcmc_tol * nparticles
         self.device = torch.device(device)
-        self.qfn = (masked_quantile
-                    if resolve_quantile_impl(quantile_impl, None,
-                                             nparticles) == "sort"
-                    else masked_quantile_bisect)
+        self.sort = resolve_quantile_impl(quantile_impl, None,
+                                          nparticles) == "sort"
+
+    def qfn(self, xs, alive, q):
+        return (masked_quantile if self.sort
+                else masked_quantile_bisect)(xs, alive, q)
 
     def logpdf(self, thetas):
         p = self.prior
@@ -151,30 +173,52 @@ class _SMCProgram:
         lps = torch.where(commit, lpp, lps)
         return thetas, xs, lps, commit.sum()
 
+    def alive_count(self, alive):
+        return alive.sum()
+
+    def _xmin(self, xs, alive):
+        return torch.where(alive, xs, float("inf")).min()
+
+    def _alive(self, xs, eps, flag):
+        return torch.where(flag, xs <= eps, xs < eps)
+
+    def _resample(self, gen, thetas, xs, lps, alive):
+        if self.resample == "replicate":
+            ridx = replicate_alive(alive)
+        else:
+            ridx = systematic(gen, alive.to(_f32))
+        # one packed gather of thetas + xs + lps (ops/tree.py)
+        thetas, xs, lps = tgather((thetas, xs, lps), ridx)
+        return thetas, xs, lps, torch.ones_like(alive)
+
+    def checkpoint_view(self, state):
+        """The state as a checkpoint holds it (``_ShardedSMCProgram``
+        joins the population)."""
+        return state
+
+    def from_checkpoint(self, state):
+        return state
+
     def body(self, state: _SMCState) -> _SMCState:
         gen, thetas, xs, lps, alive, eps, logz, it = state[:8]
         n = self.n
         it = it + 1
         eps_v = eps
-        prev_cnt = alive.sum()  # walkers representing prior | cost < eps_v
+        # walkers representing prior | cost < eps_v
+        prev_cnt = self.alive_count(alive)
         eps = self.qfn(xs, alive, self.alpha)
-        xmin = torch.where(alive, xs, float("inf")).min()
+        xmin = self._xmin(xs, alive)
         flag = ~(eps > xmin)
-        alive = torch.where(flag, xs <= eps, xs < eps)
-        ess = alive.sum()
+        alive = self._alive(xs, eps, flag)
+        ess = self.alive_count(alive)
         # evidence: the survival fraction of this eps-lowering (counts
         # taken before resampling)
         logz = logz + (torch.log(ess.to(_f32)) - torch.log(prev_cnt.to(_f32)))
 
         # Step 2 — resampling (smc.jl:145-153), only when ESS is low
         if bool(self.alpha * ess.to(_f32) <= n * self.min_r_ess):
-            if self.resample == "replicate":
-                ridx = replicate_alive(alive)
-            else:
-                ridx = systematic(gen, alive.to(_f32))
-            # one packed gather of thetas + xs + lps (ops/tree.py)
-            thetas, xs, lps = tgather((thetas, xs, lps), ridx)
-            alive = torch.ones_like(alive)
+            thetas, xs, lps, alive = self._resample(gen, thetas, xs, lps,
+                                                    alive)
             ess = torch.full_like(ess, n)
 
         if self.verbose:
@@ -220,6 +264,124 @@ class _SMCProgram:
         return state
 
 
+class _ShardedSMCProgram(_SMCProgram):
+    """The smc program on a walker mesh: the population as ``Sharded``
+    blocks, the same draws and arithmetic as ``_SMCProgram`` (the module
+    docstring), the counts and extremes reduced over the mesh."""
+
+    def __init__(self, prior, cost, *, mesh, quantile_impl="auto", **kw):
+        super().__init__(prior, cost, quantile_impl=quantile_impl,
+                         device=mesh.home, **kw)
+        self.mesh = mesh
+        ndev = mesh.axis_size("walker")
+        if self.n % ndev:
+            raise ValueError(f"nparticles={self.n} must divide the mesh "
+                             f"walker axis ({ndev} devices)")
+        self.s = self.n // ndev
+        self.sort = resolve_quantile_impl(quantile_impl, mesh,
+                                          self.n) == "sort"
+
+    def qfn(self, xs, alive, q):
+        if self.sort:   # the sort needs the joined costs (an all-gather)
+            return masked_quantile(M.join(xs), M.join(alive), q)
+        return masked_quantile_bisect(xs, alive, q)
+
+    def place(self, tree):
+        return M.place(self.mesh, tree)
+
+    def logpdf(self, thetas):
+        return thetas.map(super().logpdf)
+
+    def batch_cost(self, thetas, gen):
+        pushed = thetas.map(self.prior.push_tree)
+        if isinstance(self.cost, M.ShardedCost):
+            out = self.cost(pushed, gen)
+        else:
+            draws = ShardDraws(self.n, self.s)
+            out = M.Sharded(self.mesh, [
+                draws.call(g * self.s, self.mesh.device_of(g), self.cost,
+                           p, gen)
+                for g, p in zip(thetas.index, pushed.shards)], self.n)
+            draws.check()
+        return out.map(lambda c: c.to(_f32))
+
+    def init(self, gen):
+        thetas = self.place(tfloat(self.prior.sample_tree(gen, self.n)))
+        return thetas, self.batch_cost(thetas, gen), self.logpdf(thetas)
+
+    def _on(self, v, like):
+        return v.to(like.device)
+
+    def mcmc_sweep(self, gen, thetas, xs, lps, alive, eps, flag):
+        if self.sweep_fused is not None:
+            return self.sweep_fused(gen, thetas, xs, lps, alive, eps, flag)
+        props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
+                                      self.max_stretch,
+                                      scheme=self.partner_scheme,
+                                      mesh=self.mesh)
+        lprob = self.place(log_uniform(gen, (self.n,)))
+        lpp = self.logpdf(props)
+        gate1 = alive.map(lambda al, lp, l0, u: al & (lp > float("-inf"))
+                          & (u < torch.clamp(lp - l0, max=0.0)),
+                          lpp, lps, lprob)
+        xp = self.batch_cost(props, gen)
+        commit = gate1.map(lambda g1, x: g1 & torch.where(
+            self._on(flag, x), x <= self._on(eps, x), x < self._on(eps, x)),
+            xp)
+        thetas = commit.map(tselect, props, thetas)
+        xs = commit.map(torch.where, xp, xs)
+        lps = commit.map(torch.where, lpp, lps)
+        return thetas, xs, lps, M.psum(self.mesh,
+                                       [c.sum() for c in commit.shards])
+
+    def _alive(self, xs, eps, flag):
+        return xs.map(lambda x: torch.where(
+            self._on(flag, x), x <= self._on(eps, x), x < self._on(eps, x)))
+
+    def alive_count(self, alive):
+        return M.psum(self.mesh, [a.sum() for a in alive.shards])
+
+    def _xmin(self, xs, alive):
+        return M.pmin(self.mesh, [torch.where(a, x, float("inf")).min()
+                                  for x, a in zip(xs.shards, alive.shards)])
+
+    def _resample(self, gen, thetas, xs, lps, alive):
+        if self.resample == "replicate":
+            ridx = replicate_alive(M.join(alive))
+        else:
+            ridx = systematic(gen, alive.map(lambda a: a.to(_f32)))
+        # the ancestors may lie on any shard: the population is joined
+        # (an all-gather) and each shard takes its rows
+        full = M.join(M.Sharded(self.mesh, list(zip(
+            thetas.shards, xs.shards, lps.shards)), self.n))
+        s = self.s
+        rows = M.Sharded(self.mesh, [
+            tgather(tree_map(lambda x, g=g: x.to(self.mesh.device_of(g)),
+                             full), ridx[g * s:(g + 1) * s].to(
+                                 self.mesh.device_of(g)))
+            for g in thetas.index], self.n)
+        return (rows.map(lambda r: r[0]), rows.map(lambda r: r[1]),
+                rows.map(lambda r: r[2]), alive.map(torch.ones_like))
+
+    def init_state(self, gen) -> _SMCState:
+        state = super().init_state(gen)
+        return state._replace(alive=self.place(state.alive))
+
+    def checkpoint_view(self, state):
+        """The state with the population joined: the layout of the
+        unsharded program's state, so a checkpoint resumes on any mesh or
+        on one device."""
+        return state._replace(thetas=M.join(state.thetas),
+                              xs=M.join(state.xs), lps=M.join(state.lps),
+                              alive=M.join(state.alive))
+
+    def from_checkpoint(self, state):
+        return state._replace(thetas=self.place(state.thetas),
+                              xs=self.place(state.xs),
+                              lps=self.place(state.lps),
+                              alive=self.place(state.alive))
+
+
 def _validate_smc_knobs(prior, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
                         r_epstol, min_r_ess, max_stretch, resample,
                         partner_scheme="auto", quantile_impl="auto"):
@@ -262,24 +424,45 @@ def _program(prior, cost, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
     """The checked knobs and the program, shared by ``smc`` and
     ``smc_stepped``."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"{caller}(mesh=...): walker sharding is not ported yet")
+        if not isinstance(mesh, M.Mesh):
+            raise TypeError(
+                f"{caller}(mesh=...) takes a Mesh with a 'walker' axis "
+                f"(kissabc_tpu_torch.parallel.mesh.make_mesh), got "
+                f"{type(mesh).__name__}")
+        if sweep_fused is not None \
+                and getattr(sweep_fused, "mesh", None) is not mesh:
+            raise ValueError(
+                f"{caller}(mesh=...) with sweep_fused needs the sweep built "
+                "for the SAME mesh: make_fused_smc_sweep(..., mesh=mesh) — "
+                "a single-device fused sweep cannot run on sharded "
+                "populations")
+    if isinstance(cost, M.ShardedCost) and cost.mesh is not mesh:
+        raise ValueError(
+            f"{caller}: a cost from shard_batched_cost runs on the SAME "
+            "mesh as the population: pass it as mesh=")
     r_epstol, min_r_ess = _validate_smc_knobs(
         prior, nparticles=nparticles, alpha=alpha, mcmc_retrys=mcmc_retrys,
         mcmc_tol=mcmc_tol, r_epstol=r_epstol, min_r_ess=min_r_ess,
         max_stretch=max_stretch, resample=resample,
         partner_scheme=partner_scheme, quantile_impl=quantile_impl)
-    return _SMCProgram(
-        prior, cost, nparticles=nparticles, alpha=alpha,
-        mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
-        r_epstol=r_epstol, min_r_ess=min_r_ess, max_stretch=max_stretch,
-        max_iters=max_iters, resample=resample, verbose=verbose,
-        partner_scheme=partner_scheme, quantile_impl=quantile_impl,
-        sweep_fused=sweep_fused, device=resolve_device(device),
-        cost_vectorized=cost_vectorized)
+    kw = dict(nparticles=nparticles, alpha=alpha,
+              mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
+              r_epstol=r_epstol, min_r_ess=min_r_ess,
+              max_stretch=max_stretch, max_iters=max_iters,
+              resample=resample, verbose=verbose,
+              partner_scheme=partner_scheme, quantile_impl=quantile_impl,
+              sweep_fused=sweep_fused, cost_vectorized=cost_vectorized)
+    if mesh is None:
+        return _SMCProgram(prior, cost, device=resolve_device(device), **kw)
+    if device is not None and torch.device(device).type != mesh.home.type:
+        raise ValueError(f"{caller}: device={device!r} but the mesh's "
+                         f"devices are {mesh.home.type}")
+    return _ShardedSMCProgram(prior, cost, mesh=mesh, **kw)
 
 
-def _result(prior, state, caller, max_iters) -> SMCResult:
+def _result(program, state, caller, max_iters) -> SMCResult:
+    prior = program.prior
+    state = program.checkpoint_view(state)
     if not bool(state.done):
         # the reference loops until an eps stall / epstol / acceptance
         # collapse; max_iters is this build's safety bound
@@ -324,8 +507,13 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
     the init still runs ``cost``. ``key``: an int seed or a
     ``torch.Generator`` on the run's device. ``device``: ``None`` runs on
     CUDA (and raises without a card); pass ``"cpu"`` for the plain
-    versions on the CPU. ``parallel`` is accepted for API parity;
-    ``mesh=`` raises ``NotImplementedError``."""
+    versions on the CPU. ``parallel`` is accepted for API parity.
+    ``mesh``: a ``Mesh`` (``parallel/mesh.py``) with a ``walker`` axis
+    shards the population over it (the module docstring); the result is
+    the same as without it, but for a kernel cost through
+    ``shard_batched_cost`` or a fused sweep built for the mesh (the
+    shards' seeds differ); ``nparticles`` must divide the axis. A
+    ``sweep_fused`` must be built for the SAME mesh."""
     del parallel
     program = _program(
         prior, cost, nparticles=nparticles, alpha=alpha,
@@ -336,7 +524,7 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
         quantile_impl=quantile_impl, sweep_fused=sweep_fused, device=device,
         caller="smc")
     state = program(as_generator(key, program.device))
-    return _result(prior, state, "smc", max_iters)
+    return _result(program, state, "smc", max_iters)
 
 
 def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
@@ -358,7 +546,9 @@ def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
     iteration, last accept count, stop flag and the run generator's
     state); with ``resume=True`` a run starts from that file when it
     exists and continues the same random stream, so a resumed run
-    equals an uninterrupted one. ``mesh=`` raises as in ``smc``."""
+    equals an uninterrupted one. ``mesh=`` as in ``smc``: the
+    checkpoint holds the joined population, so a run checkpointed on a
+    mesh resumes on any mesh or on one device."""
     program = _program(
         prior, cost, nparticles=nparticles, alpha=alpha,
         mcmc_retrys=mcmc_retrys, mcmc_tol=mcmc_tol, epstol=epstol,
@@ -369,13 +559,20 @@ def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
         caller="smc_stepped")
     state = program.init_state(as_generator(key, program.device))
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        state, _meta = ckpt.load(checkpoint_path, state)
+        state, _meta = ckpt.load(checkpoint_path,
+                                 program.checkpoint_view(state))
+        state = program.from_checkpoint(state)
+    # on a mesh of several processes, the first writes the checkpoint
+    writer = mesh is None or mesh.rank == 0
     while program.cond(state):
         state = program.body(state)
         it = int(state.it)
         if log is not None:
             log.emit(iteration=it, eps=float(state.eps),
-                     ess=int(state.alive.sum()), accepted=int(state.acc))
+                     ess=int(program.alive_count(state.alive)),
+                     accepted=int(state.acc))
         if checkpoint_path and it % checkpoint_every == 0:
-            ckpt.save(checkpoint_path, state, {"iteration": it})
-    return _result(prior, state, "smc_stepped", max_iters)
+            view = program.checkpoint_view(state)
+            if writer:
+                ckpt.save(checkpoint_path, view, {"iteration": it})
+    return _result(program, state, "smc_stepped", max_iters)

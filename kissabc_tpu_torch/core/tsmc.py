@@ -190,7 +190,7 @@ def tsmc(prior, loglike, *, nparticles: int = 1000, alpha: float = 0.5,
     - ``key``: an int seed or a ``torch.Generator`` on the run's device;
       ``device``: ``None`` runs on CUDA (and raises without a card),
       ``"cpu"`` runs the plain versions. ``mesh=`` raises
-      ``NotImplementedError``: walker sharding is not ported yet."""
+      ``NotImplementedError``: its sharding comes in a later slice."""
     if not 0 < alpha < 1:
         raise ValueError("alpha must be in (0, 1)")
     if sweep_fused is not None and mesh is not None \
@@ -202,7 +202,7 @@ def tsmc(prior, loglike, *, nparticles: int = 1000, alpha: float = 0.5,
             "populations")
     if mesh is not None:
         raise NotImplementedError(
-            "tsmc(mesh=...): walker sharding is not ported yet")
+            "tsmc(mesh=...): walker sharding of tsmc comes in a later slice")
     dev = resolve_device(device)
     program = _TSMCProgram(
         prior, loglike, nparticles=nparticles, alpha=alpha,

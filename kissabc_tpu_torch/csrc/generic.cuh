@@ -202,12 +202,15 @@ constexpr int kSweepMaxThreads = 1024;
 // The sweep's steps before the simulator for walker w: the per-walker
 // words (proposal scale N(0,1) * w_scale, MH log-u), the Gaussian-
 // difference proposal against the partners (w - r) mod n, i.e.
-// jnp.roll(x, r)[w], its push and the prior's logpdf lpp of the pushed
-// values. Returns gate 1: alive, inside the prior's support, and
-// log u < min(lpp - lps, 0).
+// jnp.roll(x, r)[w], read from p2 (shift r2) and p1 (shift r1), its push
+// and the prior's logpdf lpp of the pushed values. p2 and p1 are the
+// snapshot th itself, or, for a shard of a mesh, copies of the whole
+// population already rolled by r2 and r1 (then r1 = r2 = 0). Returns
+// gate 1: alive, inside the prior's support, and log u < min(lpp - lps,
+// 0).
 template <bool kStub>
 __device__ __forceinline__ bool sweep_propose(
-    Leaves th, const float* __restrict__ lps,
+    Leaves th, Leaves p2, Leaves p1, const float* __restrict__ lps,
     const unsigned char* __restrict__ alive, int w, int n, int r1, int r2,
     uint32_t seed, float w_scale, int sb_rows, float* prop, float* pushed,
     float* lpp) {
@@ -234,7 +237,7 @@ __device__ __forceinline__ bool sweep_propose(
   if (i1 < 0) i1 += n;
 #pragma unroll
   for (int k = 0; k < KT_NPARAMS; ++k) {
-    float d = th.p[k][i2] - th.p[k][i1];
+    float d = p2.p[k][i2] - p1.p[k][i1];
     prop[k] = th.p[k][w] + d * wv;
   }
   // the push rounds the discrete marginals (a copy of a continuous one);
@@ -260,7 +263,8 @@ __device__ __forceinline__ bool sweep_propose(
 // reaches the barriers.
 template <bool kStub>
 __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
-    Leaves th, const float* __restrict__ xs, const float* __restrict__ lps,
+    Leaves th, Leaves p2, Leaves p1, const float* __restrict__ xs,
+    const float* __restrict__ lps,
     const unsigned char* __restrict__ alive,
     const float* __restrict__ eps_ptr,
     const unsigned char* __restrict__ flag_ptr,
@@ -279,8 +283,8 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 
   bool gate1 = false;
   if (w < n) {
-    gate1 = sweep_propose<kStub>(th, lps, alive, w, n, r1, r2, seed,
-                                 w_scale, sb_rows, prop, pushed, &lpp);
+    gate1 = sweep_propose<kStub>(th, p2, p1, lps, alive, w, n, r1, r2,
+                                 seed, w_scale, sb_rows, prop, pushed, &lpp);
     if (!gate1) {
 #pragma unroll
       for (int k = 0; k < KT_NPARAMS; ++k) oth.p[k][w] = th.p[k][w];
@@ -309,8 +313,8 @@ __global__ void __launch_bounds__(kSweepMaxThreads) fused_smc_sweep_kernel(
 
   if ((int)threadIdx.x >= s_pass) return;
   int v = s_walker[threadIdx.x];
-  sweep_propose<kStub>(th, lps, alive, v, n, r1, r2, seed, w_scale, sb_rows,
-                       prop, pushed, &lpp);
+  sweep_propose<kStub>(th, p2, p1, lps, alive, v, n, r1, r2, seed, w_scale,
+                       sb_rows, prop, pushed, &lpp);
   Coords c = coords(v, sb_rows);
   float m[KT_NSTATS];
   simulate<kStub>(pushed, ndraws, chunk, inv_n, c.pid, c.row, c.lane, seed,
@@ -951,28 +955,32 @@ extern "C" int kt_streaming_moment_cost(const float* const* th,
 #if KT_HAS_SWEEP
 // blocks x threads from the wrapper (ops/fused_smc.py sweep_geometry):
 // threads a multiple of 32 up to kSweepMaxThreads, blocks * threads >= n.
+// part2/part1: null (the partners are read from th at (w - r) mod n), or
+// the leaves of a shard's rolled copies (with rs = (0, 0, seed)).
 extern "C" int kt_fused_smc_sweep(
     const float* const* th, const float* xs, const float* lps,
     const unsigned char* alive, const float* eps, const unsigned char* flag,
     const long long* rs, float* const* oth, float* oxs, float* olps,
     unsigned char* ocm, int n, int ndraws, float inv_n, float w_scale,
     int stub, int sb_rows, int chunk, int blocks, int threads,
-    void* stream) {
+    void* stream, const float* const* part2, const float* const* part1) {
   if (threads < 32 || threads > kSweepMaxThreads || threads % 32 ||
       (long long)blocks * threads < n)
     return (int)cudaErrorInvalidConfiguration;
-  Leaves leaves;
+  Leaves leaves, p2, p1;
   OutLeaves outs;
   for (int k = 0; k < KT_NPARAMS; ++k) {
     leaves.p[k] = th[k];
+    p2.p[k] = part2 ? part2[k] : th[k];
+    p1.p[k] = part1 ? part1[k] : th[k];
     outs.p[k] = oth[k];
   }
   if (n > 0) {
     auto kernel = stub ? &fused_smc_sweep_kernel<true>
                        : &fused_smc_sweep_kernel<false>;
     kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        leaves, xs, lps, alive, eps, flag, rs, outs, oxs, olps, ocm, n,
-        ndraws, inv_n, w_scale, sb_rows, chunk);
+        leaves, p2, p1, xs, lps, alive, eps, flag, rs, outs, oxs, olps, ocm,
+        n, ndraws, inv_n, w_scale, sb_rows, chunk);
   }
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,7 @@ GEN_SIGNATURES = {
     "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
                                  _I, _I, _I, _P],
     "kt_fused_smc_sweep": [_P] * 11 + [_I, _I, _F, _F, _I, _I, _I, _I, _I,
-                                       _P],
+                                       _P, _P, _P],
     "kt_fused_smc_sweep_occupancy": [_I, _P],
     "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _I,
                                           _P],

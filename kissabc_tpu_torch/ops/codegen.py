@@ -918,17 +918,18 @@ _TRACED = (
 _WRITTEN = (D.Uniform, D.Normal, D.DiscreteUniform)
 
 
-def _missing_entry(d):
+def _missing_entry(d, top=True):
     """The family of ``d`` (or of a base or component inside it) that has
-    no entry in the prior table, or None."""
+    no entry in the prior table, or None. ``Dirac`` has one as a marginal
+    of its own: its push is the atom, not a rounding."""
     kind = type(d)
-    if kind in _WRITTEN or kind in _TRACED:
+    if kind in _WRITTEN or kind in _TRACED or (kind is D.Dirac and top):
         return None
     if kind in (D.Truncated, D.Affine):
-        return _missing_entry(d.base)
+        return _missing_entry(d.base, False)
     if kind is D.Mixture:
         for c in d.components:
-            missing = _missing_entry(c)
+            missing = _missing_entry(c, False)
             if missing is not None:
                 return missing
         return None
@@ -965,12 +966,15 @@ def _marginal_logpdf(d, k):
         raise NotImplementedError(
             f"{missing} has no entry in the generic kernels' prior table "
             f"(marginal {k}, {d!r}): its push and logpdf cannot be compiled "
-            "into the fused sweep (still without one: Skellam and "
-            "NoncentralChisq (series), PoissonBinomial, Categorical, "
-            "DiscreteNonParametric, Dirac and TruncatedDiscrete (tables or "
-            "atom pushes); a vector or matrix family is refused as the JAX "
-            "kernels refuse it: they take only [n] leaves)")
+            "into the fused sweep (refused as the JAX kernels refuse "
+            "them, whose pallas_call \"captures constants\" for their host "
+            "tables: Skellam, NoncentralChisq, PoissonBinomial, Categorical, "
+            "DiscreteNonParametric and TruncatedDiscrete; a vector or matrix "
+            "family is refused as the JAX kernels refuse it: they take only "
+            "[n] leaves)")
     x = f"th[{k}]"
+    if type(d) is D.Dirac:   # on the pushed value: 0 at the atom
+        return [], f"(({x} == {_dirac_atom(d)}) ? 0.0f : {_NEG_INF_C})", 2
     if type(d) in _WRITTEN or (type(d) is D.Truncated
                                and type(d.base) in (D.Uniform, D.Normal)):
         expr, ops = _written_logpdf(d, x)
@@ -993,6 +997,24 @@ def trace_marginal(d, k=0):
         _tracing_prior[0] = False
 
 
+def _dirac_atom(d):
+    """The C literal of a ``Dirac``'s atom as its push gives it: an
+    integer atom through int32, else float32, then float."""
+    atom = np.int32(d.value) if d._isint else np.float32(d.value)
+    return f32_literal(float(np.float32(atom)))
+
+
+def _push_line(d, k):
+    """(``prior_push``'s line for marginal ``k``, operations): a
+    ``Dirac`` sets its atom, another discrete marginal rounds half to
+    even, a continuous one is copied."""
+    if type(d) is D.Dirac:
+        return f"  out[{k}] = {_dirac_atom(d)};", 0
+    if d.discrete:
+        return f"  out[{k}] = rintf(th[{k}]);", 1
+    return f"  out[{k}] = th[{k}];", 0
+
+
 def prior_marginals(prior):
     """(marginals, structure): a ``Factored`` prior's marginals and K,
     or one univariate prior and ``None``."""
@@ -1005,8 +1027,8 @@ def emit_prior(prior):
     """``prior_logpdf(th)``, the sum of the marginals' logpdfs in
     ``Factored.logpdf``'s order, and ``prior_push(th, out)``, which
     rounds the discrete marginals half to even (``rintf``, then float,
-    as the JAX kernels' ``push_tree`` and re-cast) and copies the
-    continuous ones. Every sweep evaluates the prior on the pushed
+    as the JAX kernels' ``push_tree`` and re-cast), sets a ``Dirac``
+    marginal to its atom and copies the continuous ones. Every sweep evaluates the prior on the pushed
     values. Returns (C text, logpdf operations, push operations)."""
     marginals, _ = prior_marginals(prior)
     lines, pushes, ops, push_ops = [], [], 0, 0
@@ -1021,9 +1043,9 @@ def emit_prior(prior):
         lines += body
         lines.append(f"  lp = {expr};" if k == 0
                      else f"  lp = lp + ({expr});")
-        pushes.append(f"  out[{k}] = rintf(th[{k}]);" if d.discrete
-                      else f"  out[{k}] = th[{k}];")
-        push_ops += int(d.discrete)
+        line, n = _push_line(d, k)
+        pushes.append(line)
+        push_ops += n
     body = "\n".join(lines)
     text = ("__device__ __forceinline__ float prior_logpdf(const float* th) "
             f"{{\n  float lp;\n{body}\n  return lp;\n}}\n"

@@ -271,12 +271,12 @@ def make_fused_abcde_generation(prior, draw, reduce_cost, *, gamma: float,
     Returns ``gen(gen_, thetas, (ts, ta, tb), lps, ds, active, eps_i) ->
     (thetas, lps, ds, gate)`` with ``.gamma`` and ``.mesh``; ``gate`` is
     the prior gate as float 0/1 (the reference's ``nsims`` tally).
-    ``mesh=`` raises ``NotImplementedError``: walker sharding is not
-    ported yet."""
+    ``mesh=`` raises ``NotImplementedError``: its sharding comes in a
+    later slice."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_fused_abcde_generation(mesh=...): walker sharding is not "
-            "ported yet")
+            "make_fused_abcde_generation(mesh=...): walker sharding of this "
+            "kernel comes in a later slice")
     if cost_on not in ("raw", "pushed"):
         raise ValueError(f"cost_on must be 'raw' or 'pushed', "
                          f"got {cost_on!r}")

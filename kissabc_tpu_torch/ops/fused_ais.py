@@ -785,11 +785,11 @@ def make_fused_ais_sweep(prior, draw, reduce_cost, *, scale,
     ``sweep(gen, thetas, (lp, ll)) -> (thetas, (lp, ll))`` over full
     ``[n]`` tuples, or with ``halves=True`` the halves-carry contract of
     ``make_sweep_halves``. ``mesh=`` raises ``NotImplementedError``:
-    walker sharding is not ported yet."""
+    its sharding comes in a later slice."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_fused_ais_sweep(mesh=...): walker sharding is not ported "
-            "yet")
+            "make_fused_ais_sweep(mesh=...): walker sharding of this kernel "
+            "comes in a later slice")
     stats, nstats = validate(stats, nmoments, noise, block, bits, chunk)
     return FusedAISSweep(
         prior, draw, reduce_cost, scale=scale, stats=stats, nstats=nstats,

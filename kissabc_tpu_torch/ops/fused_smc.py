@@ -27,6 +27,15 @@ The contract is ``smc``'s inner sweep, so the sweep plugs into
 Nothing of it is read on the host: the shifts and the seed are drawn on
 the generator's device and the kernel reads them, ``eps`` and ``flag``
 from device memory; ``naccept`` is a device tensor.
+
+On a mesh (``make_fused_smc_sweep(..., mesh=mesh)``, the population a
+``Sharded``), as the JAX sweep: the two partner rolls of the snapshot go
+through ``roll_walkers`` (two shard-sized transfers per leaf and shard;
+the shifts are read on the host once a sweep, since they choose the
+transfers' sources), the kernel runs once per shard on the shard's
+device with its partners read from the rolled copies and its own seed
+``seed + (shard + 1) * 2**20`` (pallas_kernels.py:2467-2472), and the
+accept count is summed over the mesh.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import math
 import numpy as np
 import torch
 
+from ..parallel import mesh as M
 from ..utils.rng import uint32_words
 from . import _build, codegen
 from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
@@ -101,7 +111,9 @@ class FusedSMCSweep:
     ``make_fused_smc_sweep``."""
 
     def __init__(self, prior, draw, reduce_cost, *, max_stretch, stats,
-                 nstats, ndraws, noise, block, chunk, walker_tiles, bits):
+                 nstats, ndraws, noise, block, chunk, walker_tiles, bits,
+                 mesh=None):
+        self.mesh = mesh
         self.prior, self.draw, self.reduce_cost = prior, draw, reduce_cost
         self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
         self.noise, self.block, self.chunk = noise, block, chunk
@@ -133,6 +145,12 @@ class FusedSMCSweep:
         return plan_tiles(n, self.block, self.walker_tiles)[1] * self.block
 
     def __call__(self, gen, thetas, xs, lps, alive, eps, flag):
+        if self.mesh is not None:
+            return self._sharded(gen, thetas, xs, lps, alive, eps, flag)
+        return self._one(gen, thetas, xs, lps, alive, eps, flag)
+
+    def _one(self, gen, thetas, xs, lps, alive, eps, flag):
+        """The sweep of a population on one device."""
         leaves, n, structure = self._leaves(thetas)
         words = uint32_words(gen, 3)
         r1, r2 = roll_shifts(words[:2], n)
@@ -141,21 +159,68 @@ class FusedSMCSweep:
                                           rs)
         return tree_of(out, structure), oxs, olps, commit.sum()
 
-    def run(self, leaves, xs, lps, alive, eps, flag, rs):
+    def _sharded(self, gen, thetas, xs, lps, alive, eps, flag):
+        """The sweep of a population on the mesh: the partner rolls as
+        shard-sized transfers, then the kernel once per shard."""
+        mesh = self.mesh
+        place = M.constrainer(mesh, "walker")
+        thetas, xs, lps, alive = map(place, (thetas, xs, lps, alive))
+        if thetas.ndev == 1:   # one shard: the sweep of one device
+            out = self._one(gen, thetas.shards[0], xs.shards[0],
+                            lps.shards[0], alive.shards[0], eps, flag)
+            return tuple(M.Sharded(mesh, [o], thetas.n) for o in out[:3]) \
+                + (out[3],)
+        n = thetas.n
+        if n < 3:
+            raise ValueError("need at least 3 walkers")
+        structure = leaves_of(thetas.shards[0], "make_fused_smc_sweep")[1]
+        lv = thetas.map(lambda t: tuple(leaves_of(t, "make_fused_smc_sweep")
+                                        [0]))
+        if len(lv.shards[0]) != self.d:
+            raise ValueError(
+                f"prior has {self.d} scalar marginals but thetas has "
+                f"{len(lv.shards[0])} leaves")
+        words = uint32_words(gen, 3)
+        r1, r2 = roll_shifts(words[:2].tolist(), n)
+        ta = M.roll_walkers(lv, r2, mesh)
+        tb = M.roll_walkers(lv, r1, mesh)
+        outs = []
+        for j, g in enumerate(thetas.index):
+            dev = mesh.device_of(g)
+            lseed = M.fold_seed(words[2], g)
+            rs = torch.stack((torch.zeros_like(lseed),
+                              torch.zeros_like(lseed), lseed)).to(dev)
+            outs.append(self.run(list(lv.shards[j]), xs.shards[j],
+                                 lps.shards[j], alive.shards[j],
+                                 torch.as_tensor(eps).to(dev),
+                                 torch.as_tensor(flag).to(dev), rs,
+                                 partners=(list(ta.shards[j]),
+                                           list(tb.shards[j]))))
+        naccept = M.psum(mesh, [o[3].sum() for o in outs])
+
+        def sharded(k):
+            return M.Sharded(mesh, [o[k] for o in outs], n)
+
+        return (sharded(0).map(lambda t: tree_of(t, structure)), sharded(1),
+                sharded(2), naccept)
+
+    def run(self, leaves, xs, lps, alive, eps, flag, rs, partners=None):
         """One sweep with given shifts and seed, ``rs = (r1, r2, seed)``
         (an int64 tensor on the population's device): the plain version
-        for CPU tensors, the kernel for CUDA tensors. Returns (theta
-        leaves, xs, lps, commit mask)."""
+        for CPU tensors, the kernel for CUDA tensors. ``partners``: the
+        leaves rolled by r2 and by r1 (a shard of a mesh; then ``rs``
+        holds shifts 0). Returns (theta leaves, xs, lps, commit mask)."""
         n = leaves[0].shape[0]
         dev = _device_of(leaves)
         if dev.type == "cpu":
             return fused_smc_sweep_plain(self, leaves, xs, lps, alive, eps,
-                                         flag, rs[0], rs[1], rs[2:])
+                                         flag, rs[0], rs[1], rs[2:],
+                                         partners=partners)
         ins = self._inputs(n, dev, xs, lps, alive, eps, flag)
         outs = ([torch.empty_like(x) for x in leaves],
                 torch.empty_like(ins[0]), torch.empty_like(ins[1]),
                 torch.empty(n, dtype=torch.bool, device=dev))
-        self.launch(n, leaves, ins, rs, outs)
+        self.launch(n, leaves, ins, rs, outs, partners=partners)
         launches["fused_smc_sweep"] += 1
         return outs
 
@@ -174,15 +239,21 @@ class FusedSMCSweep:
                 .reshape(1),
                 torch.as_tensor(flag, device=dev).to(torch.bool).reshape(1))
 
-    def launch(self, n, leaves, ins, rs, outs, threads=SWEEP_THREADS):
+    def launch(self, n, leaves, ins, rs, outs, threads=SWEEP_THREADS,
+               partners=None):
         """Launch over the first ``n`` walkers of checked CUDA buffers:
         ``ins`` = (xs, lps, alive, eps[1], flag[1]), ``rs`` = (r1, r2,
         seed) int64, ``outs`` = (theta leaves, xs, lps, commit); blocks
-        of ``threads`` (``sweep_geometry``)."""
+        of ``threads`` (``sweep_geometry``); ``partners`` = (leaves
+        rolled by r2, by r1) or None."""
         blocks, threads = sweep_geometry(n, threads)
         lib = _build.load_generated(self.unit.source)
         xs, lps, alive, eps, flag = ins
         oth, oxs, olps, ocm = outs
+        parts = None if partners is None else [
+            [x.contiguous() for x in p] for p in partners]
+        p2, p1 = ((None, None) if parts is None else
+                  (_build.pointers(parts[0]), _build.pointers(parts[1])))
         err = lib.kt_fused_smc_sweep(
             _build.pointers(leaves), xs.data_ptr(), lps.data_ptr(),
             alive.data_ptr(), eps.data_ptr(), flag.data_ptr(),
@@ -190,7 +261,7 @@ class FusedSMCSweep:
             olps.data_ptr(), ocm.data_ptr(), n, self.ndraws,
             float(np.float32(1.0 / self.ndraws)), self.w_scale,
             int(self.bits == "stub"), self._sb_rows(n), self.chunk, blocks,
-            threads, _stream())
+            threads, _stream(), p2, p1)
         _build.check(lib, err, "fused_smc_sweep")
 
     def occupancy(self, threads=SWEEP_THREADS):
@@ -224,16 +295,17 @@ class FusedSMCSweep:
 
 
 def fused_smc_sweep_plain(sweep, leaves, xs, lps, alive, eps, flag, r1,
-                          r2, seed):
+                          r2, seed, partners=None):
     """Plain PyTorch version of ``kt_fused_smc_sweep`` for the model of
     ``sweep`` (a ``FusedSMCSweep``), with explicit partner shifts ``r1``,
     ``r2`` and kernel ``seed`` (ints or tensors), so tests can pass the
-    JAX sweep's own. Returns (theta leaves, xs, lps, commit mask)."""
+    JAX sweep's own; ``partners`` as ``FusedSMCSweep.run``. Returns
+    (theta leaves, xs, lps, commit mask)."""
     n = leaves[0].shape[0]
     dev = leaves[0].device
     seed = _seed_tensor(seed, dev)
     props, pushed, lpp, gate1 = proposal_plain(sweep, leaves, lps, alive,
-                                               r1, r2, seed)
+                                               r1, r2, seed, partners)
     moments = streaming_moment_cost_plain(
         sweep.draw, sweep.stats, sweep.nstats, pushed, seed, n=n,
         ndraws=sweep.ndraws, chunk=sweep.chunk, noise=sweep.noise,
@@ -248,12 +320,14 @@ def fused_smc_sweep_plain(sweep, leaves, xs, lps, alive, eps, flag, r1,
             commit)
 
 
-def proposal_plain(sweep, leaves, lps, alive, r1, r2, seed):
+def proposal_plain(sweep, leaves, lps, alive, r1, r2, seed, partners=None):
     """The sweep's steps before the simulator, in plain PyTorch: the
     proposal, its push and prior logpdf, and gate 1 (alive, inside the
-    prior's support, prior-only MH). Returns (proposal leaves, pushed
-    tree, logpdf, gate-1 mask); the mask says which walkers' outputs
-    depend on the simulation."""
+    prior's support, prior-only MH). The partners are read at ``(w - r)
+    mod n`` from ``partners`` = (leaves rolled by r2, by r1), the leaves
+    themselves by default. Returns (proposal leaves, pushed tree, logpdf,
+    gate-1 mask); the mask says which walkers' outputs depend on the
+    simulation."""
     n = leaves[0].shape[0]
     dev = leaves[0].device
     seed = _seed_tensor(seed, dev)
@@ -272,7 +346,8 @@ def proposal_plain(sweep, leaves, lps, alive, r1, r2, seed):
     lprob = torch.log1p(-to_unit(bu3))
     i2 = torch.remainder(w - r2, n)
     i1 = torch.remainder(w - r1, n)
-    props = [x + (x[i2] - x[i1]) * wv for x in leaves]
+    p2, p1 = (leaves, leaves) if partners is None else partners
+    props = [x + (a[i2] - b[i1]) * wv for x, a, b in zip(leaves, p2, p1)]
     pushed = sweep.prior.push_tree(tree_of(props, sweep.structure))
     lpp = sweep.prior.logpdf_tree(pushed).to(torch.float32)
     gate1 = (alive.to(torch.bool) & (lpp > float("-inf"))
@@ -297,15 +372,16 @@ def make_fused_smc_sweep(prior, draw, reduce_cost, *,
     kernel refuses it. ``draw``, ``stats`` and ``reduce_cost`` follow
     ``make_streaming_moment_cost``, with ``reduce_cost`` also compiled
     into the kernel: elementwise PyTorch of the supported ops. Anything
-    the kernel cannot hold raises when the sweep is built. ``mesh=``
-    raises ``NotImplementedError``: walker sharding is not ported yet.
+    the kernel cannot hold raises when the sweep is built. ``mesh``: a
+    ``Mesh`` with a ``walker`` axis makes the sweep run on a population
+    sharded over it (the module docstring); pass the same mesh to
+    ``smc(..., mesh=...)``. ``sweep.mesh`` is the mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_fused_smc_sweep(mesh=...): walker sharding is not ported "
-            "yet")
+    if mesh is not None and not isinstance(mesh, M.Mesh):
+        raise TypeError(f"make_fused_smc_sweep(mesh=...) takes a Mesh "
+                        f"(parallel/mesh.py), got {type(mesh).__name__}")
     stats, nstats = validate(stats, nmoments, noise, block, bits, chunk)
     return FusedSMCSweep(
         prior, draw, reduce_cost, max_stretch=max_stretch, stats=stats,
         nstats=nstats, ndraws=ndraws, noise=noise, block=block, chunk=chunk,
-        walker_tiles=walker_tiles, bits=bits)
+        walker_tiles=walker_tiles, bits=bits, mesh=mesh)

@@ -230,12 +230,12 @@ def make_fused_tempered_sweep(prior, loglike, *, a_stretch: float = 3.0,
     Returns ``sweep(gen, (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)),
     lam)``: ``lp``/``ll`` are carried raw (unscaled), so ``lam`` (a float
     or a 0-d tensor, read by the kernel from device memory) can change
-    between sweeps. ``mesh=`` raises ``NotImplementedError``: walker
-    sharding is not ported yet."""
+    between sweeps. ``mesh=`` raises ``NotImplementedError``: its
+    sharding comes in a later slice."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_fused_tempered_sweep(mesh=...): walker sharding is not "
-            "ported yet")
+            "make_fused_tempered_sweep(mesh=...): walker sharding of this "
+            "kernel comes in a later slice")
     if block % 128:
         raise ValueError(f"block must be a multiple of 128, got {block}")
     _check_bits(bits, block, 1)

@@ -333,16 +333,21 @@ def make_flagship_cost_batched(ndraws: int = 1000, target_mu: float = 2.0,
     from ``gen`` on its device, and the cost runs where the thetas lie
     (the CUDA kernel on the card, the plain version on the CPU), always
     on the Philox stream. Unlike the JAX package, nothing switches
-    random streams by device."""
+    random streams by device. ``batched.seeded(thetas, seed)`` takes the
+    seed instead (``shard_batched_cost`` folds the shard into it)."""
 
-    def batched(thetas, gen):
+    def seeded(thetas, seed):
         mu, sigma = thetas
         return normal_summary_cost(
             mu.to(torch.float32).contiguous(),
-            sigma.to(torch.float32).contiguous(), uint32_words(gen, 1),
+            sigma.to(torch.float32).contiguous(), seed,
             ndraws=ndraws, target_mu=target_mu, target_sd=target_sd,
             sd_weight=sd_weight)
 
+    def batched(thetas, gen):
+        return seeded(thetas, uint32_words(gen, 1))
+
+    batched.seeded = seeded
     return batched
 
 

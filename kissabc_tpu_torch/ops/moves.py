@@ -69,18 +69,29 @@ def propose_roll(ens, w, r1, r2):
         * _scale(w, x), ens)
 
 
-def propose_gather(ens, w, a, b):
-    """Per-walker partners ``a``, ``b``: ``x + (x[b] - x[a]) * w``."""
-    return tree_map(lambda x: x + (x[b] - x[a]) * _scale(w, x), ens)
+def propose_gather(ens, w, a, b, full=None):
+    """Per-walker partners ``a``, ``b``: ``x + (x[b] - x[a]) * w``, the
+    partners read from ``full`` (the whole population, for a shard of
+    it) when given."""
+    return tree_map(lambda x, xf: x + (xf[b] - xf[a]) * _scale(w, x), ens,
+                    ens if full is None else full)
 
 
-def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto"):
+def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
+                          mesh=None):
     """Draw the scales and partners from ``gen`` and propose for the
     whole population. ``scheme``: ``"roll"`` (two random rotations,
     marginally uniform distinct partners) or ``"gather"`` (per-walker
     random distinct partners, the reference's law); ``"auto"`` picks
-    roll at ``n >= AUTO_ROLL_MIN``."""
-    n = tree_leaves(ens)[0].shape[0]
+    roll at ``n >= AUTO_ROLL_MIN``, from ``n`` alone, so a population
+    sharded over ``mesh`` (``ens`` a ``Sharded``) takes the same partner
+    law and gets the same proposals: the draws are made on the whole
+    population and cut into shards, the rolls go through
+    ``roll_walkers`` (shard-sized transfers) and a gather joins the
+    population first (an all-gather, as GSPMD lowers it)."""
+    from ..parallel.mesh import Sharded, join, place, roll_walkers
+    sharded = isinstance(ens, Sharded)
+    n = ens.n if sharded else tree_leaves(ens)[0].shape[0]
     if n < 3:
         raise ValueError(
             f"gaussian_diff_propose needs an ensemble of >= 3 walkers "
@@ -91,7 +102,13 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto"):
     w = max_stretch * z / math.sqrt(d)
     if scheme == "roll":
         r1, r2 = roll_shifts(uint32_words(gen, 2).tolist(), n)
-        return propose_roll(ens, w, r1, r2)
+        if not sharded:
+            return propose_roll(ens, w, r1, r2)
+        ra, rb = roll_walkers(ens, r1, ens.mesh), roll_walkers(ens, r2,
+                                                               ens.mesh)
+        return ens.map(lambda t, ta, tb, wi: tree_map(
+            lambda x, xa, xb: x + (xb - xa) * _scale(wi, x), t, ta, tb),
+            ra, rb, place(ens.mesh, w))
     i = torch.arange(n, device=dev)
     a = torch.randint(0, n - 1, (n,), generator=gen, device=dev)
     a = a + (a >= i).to(a.dtype)
@@ -100,7 +117,12 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto"):
     hi = torch.maximum(a, i)
     b = b + (b >= lo).to(b.dtype)
     b = b + (b >= hi).to(b.dtype)
-    return propose_gather(ens, w, a, b)
+    if not sharded:
+        return propose_gather(ens, w, a, b)
+    full = join(ens)
+    return ens.map(lambda t, ai, bi, wi: propose_gather(
+        t, wi, ai, bi, full=tree_map(lambda x: x.to(wi.device), full)),
+        *(place(ens.mesh, v) for v in (a, b, w)))
 
 
 # ---------------------------------------------------------------------------

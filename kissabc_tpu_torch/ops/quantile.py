@@ -50,22 +50,55 @@ def _f32_unkey(u):
     return b.to(torch.int32).view(torch.float32)
 
 
+class _Parts:
+    """The blocks of a vector and the reductions over them: one block
+    without a mesh, the local shards of a ``Sharded`` (reduced over the
+    mesh) with one. Scalars live on the home device; ``on(v, t)`` puts
+    one beside block ``t``."""
+
+    def __init__(self, x):
+        from ..parallel.mesh import Sharded, pmax, pmin, psum
+        if isinstance(x, Sharded):
+            mesh = x.mesh
+            self.blocks = x.shards
+            self.sum = lambda ts: psum(mesh, ts)
+            self.min = lambda ts: pmin(mesh, ts)
+            self.max = lambda ts: pmax(mesh, ts)
+            self.home = mesh.home
+        else:
+            self.blocks = [x]
+            self.sum = self.min = self.max = lambda ts: ts[0]
+            self.home = x.device
+
+    @staticmethod
+    def on(v, t):
+        return v if v.device == t.device else v.to(t.device)
+
+
 def _kth_smallest(x, mask, k, iters=33):
     """Exact k-th (0-indexed) order statistic of ``x[mask]`` by
     bisection on the uint32 bit pattern of the floats; infinite entries
-    are handled by rank bookkeeping."""
-    finite = mask & torch.isfinite(x)
-    n_neg = (mask & (x == float("-inf"))).sum()
-    n_fin = finite.sum()
+    are handled by rank bookkeeping. ``x`` and ``mask`` are vectors, or
+    ``Sharded`` on one mesh (then every count and extreme is reduced
+    over it)."""
+    px, pm = _Parts(x), _Parts(mask)
+    xs, ms, on = px.blocks, pm.blocks, px.on
+    finite = [m & torch.isfinite(v) for v, m in zip(xs, ms)]
+    n_neg = px.sum([(m & (v == float("-inf"))).sum()
+                    for v, m in zip(xs, ms)])
+    n_fin = px.sum([f.sum() for f in finite])
     kf = k - n_neg
-    keys = _f32_key(x)
-    lo = torch.where(finite, keys, torch.full_like(keys, _U32)).min()
-    hi = torch.where(finite, keys, torch.zeros_like(keys)).max()
+    keys = [_f32_key(v) for v in xs]
+    lo = px.min([torch.where(f, u, torch.full_like(u, _U32)).min()
+                 for f, u in zip(finite, keys)])
+    hi = px.max([torch.where(f, u, torch.zeros_like(u)).max()
+                 for f, u in zip(finite, keys)])
     for _ in range(iters):
         mid = lo + (hi - lo) // 2
-        below = (finite & (keys <= mid)).sum() < kf + 1
+        below = px.sum([(f & (u <= on(mid, u))).sum()
+                        for f, u in zip(finite, keys)]) < kf + 1
         lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=x.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=px.home)
     return torch.where(k < n_neg, -inf,
                        torch.where(kf < n_fin, _f32_unkey(hi), inf))
 
@@ -73,18 +106,26 @@ def _kth_smallest(x, mask, k, iters=33):
 def masked_quantile_bisect(x, mask, q):
     """Type-7 masked quantile without sorting: exact order statistics by
     value bisection and a duplicate-aware neighbour lookup. The same
-    results as ``masked_quantile``."""
-    m = mask.sum()
-    h = (m - 1).to(x.dtype) * q
+    results as ``masked_quantile``. On a mesh (``x`` and ``mask``
+    ``Sharded``) every step is a scalar reduction over the shards, and
+    the result the same as on the joined vectors."""
+    px, pm = _Parts(x), _Parts(mask)
+    xs, ms, on = px.blocks, pm.blocks, px.on
+    m = px.sum([b.sum() for b in ms])
+    dtype = xs[0].dtype
+    h = (m - 1).to(dtype) * q
     k = torch.floor(h).to(torch.int64).clamp(min=0)
-    frac = h - k.to(x.dtype)
+    frac = h - k.to(dtype)
     xlo = _kth_smallest(x, mask, k)
-    count_le = (mask & (x <= xlo)).sum()
-    above = mask & (x > xlo)
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    xhi_strict = torch.where(above, x, inf).min()
+    count_le = px.sum([(b & (v <= on(xlo, v))).sum()
+                       for v, b in zip(xs, ms)])
+    above = [b & (v > on(xlo, v)) for v, b in zip(xs, ms)]
+    inf = torch.tensor(float("inf"), dtype=dtype, device=px.home)
+    xhi_strict = px.min([torch.where(a, v, on(inf, v)).min()
+                         for a, v in zip(above, xs)])
+    any_above = px.sum([a.sum() for a in above]) > 0
     xhi = torch.where(count_le >= k + 2, xlo,
-                      torch.where(above.any(), xhi_strict, xlo))
+                      torch.where(any_above, xhi_strict, xlo))
     return torch.where(torch.isfinite(xlo), xlo + frac * (xhi - xlo), xlo)
 
 

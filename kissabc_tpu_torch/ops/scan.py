@@ -251,9 +251,14 @@ class StreamingScanCost:
         _build.check(lib, err, "streaming_scan_cost")
 
     def __call__(self, thetas, gen):
+        return self.seeded(thetas, uint32_words(gen, 1))
+
+    def seeded(self, thetas, seed):
+        """The cost with a given seed (int64 tensor ``[1]`` on the
+        thetas' device) instead of one drawn from a generator."""
         leaves, structure = self._leaves(thetas)
         tree = tree_of(leaves, structure)
-        means = self.means(tree, uint32_words(gen, 1))
+        means = self.means(tree, seed)
         return self.reduce_cost(tree, means).to(torch.float32)
 
     def work(self, n, structure):

@@ -250,9 +250,13 @@ class StreamingMomentCost:
         launches["streaming_moment_cost"] += 1
 
     def __call__(self, thetas, gen):
+        return self.seeded(thetas, uint32_words(gen, 1))
+
+    def seeded(self, thetas, seed):
+        """The cost with a given seed (int64 tensor ``[1]`` on the
+        thetas' device) instead of one drawn from a generator."""
         leaves, structure = leaves_of(thetas, "make_streaming_moment_cost")
-        moments = self.moments(tree_of(leaves, structure),
-                               uint32_words(gen, 1))
+        moments = self.moments(tree_of(leaves, structure), seed)
         return self.reduce_cost(tree_of(leaves, structure),
                                 moments).to(torch.float32)
 

@@ -146,7 +146,7 @@ def test_stepped_fused_sweep_resumes_and_equals_smc(tmp_path):
 
 
 def test_stepped_validation():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="object"):
         kt.smc_stepped(kt.Normal(1, 0.2), _dirac, mesh=object(),
                        device="cpu")
     with pytest.raises(ValueError, match="alpha"):

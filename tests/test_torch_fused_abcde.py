@@ -71,7 +71,10 @@ def _models(lib):
     return {"flagship": (fprior, fdraw, frc),
             "flagship-linear": (fprior, fdraw,
                                 lambda th, m: m[0] + 10.0 * m[1]),
-            "discrete": (dist.DiscreteUniform(0, 10), ddraw, drc)}
+            "discrete": (dist.DiscreteUniform(0, 10), ddraw, drc),
+            # a Dirac marginal: pushed to its atom 2.5 in the kernel
+            "dirac": (dist.Factored(dist.Dirac(2.5), dist.Uniform(0.1, 1.0)),
+                      fdraw, lambda th, m: lib.abs(m[0] - 3.0))}
 
 
 def _population(case, n, rng):
@@ -81,6 +84,9 @@ def _population(case, n, rng):
     if case.startswith("flagship"):
         th = (rng.uniform(1.5, 2.5, n).astype(np.float32),
               rng.uniform(0.01, 0.1, n).astype(np.float32))
+    elif case == "dirac":
+        th = (rng.uniform(2.0, 3.0, n).astype(np.float32),
+              rng.uniform(0.1, 1.0, n).astype(np.float32))
     else:
         th = (rng.integers(0, 11, n) + rng.uniform(-0.4, 0.4, n)).astype(
             np.float32)
@@ -105,7 +111,8 @@ def _leaves(th):
 @pytest.mark.parametrize("case,cost_on", [("flagship-linear", "raw"),
                                           ("flagship-linear", "pushed"),
                                           ("discrete", "raw"),
-                                          ("discrete", "pushed")])
+                                          ("discrete", "pushed"),
+                                          ("dirac", "pushed")])
 def test_generation_matches_the_pallas_kernel(case, cost_on):
     n = 300   # a tail of 44 walkers in the last 128-row of a stub tile
     jprior, jdraw, jrc = _models(jnp)[case]

@@ -184,6 +184,11 @@ def _jax_models():
     return fprior, gprior, dprior
 
 
+def _dirac_prior(dist):
+    """A Dirac marginal: the sweep pushes its atom, as the JAX kernel."""
+    return dist.Factored(dist.Dirac(2.5), dist.Uniform(0.1, 1.0))
+
+
 def _models(lib):
     """(prior, draw, reduce_cost, stats, scale) per case, in ``jnp`` or
     ``torch``: the flagship draw with the linear reduce of the JAX golden
@@ -222,6 +227,8 @@ def _models(lib):
         "g-and-k-ecdf": (gprior, gdraw, gk_reduce, ecdf, 0.5),
         "discrete": (dprior, fdraw, lambda th, m: absf(m[0] - 3.0), None,
                      0.5),
+        "dirac": (_dirac_prior(kt if lib is torch else ka), fdraw,
+                  lambda th, m: absf(m[0] - 3.0), None, 0.5),
     }
 
 
@@ -231,6 +238,8 @@ def _generic_start(case, n, rng):
     elif case == "g-and-k-ecdf":
         th = [rng.uniform(0, 6, n), rng.uniform(0.1, 3, n),
               rng.uniform(-1, 5, n), rng.uniform(0, 0.9, n)]
+    elif case == "dirac":
+        th = [rng.uniform(2.0, 3.0, n), rng.uniform(0.1, 1.0, n)]
     else:
         th = [rng.integers(1, 11, n) + rng.uniform(-0.4, 0.4, n),
               rng.uniform(0.1, 1.0, n)]
@@ -238,7 +247,7 @@ def _generic_start(case, n, rng):
 
 
 @pytest.mark.parametrize("case", ["flagship-linear", "g-and-k-ecdf",
-                                  "discrete"])
+                                  "discrete", "dirac"])
 def test_generic_sweep_matches_the_pallas_kernel(case):
     """JAX ``make_fused_ais_sweep`` (interpret, stub) on a key against the
     port's half-updates given the shifts and seeds that key gives

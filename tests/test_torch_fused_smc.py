@@ -54,6 +54,10 @@ GK_SPEC = ("Factored", [("Uniform", {"a": 0, "b": 6}),
 # and commits the raw one
 MIXED_SPEC = ("Factored", [("DiscreteUniform", {"a": 1, "b": 10}),
                            ("Uniform", {"a": 0.1, "b": 1.0})])
+# a Dirac marginal: the sweep pushes its atom (2.5, not a rounding), as the
+# JAX kernel does, and commits the raw float-evolved proposal
+DIRAC_SPEC = ("Factored", [("Dirac", {"value": 2.5}),
+                           ("Uniform", {"a": 0.1, "b": 1.0})])
 
 
 def _jax_prior(spec):
@@ -64,6 +68,8 @@ def _jax_prior(spec):
             out.append(ka.Uniform(p["a"], p["b"]))
         elif family == "DiscreteUniform":
             out.append(ka.DiscreteUniform(p["a"], p["b"]))
+        elif family == "Dirac":
+            out.append(ka.Dirac(p["value"]))
         else:
             out.append(ka.TruncatedNormal(p["base"][1]["mu"],
                                           p["base"][1]["sigma"], p["lo"],
@@ -124,6 +130,7 @@ CASES = {   # name: (prior spec, model, ndraws, eps quantile, flag,
     "g-and-k-ecdf-ragged": (GK_SPEC, "g-and-k-ecdf", 300, 0.6, False,
                             BORDER),
     "mixed-discrete": (MIXED_SPEC, "mixed", 200, 0.5, False, BORDER),
+    "dirac": (DIRAC_SPEC, "mixed", 200, 0.5, False, BORDER),
 }
 
 
@@ -132,6 +139,8 @@ def _population(spec, n, rng):
         th = [rng.uniform(1.6, 2.4, n), rng.uniform(0.0, 0.1, n)]
     elif spec is MIXED_SPEC:   # float-evolved m, as a population carries it
         th = [rng.uniform(0.6, 10.4, n), rng.uniform(0.1, 1.0, n)]
+    elif spec is DIRAC_SPEC:
+        th = [rng.uniform(2.0, 3.0, n), rng.uniform(0.1, 1.0, n)]
     else:
         th = [rng.uniform(lo, hi, n) for lo, hi in
               ((2.0, 4.0), (0.5, 1.5), (-0.5, 0.5), (0.0, 0.5))]
@@ -205,6 +214,9 @@ def test_plain_sweep_matches_jax_interpret_on_stub_bits(name):
     if spec is MIXED_SPEC:   # the raw proposal is committed, not the pushed
         m = oth[0].numpy()[cm]
         assert (m != np.rint(m)).all()
+    if spec is DIRAC_SPEC:   # pushed to the atom: every lp is the same
+        assert (oth[0].numpy()[cm] != 2.5).all()
+        assert (olps.numpy()[cm] == lps[0]).all()
 
 
 def test_sweep_contract_on_cpu():
@@ -239,11 +251,11 @@ def test_validation_and_mesh():
         kt.make_fused_smc_sweep(prior, draw, reduce_cost, block=100)
     with pytest.raises(ValueError, match="noise"):
         kt.make_fused_smc_sweep(prior, draw, reduce_cost, noise="laplace")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="object"):
         kt.make_fused_smc_sweep(prior, draw, reduce_cost, mesh=object())
     sweep = kt.make_fused_smc_sweep(prior, draw, reduce_cost)
     cost = kt.make_streaming_moment_cost(draw, reduce_cost)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="object"):
         kt.smc(prior, cost, cost_vectorized=True, sweep_fused=sweep,
                mesh=object(), device="cpu")
 

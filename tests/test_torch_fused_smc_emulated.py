@@ -81,7 +81,7 @@ def test_kernel_matches_the_plain_version(tmp_path, name, bits):
     lib.kt_fused_smc_sweep.argtypes = (
         [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                   ctypes.c_float] + [ctypes.c_int] * 5
-        + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 3)
     err = lib.kt_fused_smc_sweep(
         ctypes.cast(_ptrs(leaves), ctypes.c_void_p), xs.data_ptr(),
         lps.data_ptr(), alive_u8.data_ptr(), eps_t.data_ptr(),
@@ -89,7 +89,7 @@ def test_kernel_matches_the_plain_version(tmp_path, name, bits):
         ctypes.cast(_ptrs(oth), ctypes.c_void_p), oxs.data_ptr(),
         olps.data_ptr(), ocm.data_ptr(), N, NDRAWS,
         float(np.float32(1.0 / NDRAWS)), sw.w_scale, int(bits == "stub"),
-        sw._sb_rows(N), CHUNK, N // THREADS, THREADS, None)
+        sw._sb_rows(N), CHUNK, N // THREADS, THREADS, None, None, None)
     assert err == 0
     got_cm, want_cm = ocm.to(torch.bool), want[3]
     border = (want[1] - eps).abs() < 1e-4

@@ -88,6 +88,9 @@ def _models(lib):
         "bounded-cut": (dist.Uniform(0.5, 1.5), cut),
         "mixed-discrete": (dist.Factored(dist.Normal(1.0, 1.0),
                                          dist.DiscreteUniform(1, 6)), mixed),
+        # a Dirac marginal: pushed to its atom 2.5 in the kernel
+        "dirac": (dist.Factored(dist.Normal(1.0, 1.0), dist.Dirac(2.5)),
+                  mixed),
     }
 
 
@@ -96,6 +99,9 @@ def _start(case, n, rng):
         return rng.normal(0, 1, n).astype(np.float32)
     if case.startswith("bounded"):
         return rng.uniform(0.5, 1.5, n).astype(np.float32)
+    if case == "dirac":
+        return (rng.normal(1, 1, n).astype(np.float32),
+                rng.uniform(2.0, 3.0, n).astype(np.float32))
     return (rng.normal(1, 1, n).astype(np.float32),
             (rng.integers(1, 7, n) + rng.uniform(-0.4, 0.4, n))
             .astype(np.float32))
@@ -107,7 +113,7 @@ def _leaves(th):
 
 @pytest.mark.parametrize("h", [256, 300])
 @pytest.mark.parametrize("case", ["conjugate", "bounded", "bounded-cut",
-                                  "mixed-discrete"])
+                                  "mixed-discrete", "dirac"])
 def test_half_updates_match_the_pallas_kernel(case, h):
     """JAX ``make_fused_tempered_sweep`` (interpret, stub) on a key
     against the port's half-updates given the shifts and seeds that key

@@ -371,7 +371,7 @@ def test_sweeps_build_and_run_plain(kind, group):
 STILL_MISSING = [kt.Skellam(2.0, 3.0), kt.NoncentralChisq(4.0, 2.5),
                  kt.PoissonBinomial([0.2, 0.5]), kt.Categorical([0.3, 0.7]),
                  kt.DiscreteNonParametric([0.5, 1.5], [0.5, 0.5]),
-                 kt.Dirac(2.0), kt.Truncated(kt.Poisson(6.0), 2, 12),
+                 kt.Truncated(kt.Poisson(6.0), 2, 12),
                  kt.Mixture([kt.Normal(0.0, 1.0),
                              kt.NoncentralChisq(4.0, 2.5)])]
 
@@ -384,3 +384,71 @@ def test_families_without_entry_raise_naming_themselves(dist):
         kt.make_fused_ais_sweep(prior, _draw, _reduce, scale=0.1)
     inner = dist.components[1] if isinstance(dist, kt.Mixture) else dist
     assert f"{type(inner).__name__} has no entry" in str(err.value)
+
+
+# the JAX kernels refuse the same six families: their push or logpdf reads
+# a host table, which a pallas_call cannot capture
+_JAX_REFUSED = {
+    "Skellam": lambda ka: ka.Skellam(2.0, 3.0),
+    "NoncentralChisq": lambda ka: ka.NoncentralChisq(4.0, 2.5),
+    "PoissonBinomial": lambda ka: ka.PoissonBinomial([0.2, 0.5]),
+    "Categorical": lambda ka: ka.Categorical([0.3, 0.7]),
+    "DiscreteNonParametric": lambda ka: ka.DiscreteNonParametric(
+        [0.5, 1.5], [0.5, 0.5]),
+    "TruncatedDiscrete": lambda ka: ka.Truncated(ka.Poisson(6.0), 2, 12),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_JAX_REFUSED))
+def test_jax_smc_sweep_refuses_the_same_families(family):
+    """The port's refusal matches the reference: the JAX #3 in interpret
+    mode on stub bits raises "captures constants" for each family that
+    the port refuses, and the port names it."""
+    import jax
+    import jax.numpy as jnp
+
+    import kissabc_tpu as ka
+
+    n = 256
+    jprior = ka.Factored(_JAX_REFUSED[family](ka), ka.Uniform(0.1, 1.0))
+    sweep = ka.make_fused_smc_sweep(
+        jprior, lambda th, e: th[1] + th[1] * e,
+        lambda th, m: jnp.abs(m[0] - 3.0), ndraws=16, block=128, chunk=128,
+        walker_tiles=2, bits="stub", interpret=True)
+    rng = np.random.default_rng(0)
+    th = (jnp.asarray(rng.uniform(1, 3, n), jnp.float32),
+          jnp.asarray(rng.uniform(0.1, 1.0, n), jnp.float32))
+    with pytest.raises(Exception, match="captures constants"):
+        sweep(jax.random.key(1), th, jnp.full(n, 1e6, jnp.float32),
+              jnp.zeros(n, jnp.float32), jnp.ones(n, bool),
+              jnp.float32(0.5), jnp.asarray(False))
+    tprior = kt.Factored(_JAX_REFUSED[family](kt), kt.Uniform(0.1, 1.0))
+    with pytest.raises(NotImplementedError, match="captures constants"):
+        kt.make_fused_smc_sweep(tprior, _draw, _reduce)
+
+
+@pytest.mark.parametrize("atom", [2.5, 3.0, -0.1])
+def test_dirac_entry_pushes_its_atom_on_host(atom, tmp_path):
+    """A ``Dirac`` marginal's entry: the push sets the atom (a float atom
+    stays, an integer one goes through int32), as ``Dirac.push``; the
+    logpdf of the pushed value is 0 at every walker."""
+    import ctypes
+    d = kt.Dirac(atom)
+    text, ops, push_ops = C.emit_prior(kt.Factored(d, kt.Uniform(0.0, 1.0)))
+    assert "rintf" not in text and push_ops == 0
+    main = _MAIN.replace("float t[1] = {th[i]}, p[1];",
+                         "float t[2] = {th[i], 0.5f}, p[2];")
+    (tmp_path / "dirac_main.cpp").write_text(
+        main % (text, "      case 0: prior_push(t, p); "
+                      "lp[i] = prior_logpdf(p); break;"))
+    lib = ctypes.CDLL(str(build_program(tmp_path, None, "dirac_main.cpp",
+                                        shared=True)))
+    x = torch.linspace(atom - 3.0, atom + 3.0, 257)
+    lp, pushed = torch.empty_like(x), torch.empty_like(x)
+    lib.run(ctypes.c_int(0), ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(lp.data_ptr()), ctypes.c_void_p(pushed.data_ptr()),
+            ctypes.c_int(x.numel()))
+    assert torch.equal(pushed, d.push(x).to(torch.float32))
+    want = (d.logpdf(d.push(x)) + kt.Uniform(0.0, 1.0).logpdf(
+        torch.full_like(x, 0.5))).to(torch.float32)
+    assert torch.equal(lp, want) and torch.isfinite(lp).all()

@@ -205,13 +205,14 @@ def test_knob_validation_messages_match_jax(bad):
 
 
 def test_left_for_later_slices_raise():
-    """Walker sharding is the one smc option still to port; the
-    per-walker cost form runs (tests/test_torch_smc_perwalker.py)."""
+    """Walker sharding runs (tests/test_torch_parallel.py); a mesh that
+    is not a ``Mesh`` raises ``TypeError`` naming its type and the
+    caller."""
     prior, cost = _port_prior(), kt.make_flagship_cost_batched()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         kt.smc(prior, cost, cost_vectorized=True, mesh=object(),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="smc_stepped.*mesh"):
+    with pytest.raises(TypeError, match="smc_stepped.*mesh"):
         kt.smc_stepped(prior, cost, cost_vectorized=True, mesh=object(),
                        device="cpu")
 
