@@ -356,6 +356,14 @@ def unequal_committed(got, want):
         list(got[0]) + list(got[1:3]), list(want[0]) + list(want[1:3])))
 
 
+def unequal_by_output(got, want):
+    """``unequal_committed`` output by output: a list of counts (each
+    theta leaf, xs, lps)."""
+    both = got[3] & want[3]
+    return [int((g[both] != w[both]).sum()) for g, w in zip(
+        list(got[0]) + list(got[1:3]), list(want[0]) + list(want[1:3]))]
+
+
 def flagship_outputs(out):
     """The fused flagship sweep's (mu, sigma, xs, lps, commit) in the
     (theta leaves, xs, lps, commit) form of ``compare_sweeps``."""
@@ -2810,6 +2818,7 @@ def main():
         return leaves
 
     table_times = {}
+    partner_table = {}   # #3's partner form: commits of each bit-equal pair
     with Phase("prior-table") as ph:
         # kernels #3, #6, #9 and #10 at 65536 walkers on stub bits, each
         # on priors whose marginals cover every entry of the prior table,
@@ -2848,6 +2857,29 @@ def main():
                 check(err == 0 and unequal == 0 and border == 0,
                       f"{what}: not bit-equal to the plain version (max|err| "
                       f"{err}, {unequal} unequal, {border} masks differ)")
+                # the form a shard of a mesh launches: the partners given
+                # as two more pointer sets (the leaves rolled by r2 and
+                # r1), shifts 0; bit for bit against the plain version and
+                # against the snapshot form above
+                parts = ([torch.roll(x, r2, 0) for x in leaves],
+                         [torch.roll(x, r1, 0) for x in leaves])
+                rs0 = torch.tensor([0, 0, seed], dtype=torch.int64,
+                                   device=dev)
+                gotp = sw.run(leaves, xs, lps, alive, eps, False, rs0,
+                              partners=parts)
+                wantp = F.fused_smc_sweep_plain(sw, leaves, xs, lps, alive,
+                                                eps, False, 0, 0, seed,
+                                                partners=parts)
+                errp, borderp = compare_sweeps(torch, gotp, wantp, eps,
+                                               f"{what} partners")
+                unequalp = unequal_committed(gotp, wantp)
+                check(errp == 0 and unequalp == 0 and borderp == 0
+                      and same_bits(list(gotp[0]) + list(gotp[1:]),
+                                    list(got[0]) + list(got[1:])),
+                      f"{what} partners: not bit-equal to the plain version "
+                      f"or the snapshot form (max|err| {errp}, {unequalp} "
+                      f"unequal, {borderp} masks differ)")
+                partner_table[f"{kname} {pname}"] = int(gotp[3].sum())
                 res[f"{kname} {pname}"] = (err, unequal, acc, border)
                 eps_t = torch.tensor(eps, device=dev)
                 flag_t = torch.tensor(False, device=dev)
@@ -2922,6 +2954,8 @@ def main():
                 if names.startswith("prior-table")}
         ph.result = ("(max|err|, unequal committed values, commits, "
                      "borderline[, gate passes]): " + json.dumps(res)
+                     + "; #3 with the partners given, bit-equal, commits "
+                     + json.dumps(partner_table)
                      + "; times " + json.dumps(table_times)
                      + "; ptxas " + json.dumps(regs))
 
@@ -3288,8 +3322,12 @@ def main():
 
     with Phase("mesh-costs") as ph:
         # shard_batched_cost of kernels #1 and #5: one launch per shard,
-        # each shard's costs those of its block with the shard's seed
+        # each shard's costs those of its block with the shard's seed, and
+        # the kernel's output on each block against its plain version
+        # (#1's costs; #5's means, which its reduce_cost turns into costs
+        # in PyTorch) at the golden tolerance
         out = {}
+        mesh_cost_err = {}
         for name, (base, th, kname) in {
                 "#1": (kt.make_flagship_cost_batched(),
                        prior.sample_tree(gen, 1 << 20),
@@ -3312,11 +3350,23 @@ def main():
             for g, block in zip(sh.index, sh.shards):
                 check(got.shards[g].device == mesh4.device_of(g),
                       f"mesh-costs {name}: shard {g} off its device")
-                want = base.seeded(block, PM.fold_seed(seed, g))
+                seed_g = PM.fold_seed(seed, g)
+                want = base.seeded(block, seed_g)
                 check(bool(torch.equal(got.shards[g], want)),
                       f"mesh-costs {name}: shard {g} differs")
+                what = f"mesh-costs {name} shard {g}"
+                if name == "#1":
+                    err = max(err, assert_close(
+                        torch, got.shards[g],
+                        K.normal_summary_cost_plain(*block, seed_g), what))
+                else:
+                    err = max(err, *(assert_close(torch, a, b, what)
+                                     for a, b in zip(
+                                         base.means(block, seed_g),
+                                         base.means_plain(block, seed_g))))
             seeds = {int(PM.fold_seed(seed, g)) for g in range(4)}
             check(len(seeds) == 4, f"mesh-costs {name}: shard seeds {seeds}")
+            mesh_cost_err[kname] = err
             out[name] = dict(launches=launched, n=len(got.shards) * int(
                 got.shards[0].shape[0]), max_abs_err=err)
         ph.result = json.dumps(out)
@@ -3328,12 +3378,22 @@ def main():
         _alarm(FULL_SMC_LIMIT_S)
         mcost4 = kt.shard_batched_cost(costs["flagship"][0], mesh4)
         msweep4 = kt.make_fused_smc_sweep(fprior, fdraw, freduce, mesh=mesh4)
+
+        class Counted:   # the sweeps smc runs, for #3's launches a sweep
+            def __init__(self, sweep):
+                self.sweep, self.mesh, self.calls = sweep, sweep.mesh, 0
+
+            def __call__(self, *args):
+                self.calls += 1
+                return self.sweep(*args)
+
+        counted = Counted(msweep4)
         kw = dict(cost_vectorized=True, nparticles=1 << 20, epstol=EPSTOL,
                   max_iters=2000, min_r_ess=0.5, key=2)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = kt.smc(fprior, mcost4, sweep_fused=msweep4, mesh=mesh4, **kw)
+        res = kt.smc(fprior, mcost4, sweep_fused=counted, mesh=mesh4, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = counts()
@@ -3341,8 +3401,9 @@ def main():
         n3, n4 = launched["fused_smc_sweep"], launched["streaming_moment_cost"]
         check(n4 == 4, f"mesh-smc-1m-generic: #4 launched {n4} times, not "
               "once per shard at the init")
-        check(n3 > 0 and n3 % 4 == 0, f"mesh-smc-1m-generic: #3 launched "
-              f"{n3} times, not once per shard a sweep")
+        check(counted.calls > 0 and n3 == 4 * counted.calls,
+              f"mesh-smc-1m-generic: #3 launched {n3} times in "
+              f"{counted.calls} sweeps, not once per shard a sweep")
         check(launched["normal_summary_cost"] == launched["fused_sweep"] == 0,
               "mesh-smc-1m-generic launched a flagship kernel")
         mu_p, sg_p = res.P
@@ -3361,6 +3422,80 @@ def main():
         check(all(t.device == mesh4.device_of(g) and t.shape[0] == 1 << 18
                   for g, tr in zip(o[0].index, o[0].shards) for t in tr),
               "mesh-smc-1m-generic: a shard left its device")
+        # #3 in the form this path launches it: the sharded sweep on a
+        # population of 2^20, each shard's outputs against the plain
+        # version on its block, with the partners rolled from the joined
+        # leaves by torch.roll and the shard's folded seed; bit for bit on
+        # stub bits, on hw bits the comparison of the 2^20 check
+        msweep4s = kt.make_fused_smc_sweep(fprior, fdraw, freduce,
+                                           mesh=mesh4, bits="stub")
+        n, s_ = 1 << 20, (1 << 20) // 4
+        thm = [x.contiguous() for x in fprior.sample_tree(gen, n)]
+        xsm = torch.full((n,), 1e6, device=dev)
+        lpsm = fprior.logpdf_tree(tuple(thm)).to(torch.float32)
+        alivem = torch.rand(n, generator=gen, device=dev) < 0.9
+        flag_f = torch.tensor(False, device=dev)
+        partner_check = {}
+        for bits_, sw_ in (("hw", msweep4), ("stub", msweep4s)):
+            words = S.uint32_words(torch.Generator(device=dev).manual_seed(
+                41), 3)
+            r1, r2 = M.roll_shifts(words[:2].tolist(), n)
+
+            def plain(g, eps_):
+                blk = slice(g * s_, (g + 1) * s_)
+                return F.fused_smc_sweep_plain(
+                    sw_, [x[blk] for x in thm], xsm[blk], lpsm[blk],
+                    alivem[blk], eps_, flag_f, 0, 0,
+                    PM.fold_seed(words[2], g).reshape(1), partners=(
+                        [torch.roll(x, r2, 0)[blk] for x in thm],
+                        [torch.roll(x, r1, 0)[blk] for x in thm]))
+
+            probe = plain(0, torch.tensor(1e6, device=dev))
+            check(bool(probe[3].any()), "mesh-smc-1m-generic: no walker "
+                  "passes gate 1")
+            eps_t = torch.tensor(float(probe[1][probe[3]].median()),
+                                 device=dev)
+            reset_counts()
+            o = sw_(torch.Generator(device=dev).manual_seed(41),
+                    PM.place(mesh4, tuple(thm)), PM.place(mesh4, xsm),
+                    PM.place(mesh4, lpsm), PM.place(mesh4, alivem), eps_t,
+                    flag_f)
+            check(counts()["fused_smc_sweep"] == 4, "mesh-smc-1m-generic: "
+                  f"the {bits_} sweep did not launch #3 once per shard")
+            errs, borders, unequal, acc = [], 0, np.zeros(4, np.int64), 0
+            for g in range(4):
+                blk = slice(g * s_, (g + 1) * s_)
+                want = plain(g, eps_t)
+                got = (list(o[0].shards[g]), o[1].shards[g], o[2].shards[g],
+                       o[1].shards[g] != xsm[blk])   # xs in: 1e6 > eps
+                what = f"mesh-smc-1m-generic #3 {bits_} shard {g}"
+                if bits_ == "hw":
+                    err_, border_ = compare_sweeps(
+                        torch, got, want, eps_t, what, band=1e-4,
+                        cost_atol=1e-4)
+                else:
+                    err_, border_ = compare_sweeps(torch, got, want, eps_t,
+                                                   what)
+                unequal += unequal_by_output(got, want)
+                check_untouched(torch, [x[blk] for x in thm]
+                                + [xsm[blk], lpsm[blk]], got[0]
+                                + [got[1], got[2]], got[3], what)
+                errs.append(err_)
+                borders += border_
+                acc += int(want[3].sum())
+            check(acc > 0, f"mesh-smc-1m-generic #3 {bits_}: no commit")
+            check(abs(int(o[3]) - acc) <= borders, f"mesh-smc-1m-generic "
+                  f"#3 {bits_}: {int(o[3])} accepts, plain {acc}")
+            if bits_ == "stub":
+                # the flagship prior's entries are not bit-equal to their
+                # plain versions (an ulp where one divides): the masks are
+                # held exactly, the values at the golden tolerance; the
+                # partner pointers bit for bit in prior-table
+                check(borders == 0, f"mesh-smc-1m-generic #3 stub: "
+                      f"{borders} commit masks differ")
+            partner_check[bits_] = dict(
+                max_abs_err=max(errs), masks_differ=borders, accepted=acc,
+                unequal_mu_sigma_xs_lps=unequal.tolist(), r1=r1, r2=r2)
         mesh_launches["fused_smc_sweep"] = n3
         mesh_launches["streaming_moment_cost"] = n4
         # the unsharded run, the same settings, in this script
@@ -3378,6 +3513,7 @@ def main():
         mesh_1m = dict(
             iterations=res.iterations, eps=res.eps, mu=mu_p.mean(),
             sigma=sg_p.mean(), wall_s=wall, launches_3=n3, launches_4=n4,
+            sweeps=counted.calls, kernel_3_vs_plain=partner_check,
             unsharded=dict(iterations=ref.iterations, eps=ref.eps,
                            mu=ref.P[0].mean(), sigma=ref.P[1].mean(),
                            wall_s=ref_wall))
@@ -3423,6 +3559,9 @@ def main():
                                 + discrete_smc["launches"]
                                 + mesh_launches["fused_smc_sweep"])
             rec["mesh_smc_1m_generic"] = mesh_1m
+            rec["prior_table_partners_bit_equal"] = partner_table
+            rec["max_abs_err"] = max(rec["max_abs_err"], *(
+                v["max_abs_err"] for v in partner_check.values()))
             rec["smc_1m_generic_priors"] = priors_smc
             rec["smc_1m_generic_discrete"] = discrete_smc
         if rec["name"] == "fused_ais_sweep":
@@ -3489,12 +3628,15 @@ def main():
             rec["launches"] = (smc_launches + rejection_launches
                                + mesh_launches["normal_summary_cost"])
             rec["max_abs_err"] = max(rec["max_abs_err"],
-                                     rejection_budget["cost_max_abs_err_131072"])
+                                     rejection_budget["cost_max_abs_err_131072"],
+                                     mesh_cost_err["normal_summary_cost"])
             rec["rejection_budget"] = rejection_budget
         if rec["name"] == "streaming_scan_cost":
             rec.setdefault("launches_by_path", {})["mesh-costs"] = \
                 mesh_launches["streaming_scan_cost"]
             rec["launches"] += mesh_launches["streaming_scan_cost"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     mesh_cost_err["streaming_scan_cost"])
     say(json.dumps({"mesh": {"roll": mesh_roll, "smc": mesh_smc,
                              "smc_1m_generic": mesh_1m}}))
     signal.alarm(0)

@@ -43,13 +43,16 @@ live as ``Sharded`` blocks of n/ndev walkers, each on its device, and
 the loop's scalars on the mesh's home device. The run is the same as
 without a mesh, as in the JAX package, whose per-particle keys come from
 global indices: every population-wide draw (the initial sample, the
-proposal scales and partners, the MH log-u, the resampling offset, and
-the draws of a per-walker or plain batched cost) is made on the whole
-population on the generator's device, as the unsharded run makes it,
-and cut into shards (``utils/rng.py`` ``ShardDraws`` for the cost); the
-roll partners move as shard-sized transfers (``roll_walkers``), the
-quantile is the bisection over scalar reductions, and a gather of
-partners or ancestors joins the population (an all-gather). A kernel
+proposal scales and partners, the MH log-u, the resampling offset) is
+made on the whole population on the generator's device, as the
+unsharded run makes it, and cut into shards; a per-walker or plain
+batched cost runs on the joined population (an all-gather of the pushed
+proposals) on that device, as the unsharded run runs it, and its costs
+are cut into shards; the roll partners move as shard-sized transfers
+(``roll_walkers``), the quantile is the bisection over scalar
+reductions, and a gather of partners or ancestors joins the population
+(an all-gather). The gates and the commit are one function of tensors
+(``mh_step``), run shard by shard. A kernel
 cost goes through ``shard_batched_cost``: once per shard, with the
 shard folded into its seed, so its parity with the unsharded run is
 statistical, as in the JAX package. The host reads are those of the
@@ -77,7 +80,7 @@ from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.rng import ShardDraws, as_generator, log_uniform
+from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
 _f32 = torch.float32
@@ -109,10 +112,31 @@ class SMCResult(NamedTuple):
     log_evidence: float = float("nan")
 
 
+def below(x, eps, flag):
+    """The eps test of gate 2 and of the alive mask (smc.jl:176-181):
+    ``x < eps``, or ``x <= eps`` where the boundary ``flag`` is set."""
+    eps, flag = eps.to(x.device), flag.to(x.device)
+    return torch.where(flag, x <= eps, x < eps)
+
+
+def mh_step(props, thetas, xs, lps, lpp, lprob, xp, alive, eps, flag):
+    """Gates 1 and 2 and the commit of one retry round, on one device's
+    walkers: returns (thetas, xs, lps, commit mask)."""
+    # gate 1 — prior-only MH (smc.jl:172-175); -inf lpp rejected
+    lm = torch.clamp(lpp - lps, max=0.0)
+    gate1 = alive & (lpp > float("-inf")) & (lprob < lm)
+    # gate 2 — simulator (smc.jl:176-181); batched, masked afterward
+    commit = gate1 & below(xp, eps, flag)
+    return (tselect(commit, props, thetas), torch.where(commit, xp, xs),
+            torch.where(commit, lpp, lps), commit)
+
+
 class _SMCProgram:
     """The smc program for one configuration: ``init_state(gen)``,
     ``body(state)``, ``cond(state)``, and ``__call__(gen)`` which runs
     the loop to its end."""
+
+    mesh = None
 
     def __init__(self, prior, cost, *, nparticles, alpha, mcmc_retrys,
                  mcmc_tol, epstol, r_epstol, min_r_ess, max_stretch,
@@ -146,9 +170,22 @@ class _SMCProgram:
     def batch_cost(self, thetas, gen):
         return self.cost(self.prior.push_tree(thetas), gen).to(_f32)
 
+    def place(self, tree):
+        """A whole population as the program holds it (shards on a
+        mesh)."""
+        return tree
+
+    def smap(self, f, *parts):
+        """``f`` on the walkers (shard by shard on a mesh); ``f`` returns
+        a tuple, and so does ``smap``."""
+        return f(*parts)
+
+    def total(self, x):
+        """The sum of a per-walker tensor over the population."""
+        return x.sum()
 
     def init(self, gen):
-        thetas = tfloat(self.prior.sample_tree(gen, self.n))
+        thetas = self.place(tfloat(self.prior.sample_tree(gen, self.n)))
         return thetas, self.batch_cost(thetas, gen), self.logpdf(thetas)
 
     def mcmc_sweep(self, gen, thetas, xs, lps, alive, eps, flag):
@@ -158,29 +195,24 @@ class _SMCProgram:
             return self.sweep_fused(gen, thetas, xs, lps, alive, eps, flag)
         props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
                                       self.max_stretch,
-                                      scheme=self.partner_scheme)
-        lprob = log_uniform(gen, (self.n,))
+                                      scheme=self.partner_scheme,
+                                      mesh=self.mesh)
+        lprob = self.place(log_uniform(gen, (self.n,)))
         lpp = self.logpdf(props)
-        # gate 1 — prior-only MH (smc.jl:172-175); -inf lpp rejected
-        lm = torch.clamp(lpp - lps, max=0.0)
-        gate1 = alive & (lpp > float("-inf")) & (lprob < lm)
-        # gate 2 — simulator (smc.jl:176-181); batched, masked afterward
         xp = self.batch_cost(props, gen)
-        gate2 = torch.where(flag, xp <= eps, xp < eps)
-        commit = gate1 & gate2
-        thetas = tselect(commit, props, thetas)
-        xs = torch.where(commit, xp, xs)
-        lps = torch.where(commit, lpp, lps)
-        return thetas, xs, lps, commit.sum()
+        thetas, xs, lps, commit = self.smap(
+            lambda *a: mh_step(*a, eps, flag), props, thetas, xs, lps, lpp,
+            lprob, xp, alive)
+        return thetas, xs, lps, self.total(commit)
 
     def alive_count(self, alive):
-        return alive.sum()
+        return self.total(alive)
 
     def _xmin(self, xs, alive):
         return torch.where(alive, xs, float("inf")).min()
 
     def _alive(self, xs, eps, flag):
-        return torch.where(flag, xs <= eps, xs < eps)
+        return self.smap(lambda x: (below(x, eps, flag),), xs)[0]
 
     def _resample(self, gen, thetas, xs, lps, alive):
         if self.resample == "replicate":
@@ -250,7 +282,7 @@ class _SMCProgram:
         dev = self.device
         return _SMCState(
             gen, thetas, xs, lps,
-            torch.ones(self.n, dtype=torch.bool, device=dev),
+            self.place(torch.ones(self.n, dtype=torch.bool, device=dev)),
             torch.tensor(float("inf"), dtype=_f32, device=dev),
             torch.tensor(0.0, dtype=_f32, device=dev),
             torch.tensor(0, dtype=torch.int64, device=dev),
@@ -289,57 +321,25 @@ class _ShardedSMCProgram(_SMCProgram):
     def place(self, tree):
         return M.place(self.mesh, tree)
 
+    def smap(self, f, *parts):
+        out = parts[0].map(f, *parts[1:])
+        return tuple(out.map(lambda o, k=k: o[k])
+                     for k in range(len(out.shards[0])))
+
+    def total(self, x):
+        return M.psum(self.mesh, [v.sum() for v in x.shards])
+
     def logpdf(self, thetas):
         return thetas.map(super().logpdf)
 
     def batch_cost(self, thetas, gen):
-        pushed = thetas.map(self.prior.push_tree)
         if isinstance(self.cost, M.ShardedCost):
-            out = self.cost(pushed, gen)
-        else:
-            draws = ShardDraws(self.n, self.s)
-            out = M.Sharded(self.mesh, [
-                draws.call(g * self.s, self.mesh.device_of(g), self.cost,
-                           p, gen)
-                for g, p in zip(thetas.index, pushed.shards)], self.n)
-            draws.check()
-        return out.map(lambda c: c.to(_f32))
-
-    def init(self, gen):
-        thetas = self.place(tfloat(self.prior.sample_tree(gen, self.n)))
-        return thetas, self.batch_cost(thetas, gen), self.logpdf(thetas)
-
-    def _on(self, v, like):
-        return v.to(like.device)
-
-    def mcmc_sweep(self, gen, thetas, xs, lps, alive, eps, flag):
-        if self.sweep_fused is not None:
-            return self.sweep_fused(gen, thetas, xs, lps, alive, eps, flag)
-        props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
-                                      self.max_stretch,
-                                      scheme=self.partner_scheme,
-                                      mesh=self.mesh)
-        lprob = self.place(log_uniform(gen, (self.n,)))
-        lpp = self.logpdf(props)
-        gate1 = alive.map(lambda al, lp, l0, u: al & (lp > float("-inf"))
-                          & (u < torch.clamp(lp - l0, max=0.0)),
-                          lpp, lps, lprob)
-        xp = self.batch_cost(props, gen)
-        commit = gate1.map(lambda g1, x: g1 & torch.where(
-            self._on(flag, x), x <= self._on(eps, x), x < self._on(eps, x)),
-            xp)
-        thetas = commit.map(tselect, props, thetas)
-        xs = commit.map(torch.where, xp, xs)
-        lps = commit.map(torch.where, lpp, lps)
-        return thetas, xs, lps, M.psum(self.mesh,
-                                       [c.sum() for c in commit.shards])
-
-    def _alive(self, xs, eps, flag):
-        return xs.map(lambda x: torch.where(
-            self._on(flag, x), x <= self._on(eps, x), x < self._on(eps, x)))
-
-    def alive_count(self, alive):
-        return M.psum(self.mesh, [a.sum() for a in alive.shards])
+            return self.cost(thetas.map(self.prior.push_tree), gen).map(
+                lambda c: c.to(_f32))
+        # a cost written in PyTorch runs on the joined population (an
+        # all-gather) on the generator's device, as the unsharded run
+        # runs it: the same draws and the same costs, cut into shards
+        return self.place(super().batch_cost(M.join(thetas), gen))
 
     def _xmin(self, xs, alive):
         return M.pmin(self.mesh, [torch.where(a, x, float("inf")).min()
@@ -362,10 +362,6 @@ class _ShardedSMCProgram(_SMCProgram):
             for g in thetas.index], self.n)
         return (rows.map(lambda r: r[0]), rows.map(lambda r: r[1]),
                 rows.map(lambda r: r[2]), alive.map(torch.ones_like))
-
-    def init_state(self, gen) -> _SMCState:
-        state = super().init_state(gen)
-        return state._replace(alive=self.place(state.alive))
 
     def checkpoint_view(self, state):
         """The state with the population joined: the layout of the
@@ -436,6 +432,12 @@ def _program(prior, cost, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
                 "for the SAME mesh: make_fused_smc_sweep(..., mesh=mesh) — "
                 "a single-device fused sweep cannot run on sharded "
                 "populations")
+    if mesh is not None and cost_vectorized \
+            and not isinstance(cost, M.ShardedCost) \
+            and callable(getattr(cost, "seeded", None)):
+        raise NotImplementedError(
+            f"{caller}(mesh=...): a kernel cost runs once per shard on a "
+            "mesh: pass shard_batched_cost(cost, mesh)")
     if isinstance(cost, M.ShardedCost) and cost.mesh is not mesh:
         raise ValueError(
             f"{caller}: a cost from shard_batched_cost runs on the SAME "

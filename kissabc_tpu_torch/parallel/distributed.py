@@ -16,7 +16,8 @@ The collectives of ``parallel/mesh.py`` go through ``torch.distributed``
 
 launched as ``torchrun --nproc-per-node=K script.py`` on a host with K
 cards (one card a process). With no cluster, ``initialize`` is a no-op
-and ``global_mesh`` a local mesh.
+and ``global_mesh`` a mesh over this process's cards (or over the
+devices named to ``initialize``, e.g. ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ def initialize(coordinator_address: str | None = None,
     ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` as ``torchrun`` sets
     them; ``coordinator_address`` is ``host:port``. Returns True when a
     group of several processes (or a one-rank group asked for by its
-    arguments) was started, False for the single-host no-op.
+    arguments) was started, False for the single-host no-op (which
+    only records ``device="cpu"`` or ``local_devices`` for
+    ``global_mesh``).
 
     The backend is nccl when the process has a card, gloo when
     ``device="cpu"``. ``local_devices``: this process's shard devices
@@ -59,7 +62,11 @@ def initialize(coordinator_address: str | None = None,
         num_processes = int(env["WORLD_SIZE"])
     if process_id is None and env.get("RANK"):
         process_id = int(env["RANK"])
+    cpu = device is not None and torch.device(device).type == "cpu"
     if coordinator_address is None and num_processes is None:
+        if cpu or local_devices is not None:   # asked for by name
+            _local["devices"] = [torch.device(d) for d in
+                                 (local_devices or ["cpu"])]
         return False
     if coordinator_address is None or num_processes is None \
             or process_id is None:
@@ -68,7 +75,6 @@ def initialize(coordinator_address: str | None = None,
             "processes and this process's id (or MASTER_ADDR/MASTER_PORT, "
             "WORLD_SIZE and RANK)")
     import torch.distributed as dist
-    cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu and not torch.cuda.is_available():
         raise RuntimeError(
             "initialize: no CUDA device for the nccl backend; pass "
@@ -93,20 +99,26 @@ def initialize(coordinator_address: str | None = None,
 
 
 def _local_devices():
+    """This process's devices: those ``initialize`` was given, else its
+    cards (none without a card: a CPU mesh is asked for by name)."""
     if _local["devices"] is not None:
         return _local["devices"]
     if torch.cuda.is_available():
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    return []
 
 
 def global_mesh(**axes) -> Mesh:
     """A mesh over every process's local devices, process-major; the
     sizes must multiply to the global device count. Without a process
-    group, ``make_mesh`` over this process's devices."""
+    group, ``make_mesh`` over this process's devices: its cards, or the
+    devices named to ``initialize`` (``device="cpu"`` or
+    ``local_devices=``); without either it raises, as ``make_mesh``."""
     if not _initialized():
-        return make_mesh(devices=_local_devices(), **axes)
+        if _local["devices"] is None:
+            return make_mesh(**axes)
+        return make_mesh(devices=_local["devices"], **axes)
     import torch.distributed as dist
     world, rank = dist.get_world_size(), dist.get_rank()
     local = _local_devices()

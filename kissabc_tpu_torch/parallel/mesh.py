@@ -417,7 +417,7 @@ class ShardedCost:
                 "thetas, seed) form: make_flagship_cost_batched(), "
                 "make_streaming_moment_cost(...) or "
                 "make_streaming_scan_cost(...); a cost written in PyTorch "
-                "runs on a mesh as it is (its draws are cut into shards)")
+                "runs on a mesh as it is (on the joined population)")
         self.cost, self.mesh, self.axis = cost_batched, mesh, axis
 
     def __call__(self, thetas, gen):

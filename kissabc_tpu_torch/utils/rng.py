@@ -52,95 +52,3 @@ def randexp(gen: torch.Generator, shape) -> torch.Tensor:
 def log_uniform(gen: torch.Generator, shape) -> torch.Tensor:
     """log(U(0,1]) — the MH accept threshold draw (== -randexp)."""
     return -randexp(gen, shape)
-
-
-class ShardDraws:
-    """Random draws from the run's generator made at the population's
-    full size and cut into shards, so that a function mapped over the
-    walkers (a per-walker cost under ``torch.func.vmap``, a plain batched
-    cost), run shard by shard, draws what it draws on the whole
-    population: ``call(lo, device, fn, *args)`` runs ``fn`` for the
-    shard of walkers ``[lo, lo + s)``. Each draw with a generator inside
-    it, whose leading axis is the shard's ``s`` walkers, becomes ``[lo,
-    lo + s)`` of the same draw over all ``n`` walkers, made on the
-    generator's device the first time a shard asks for it and moved to
-    ``device``. Every shard must make the same draws in the same order
-    (``check``); a draw of another shape raises, since it could not be
-    the same as on the whole population. A draw without a generator (the
-    global one) is left as it is."""
-
-    def __init__(self, n, s):
-        self.n, self.s = n, s
-        self.full = []   # (op, full draw), in call order
-        self.calls = []  # draws taken by each call
-
-    def call(self, lo, device, fn, *args):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        owner, taken = self, [0]
-
-        class _Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                # the dispatcher hands a new wrapper of the generator: any
-                # draw with one inside ``fn`` is taken to be from ``gen``
-                if kwargs.get("generator") is None:
-                    return func(*args, **kwargs)
-                i = taken[0]
-                taken[0] += 1
-                return owner._draw(i, func, args, kwargs, lo, device)
-
-        with _Mode():
-            out = fn(*args)
-        self.calls.append(taken[0])
-        return out
-
-    def _draw(self, i, func, args, kwargs, lo, device):
-        names = [a.name for a in func._schema.arguments]
-        inplace = func._schema.is_mutable and names[0] == "self"
-        if inplace:
-            shape = tuple(args[0].shape)
-        elif "size" in names:
-            k = names.index("size")
-            shape = tuple(args[k] if k < len(args) else kwargs["size"])
-        else:
-            shape = None
-        if not shape or shape[0] != self.s:
-            raise NotImplementedError(
-                f"a draw from the run's generator on a mesh must have the "
-                f"shard's {self.s} walkers on its leading axis (it is made "
-                f"on all {self.n} and cut into shards), got {func} of shape "
-                f"{shape}; wrap a kernel cost in shard_batched_cost")
-        full_shape = (self.n,) + shape[1:]
-        if i == len(self.full):
-            dev = kwargs["generator"].device
-            if inplace:
-                t = torch.empty(full_shape, dtype=args[0].dtype, device=dev)
-                func(t, *args[1:], **kwargs)
-            else:
-                a = list(args)
-                kw = dict(kwargs, device=dev)
-                if k < len(a):
-                    a[k] = list(full_shape)
-                else:
-                    kw["size"] = list(full_shape)
-                t = func(*a, **kw)
-            self.full.append((func, t))
-        op, t = self.full[i]
-        if op is not func or tuple(t.shape) != full_shape:
-            raise RuntimeError(
-                f"the shards drew differently: draw {i} is {func} of shape "
-                f"{full_shape} here and {op} of shape {tuple(t.shape)} on "
-                "the first shard")
-        piece = t[lo:lo + self.s].to(device)
-        if inplace:
-            args[0].copy_(piece)
-            return args[0]
-        return piece
-
-    def check(self):
-        """Every shard took every draw."""
-        if any(c != len(self.full) for c in self.calls):
-            raise RuntimeError(
-                f"the shards drew differently: {self.calls} draws for "
-                f"{len(self.full)} made")

@@ -9,7 +9,9 @@ meshes of 2, 4 and 8 CPU shards, mirroring tests/test_collectives.py:
   ``torch.roll`` where the JAX function does;
 - the sharded bisect quantile and systematic resampling from one ``u0``
   equal the JAX functions on the same input;
-- ``ShardDraws`` cuts draws made on the whole population into shards;
+- a cost written in PyTorch runs on the joined population (one join of
+  the pushed proposals, its costs cut into shards), drawing what the
+  unsharded cost draws;
 - the sharded fused smc sweep (plain path): distinct per-shard seeds, the
   accept count the sum of the shards', each shard the unsharded plain
   sweep on its block with the rolled partners, and the JAX sharded sweep
@@ -22,7 +24,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.func import vmap
 
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
@@ -35,7 +36,6 @@ from kissabc_tpu_torch.ops import quantile as tq
 from kissabc_tpu_torch.ops import resampling as tres
 from kissabc_tpu_torch.ops.moves import roll_shifts
 from kissabc_tpu_torch.parallel import mesh as M
-from kissabc_tpu_torch.utils.rng import ShardDraws
 
 
 def _mesh(k):
@@ -182,29 +182,39 @@ def test_sharded_systematic_matches_jax_from_one_u0(ndev):
             torch.from_numpy(alive).to(torch.float32), u0).numpy())
 
 
-def test_shard_draws_cut_the_whole_populations_draws():
+def test_plain_cost_runs_on_the_joined_population():
+    """A stochastic per-walker cost on a mesh of 4 shards: the program
+    joins the pushed proposals once (one shard-sized transfer a leaf and
+    shard), runs the cost on the generator's device and cuts the costs
+    into shards, equal bit for bit to the unsharded cost, with the
+    generator left in the same state."""
+    from kissabc_tpu_torch.core.smc import _program
+
     def cost(th, g):
         x = th + torch.randn(100, generator=g, device=g.device)
         u = torch.rand(3, generator=g, device=g.device)
         e = torch.empty_like(x).exponential_(generator=g)
         return x.mean() + u.sum() + e.mean()
 
-    mapped = vmap(cost, in_dims=(0, None), randomness="different")
-    n, s = 64, 16
+    n, mesh = 64, _mesh(4)
+    pri = kt.Normal(1, 0.2)
+    kw = dict(nparticles=n, alpha=0.95, mcmc_retrys=0, mcmc_tol=0.015,
+              epstol=0.0, r_epstol=None, min_r_ess=None, max_stretch=2.0,
+              max_iters=10, resample="replicate", verbose=False,
+              cost_vectorized=False, partner_scheme="auto",
+              quantile_impl="auto", sweep_fused=None, caller="smc")
+    one = _program(pri, cost, mesh=None, device="cpu", **kw)
+    sharded = _program(pri, cost, mesh=mesh, device=None, **kw)
     th = torch.linspace(0, 1, n)
-    want = mapped(th, torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(0)
-    draws = ShardDraws(n, s)
-    got = torch.cat([draws.call(lo, "cpu", mapped, th[lo:lo + s], gen)
-                     for lo in range(0, n, s)])
-    draws.check()
-    assert torch.equal(got, want) and len(draws.full) == 3
-    ref = torch.Generator().manual_seed(0)
-    mapped(th, ref)
+    gen, ref = torch.Generator().manual_seed(0), torch.Generator()
+    ref.manual_seed(0)
+    want = one.batch_cost(th, ref)
+    M.reset_transfer_counts()
+    got = sharded.batch_cost(M.place(mesh, th), gen)
+    assert M.transfers["join"] == 4
+    assert isinstance(got, M.Sharded) and got.index == [0, 1, 2, 3]
+    assert torch.equal(M.join(got), want)
     assert torch.equal(gen.get_state(), ref.get_state())
-    with pytest.raises(NotImplementedError, match="leading axis"):
-        ShardDraws(n, s).call(0, "cpu", lambda g: torch.rand(
-            5, generator=g), gen)
 
 
 def _sweep_case(n=512, ndev=4):

@@ -16,6 +16,7 @@ import sys
 import textwrap
 import threading
 
+import pytest
 import torch
 
 import kissabc_tpu_torch as kt
@@ -115,6 +116,18 @@ def test_single_host_is_a_no_op(monkeypatch):
     assert dist.initialize() is False
     info = dist.process_info()
     assert info["process_index"] == 0 and info["process_count"] == 1
-    mesh = dist.global_mesh(walker=1)
-    assert mesh.size == 1 and not mesh.distributed
-    assert mesh.home == dist._local_devices()[0]
+    if torch.cuda.is_available():
+        mesh = dist.global_mesh(walker=1)
+        assert mesh.size == 1 and not mesh.distributed
+        assert mesh.home == torch.device("cuda", 0)
+    else:   # no quiet CPU mesh: the CPU is asked for by name
+        assert info["local_devices"] == 0
+        with pytest.raises(ValueError, match="mesh needs 1 devices, have 0"):
+            dist.global_mesh(walker=1)
+    try:
+        assert dist.initialize(device="cpu") is False
+        mesh = dist.global_mesh(walker=1)
+        assert mesh.size == 1 and not mesh.distributed
+        assert mesh.home == torch.device("cpu")
+    finally:
+        dist.shutdown()

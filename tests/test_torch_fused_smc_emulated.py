@@ -2,7 +2,9 @@
 ``kissabc_tpu_torch/csrc/generic.cuh``) compiled for the host with ``g++``
 against the emulation in ``tests/host_cuda/cuda_runtime.h`` and called
 through its entry point ``kt_fused_smc_sweep``, against the plain version
-``fused_smc_sweep_plain`` on the same inputs: on the mixed discrete prior
+``fused_smc_sweep_plain`` on the same inputs, with the partners read from
+the walkers' own leaves (null partner pointers) or, as a shard of a mesh
+runs it, from two other sets of leaves: on the mixed discrete prior
 of tests/test_pallas.py:873 the kernel pushes the proposal (m rounded
 half to even) for the prior and the simulator and commits the raw
 proposal, as the JAX kernel does (pallas_kernels.py:2270-2280); on the
@@ -55,6 +57,16 @@ def _ptrs(ts):
 @pytest.mark.parametrize("bits", ["hw", "stub"])
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_kernel_matches_the_plain_version(tmp_path, name, bits):
+    _check(tmp_path, name, bits, partners=False)
+
+
+@pytest.mark.parametrize("bits", ["hw", "stub"])
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_kernel_reads_the_given_partners(tmp_path, name, bits):
+    _check(tmp_path, name, bits, partners=True)
+
+
+def _check(tmp_path, name, bits, partners):
     prior, draw, reduce_cost, th = MODELS[name]()
     sw = kt.make_fused_smc_sweep(prior, draw, reduce_cost, ndraws=NDRAWS,
                                  chunk=CHUNK, bits=bits)
@@ -66,11 +78,20 @@ def test_kernel_matches_the_plain_version(tmp_path, name, bits):
     xs = torch.full((N,), 1e6)
     alive = torch.arange(N) % 7 != 0
     r1, r2, seed = 5, N // 2 + 3, 2024
+    parts = None
+    if partners:
+        # a shard's form on a mesh: shifts 0 and the partners given as
+        # two other sets of leaves, here not rolls of the walkers' own,
+        # so a partner read from the wrong set or row shows
+        rng = np.random.default_rng(7)
+        parts = tuple([torch.tensor(rng.permutation(x), dtype=torch.float32)
+                       for x in th] for _ in range(2))
+        r1 = r2 = 0
     probe = F.fused_smc_sweep_plain(sw, leaves, xs, lps, alive, 1e6, False,
-                                    r1, r2, seed)
+                                    r1, r2, seed, partners=parts)
     eps = float(probe[1][probe[3]].median())
     want = F.fused_smc_sweep_plain(sw, leaves, xs, lps, alive, eps, False,
-                                   r1, r2, seed)
+                                   r1, r2, seed, partners=parts)
     oth = [torch.full((N,), -7.0) for _ in leaves]
     oxs, olps = torch.full((N,), -7.0), torch.full((N,), -7.0)
     ocm = torch.zeros(N, dtype=torch.uint8)
@@ -89,7 +110,9 @@ def test_kernel_matches_the_plain_version(tmp_path, name, bits):
         ctypes.cast(_ptrs(oth), ctypes.c_void_p), oxs.data_ptr(),
         olps.data_ptr(), ocm.data_ptr(), N, NDRAWS,
         float(np.float32(1.0 / NDRAWS)), sw.w_scale, int(bits == "stub"),
-        sw._sb_rows(N), CHUNK, N // THREADS, THREADS, None, None, None)
+        sw._sb_rows(N), CHUNK, N // THREADS, THREADS, None,
+        *((None, None) if parts is None else
+          (ctypes.cast(_ptrs(p), ctypes.c_void_p) for p in parts)))
     assert err == 0
     got_cm, want_cm = ocm.to(torch.bool), want[3]
     border = (want[1] - eps).abs() < 1e-4

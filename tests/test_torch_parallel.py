@@ -3,8 +3,9 @@
 tests/test_parallel.py: the mesh's shape and names, ``constrainer``,
 the sharded posterior, sharded equal to unsharded (bit for bit here: the
 port draws every population-wide number on the whole population and
-cuts it into shards, so even the default scheme and a stochastic
-per-walker cost give the same bits; the JAX tests hold rtol 1e-5 and
+cuts it into shards, and runs a cost written in PyTorch on the joined
+population, so even the default scheme and a stochastic per-walker cost
+give the same bits; the JAX tests hold rtol 1e-5 and
 equal iterations), ``smc_stepped`` checkpointed on the mesh and resumed
 on the mesh or on one device, the SAME-mesh rule of ``sweep_fused``,
 ``shard_batched_cost`` and the top-level names. ~25 s in one process.
@@ -89,9 +90,9 @@ def test_smc_sharded_matches_unsharded(kw):
 
 
 def test_stochastic_per_walker_cost_sharded_matches_unsharded():
-    """The cost's draws are made on the whole population and cut into
-    shards (``ShardDraws``): the README model's per-walker form gives the
-    same bits on 8 shards and on one device."""
+    """The cost runs on the joined population, as on one device, and its
+    costs are cut into shards: the README model's per-walker form gives
+    the same bits on 4 shards and on one device."""
     def cost(theta, g):
         mu, sigma = theta
         x = mu + sigma * torch.randn(200, generator=g, device=g.device)
