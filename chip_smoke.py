@@ -58,7 +58,18 @@ sweep (two launches) at 4096 and 131072 walkers; ``kernel-times`` (2^20) and
 ``cost-kernel-times`` (1000, 16384, and g-and-k at 131072) time #4 at
 each geometry of ``GEOMETRIES_4``, which must give equal outputs. Every
 phase prints one line with its result and seconds; any failed check
-raises and the script exits non-zero. The line before the last is one
+raises and the script exits non-zero. Slice 9 adds walker sharding on 4
+shards of the one card (``mesh-roll``, ``mesh-smc``, ``mesh-costs``,
+``mesh-smc-1m-generic``, ``mesh-distributed``); slice 10 the other
+samplers on that mesh and on ``(chain=2, walker=2)``: ``mesh-ais`` (AIS
+on the README model, roll and gather, and two chains, each bit-equal to
+one device), ``mesh-ais-fused-generic`` (#6 once per shard on g-and-k at
+131072 x 1000, its partners-given form per shard against the plain
+version and the snapshot form), ``mesh-tsmc`` (split bit-equal at 4096,
+#9 per shard at 131072), ``mesh-pfilter``, ``mesh-abcde`` (split
+bit-equal, #10 per shard at 16384 x 1000) and ``mesh-rejection`` (a
+PyTorch cost bit-equal, #1 per shard through ``shard_batched_cost``),
+and ABCDE on the one-rank nccl group. The line before the last is one
 JSON object with every kernel's launches on its path, its error against
 its plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3536,6 +3547,12 @@ def main():
             r = kt.smc(prior, readme_cost, partner_scheme="roll", mesh=gm,
                        **dict(nparticles=4096, epstol=EPSTOL, key=2))
             wall = time.perf_counter() - t0
+            de_kw = dict(nparticles=4096, generations=50, verbose=False,
+                         key=1)
+            t0 = time.perf_counter()
+            rd = kt.ABCDE(kt.Normal(1, 0.2), models.dirac_cost, 0.01,
+                          mesh=gm, **de_kw)
+            wall_de = time.perf_counter() - t0
         finally:
             PD.shutdown()
         a = kt.smc(prior, readme_cost, partner_scheme="roll",
@@ -3543,8 +3560,401 @@ def main():
         check(all(np.array_equal(x.particles, y.particles)
                   for x, y in zip(a.P, r.P)) and a.iterations == r.iterations,
               "mesh-distributed: the one-rank nccl mesh differs")
-        ph.result = (f"nccl, world size 1: iterations {r.iterations}, equal "
-                     f"to one device; wall {wall:.3f} s")
+        ad = kt.ABCDE(kt.Normal(1, 0.2), models.dirac_cost, 0.01, **de_kw)
+        check(np.array_equal(ad.P.particles, rd.P.particles)
+              and ad.nsim == rd.nsim,
+              "mesh-distributed: ABCDE on the one-rank nccl mesh differs")
+        ph.result = (f"nccl, world size 1: smc iterations {r.iterations}, "
+                     f"equal to one device, wall {wall:.3f} s; ABCDE 50 "
+                     f"generations at 4096 equal to one device, wall "
+                     f"{wall_de:.3f} s")
+
+    # ---- slice 10: walker sharding of the other samplers ---------------
+    # 4 shards of the one card (mesh4), and (chain=2, walker=2) for chains
+    mesh22 = PM.make_mesh(chain=2, walker=2, devices=["cuda:0"] * 4)
+    mesh10 = {}     # each phase's record
+    launches10 = {}
+    partner_forms = {}
+
+    def rolled_block(comp, shifts, blk):
+        """A shard's partner leaves, leaf-major: each leaf of the whole
+        other half rolled by -r (torch.roll), the shard's block."""
+        return [torch.roll(c, -int(r), 0)[blk] for c in comp for r in shifts]
+
+    def check_partner_form(sw, stub_sw, upd, lp, ll, comp, extra, what):
+        """Kernel #6 or #9 on one half of h walkers as 4 shards run it:
+        each shard's partners-given kernel (``half_parts``, the shard's
+        folded seed) against the plain partner form on torch.roll'ed
+        partners, on Philox and stub bits (masks equal but at the accept
+        threshold, values at the golden tolerance); on stub bits the
+        partner form given the snapshot's rolls over the whole half gives
+        the snapshot form's bits; then each form's time at h and the
+        partner form's at a shard's h / 4, by events with the host's
+        launches."""
+        h = upd[0].shape[0]
+        s4 = h // 4
+        words = FA.uint32_words(torch.Generator(device=dev).manual_seed(21),
+                                7)
+        shifts = FA.rot_shifts6(words[:6], h).tolist()
+        out = {}
+        for bits_, w in (("hw", sw), ("stub", stub_sw)):
+            tot = [0.0, 0, 0, 0]
+            for g in range(4):
+                blk = slice(g * s4, (g + 1) * s4)
+                parts = rolled_block(comp, shifts, blk)
+                seed_g = PM.fold_seed(words[6], g).reshape(1)
+                ins = [x[blk] for x in upd] + [lp[blk], ll[blk]]
+                got = w.half_parts([x[blk] for x in upd], lp[blk], ll[blk],
+                                   parts, seed_g, *extra)
+                want = w.half_plain([x[blk] for x in upd], lp[blk], ll[blk],
+                                    None, None, seed_g, *extra, terms=True,
+                                    partners=parts)
+                r = ais_compare(flat(got), flat(want), ins,
+                                f"{what} {bits_} shard {g}", want[3][1])
+                tot = [max(tot[0], r[0])] + [a + b for a, b in
+                                             zip(tot[1:], r[1:])]
+            check(tot[2] > 0, f"{what} {bits_}: no commit")
+            out[bits_] = dict(zip(("max_abs_err", "unequal", "commits",
+                                   "borderline"), tot))
+        whole = rolled_block(comp, shifts, slice(0, h))
+        snap = stub_sw.half_words(upd, lp, ll, comp, words, *extra)
+        given = stub_sw.half_parts(upd, lp, ll, whole, words[6:], *extra)
+        check(same_bits(flat(snap), flat(given)), f"{what}: the partner "
+              "form given the snapshot's rolls is not the snapshot form")
+        out["snapshot_rolls_bit_equal"] = True
+        out["ms_snapshot_h"] = cuda_ms(torch, lambda: sw.half_words(
+            upd, lp, ll, comp, words, *extra), 20)
+        out["ms_partners_h"] = cuda_ms(torch, lambda: sw.half_parts(
+            upd, lp, ll, whole, words[6:], *extra), 20)
+        blk0 = slice(0, s4)
+        parts0 = rolled_block(comp, shifts, blk0)
+        out["ms_partners_shard"] = cuda_ms(torch, lambda: sw.half_parts(
+            [x[blk0] for x in upd], lp[blk0], ll[blk0], parts0, words[6:],
+            *extra), 20)
+        out["h"] = h
+        return out
+
+    with Phase("mesh-ais") as ph:
+        # the README model (per-walker cost, 1000 draws a walker, as
+        # ais-readme) at 4096 walkers, 20 sweeps, on one device and on 4
+        # shards, roll and gather: bit-equal, no kernel; then chains=2 on
+        # (chain=2, walker=2) against the unsharded chains=2 run
+        model_r = kt.ApproxKernelizedPosterior(prior, readme_cost, 0.005)
+        out = {}
+        kw = dict(ntransitions=20, key=5)
+        for scheme in ("roll", "gather"):
+            reset_counts()
+            PM.reset_transfer_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = kt.sample(model_r, kt.AIS(4096), 4096, partner_scheme=scheme,
+                          **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            b = kt.sample(model_r, kt.AIS(4096), 4096, partner_scheme=scheme,
+                          mesh=mesh4, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(all(np.array_equal(x.particles, y.particles)
+                      for x, y in zip(a, b)),
+                  f"mesh-ais {scheme}: sharded differs from one device")
+            check(not any(counts().values()), "mesh-ais ran a kernel")
+            out[scheme] = dict(bit_equal=True, wall_s=t1 - t0,
+                               mesh_wall_s=t2 - t1,
+                               permutes=PM.transfers["permute"],
+                               joins=PM.transfers["join"],
+                               shift_reads=PM.host_reads["shifts"])
+        kw2 = dict(kw, chains=2, partner_scheme="roll")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = kt.sample(model_r, kt.AIS(4096), 4096, **kw2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = kt.sample(model_r, kt.AIS(4096), 4096, mesh=mesh22, **kw2)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(len(b[0]) == 2 * 4096 and all(
+            np.array_equal(x.particles, y.particles) for x, y in zip(a, b)),
+            "mesh-ais: (chain=2, walker=2) differs from the unsharded "
+            "chains=2 run")
+        check(not any(counts().values()), "mesh-ais ran a kernel")
+        out["chains2"] = dict(bit_equal=True, wall_s=t1 - t0,
+                              mesh_wall_s=t2 - t1)
+        mesh10["ais"] = out
+        ph.result = json.dumps(out)
+
+    with Phase("mesh-ais-fused-generic") as ph:
+        # ais-fused-generic on 4 shards: g-and-k at 131072 x 1000 draws,
+        # 200 sweeps through #6 built for the mesh (8 launches a sweep),
+        # the posterior within the tolerances ais-fused-generic uses
+        # against the split run; then #6's partner form per shard
+        n, h = 131072, 65536
+        msw6 = kt.make_fused_ais_sweep(gprior, gdraw, greduce, scale=0.05,
+                                       halves=True, mesh=mesh4)
+        halves0 = (AI._halves(thg, h),
+                   ((ldg[0][:h], ldg[1][:h]), (ldg[0][h:], ldg[1][h:])))
+        PM.reset_transfer_counts()
+        thm, _, wall_m, launched = iterate(msw6, *halves0, 200, 7)
+        n6 = launched["fused_ais_sweep"]
+        check(n6 == 8 * 200, f"mesh #6 launched {n6} times in 200 sweeps")
+        check(sum(launched.values()) == n6,
+              f"mesh-ais-fused-generic launched another kernel: {launched}")
+        check(PM.host_reads["shifts"] == 400 and PM.transfers["join"] == 0,
+              f"mesh #6: {PM.host_reads} host reads, {PM.transfers}")
+        launches10["fused_ais_sweep"] = n6
+        thm = AI._unhalves(tuple(PM.join(x) for x in thm))
+        stats = []
+        for i, tol in ((0, 0.1), (1, 0.1), (2, 0.25), (3, 0.05)):
+            a_, b_ = ths[i].double(), thm[i].double()
+            check(abs(float(a_.mean() - b_.mean())) < tol,
+                  f"mesh g-and-k param {i}: mean {float(a_.mean())} vs "
+                  f"{float(b_.mean())}")
+            check(abs(float(a_.std() / b_.std()) - 1.0) < 0.3,
+                  f"mesh g-and-k param {i}: std {float(a_.std())} vs "
+                  f"{float(b_.std())}")
+            stats.append(f"{float(b_.mean()):.4f}+-{float(b_.std()):.4f}")
+        upd6 = [x[:h].contiguous() for x in thg]
+        comp6 = [x[h:].contiguous() for x in thg]
+        partner_forms["fused_ais_sweep"] = check_partner_form(
+            msw6, ais_sweeps["g-and-k"][1], upd6, ldg[0][:h].contiguous(),
+            ldg[1][:h].contiguous(), comp6, (), "mesh #6")
+        mesh10["ais_fused_generic"] = dict(
+            sweeps=200, wall_s=wall_m, unsharded_wall_s=wall_f,
+            launches=n6, posterior=stats,
+            partner_form=partner_forms["fused_ais_sweep"])
+        ph.result = json.dumps(mesh10["ais_fused_generic"])
+
+    with Phase("mesh-tsmc") as ph:
+        # the conjugate model: the split rejuvenation at 4096 bit-equal to
+        # one device; #9 built for the mesh at 131072, 5 MCMC steps, once
+        # per shard a half-update, lam 1 and the tsmc-conjugate bands; then
+        # #9's partner form per shard
+        m_t, sd_t, logz_t = tsmc_truth
+        out = {}
+        kw = dict(nparticles=4096, mcmc_steps=5, loglike_vectorized=True,
+                  key=1)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = kt.tsmc(cprior, ll_vec, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = kt.tsmc(cprior, ll_vec, mesh=mesh4, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(np.array_equal(a.P.particles, b.P.particles)
+              and a.log_evidence == b.log_evidence
+              and a.iterations == b.iterations,
+              f"mesh-tsmc split: sharded differs: {a.iterations} vs "
+              f"{b.iterations} iterations, log Z {a.log_evidence} vs "
+              f"{b.log_evidence}")
+        check(not any(counts().values()), "mesh-tsmc split ran a kernel")
+        out["split n=4096"] = dict(bit_equal=True, iterations=b.iterations,
+                                   log_evidence=b.log_evidence,
+                                   wall_s=t1 - t0, mesh_wall_s=t2 - t1)
+        msw9 = kt.make_fused_tempered_sweep(cprior, ll_conj, mesh=mesh4)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = kt.tsmc(cprior, ll_vec, nparticles=131072, mcmc_steps=5,
+                    loglike_vectorized=True, key=1, mesh=mesh4,
+                    sweep_fused=msw9)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n9 = counts()["fused_tempered_sweep"]
+        check(n9 == 4 * 2 * 5 * r.iterations, f"mesh #9 launched {n9} "
+              f"times in {r.iterations} iterations")
+        check(sum(counts().values()) == n9, "mesh-tsmc launched another "
+              f"kernel: {counts()}")
+        launches10["fused_tempered_sweep"] = n9
+        check(r.lam == 1.0, f"mesh tsmc: lam {r.lam}")
+        check(abs(r.P.mean() - m_t) < 0.02, f"mesh tsmc: mean {r.P.mean()}")
+        check(abs(r.P.std() - sd_t) < 0.02, f"mesh tsmc: sd {r.P.std()}")
+        check(abs(r.log_evidence - logz_t) < 0.15,
+              f"mesh tsmc: log Z {r.log_evidence} vs {logz_t}")
+        out["fused n=131072"] = dict(
+            iterations=r.iterations, mean=float(r.P.mean()),
+            sd=float(r.P.std()), log_evidence=r.log_evidence, wall_s=wall,
+            launches=n9)
+        h = 65536
+        th9 = torch.randn(2 * h, generator=gen, device=dev)
+        lp9, ll9 = cprior.logpdf(th9).float(), ll_conj(th9).float()
+        partner_forms["fused_tempered_sweep"] = check_partner_form(
+            msw9, tempered["conjugate"][1], [th9[:h]], lp9[:h], ll9[:h],
+            [th9[h:]], (torch.tensor(0.3, device=dev),), "mesh #9")
+        out["partner_form"] = partner_forms["fused_tempered_sweep"]
+        mesh10["tsmc"] = out
+        ph.result = json.dumps(out)
+
+    with Phase("mesh-pfilter") as ph:
+        # pfilter-mixture on 4 shards: bit-equal to one device
+        kw = dict(key=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = kt.pfilter(kt.Uniform(-10, 10), models.mixture_cost, 4096, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = kt.pfilter(kt.Uniform(-10, 10), models.mixture_cost, 4096,
+                       mesh=mesh4, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(np.array_equal(a.P.particles, b.P.particles)
+              and np.array_equal(a.C.particles, b.C.particles)
+              and a.eps == b.eps and a.iterations == b.iterations,
+              "mesh-pfilter: sharded differs from one device")
+        check(abs(float(b.P.mean())) < 0.25 and b.eps < 1.0,
+              f"mesh pfilter: mean {float(b.P.mean())}, eps {b.eps}")
+        mesh10["pfilter"] = dict(bit_equal=True, iterations=b.iterations,
+                                 eps=b.eps, wall_s=t1 - t0,
+                                 mesh_wall_s=t2 - t1)
+        ph.result = json.dumps(mesh10["pfilter"])
+
+    with Phase("mesh-abcde") as ph:
+        # the split generation with a PyTorch cost (abcde-dirac's model,
+        # 4096, 100 generations) bit-equal to one device; #10 built for
+        # the mesh at 16384 x 1000 (4 launches a generation), #4 by
+        # shard_batched_cost at the init, 60 generations and the rule of
+        # abcde-fused; then each shard's #10 against its plain version
+        out = {}
+        kw = dict(nparticles=4096, generations=100, earlystop=True,
+                  verbose=False, key=1)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = kt.ABCDE(kt.Normal(1, 0.2), models.dirac_cost, 0.01, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = kt.ABCDE(kt.Normal(1, 0.2), models.dirac_cost, 0.01, mesh=mesh4,
+                     **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(np.array_equal(a.P.particles, b.P.particles)
+              and np.array_equal(a.C.particles, b.C.particles)
+              and a.nsim == b.nsim and a.iterations == b.iterations,
+              "mesh-abcde split: sharded differs from one device")
+        check(not any(counts().values()), "mesh-abcde split ran a kernel")
+        out["split n=4096"] = dict(bit_equal=True, iterations=b.iterations,
+                                   nsim=b.nsim, wall_s=t1 - t0,
+                                   mesh_wall_s=t2 - t1)
+        mgen = kt.make_fused_abcde_generation(fprior, fdraw, freduce,
+                                              gamma=gamma_de, mesh=mesh4)
+        mcost = kt.shard_batched_cost(costs["flagship"][0], mesh4)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = kt.ABCDE(fprior, mcost, 0.02, nparticles=16384, generations=60,
+                     cost_vectorized=True, verbose=False, key=2, mesh=mesh4,
+                     sweep_fused=mgen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        n10, n4 = (launched["fused_abcde_generation"],
+                   launched["streaming_moment_cost"])
+        check(n10 == 4 * 60, f"mesh #10 launched {n10} times in 60 "
+              "generations")
+        check(n4 >= 4 and n4 % 4 == 0, f"mesh #4 launched {n4} times")
+        check(sum(launched.values()) == n10 + n4,
+              f"mesh-abcde launched another kernel: {launched}")
+        launches10["fused_abcde_generation"] = n10
+        launches10["streaming_moment_cost"] = n4
+        mu, sg = (float(p.mean()) for p in r.P)
+        check(abs(mu - 2.0) < 0.02 and abs(sg - 0.04) < 0.003,
+              f"mesh ABCDE n=16384: mu {mu}, sigma {sg}")
+        out["fused n=16384"] = dict(generations=60, mu=mu, sigma=sg,
+                                    nsim=r.nsim, wall_s=wall, launches_10=n10,
+                                    launches_4=n4)
+        # one generation on 4 shards: the wrapper once per shard with the
+        # shard's folded seed, each shard against its plain version
+        n = 16384
+        s4 = n // 4
+        leaves = [uniform(n, 1.5, 2.5), uniform(n, 0.01, 0.1)]
+        bases, lps, ds, active, eps_i = abcde_generation_inputs(
+            mgen, leaves, 3.0)
+        reset_counts()
+        o = mgen(torch.Generator(device=dev).manual_seed(9), tuple(leaves),
+                 tuple(tuple(b_) for b_ in bases), lps, ds, active, eps_i)
+        check(counts()["fused_abcde_generation"] == 4,
+              "mesh #10 did not launch once per shard")
+        seed = FA.uint32_words(torch.Generator(device=dev).manual_seed(9), 1)
+        tot = [0.0, 0, 0, 0, 0]
+        for g in range(4):
+            blk = slice(g * s4, (g + 1) * s4)
+            seed_g = PM.fold_seed(seed, g)
+            args = ([x[blk] for x in leaves],
+                    [[x[blk] for x in b_] for b_ in bases], lps[blk],
+                    ds[blk], active[blk], eps_i[blk], seed_g)
+            got = (list(o[0].shards[g]), o[1].shards[g], o[2].shards[g],
+                   o[3].shards[g])
+            check(same_bits(got, mgen.run(*args)), f"mesh #10 shard {g}: "
+                  "the sharded call differs from the kernel on its block")
+            want = mgen.generation_plain(*args, terms=True)
+            rr = abcde_compare(got, want, args[0] + [lps[blk], ds[blk]],
+                               torch.maximum(eps_i[blk], ds[blk]),
+                               f"mesh #10 shard {g}")
+            tot = [max(tot[0], rr[0])] + [x + y for x, y in
+                                          zip(tot[1:], rr[1:])]
+        check(tot[2] > 0, "mesh #10: no commit")
+        out["per_shard_vs_plain"] = dict(zip(
+            ("max_abs_err", "unequal", "commits", "borderline",
+             "gate_passes"), tot))
+        partner_forms["fused_abcde_generation"] = out["per_shard_vs_plain"]
+        mesh10["abcde"] = out
+        ph.result = json.dumps(out)
+
+    with Phase("mesh-rejection") as ph:
+        # budget mode: with a batched PyTorch cost (the README model, 100
+        # draws a walker) 4096 kept of 10 chunks of 131072, bit-equal to
+        # one device; through #1 by shard_batched_cost, 4096 kept of 100
+        # chunks of 131072 (rejection-budget's, cut from 1600 chunks), 4
+        # launches a chunk, and the parity rule
+        def torch_cost(th, g):
+            mu, sg = th
+            x = mu[:, None] + sg[:, None] * torch.randn(
+                mu.shape[0], 100, generator=g, device=g.device)
+            return torch.hypot(x.mean(1) - 2.0,
+                               (x.std(1, correction=0) - 0.04) * 50)
+
+        out = {}
+        kw = dict(nsims=131072 * 10, batch=131072, cost_vectorized=True,
+                  key=3)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = kt.abc_rejection(prior, torch_cost, 4096, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = kt.abc_rejection(prior, torch_cost, 4096, mesh=mesh4, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(np.array_equal(a.C.particles, b.C.particles) and all(
+            np.array_equal(x.particles, y.particles)
+            for x, y in zip(a.P, b.P)),
+            "mesh-rejection: sharded differs from one device")
+        check(not any(counts().values()), "mesh-rejection ran a kernel")
+        out["pytorch cost, 10 chunks"] = dict(
+            bit_equal=True, eps=b.eps, wall_s=t1 - t0, mesh_wall_s=t2 - t1)
+        rc1 = kt.shard_batched_cost(kt.make_flagship_cost_batched(), mesh4)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = kt.abc_rejection(prior, rc1, 4096, nsims=131072 * 100,
+                             batch=131072, cost_vectorized=True, key=7,
+                             mesh=mesh4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n1 = counts()["normal_summary_cost"]
+        check(n1 == 4 * 100, f"mesh #1 launched {n1} times in 100 chunks")
+        check(sum(counts().values()) == n1,
+              f"mesh-rejection launched another kernel: {counts()}")
+        launches10["normal_summary_cost"] = n1
+        check(r.naccept == 4096 and bool((np.diff(r.C.particles) >= 0).all()),
+              f"mesh rejection: naccept {r.naccept}")
+        parity(r.P, "mesh-rejection")
+        out["#1 by shard_batched_cost, 100 chunks"] = dict(
+            eps=r.eps, mu=float(r.P[0].mean()), sigma=float(r.P[1].mean()),
+            wall_s=wall, sims_per_s=131072 * 100 / wall, launches=n1)
+        mesh10["rejection"] = out
+        ph.result = json.dumps(out)
 
     for rec in records:   # the prior table's times beside #3's and #6's
         if rec["name"] == "fused_smc_sweep":
@@ -3637,8 +4047,26 @@ def main():
             rec["launches"] += mesh_launches["streaming_scan_cost"]
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      mesh_cost_err["streaming_scan_cost"])
+    for rec in records:   # slice 10's mesh paths
+        path = {"fused_ais_sweep": "mesh-ais-fused-generic",
+                "fused_tempered_sweep": "mesh-tsmc",
+                "fused_abcde_generation": "mesh-abcde",
+                "normal_summary_cost": "mesh-rejection",
+                "streaming_moment_cost": "mesh-abcde"}.get(rec["name"])
+        if path is None:
+            continue
+        if "launches_by_path" not in rec:
+            rec["launches_by_path"] = {"single device": rec["launches"]}
+        rec["launches_by_path"][path] = launches10[rec["name"]]
+        rec["launches"] += launches10[rec["name"]]
+        if rec["name"] in partner_forms:
+            form = partner_forms[rec["name"]]
+            rec["mesh_per_shard"] = form
+            rec["max_abs_err"] = max(rec["max_abs_err"], *(
+                v["max_abs_err"] for v in form.values()
+                if isinstance(v, dict)), form.get("max_abs_err", 0.0))
     say(json.dumps({"mesh": {"roll": mesh_roll, "smc": mesh_smc,
-                             "smc_1m_generic": mesh_1m}}))
+                             "smc_1m_generic": mesh_1m, **mesh10}}))
     signal.alarm(0)
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": records}))

@@ -77,6 +77,15 @@ Walker sharding (slice 9): ``smc(..., mesh=make_mesh(walker=k))`` and
 (``parallel/mesh.py``; several processes through ``parallel/
 distributed.py``); ``shard_batched_cost`` runs a kernel cost once per
 shard and ``make_fused_smc_sweep(..., mesh=)`` the fused sweep.
+Slice 10 shards every other sampler the same way (``parallel/
+layout.py``): ``sample``/``sample_raw``/``make_run``/``make_sweep``/
+``make_sweep_halves`` on a walker mesh, ``sample(..., chains=)`` on a
+``chain`` or ``(chain, walker)`` mesh, ``tsmc``, ``pfilter``, ``ABCDE``
+and ``abc_rejection`` with ``mesh=``, and the fused sweeps
+``make_fused_ais_sweep(..., halves=True, mesh=)``,
+``make_fused_tempered_sweep(..., mesh=)`` and
+``make_fused_abcde_generation(..., mesh=)``, which run their kernels
+once per shard.
 
 It imports nothing of JAX or of the JAX package.
 """

@@ -22,8 +22,16 @@ and the one gather of the three parents stay here.
 
 The JAX ``lax.while_loop`` is a Python loop. Host reads per generation:
 the ``earlystop`` test (the loop condition), and the progress line when
-``verbose`` (the reference's default) prints. ``mesh=`` raises
-``NotImplementedError``.
+``verbose`` (the reference's default) prints.
+
+``mesh=`` shards the population over a walker mesh with the rule of
+``parallel/layout.py``: the thresholds' extremes are reduced over the
+mesh, ``rank_count`` and ``bases_from_words`` run on the joined costs
+with the whole population's words, the three parents are gathered from
+the joined population and cut into shards, and the rest of the
+generation runs shard by shard (a cost written in PyTorch on the joined
+proposals; a fused generation once per shard, statistical parity): with
+a PyTorch cost the run equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.tree import tgather, tree_map, tselect
+from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator, log_uniform, uint32_words
 from .pfilter import (_INIT_FAILED, _batched_cost, _check_cost_on,
@@ -107,7 +115,10 @@ def ABCDE(prior, cost, eps_target: float, *, nparticles: int = 50,
     host read). ``key``: an int seed or a ``torch.Generator``;
     ``device``: ``None`` runs on CUDA (and raises without a card),
     ``"cpu"`` the plain versions. ``parallel`` is accepted for API
-    parity; ``mesh=`` raises ``NotImplementedError``."""
+    parity. ``mesh``: a walker mesh shards the population (the module
+    docstring); ``nparticles`` must divide its walker axis, a batched
+    kernel cost comes through ``shard_batched_cost``, and a
+    ``sweep_fused`` must be built for the SAME mesh."""
     if not 0 <= alpha < 1:
         raise ValueError("alpha must be in 0 <= alpha < 1.")
     push_cost = _check_cost_on(cost_on)
@@ -118,10 +129,6 @@ def ABCDE(prior, cost, eps_target: float, *, nparticles: int = 50,
             "built for the SAME mesh: make_fused_abcde_generation(..., "
             "mesh=mesh) — a single-chip fused generation cannot run on "
             "sharded populations")
-    if mesh is not None:
-        raise NotImplementedError(
-            "ABCDE(mesh=...): walker sharding of ABCDE comes in a later "
-            "slice")
     del parallel
     n = nparticles
     d = prior.nparams
@@ -137,60 +144,81 @@ def ABCDE(prior, cost, eps_target: float, *, nparticles: int = 50,
                 f"sweep_fused was built with gamma={fg:.6g} but this "
                 f"call needs proposal_width*2.38/sqrt(2d) = {gamma:.6g}"
                 " — pass the same gamma to make_fused_abcde_generation")
-    dev = resolve_device(device)
+    lay = L.layout(mesh, device, "ABCDE", cost, (n,))
+    dev = lay.device
     gen = as_generator(key, dev)
-    vlog = _logpdf(prior)
-    vcost = _batched_cost(prior, cost, cost_vectorized, push_cost, "ABCDE")
+    vlog = _logpdf(prior, lay)
+    vcost = _batched_cost(prior, cost, cost_vectorized, push_cost, "ABCDE",
+                          lay)
 
     def generation(thetas, lps, ds, nsims):
-        eps_l, eps_h = ds.min(), ds.max()
+        eps_l, eps_h = lay.min(ds), lay.max(ds)
         eps_pop = torch.clamp(eps_l + alpha * (eps_h - eps_l),
                               min=eps_target)
-        active = (ds > eps_target if earlystop   # smc.jl:382-384
-                  else torch.ones(n, dtype=torch.bool, device=dev))
-        # the per-particle threshold (smc.jl:388)
-        eps_i = torch.where(ds <= eps_target, eps_target, eps_pop)
-        order, count = rank_count(ds)
+
+        def thresholds(d):
+            active = (d > eps_target if earlystop   # smc.jl:382-384
+                      else torch.ones_like(d, dtype=torch.bool))
+            # the per-particle threshold (smc.jl:388)
+            return active, torch.where(d <= eps_target, eps_target,
+                                       eps_pop.to(d.device))
+
+        active, eps_i = lay.unzip(lay.map(thresholds, ds), 2)
+        ds_all = lay.join(ds)
+        order, count = rank_count(ds_all)
         v = uint32_words(gen, 3 * n).reshape(3, n)
-        s, aa, bb = bases_from_words(v, ds, eps_i, order, count)
-        # one gather for the three parents (ops/tree.py)
-        g3 = tgather(thetas, torch.cat([s, aa, bb]))
-        ts, ta, tb = (tree_map(lambda x, j=j: x[j * n:(j + 1) * n], g3)
+        s, aa, bb = bases_from_words(v, ds_all, lay.join(eps_i), order,
+                                     count)
+        # one gather for the three parents (ops/tree.py), of the joined
+        # population on a mesh, then cut into shards
+        g3 = tgather(lay.join(thetas), torch.cat([s, aa, bb]))
+        ts, ta, tb = (lay.place(tree_map(lambda x, j=j: x[j * n:(j + 1) * n],
+                                         g3))
                       for j in range(3))
         if sweep_fused is not None:
             thetas, lps, ds, gate = sweep_fused(
                 gen, thetas, (ts, ta, tb), lps, ds, active, eps_i)
-            return thetas, lps, ds, nsims + gate.to(nsims.dtype)
-        props = tree_map(lambda xs, xa, xb: xs + gamma * (xa - xb),
-                         ts, ta, tb)
+            return thetas, lps, ds, lay.map(
+                lambda c, g: c + g.to(c.dtype), nsims, gate)
+        props = lay.map(lambda a, b, c: tree_map(
+            lambda xs, xa, xb: xs + gamma * (xa - xb), a, b, c), ts, ta, tb)
         lpp = vlog(props)
-        lu = log_uniform(gen, (n,))
-        gate = active & (lu <= torch.clamp(lpp - lps, max=0.0))
-        nsims = nsims + gate.to(nsims.dtype)   # smc.jl:404
+        lu = lay.place(log_uniform(gen, (n,)))
+        gate = lay.map(lambda act, l, lp, lpp_: act & (
+            l <= torch.clamp(lpp_ - lp, max=0.0)), active, lu, lps, lpp)
+        nsims = lay.map(lambda c, g: c + g.to(c.dtype), nsims,
+                        gate)   # smc.jl:404
         dp = vcost(props, gen)
-        commit = gate & (dp <= torch.maximum(eps_i, ds))
-        # double buffer: every read above saw the old population
-        return (tselect(commit, props, thetas), torch.where(commit, lpp, lps),
-                torch.where(commit, dp, ds), nsims)
 
-    thetas, lps, ds, ok = _init_with_retry(prior, vcost, n, gen)
-    if not bool(ok.all()):
+        def commit(th, lp, d, g, e, pr, lpp_, dp_):
+            c = g & (dp_ <= torch.maximum(e, d))
+            return (tselect(c, pr, th), torch.where(c, lpp_, lp),
+                    torch.where(c, dp_, d))
+
+        # double buffer: every read above saw the old population
+        out = lay.map(commit, thetas, lps, ds, gate, eps_i, props, lpp, dp)
+        return lay.unzip(out, 3) + (nsims,)
+
+    thetas, lps, ds, ok = _init_with_retry(prior, vcost, n, gen, lay=lay)
+    if int(lay.count(ok)) < n:
         raise RuntimeError(_INIT_FAILED)
-    nsims = torch.zeros(n, dtype=torch.int64, device=dev)
+    nsims = lay.place(torch.zeros(n, dtype=torch.int64, device=dev))
     it = 0
     while it < generations and (not earlystop
-                                or bool(ds.max() > eps_target)):
+                                or bool(lay.max(ds) > eps_target)):
         thetas, lps, ds, nsims = generation(thetas, lps, ds, nsims)
         it += 1
         if verbose:
+            done = lay.count(lay.map(lambda d: d <= eps_target, ds))
             print(f"ABCDE gen={it} completion="
-                  f"{float((ds <= eps_target).to(_f32).mean())} "
-                  f"eps_range=({float(ds.min())},{float(ds.max())})")
-    ds_np = fetch(ds)
+                  f"{float(done.to(_f32) / n)} "
+                  f"eps_range=({float(lay.min(ds))},{float(lay.max(ds))})")
+    ds_np = fetch(lay.join(ds))
     return ABCDEResult(
-        P=particles_from_tree(tree_map(fetch, prior.push_tree(thetas))),
+        P=particles_from_tree(tree_map(fetch, prior.push_tree(
+            lay.join(thetas)))),
         C=Particles(ds_np),
         reached_eps=bool(ds_np.max() <= eps_target),
-        nsim=int(nsims.sum()),
+        nsim=int(lay.count(nsims)),
         iterations=it,
     )

@@ -21,9 +21,25 @@ the PyTorch counterpart of ``kissabc_tpu/core/ais.py`` (the reference's
   (the reference's ``MCMCThreads``).
 
 The JAX ``lax.scan`` loops are Python loops; the split sweep reads
-nothing on the host, so a block runs without a device sync. ``mesh=``
-raises ``NotImplementedError``: walker sharding of AIS comes in a later
-slice.
+nothing on the host, so a block runs without a device sync.
+
+``mesh=`` (``parallel/mesh.py``):
+
+- a walker mesh shards each half: the red and black halves are carried
+  as two ``Sharded`` trees and each half-update is shard-local but for
+  its partners (``ops/moves.py``: the six rotation partners as
+  shard-sized transfers, which read the shifts on the host once a
+  half-update; the gathered partners from the joined other half). Every
+  draw is made on the whole half on the generator's device and cut into
+  shards, and a cost written in PyTorch runs on the joined proposals, so
+  the samples are the unsharded run's bit for bit; a kernel cost comes
+  through ``shard_batched_cost`` and runs once per shard (statistical
+  parity). The population is joined at the init and at each emission;
+- a chain mesh (``make_mesh(chain=C)``) runs chain c on row ``c // (Nc
+  / C)`` of the chain axis, on its device with its own generator, so
+  each chain's samples are those of the unsharded multi-chain run; on a
+  ``(chain, walker)`` mesh each chain's walkers are sharded over its
+  row.
 """
 
 from __future__ import annotations
@@ -34,10 +50,12 @@ import torch
 
 from ..ops.moves import mixture_one, propose_half
 from ..ops.tree import tree_leaves, tree_map, tselect
+from ..parallel import layout as L
+from ..parallel import mesh as M
 from ..particles import particles_from_tree
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.rng import as_generator, uint32_words
+from ..utils.rng import as_generator, log_uniform, uint32_words
 
 
 class AIS:
@@ -55,21 +73,25 @@ class AIS:
 # ensemble init with a bounded invalid-retry (KissABC.jl:50-61)
 # ---------------------------------------------------------------------------
 
-def _init_ensemble(model, gen, n, retry_sampling):
+def _init_ensemble(model, gen, n, retry_sampling, lay=None):
     """(thetas, lds, valid): the whole ensemble drawn at once, the
-    invalid walkers redrawn in at most ``retry_sampling`` rounds."""
+    invalid walkers redrawn in at most ``retry_sampling`` rounds. On a
+    mesh layout (``parallel/layout.py``) the draws are cut into shards
+    and the outputs are ``Sharded``."""
+    lay = lay or L.OneDevice(gen.device)
+
     def draw_all():
-        th = model.init_batch(gen, n)
-        return th, model.loglike_batch(model.push(th), gen)
+        th = lay.place(model.init_batch(gen, n))
+        return th, model.loglike_on(lay, lay.map(model.push, th), gen)
 
     thetas, lds = draw_all()
-    valid = model.ld_valid(lds)
+    valid = lay.map(model.ld_valid, lds)
     t = 0
-    while t < retry_sampling and not bool(valid.all()):
+    while t < retry_sampling and int(lay.count(valid)) < n:
         nth, nld = draw_all()
-        thetas = tselect(valid, thetas, nth)
-        lds = tselect(valid, lds, nld)
-        valid = model.ld_valid(lds)
+        thetas = lay.map(tselect, valid, thetas, nth)
+        lds = lay.map(tselect, valid, lds, nld)
+        valid = lay.map(model.ld_valid, lds)
         t += 1
     return thetas, lds, valid
 
@@ -78,27 +100,22 @@ def _init_ensemble(model, gen, n, retry_sampling):
 # the red/black sweep
 # ---------------------------------------------------------------------------
 
-def _half_update(model, gen, upd, upd_lds, comp, kernel, scheme):
+def _half_update(model, gen, upd, upd_lds, comp, kernel, scheme, lay=None):
     """MH-update the walkers of one half (``upd``) against partners from
-    the other half (``comp``)."""
+    the other half (``comp``); on a mesh layout the halves are
+    ``Sharded``."""
+    lay = lay or L.OneDevice(gen.device)
     props, corr, lu = propose_half(gen, upd, comp, model.nparams,
                                    kernel=kernel, scheme=scheme,
-                                   accept_lu=True)
-    new_lds = model.loglike_batch(model.push(props), gen)
-    if lu is None:
-        acc = model.accept_batch(gen, upd_lds, new_lds, corr)
-    else:   # the fused rotation draw made the accept draw too
-        acc = model.accept_lu(lu, upd_lds, new_lds, corr)
+                                   mesh=lay.mesh, accept_lu=True)
+    new_lds = model.loglike_on(lay, lay.map(model.push, props), gen)
+    if lu is None:   # accept_batch's draw, made on the whole half
+        lu = lay.place(log_uniform(gen, (lay.size(upd),)))
+    acc = lay.map(model.accept_lu, lu, upd_lds, new_lds, corr)
     # the reference stores the raw float proposal, pushing only at
     # loglike and emission time (transition.jl:77)
-    return tselect(acc, props, upd), tselect(acc, new_lds, upd_lds)
-
-
-def _no_mesh(mesh, caller):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{caller}(mesh=...): walker sharding of AIS comes in a later "
-            "slice")
+    return lay.map(tselect, acc, props, upd), lay.map(tselect, acc, new_lds,
+                                                      upd_lds)
 
 
 def _halves(tree, h):
@@ -109,6 +126,40 @@ def _unhalves(pair):
     return tree_map(lambda a, b: torch.cat([a, b]), *pair)
 
 
+def _walker_layout(mesh, n, caller):
+    """The layout of an ensemble of ``n`` on ``mesh`` (a walker mesh,
+    whose axis divides both halves), or one device without a mesh."""
+    if mesh is None:
+        return L.OneDevice("cpu")
+    L.check_mesh(mesh, caller)
+    if mesh.axis_size("chain") > 1:
+        raise ValueError(
+            f"{caller}(mesh=...) takes a walker mesh; a chain axis places "
+            "the chains of sample(..., chains=...)")
+    mesh.local("walker")   # other axes of size 1
+    h = n // 2
+    L.check_divides(h, mesh, "half size {n}")
+    L.check_divides(n - h, mesh, "half size {n}")
+    return L.OnMesh(mesh)
+
+
+def _halves_on(lay, tree, h):
+    """A whole population (or a ``Sharded`` one) as two halves on the
+    layout."""
+    if lay.sharded and isinstance(tree, M.Sharded):
+        tree = lay.join(tree)
+    a, b = _halves(tree, h)
+    return lay.place(a), lay.place(b)
+
+
+def _whole(lay, pair):
+    """The two halves joined into one population on one device."""
+    if lay.sharded:
+        pair = tuple(lay.join(x) if isinstance(x, M.Sharded) else x
+                     for x in pair)
+    return _unhalves(pair)
+
+
 def make_sweep_halves(model, n, kernel=mixture_one, constrain=lambda t: t,
                       partner_scheme="auto", mesh=None):
     """One red/black sweep over the ensemble carried as two half trees:
@@ -117,17 +168,18 @@ def make_sweep_halves(model, n, kernel=mixture_one, constrain=lambda t: t,
     ``constrain`` is applied to each half (on one device the identity);
     ``partner_scheme``: ``"roll"`` (rotation partners), ``"gather"``
     (per-walker random partners, the reference's law) or ``"auto"``;
-    ``mesh=`` raises ``NotImplementedError``."""
-    del n
-    _no_mesh(mesh, "make_sweep_halves")
+    ``mesh``: a walker mesh, on which each half is a ``Sharded`` (plain
+    halves are placed on it) and stays shard-local but for its partners
+    (the module docstring), with the bits of ``mesh=None``."""
+    lay = _walker_layout(mesh, n, "make_sweep_halves")
 
     def sweep(gen, th, ld):
-        tha, thb = th
-        lda, ldb = ld
+        tha, thb = (lay.place(x) for x in th)
+        lda, ldb = (lay.place(x) for x in ld)
         tha, lda = _half_update(model, gen, tha, lda, thb, kernel,
-                                partner_scheme)
+                                partner_scheme, lay)
         thb, ldb = _half_update(model, gen, thb, ldb, tha, kernel,
-                                partner_scheme)
+                                partner_scheme, lay)
         return ((constrain(tha), constrain(thb)),
                 (constrain(lda), constrain(ldb)))
 
@@ -138,14 +190,18 @@ def make_sweep(model, n, kernel=mixture_one, constrain=lambda t: t,
                partner_scheme="auto", mesh=None):
     """One red/black sweep over a single ``[n]``-leading ensemble:
     ``sweep(gen, thetas, lds) -> (thetas, lds)``; splits into halves,
-    sweeps and concatenates. Parameters as ``make_sweep_halves``."""
-    _no_mesh(mesh, "make_sweep")
+    sweeps and concatenates. Parameters as ``make_sweep_halves``; on a
+    mesh the halves are placed on it for the sweep and joined after it
+    (``thetas`` and ``lds`` may be whole or ``Sharded``)."""
     h = n // 2
-    sweep2 = make_sweep_halves(model, n, kernel, constrain, partner_scheme)
+    sweep2 = make_sweep_halves(model, n, kernel, constrain, partner_scheme,
+                               mesh)
+    lay = _walker_layout(mesh, n, "make_sweep")
 
     def sweep(gen, thetas, lds):
-        th, ld = sweep2(gen, _halves(thetas, h), _halves(lds, h))
-        return constrain(_unhalves(th)), constrain(_unhalves(ld))
+        th, ld = sweep2(gen, _halves_on(lay, thetas, h),
+                        _halves_on(lay, lds, h))
+        return constrain(_whole(lay, th)), constrain(_whole(lay, ld))
 
     return sweep
 
@@ -223,29 +279,35 @@ def make_run(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
     """The red/black program ``run(gen) -> (samples [blocks*n, ...],
     valid [n])``: ``ceil(discard_initial * ntransitions / n)`` burn-in
     sweeps, then ``ceil(ns / n)`` blocks of ``ntransitions * thinning``
-    sweeps, each emitting the pushed ensemble."""
-    _no_mesh(mesh, "make_run")
+    sweeps, each emitting the pushed ensemble. ``mesh``: a walker mesh
+    (the module docstring)."""
     n = sampler.nparticles
     _check_n(model, n)
     if thinning < 1:
         raise ValueError("thinning must be >= 1")
+    lay = _walker_layout(mesh, n, "make_run")
+    if lay.sharded:
+        L.check_cost(getattr(model, "_batched", None), mesh, "sample")
     sweep = make_sweep_halves(model, n, kernel,
-                              partner_scheme=partner_scheme)
+                              partner_scheme=partner_scheme, mesh=mesh)
     h = n // 2
     burn_sweeps = max(0, math.ceil(discard_initial * ntransitions / n))
     blocks = max(1, math.ceil(ns / n))
     sweeps_per_block = ntransitions * thinning
 
     def run(gen):
-        thetas, lds, valid = _init_ensemble(model, gen, n, retry_sampling)
-        th, ld = _halves(thetas, h), _halves(lds, h)
+        thetas, lds, valid = _init_ensemble(model, gen, n, retry_sampling,
+                                            lay if lay.sharded else None)
+        th, ld = _halves_on(lay, thetas, h), _halves_on(lay, lds, h)
+        if lay.sharded:
+            valid = lay.join(valid)
         for _ in range(burn_sweeps):
             th, ld = sweep(gen, th, ld)
         emits = []
         for b in range(blocks):
             for _ in range(sweeps_per_block):
                 th, ld = sweep(gen, th, ld)
-            emits.append(model.push(_unhalves(th)))
+            emits.append(model.push(_whole(lay, th)))
             if progress:
                 print(f"AIS block {b + 1}/{blocks} ({sweeps_per_block} "
                       "sweeps each)", flush=True)
@@ -264,14 +326,16 @@ def sample_raw(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
                partner_scheme="auto", schedule: str = "red_black",
                thinning: int = 1, device=None):
     """Run AIS and return ``(pushed samples with leading axis [ns],
-    valid mask)`` — the tensor-level API under ``sample``."""
-    _no_mesh(mesh, "sample")
-    dev = resolve_device(device)
+    valid mask)`` — the tensor-level API under ``sample``. ``mesh``: a
+    walker mesh, or a mesh with a chain axis, whose first row is taken
+    (one chain)."""
+    mesh, dev = _one_chain(mesh, device)
     if schedule == "sequential":
-        # the serial round robin has no partner batching and no kernel
-        # hook: refuse knobs that would be ignored
+        # the serial round robin has no partner batching, no kernel hook
+        # and nothing to shard: refuse knobs that would be ignored
         ignored = [] if partner_scheme == "auto" else ["partner_scheme"]
         ignored += [] if kernel is mixture_one else ["kernel"]
+        ignored += [] if mesh is None else ["mesh"]
         ignored += [] if not progress else ["progress"]
         if ignored:
             raise ValueError(
@@ -285,8 +349,8 @@ def sample_raw(model, sampler: AIS, ns: int, *, ntransitions: int = 1,
         run = make_run(model, sampler, ns, ntransitions=ntransitions,
                        discard_initial=discard_initial,
                        retry_sampling=retry_sampling, kernel=kernel,
-                       partner_scheme=partner_scheme, progress=progress,
-                       thinning=thinning)
+                       mesh=mesh, partner_scheme=partner_scheme,
+                       progress=progress, thinning=thinning)
     else:
         raise ValueError(
             f"schedule must be 'red_black' or 'sequential', got {schedule!r}")
@@ -307,11 +371,47 @@ class MCMCDistributed:
     ``MCMCDistributed``; chains run as with ``MCMCThreads``."""
 
 
-def _chain_generators(key, chains, dev):
+def _chain_generators(key, chains, dev, devices=None):
     """One generator per chain, seeded from ``chains`` words of the run's
-    generator."""
+    generator; chain c's on ``devices[c]`` when given (its row of a chain
+    mesh), else on ``dev``."""
     seeds = fetch(uint32_words(as_generator(key, dev), chains))
-    return [as_generator(int(s), dev) for s in seeds]
+    devices = devices or [dev] * chains
+    return [as_generator(int(s), d) for s, d in zip(seeds, devices)]
+
+
+def _row_mesh(row):
+    """A chain's walker mesh from its row of a chain mesh: None for a
+    row of one device (the chain runs on it unsharded)."""
+    return row if row.axis_size("walker") > 1 else None
+
+
+def _one_chain(mesh, device):
+    """(walker mesh or None, run device) of a single chain: a mesh with a
+    chain axis gives its first row."""
+    if mesh is None:
+        return None, resolve_device(device)
+    L.check_mesh(mesh, "sample")
+    if "chain" in mesh.axis_names:
+        mesh = mesh.take("chain", 0)
+    L.layout(mesh, device, "sample")   # the device type asked for
+    return _row_mesh(mesh), mesh.home
+
+
+def _chain_rows(mesh, chains, device):
+    """Chain c's (walker mesh or None, device) on a mesh with a chain
+    axis: the chains in blocks of ``chains / C`` over the axis's rows."""
+    L.layout(mesh, device, "sample")
+    size = mesh.axis_size("chain")
+    if chains % size:
+        raise ValueError(f"chains={chains} must divide the mesh chain axis "
+                         f"({size} devices)")
+    if mesh.distributed:
+        raise ValueError(
+            "sample(chains=..., mesh=...): a chain axis runs within one "
+            "process; shard the walkers of a mesh of several processes")
+    rows = [mesh.take("chain", c * size // chains) for c in range(chains)]
+    return [(_row_mesh(r), r.home) for r in rows]
 
 
 def sample(model, sampler: AIS, ns, *args, ntransitions: int = 1,
@@ -327,7 +427,9 @@ def sample(model, sampler: AIS, ns, *args, ntransitions: int = 1,
     prints each block; ``thinning=t`` keeps every t-th step. ``key``: an
     int seed or a ``torch.Generator`` on the run's device. ``device``:
     ``None`` runs on CUDA (and raises without a card); ``"cpu"`` runs the
-    plain versions. ``mesh=`` raises ``NotImplementedError``."""
+    plain versions. ``mesh``: a walker mesh shards each chain's walkers;
+    a mesh with a chain axis places the chains on its rows (the module
+    docstring); the samples are those without a mesh."""
     if isinstance(ns, (MCMCThreads, MCMCDistributed)) or (
             isinstance(ns, type)
             and issubclass(ns, (MCMCThreads, MCMCDistributed))):
@@ -358,8 +460,16 @@ def sample(model, sampler: AIS, ns, *args, ntransitions: int = 1,
         raise ValueError(
             "schedule='sequential' is single-chain only; drop chains= or "
             "use the default red_black schedule")
-    _no_mesh(mesh, "sample")
-    outs = [sample_raw(model, sampler, ns, key=g, **kw)[0]
-            for g in _chain_generators(key, chains, resolve_device(device))]
+    if mesh is not None and "chain" in mesh.axis_names:
+        rows = _chain_rows(mesh, chains, device)
+        gens = _chain_generators(key, chains, rows[0][1],
+                                 [d for _, d in rows])
+        outs = [sample_raw(model, sampler, ns, key=g,
+                           **dict(kw, mesh=m, device=d))[0]
+                for g, (m, d) in zip(gens, rows)]
+    else:
+        dev = _one_chain(mesh, device)[1]
+        outs = [sample_raw(model, sampler, ns, key=g, **kw)[0]
+                for g in _chain_generators(key, chains, dev)]
     return particles_from_tree(
         tree_map(lambda *xs: fetch(torch.cat(xs)), *outs))

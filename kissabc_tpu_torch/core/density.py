@@ -104,6 +104,22 @@ class Density:
     def loglike_batch(self, pushed, gen):
         raise NotImplementedError
 
+    def loglike_on(self, lay, pushed, gen):
+        """``loglike_batch`` of a population on a layout
+        (``parallel/layout.py``): on a mesh, a cost from
+        ``shard_batched_cost`` runs once per shard, any other on the
+        joined population, its ``ld`` cut into shards."""
+        if not lay.sharded:
+            return self.loglike_batch(pushed, gen)
+        sharded = self._sharded_loglike(lay, pushed, gen)
+        if sharded is not None:
+            return sharded
+        return lay.place(self.loglike_batch(lay.join(pushed), gen))
+
+    def _sharded_loglike(self, lay, pushed, gen):
+        """The ``ld`` of a kernel cost run once per shard, or None."""
+        return None
+
     def accept_batch(self, gen, old_lds, new_lds, corr):
         """MH accept over ``[h]`` walkers with one batched log-uniform
         draw."""
@@ -152,6 +168,14 @@ class _ABCDensity(Density):
 
     def init_batch(self, gen, n):
         return tfloat(self.prior.sample_tree(gen, n))
+
+    def _sharded_loglike(self, lay, pushed, gen):
+        from ..parallel.mesh import ShardedCost
+        if not isinstance(self._batched, ShardedCost):
+            return None
+        costs = self._batched(pushed, gen)
+        return lay.map(lambda p, c: self._ld(
+            self.prior.logpdf_tree(p).to(_f32), c.to(_f32)), pushed, costs)
 
     def _lp_cost(self, pushed, gen, batched):
         lp = self.prior.logpdf_tree(pushed).to(_f32)
@@ -243,6 +267,12 @@ class CommonLogDensity(Density):
     def loglike_batch(self, pushed, gen):
         out = self._batched(pushed, gen)
         return _as_f32(out, tree_leaves(pushed)[0])
+
+    def _sharded_loglike(self, lay, pushed, gen):
+        from ..parallel.mesh import ShardedCost
+        if not isinstance(self._batched, ShardedCost):
+            return None
+        return self._batched(pushed, gen).map(lambda c: c.to(_f32))
 
     def loglike(self, theta_pushed, gen):
         return _as_f32(self.lpi(theta_pushed, gen),

@@ -15,6 +15,15 @@ The JAX ``lax.while_loop``s are Python loops whose only host reads are
 their conditions: one ``any(active)`` per inner round, one stop flag per
 outer iteration, one ``all(ok)`` per init retry round.
 ``_init_with_retry`` is shared with ``ABCDE``.
+
+``mesh=`` shards the population over a walker mesh with the rule of
+``parallel/layout.py``: the threshold is the bisect quantile over the
+shards (``resolve_quantile_impl(quantile_impl, mesh, n)``), the
+good-first order and the partner draws are made on the joined good mask
+and the whole population, the three partners gathered from the joined
+population, a cost written in PyTorch runs on the joined proposals, and
+every count, ``any(active)`` and stop test is reduced over the mesh: the
+run equals the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ from ..ops.moves import masked_distinct, masked_order
 from ..ops.quantile import (masked_quantile_bisect, quantile,
                             resolve_quantile_impl)
 from ..ops.tree import tfloat, tgather, tree_map, tselect
+from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost
@@ -57,41 +66,58 @@ def _check_cost_on(cost_on):
     return cost_on == "pushed"
 
 
-def _logpdf(prior):
-    """The batched prior logpdf of raw (float) particles."""
-    return lambda ths: prior.logpdf_tree(prior.push_tree(ths)).to(_f32)
+def _logpdf(prior, lay=None):
+    """The batched prior logpdf of raw (float) particles (shard by shard
+    on a mesh layout)."""
+    def one(ths):
+        return prior.logpdf_tree(prior.push_tree(ths)).to(_f32)
+
+    return one if lay is None else (lambda ths: lay.map(one, ths))
 
 
-def _batched_cost(prior, cost, cost_vectorized, push_cost, caller):
+def _batched_cost(prior, cost, cost_vectorized, push_cost, caller,
+                  lay=None):
     """``vcost(raw_thetas, gen) -> [n]``: the cost of the raw float
     particles (the reference's ``cost(p.x)``), or of the pushed ones with
     ``push_cost``; a per-walker cost is mapped with ``torch.func.vmap``,
-    a batched one (``cost_vectorized``) takes the whole population."""
+    a batched one (``cost_vectorized``) takes the whole population. On a
+    mesh layout the cost runs as ``lay.cost`` runs it (the joined
+    population, or once per shard from ``shard_batched_cost``)."""
     mapped = cost if cost_vectorized else per_walker_cost(cost, caller)
     ctree = prior.push_tree if push_cost else (lambda th: th)
-    return lambda ths, gen: torch.as_tensor(mapped(ctree(ths), gen)).to(_f32)
+    if lay is None or not lay.sharded:
+        return lambda ths, gen: torch.as_tensor(
+            mapped(ctree(ths), gen)).to(_f32)
+    return lambda ths, gen: lay.map(
+        lambda c: torch.as_tensor(c).to(_f32),
+        lay.cost(mapped, ths, gen, push=ctree))
 
 
-def _init_with_retry(prior, vcost, n, gen, max_rounds=1000):
+def _init_with_retry(prior, vcost, n, gen, max_rounds=1000, lay=None):
     """The init with a per-particle redraw until (logpdf, cost) are
     finite: the reference's unbounded while (smc.jl:283-294), bounded to
     ``max_rounds`` rounds. ``vcost`` is a batched cost of raw particles
-    (``_batched_cost``). Returns (thetas, logpdfs, costs, ok mask)."""
-    vlog = _logpdf(prior)
+    (``_batched_cost``). Returns (thetas, logpdfs, costs, ok mask), each
+    ``Sharded`` on a mesh layout (the draws made whole and cut)."""
+    lay = lay or L.OneDevice(gen.device)
+    vlog = _logpdf(prior, lay)
 
     def draw_all():
-        ths = tfloat(prior.sample_tree(gen, n))
+        ths = lay.place(tfloat(prior.sample_tree(gen, n)))
         return ths, vlog(ths), vcost(ths, gen)
 
+    def finite(lp, c):
+        return torch.isfinite(lp) & torch.isfinite(c)
+
     thetas, lps, cs = draw_all()
-    ok = torch.isfinite(lps) & torch.isfinite(cs)
+    ok = lay.map(finite, lps, cs)
     t = 0
-    while t < max_rounds and not bool(ok.all()):
+    while t < max_rounds and int(lay.count(ok)) < n:
         nth, nlp, ncx = draw_all()
-        thetas = tselect(ok, thetas, nth)
-        lps = torch.where(ok, lps, nlp)
-        cs = torch.where(ok, cs, ncx)
-        ok = torch.isfinite(lps) & torch.isfinite(cs)
+        thetas = lay.map(tselect, ok, thetas, nth)
+        lps = lay.map(torch.where, ok, lps, nlp)
+        cs = lay.map(torch.where, ok, cs, ncx)
+        ok = lay.map(finite, lps, cs)
         t += 1
     return thetas, lps, cs, ok
 
@@ -119,30 +145,31 @@ def pfilter(prior, cost, N: int, *, q: float = 0.7, eff_tol: float = 0.1,
     ``'bisect'`` or ``'auto'``, bit-identical. ``key``: an int seed or a
     ``torch.Generator``; ``device``: ``None`` runs on CUDA (and raises
     without a card), ``"cpu"`` the plain versions. ``parallel`` is
-    accepted for API parity; ``mesh=`` raises ``NotImplementedError``."""
+    accepted for API parity. ``mesh``: a walker mesh shards the
+    population (the module docstring); the population, ``N`` raised to
+    the reference's minimum, must divide its walker axis, and a batched
+    kernel cost comes through ``shard_batched_cost``."""
     del parallel
     push_cost = _check_cost_on(cost_on)
-    if mesh is not None:
-        raise NotImplementedError(
-            "pfilter(mesh=...): walker sharding of pfilter comes in a later "
-            "slice")
     d = prior.nparams
     low_n = 4 * d
     if N * q <= low_n:
         N = math.ceil((low_n + 1) / q)
     n = N
-    if resolve_quantile_impl(quantile_impl, None, n) == "sort":
-        qfn = quantile
+    lay = L.layout(mesh, device, "pfilter", cost, (n,))
+    if resolve_quantile_impl(quantile_impl, mesh, n) == "sort":
+        def qfn(x, qq):
+            return quantile(lay.join(x), qq)
     else:
         def qfn(x, qq):
-            return masked_quantile_bisect(x, torch.ones_like(x, dtype=bool),
-                                          qq)
+            return masked_quantile_bisect(
+                x, lay.map(lambda v: torch.ones_like(v, dtype=bool), x), qq)
     max_outer = 100_000 if math.isinf(max_iters) else int(max_iters) + 1
-    dev = resolve_device(device)
+    dev = lay.device
     gen = as_generator(key, dev)
-    vlog = _logpdf(prior)
+    vlog = _logpdf(prior, lay)
     vcost = _batched_cost(prior, cost, cost_vectorized, push_cost,
-                          "pfilter")
+                          "pfilter", lay)
 
     def regen_round(thetas, lps, cs, good, order, active, eps):
         """One masked rejection round for every still-active bad
@@ -153,51 +180,66 @@ def pfilter(prior, cost, N: int, *, q: float = 0.7, eff_tol: float = 0.1,
         bs, css, dss = masked_distinct(gen, good, 3, order=order,
                                        shape=(n,))
         w = torch.randn(n, generator=gen, device=dev) * proposal_width
-        g3 = tgather(thetas, torch.cat([bs, css, dss]))
-        props = tree_map(
-            lambda x: x[:n] + (x[2 * n:] - x[n:2 * n]) * _bshape(w, x), g3)
-        lpp = vlog(props)
-        lu = log_uniform(gen, (n,))
-        gate_prior = lu <= torch.clamp(lpp - lps, max=0.0)
-        xp = vcost(props, gen)
-        accept = active & gate_prior & (xp <= eps)
-        thetas = tselect(accept, props, thetas)
-        lps = torch.where(accept, lpp, lps)
-        cs = torch.where(accept, xp, cs)
-        return thetas, lps, cs, accept, active.sum()  # every attempt
+        # one gather of the three partners (of the joined population on a
+        # mesh), each shard's proposals from its block of the indices
+        idx = lay.place(torch.stack([bs, css, dss], 1))
+        full = lay.join(thetas)
 
-    thetas, lps, cs, ok = _init_with_retry(prior, vcost, n, gen)
-    if not bool(ok.all()):
+        def propose(i, wi):
+            g3 = tgather(tree_map(lambda x: x.to(i.device), full),
+                         i.T.reshape(-1))
+            s = i.shape[0]
+            return tree_map(lambda x: x[:s] + (x[2 * s:] - x[s:2 * s])
+                            * _bshape(wi, x), g3)
+
+        props = lay.map(propose, idx, lay.place(w))
+        lpp = vlog(props)
+        lu = lay.place(log_uniform(gen, (n,)))
+        xp = vcost(props, gen)
+
+        def gate(th, lp, c, act, pr, lpp_, lu_, xp_):
+            gate_prior = lu_ <= torch.clamp(lpp_ - lp, max=0.0)
+            accept = act & gate_prior & (xp_ <= eps.to(xp_.device))
+            return (tselect(accept, pr, th), torch.where(accept, lpp_, lp),
+                    torch.where(accept, xp_, c), accept)
+
+        thetas, lps, cs, accept = lay.unzip(lay.map(
+            gate, thetas, lps, cs, active, props, lpp, lu, xp), 4)
+        return thetas, lps, cs, accept, lay.count(active)  # every attempt
+
+    thetas, lps, cs, ok = _init_with_retry(prior, vcost, n, gen, lay=lay)
+    if int(lay.count(ok)) < n:
         raise RuntimeError(_INIT_FAILED)
     eps = torch.tensor(float("inf"), dtype=_f32, device=dev)
-    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active = lay.place(torch.zeros(n, dtype=torch.bool, device=dev))
     it, done = 0, False
     while not done and it < max_outer:
         it += 1
         eps = qfn(cs, q)
-        bad = cs > eps
-        good = ~bad
+        bad = lay.map(lambda c: c > eps.to(c.device), cs)
+        good = lay.join(lay.map(torch.logical_not, bad))
         order = masked_order(good)   # good-first positions
-        nbad = bad.sum()
+        nbad = lay.count(bad)
         active, reps, t = bad, torch.zeros((), dtype=torch.int64,
                                            device=dev), 0
-        while t < inner_retry and bool(active.any()):
+        while t < inner_retry and bool(lay.count(active) > 0):
             thetas, lps, cs, fixed, nreps = regen_round(
                 thetas, lps, cs, good, order, active, eps)
-            active = active & ~fixed
+            active = lay.map(lambda a, f: a & ~f, active, fixed)
             reps = reps + nreps
             t += 1
         eff = nbad.to(_f32) / torch.clamp(reps, min=1).to(_f32)
         if verbose:
             print(f"pfilter it={it} eps={float(eps)} eff={float(eff)}")
         done = bool((eff < eff_tol) | (eps < epstol)) or it > max_iters
-    unfixed = int(active.sum())
+    unfixed = int(lay.count(active))
     if unfixed:
         warnings.warn(
             f"pfilter: {unfixed} particle(s) still above eps after "
             f"inner_retry={inner_retry} rejection rounds in the final "
             "sweep; raise inner_retry or loosen the threshold.",
             RuntimeWarning, stacklevel=2)
+    thetas, cs = lay.join(thetas), lay.join(cs)
     return PFilterResult(
         P=particles_from_tree(tree_map(fetch, prior.push_tree(thetas))),
         C=Particles(fetch(cs)),

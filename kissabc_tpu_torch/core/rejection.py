@@ -28,6 +28,15 @@ order and is not used.
 Each chunk draws its prior sample and then its cost's randomness from
 the one run generator, in that order. The cost sees the float particle;
 the returned population is pushed onto the prior's support.
+
+``mesh=`` shards each chunk over a walker mesh: the chunk is drawn whole
+on the generator's device and cut into shards, its costs come from a
+cost written in PyTorch on the joined chunk, or once per shard from
+``shard_batched_cost`` (kernel #1 or #4), and the chunk is joined (an
+all-gather) into the ``nparticles``-wide buffer on the mesh's home
+device, which ``merge_best`` / ``scatter_accepted`` keep as without a
+mesh: with a PyTorch cost the result equals the unsharded one bit for
+bit.
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ import numpy as np
 import torch
 
 from ..ops.tree import tfloat, tgather, tree_leaves, tree_map
+from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator
 from .density import per_walker_cost
@@ -59,17 +68,23 @@ class RejectionResult(NamedTuple):
     log_evidence: float  # log P(cost <= eps | prior) = log(naccept/nsims)
 
 
-def _make_draw_chunk(prior, cost, b, cost_vectorized):
+def _make_draw_chunk(prior, cost, b, cost_vectorized, lay=None):
     """One chunk of ``b`` prior draws and their costs (non-finite costs
-    become ``+inf``): ``draw_chunk(gen) -> (float thetas, costs[b])``."""
+    become ``+inf``): ``draw_chunk(gen) -> (float thetas, costs[b])``. On
+    a mesh layout the chunk is drawn whole, cut into shards, costed as
+    ``lay.cost`` runs a cost, and joined."""
     cost2 = cost if cost_vectorized else per_walker_cost(cost,
                                                          "abc_rejection")
+    lay = lay or L.OneDevice("cpu")
+
+    def finite(c):
+        return torch.nan_to_num(torch.as_tensor(c).to(_f32), nan=math.inf,
+                                posinf=math.inf, neginf=math.inf)
 
     def draw_chunk(gen):
-        ths = tfloat(prior.sample_tree(gen, b))
-        cs = torch.as_tensor(cost2(ths, gen)).to(_f32)
-        return ths, torch.nan_to_num(cs, nan=math.inf, posinf=math.inf,
-                                     neginf=math.inf)
+        ths = lay.place(tfloat(prior.sample_tree(gen, b)))
+        cs = lay.map(finite, lay.cost(cost2, ths, gen))
+        return lay.join(ths), lay.join(cs)
 
     return draw_chunk
 
@@ -179,13 +194,10 @@ def abc_rejection(prior, cost, nparticles: int, *, eps: float | None = None,
     budget ``ceil(nsims/batch) * batch``). ``key``: an int seed or a
     ``torch.Generator`` on the run's device. ``device``: ``None`` runs on
     CUDA (and raises without a card); ``"cpu"`` runs the plain versions.
-    ``mesh=`` raises ``NotImplementedError``: walker sharding of
-    ``abc_rejection`` comes in a later slice.
+    ``mesh``: a walker mesh shards each chunk (the module docstring);
+    ``batch`` must divide its walker axis, and a batched kernel cost
+    comes through ``shard_batched_cost``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "abc_rejection(mesh=...): walker sharding of abc_rejection "
-            "comes in a later slice")
     if eps is not None and nsims is not None:
         raise ValueError("pass either eps= (threshold mode) or nsims= "
                          "(budget mode), not both")
@@ -207,13 +219,15 @@ def abc_rejection(prior, cost, nparticles: int, *, eps: float | None = None,
     else:
         if int(max_sims) < 1:
             raise ValueError(f"max_sims must be >= 1, got {max_sims}")
-    dev = resolve_device(device)
+    lay = L.layout(mesh, device, "abc_rejection", cost)
+    dev = lay.device
     gen = as_generator(key, dev)
 
     if eps is None:
         nchunks = math.ceil(total / b)
         total = nchunks * b  # realized budget (rounded up to whole chunks)
-        draw_chunk = _make_draw_chunk(prior, cost, b, cost_vectorized)
+        L.check_divides(b, mesh, "batch={n}")
+        draw_chunk = _make_draw_chunk(prior, cost, b, cost_vectorized, lay)
         thetas, cs = _budget(draw_chunk, gen, n, nchunks, verbose)
         cs = fetch(cs)
         # kept slots with +inf cost are either never-overwritten
@@ -232,7 +246,8 @@ def abc_rejection(prior, cost, nparticles: int, *, eps: float | None = None,
         epsv = float(eps)
         b = min(b, int(max_sims))  # never exceed the simulation budget
         max_batches = max(1, int(max_sims) // b)
-        draw_chunk = _make_draw_chunk(prior, cost, b, cost_vectorized)
+        L.check_divides(b, mesh, "batch={n}")
+        draw_chunk = _make_draw_chunk(prior, cost, b, cost_vectorized, lay)
         thetas, cs, fill, naccept, t = _threshold(
             draw_chunk, gen, n, epsv, max_batches, verbose)
         cs = fetch(cs)

@@ -18,7 +18,20 @@ The JAX ``lax.while_loop`` is a Python loop whose only host read is the
 stop flag ``lam < 1`` (the iteration count is a host integer); nothing
 else inside an iteration is read on the host. ``sweep_fused`` replaces
 the split rejuvenation with ``make_fused_tempered_sweep``'s kernel,
-one launch per half-update. ``mesh=`` raises ``NotImplementedError``.
+one launch per half-update.
+
+``mesh=`` shards the population over a walker mesh with the rule of
+``parallel/layout.py``: the sums of ``next_lambda``'s 40-step ESS
+bisection and of the evidence increment are float64 sums of the shards
+reduced over the mesh and rounded once (on one device too), the maxima
+``pmax``; the systematic resampler is smc's sharded one
+(``exclusive_prefix``), and the ancestors are gathered from the joined
+population straight into the two halves of the rejuvenation, which are
+``Sharded`` (``propose_half(..., mesh=)``), and joined again after it.
+With a likelihood written in PyTorch the run equals the unsharded one
+bit for bit; a fused sweep built for the mesh runs its kernel once per
+shard (statistical parity). The split path also reads the six shifts of
+each half-update on the host.
 """
 
 from __future__ import annotations
@@ -31,8 +44,8 @@ from ..ops.moves import propose_half
 from ..ops.quantile import ess_weights
 from ..ops.resampling import systematic
 from ..ops.tree import tfloat, tgather, tree_map, tselect
+from ..parallel import layout as L
 from ..particles import particles_from_tree
-from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost
@@ -50,18 +63,23 @@ class TSMCResult(NamedTuple):
                          # (pre-resample): a sampler-health indicator
 
 
+
+
 def next_lambda(lam, ll, alpha, n):
     """The temperature step: bisect ``dlam`` in ``(0, 1 - lam]`` for 40
     steps so that the Kish ESS of ``exp(dlam * ll - max)`` is ``alpha *
     n`` (the ESS falls as ``dlam`` grows), or take the full step when it
     keeps the ESS at or above the target. ``lam`` is a float32 0-d
-    tensor; the result is one too, computed on the device."""
+    tensor; the result is one too, computed on the device. ``ll`` may be
+    ``Sharded``: the maxima and sums are then reduced over its mesh."""
     target = alpha * n
+    lay = L.layout_of(ll)
 
     def ess_at(dlam):
-        lw = dlam * ll
-        lw = lw - lw.max()
-        return ess_weights(torch.exp(lw))
+        lw = lay.map(lambda x: dlam.to(x.device) * x, ll)
+        top = lay.max(lw)
+        return ess_weights(lay.map(lambda x: torch.exp(x - top.to(x.device)),
+                                   lw))
 
     full = 1.0 - lam
     lo, hi = torch.zeros_like(full), full
@@ -76,10 +94,24 @@ def next_lambda(lam, ll, alpha, n):
 def evidence_increment(dlam, ll):
     """``(m + log mean exp(dlam * ll - m), weights)`` with ``m = max(dlam
     * ll)``: the log-evidence increment of one temperature step and the
-    (unnormalized) incremental weights ``exp(dlam * ll - m)``."""
-    m = (dlam * ll).max()
-    w = torch.exp(dlam * ll - m)
-    return m + torch.log(torch.mean(w)), w
+    (unnormalized) incremental weights ``exp(dlam * ll - m)``; the mean
+    a float64 sum rounded once, over the mesh for a ``Sharded`` ``ll``."""
+    lay = L.layout_of(ll)
+    lw = lay.map(lambda x: dlam.to(x.device) * x, ll)
+    m = lay.max(lw)
+    w = lay.map(lambda x: torch.exp(x - m.to(x.device)), lw)
+    n = ll.n if lay.sharded else ll.shape[0]
+    return m + torch.log(lay.fsum(w) / n), w
+
+
+def _tempered_accept(props, upd, lp_u, ll_u, lpp, llp, corr, lu, lam):
+    """The tempered MH accept and commit of one half (or shard)."""
+    lam = lam.to(lp_u.device)
+    old = lp_u + lam * ll_u
+    new = torch.where(torch.isfinite(lpp), lpp + lam * llp, _NEG_INF)
+    acc = lu <= (corr + new - old)
+    return (tselect(acc, props, upd), torch.where(acc, lpp, lp_u),
+            torch.where(acc, llp, ll_u))
 
 
 class _TSMCProgram:
@@ -88,43 +120,51 @@ class _TSMCProgram:
 
     def __init__(self, prior, loglike, *, nparticles, alpha, mcmc_steps,
                  max_iters, partner_scheme, loglike_vectorized, sweep_fused,
-                 device):
+                 lay):
         self.prior, self.n, self.alpha = prior, nparticles, alpha
         self.mcmc_steps, self.max_iters = mcmc_steps, max_iters
         self.partner_scheme, self.sweep_fused = partner_scheme, sweep_fused
-        self.device = device
+        self.lay, self.device = lay, lay.device
         self._ll = (loglike if loglike_vectorized
                     else per_walker_cost(loglike, "tsmc"))
 
     def vlp(self, thetas):
         p = self.prior
-        return p.logpdf_tree(p.push_tree(thetas)).to(_f32)
+        return self.lay.map(lambda t: p.logpdf_tree(p.push_tree(t)).to(_f32),
+                            thetas)
 
     def vll(self, thetas, gen):
-        return self._ll(self.prior.push_tree(thetas), gen).to(_f32)
+        lay = self.lay
+        return lay.map(lambda c: c.to(_f32), lay.cost(
+            self._ll, thetas, gen, push=self.prior.push_tree))
 
     def half_update(self, gen, upd, lp_u, ll_u, comp, lam):
         """MH-update one half against the other at temperature ``lam``."""
+        lay = self.lay
         props, corr, lu = propose_half(gen, upd, comp, self.prior.nparams,
                                        scheme=self.partner_scheme,
-                                       accept_lu=True)
+                                       mesh=lay.mesh, accept_lu=True)
         lpp = self.vlp(props)
         llp = self.vll(props, gen)
-        old = lp_u + lam * ll_u
-        new = torch.where(torch.isfinite(lpp), lpp + lam * llp, _NEG_INF)
         if lu is None:
-            lu = log_uniform(gen, lp_u.shape)
-        acc = lu <= (corr + new - old)
-        return (tselect(acc, props, upd), torch.where(acc, lpp, lp_u),
-                torch.where(acc, llp, ll_u))
+            lu = lay.place(log_uniform(gen, (lay.size(lp_u),)))
+        out = lay.map(lambda *a: _tempered_accept(*a, lam), props, upd, lp_u,
+                      ll_u, lpp, llp, corr, lu)
+        return lay.unzip(out, 3)
 
-    def rejuvenate(self, gen, thetas, lp, ll, lam):
+    def _halves(self, thetas, lp, ll):
+        """The population (whole, on one device) as two halves on the
+        layout."""
+        h, place = self.n // 2, self.lay.place
+        th = (place(tree_map(lambda x: x[:h], thetas)),
+              place(tree_map(lambda x: x[h:], thetas)))
+        return th, (place(lp[:h]), place(lp[h:])), (place(ll[:h]),
+                                                     place(ll[h:]))
+
+    def rejuvenate(self, gen, th, lps, lls, lam):
         """``mcmc_steps`` red/black mixture sweeps targeting pi_lam, on the
-        population carried as two halves."""
-        h = self.n // 2
-        th = (tree_map(lambda x: x[:h], thetas),
-              tree_map(lambda x: x[h:], thetas))
-        lps, lls = (lp[:h], lp[h:]), (ll[:h], ll[h:])
+        population carried as two halves (``_halves``); returns it whole,
+        on the layout."""
         for _ in range(self.mcmc_steps):
             if self.sweep_fused is not None:
                 th, ((lpa, lla), (lpb, llb)) = self.sweep_fused(
@@ -136,11 +176,15 @@ class _TSMCProgram:
                 thb, lpb, llb = self.half_update(gen, th[1], lps[1], lls[1],
                                                  tha, lam)
                 th, lps, lls = (tha, thb), (lpa, lpb), (lla, llb)
-        return (tree_map(lambda a, b: torch.cat([a, b]), *th),
-                torch.cat(lps), torch.cat(lls))
+        lay = self.lay
+        if lay.sharded:   # the halves joined, then cut over the population
+            th, lps, lls = (tuple(lay.join(x) for x in pair)
+                            for pair in (th, lps, lls))
+        return (lay.place(tree_map(lambda a, b: torch.cat([a, b]), *th)),
+                lay.place(torch.cat(lps)), lay.place(torch.cat(lls)))
 
     def init(self, gen):
-        thetas = tfloat(self.prior.sample_tree(gen, self.n))
+        thetas = self.lay.place(tfloat(self.prior.sample_tree(gen, self.n)))
         dev = self.device
         zero = torch.zeros((), dtype=_f32, device=dev)
         return (thetas, self.vlp(thetas), self.vll(thetas, gen), zero,
@@ -153,10 +197,14 @@ class _TSMCProgram:
         logz = logz + inc
         ess = ess_weights(w)
         # reweight and resample back to uniform weights: one packed gather
+        # (of the joined population on a mesh: ancestors lie on any shard)
         idx = systematic(gen, w)
-        thetas, lp, ll = tgather((thetas, lp, ll), idx)
+        lay = self.lay
+        thetas, lp, ll = tgather(tuple(lay.join(x) for x in (thetas, lp, ll)),
+                                 idx)
         lam = lam + dlam
-        thetas, lp, ll = self.rejuvenate(gen, thetas, lp, ll, lam)
+        thetas, lp, ll = self.rejuvenate(gen, *self._halves(thetas, lp, ll),
+                                         lam)
         return thetas, lp, ll, lam, logz, ess
 
     def __call__(self, gen):
@@ -189,8 +237,11 @@ def tsmc(prior, loglike, *, nparticles: int = 1000, alpha: float = 0.5,
       likelihood.
     - ``key``: an int seed or a ``torch.Generator`` on the run's device;
       ``device``: ``None`` runs on CUDA (and raises without a card),
-      ``"cpu"`` runs the plain versions. ``mesh=`` raises
-      ``NotImplementedError``: its sharding comes in a later slice."""
+      ``"cpu"`` runs the plain versions.
+    - ``mesh``: a walker mesh shards the population (the module
+      docstring); ``nparticles / 2`` must divide its walker axis, a
+      batched kernel likelihood comes through ``shard_batched_cost`` and
+      a ``sweep_fused`` must be built for the SAME mesh."""
     if not 0 < alpha < 1:
         raise ValueError("alpha must be in (0, 1)")
     if sweep_fused is not None and mesh is not None \
@@ -200,17 +251,17 @@ def tsmc(prior, loglike, *, nparticles: int = 1000, alpha: float = 0.5,
             "the SAME mesh: make_fused_tempered_sweep(..., mesh=mesh) — "
             "a single-chip fused sweep cannot run on sharded "
             "populations")
-    if mesh is not None:
-        raise NotImplementedError(
-            "tsmc(mesh=...): walker sharding of tsmc comes in a later slice")
-    dev = resolve_device(device)
+    lay = L.layout(mesh, device, "tsmc", loglike,
+                   (nparticles // 2, nparticles - nparticles // 2),
+                   "half size {n}")
+    dev = lay.device
     program = _TSMCProgram(
         prior, loglike, nparticles=nparticles, alpha=alpha,
         mcmc_steps=mcmc_steps, max_iters=max_iters,
         partner_scheme=partner_scheme, loglike_vectorized=loglike_vectorized,
-        sweep_fused=sweep_fused, device=dev)
+        sweep_fused=sweep_fused, lay=lay)
     (thetas, _, _, lam, logz, ess), it = program(as_generator(key, dev))
-    pushed = prior.push_tree(thetas)
+    pushed = prior.push_tree(lay.join(thetas))
     return TSMCResult(
         P=particles_from_tree(tree_map(fetch, pushed)),
         log_evidence=float(logz),

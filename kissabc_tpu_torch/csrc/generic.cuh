@@ -643,40 +643,41 @@ struct AisGenConsts {
 
 // The steps before the simulator for walker i: the proposal, its push and
 // logpdf, the stretch's log-Jacobian and the accept uniform. Returns
-// whether the push lies inside the prior.
-template <bool kStub>
+// whether the push lies inside the prior. kParts: the partners-given form
+// (walkers.cuh).
+template <bool kStub, bool kParts>
 __device__ __forceinline__ bool ais_propose(
-    Leaves th, Leaves comp, const int* r, int i, int h, uint32_t seed,
-    const AisGenConsts& c, int sb_rows, float* prop, float* pushed,
-    float* lpp, float* corr, float* u_acc) {
+    Leaves th, Leaves comp, const PartLeaves& parts, const int* r, int i,
+    int h, uint32_t seed, const AisGenConsts& c, int sb_rows, float* prop,
+    float* pushed, float* lpp, float* corr, float* u_acc) {
   MixConsts mc = {c.g_lo,  c.g_span, c.de_scale, c.inv300,
                   c.third, c.p_s_hi, c.p_d_hi,   c.corr2};
-  mixture_propose(th, comp, r, i, h, seed, coords(i, sb_rows), kStub,
-                  kStreamGenAisWalker, mc, prop, corr, u_acc);
+  mixture_propose<kParts>(th, comp, parts, r, i, h, seed, coords(i, sb_rows),
+                          kStub, kStreamGenAisWalker, mc, prop, corr, u_acc);
   prior_push(prop, pushed);
   *lpp = prior_logpdf(pushed);
   return *lpp > __uint_as_float(0xff800000u);
 }
 
-template <bool kStub, int L>
+template <bool kStub, int L, bool kParts>
 __global__ void __launch_bounds__(kGroupMaxThreads) fused_ais_sweep_kernel(
     Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
     Leaves comp, const long long* __restrict__ words, OutLeaves oth,
     float* __restrict__ olp, float* __restrict__ oll, int h, int ndraws,
-    AisGenConsts c, int sb_rows, int chunk, int walkers) {
+    AisGenConsts c, int sb_rows, int chunk, int walkers, PartLeaves parts) {
   extern __shared__ float s_dyn[];  // each warp's staging, then the slots
   __shared__ int shifts[6];
   int* s_walker = reinterpret_cast<int*>(
       s_dyn + (L > 1 ? (blockDim.x >> 5) * kStageFloats : 0));
-  if (threadIdx.x == 0) derive_shifts(words, h, shifts);
+  if (!kParts && threadIdx.x == 0) derive_shifts(words, h, shifts);
   __syncthreads();
   uint32_t seed = word32(words[6]);
   int p = compact_walkers<kGroupMaxThreads>(
       blockIdx.x * walkers, walkers, h, s_walker, [&](int i) {
         float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
-        bool valid = ais_propose<kStub>(th, comp, shifts, i, h, seed, c,
-                                        sb_rows, prop, pushed, &lpp, &corr,
-                                        &u_acc);
+        bool valid = ais_propose<kStub, kParts>(
+            th, comp, parts, shifts, i, h, seed, c, sb_rows, prop, pushed,
+            &lpp, &corr, &u_acc);
         if (!valid) {  // never commits: the inputs go through
 #pragma unroll
           for (int k = 0; k < KT_NPARAMS; ++k) oth.p[k][i] = th.p[k][i];
@@ -692,8 +693,8 @@ __global__ void __launch_bounds__(kGroupMaxThreads) fused_ais_sweep_kernel(
     bool own = base + g < p;
     int i = s_walker[own ? base + g : base + g0];
     float prop[KT_NPARAMS], pushed[KT_NPARAMS], lpp, corr, u_acc;
-    ais_propose<kStub>(th, comp, shifts, i, h, seed, c, sb_rows, prop,
-                       pushed, &lpp, &corr, &u_acc);
+    ais_propose<kStub, kParts>(th, comp, parts, shifts, i, h, seed, c,
+                               sb_rows, prop, pushed, &lpp, &corr, &u_acc);
     float m[KT_NSTATS];
     simulate_lanes<kStub, L>(pushed, ndraws, chunk, c.inv_n,
                              coords(i, sb_rows), seed, kStreamGenAisSim,
@@ -995,22 +996,28 @@ extern "C" int kt_fused_smc_sweep_occupancy(int threads, int* blocks_per_sm) {
 #if defined(KT_HAS_AIS) && KT_HAS_AIS
 // words: the half's six shift words and the seed (int64 holding uint32).
 // walkers, threads and lanes from the wrapper (ops/lane_groups.py
-// geometry); the grid is ceil(h / walkers) blocks.
-extern "C" int kt_fused_ais_sweep(
+// geometry); the grid is ceil(h / walkers) blocks. parts: null (the
+// partners comp[(i + r_j) % h] of the derived shifts), or the 6 K
+// partner leaves of a shard of a mesh, leaf-major (leaf k's six at
+// 6k .. 6k + 5), each read at the walker's own index; then only words[6],
+// the seed, is read, and comp is not.
+extern "C" int kt_fused_ais_sweep_parts(
     const float* const* th, const float* lp, const float* ll,
     const float* const* comp, const long long* words, float* const* oth,
     float* olp, float* oll, int h, int ndraws, const float* fconsts,
     int stub, int sb_rows, int chunk, int walkers, int threads, int lanes,
-    void* stream) {
+    void* stream, const float* const* parts) {
   int err = group_check(walkers, threads, lanes);
   if (err) return err;
-  if (h > 0 && h < 3) return (int)cudaErrorInvalidConfiguration;
+  if (h > 0 && h < 3 && !parts) return (int)cudaErrorInvalidConfiguration;
   Leaves leaves, partners;
   OutLeaves outs;
+  PartLeaves given = {};
   for (int k = 0; k < KT_NPARAMS; ++k) {
     leaves.p[k] = th[k];
     partners.p[k] = comp[k];
     outs.p[k] = oth[k];
+    for (int j = 0; j < 6; ++j) given.p[k][j] = parts ? parts[6 * k + j] : 0;
   }
   const float* f = fconsts;
   AisGenConsts c = {f[0], f[1], f[2], f[3], f[4],
@@ -1018,8 +1025,11 @@ extern "C" int kt_fused_ais_sweep(
   if (h > 0) {
     auto kernel = by_lanes(lanes, [&](auto l) {
       constexpr int L = decltype(l)::value;
-      return stub ? &fused_ais_sweep_kernel<true, L>
-                  : &fused_ais_sweep_kernel<false, L>;
+      if (parts)
+        return stub ? &fused_ais_sweep_kernel<true, L, true>
+                    : &fused_ais_sweep_kernel<false, L, true>;
+      return stub ? &fused_ais_sweep_kernel<true, L, false>
+                  : &fused_ais_sweep_kernel<false, L, false>;
     });
     size_t smem = group_smem(walkers, threads, lanes);
     err = group_smem_opt_in(kernel, smem);
@@ -1027,9 +1037,21 @@ extern "C" int kt_fused_ais_sweep(
     int blocks = (int)(((long long)h + walkers - 1) / walkers);
     kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         leaves, lp, ll, partners, words, outs, olp, oll, h, ndraws, c,
-        sb_rows, chunk, walkers);
+        sb_rows, chunk, walkers, given);
   }
   return (int)cudaGetLastError();
+}
+
+// The snapshot form: kt_fused_ais_sweep_parts without partners.
+extern "C" int kt_fused_ais_sweep(
+    const float* const* th, const float* lp, const float* ll,
+    const float* const* comp, const long long* words, float* const* oth,
+    float* olp, float* oll, int h, int ndraws, const float* fconsts,
+    int stub, int sb_rows, int chunk, int walkers, int threads, int lanes,
+    void* stream) {
+  return kt_fused_ais_sweep_parts(th, lp, ll, comp, words, oth, olp, oll, h,
+                                  ndraws, fconsts, stub, sb_rows, chunk,
+                                  walkers, threads, lanes, stream, nullptr);
 }
 
 extern "C" int kt_fused_ais_sweep_occupancy(int walkers, int threads,
@@ -1038,7 +1060,7 @@ extern "C" int kt_fused_ais_sweep_occupancy(int walkers, int threads,
   if (err) return err;
   return group_occupancy(by_lanes(lanes, [](auto l) {
                            return &fused_ais_sweep_kernel<
-                               false, decltype(l)::value>;
+                               false, decltype(l)::value, false>;
                          }),
                          walkers, threads, lanes, blocks_per_sm);
 }

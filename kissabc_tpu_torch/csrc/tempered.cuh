@@ -48,21 +48,23 @@ namespace {
 constexpr int kThreads = 128;
 constexpr uint32_t kStreamTemperedWalker = 10u;
 
+// kParts: the partners-given form of a shard of a mesh (walkers.cuh).
+template <bool kParts>
 __global__ void __launch_bounds__(kThreads) fused_tempered_sweep_kernel(
     Leaves th, const float* __restrict__ lp, const float* __restrict__ ll,
     Leaves comp, const long long* __restrict__ words,
     const float* __restrict__ lam_ptr, OutLeaves oth,
     float* __restrict__ olp, float* __restrict__ oll, int h, MixConsts c,
-    int stub, int sb_rows) {
+    int stub, int sb_rows, PartLeaves parts) {
   int r[6];
-  derive_shifts_warp(words, h, r);
+  if (!kParts) derive_shifts_warp(words, h, r);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= h) return;
   uint32_t seed = word32(words[6]);
   Coords cc = coords(i, sb_rows);
   float prop[KT_NPARAMS], corr, u_acc;
-  mixture_propose(th, comp, r, i, h, seed, cc, stub, kStreamTemperedWalker,
-                  c, prop, &corr, &u_acc);
+  mixture_propose<kParts>(th, comp, parts, r, i, h, seed, cc, stub,
+                          kStreamTemperedWalker, c, prop, &corr, &u_acc);
   float pushed[KT_NPARAMS];
   prior_push(prop, pushed);
   float lpp = prior_logpdf(pushed);
@@ -89,28 +91,44 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // One half-update. words: the half's six shift words and the seed (int64
 // holding uint32); fconsts: g_lo, g_span, de_scale, inv300, third,
-// p_s_hi, p_d_hi, corr2.
+// p_s_hi, p_d_hi, corr2. parts: null, or the 6 K partner leaves of a
+// shard of a mesh, leaf-major, each read at the walker's own index (then
+// only words[6] is read, and comp is not).
+extern "C" int kt_fused_tempered_sweep_parts(
+    const float* const* th, const float* lp, const float* ll,
+    const float* const* comp, const long long* words, const float* lam,
+    float* const* oth, float* olp, float* oll, int h, const float* fconsts,
+    int stub, int sb_rows, void* stream, const float* const* parts) {
+  if (h > 0 && h < 3 && !parts) return (int)cudaErrorInvalidConfiguration;
+  Leaves lt, lc;
+  OutLeaves lo;
+  PartLeaves given = {};
+  for (int k = 0; k < KT_NPARAMS; ++k) {
+    lt.p[k] = th[k];
+    lc.p[k] = comp[k];
+    lo.p[k] = oth[k];
+    for (int j = 0; j < 6; ++j) given.p[k][j] = parts ? parts[6 * k + j] : 0;
+  }
+  MixConsts c = {fconsts[0], fconsts[1], fconsts[2], fconsts[3],
+                 fconsts[4], fconsts[5], fconsts[6], fconsts[7]};
+  if (h > 0) {
+    auto kernel = parts ? &fused_tempered_sweep_kernel<true>
+                        : &fused_tempered_sweep_kernel<false>;
+    kernel<<<grid_for(h), kThreads, 0, (cudaStream_t)stream>>>(
+        lt, lp, ll, lc, words, lam, lo, olp, oll, h, c, stub, sb_rows, given);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The snapshot form: kt_fused_tempered_sweep_parts without partners.
 extern "C" int kt_fused_tempered_sweep(
     const float* const* th, const float* lp, const float* ll,
     const float* const* comp, const long long* words, const float* lam,
     float* const* oth, float* olp, float* oll, int h, const float* fconsts,
     int stub, int sb_rows, void* stream) {
-  if (h > 0 && h < 3) return (int)cudaErrorInvalidConfiguration;
-  Leaves lt, lc;
-  OutLeaves lo;
-  for (int k = 0; k < KT_NPARAMS; ++k) {
-    lt.p[k] = th[k];
-    lc.p[k] = comp[k];
-    lo.p[k] = oth[k];
-  }
-  MixConsts c = {fconsts[0], fconsts[1], fconsts[2], fconsts[3],
-                 fconsts[4], fconsts[5], fconsts[6], fconsts[7]};
-  if (h > 0) {
-    fused_tempered_sweep_kernel<<<grid_for(h), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-        lt, lp, ll, lc, words, lam, lo, olp, oll, h, c, stub, sb_rows);
-  }
-  return (int)cudaGetLastError();
+  return kt_fused_tempered_sweep_parts(th, lp, ll, comp, words, lam, oth, olp,
+                                       oll, h, fconsts, stub, sb_rows, stream,
+                                       nullptr);
 }
 
 extern "C" const char* kt_error_string(int err) {

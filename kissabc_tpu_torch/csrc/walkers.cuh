@@ -8,6 +8,13 @@
 // take the half's seven raw words: six from which the kernel derives the
 // shifts r_j (shifts.cuh) and the seed.
 //
+// The partners-given form (kParts): a shard of a walker mesh holds only
+// its block of the other half, so its partners come as six arrays per
+// leaf, the shard's blocks of the other half rolled by each shift
+// (parallel/mesh.py partner_rolls), each read at the walker's own index
+// i; the seed is still words[6] and the shifts are not derived. Without
+// kParts the code is the snapshot form's, unchanged.
+//
 // Needs KT_NPARAMS (theta leaves K) defined before it is included.
 
 #pragma once
@@ -25,6 +32,11 @@ struct Leaves {
 };
 struct OutLeaves {
   float* p[KT_NPARAMS];
+};
+// Leaf k's six partners (stretch, DE pair, walk triple) of the
+// partners-given form.
+struct PartLeaves {
+  const float* p[KT_NPARAMS][6];
 };
 
 // Per-walker stub coordinates of the TPU kernels' walker-on-lane grid:
@@ -52,14 +64,15 @@ struct MixConsts {
 };
 
 // The mixture proposal of walker i of the updated half (leaves th) against
-// the six partners comp[(i + r[j]) % h]: writes the raw proposal to prop,
-// the stretch's log-Jacobian (0 for DE and walk) to corr and the accept
-// uniform to u_acc. Every operation in the order of the TPU kernels
-// (pallas_kernels.py:1677-1714).
+// the six partners comp[(i + r[j]) % h], or with kParts parts.p[k][j][i]:
+// writes the raw proposal to prop, the stretch's log-Jacobian (0 for DE
+// and walk) to corr and the accept uniform to u_acc. Every operation in
+// the order of the TPU kernels (pallas_kernels.py:1677-1714).
+template <bool kParts>
 __device__ __forceinline__ void mixture_propose(
-    Leaves th, Leaves comp, const int* r, int i, int h, uint32_t seed,
-    Coords cc, int stub, uint32_t stream, const MixConsts& c, float* prop,
-    float* corr, float* u_acc) {
+    Leaves th, Leaves comp, const PartLeaves& parts, const int* r, int i,
+    int h, uint32_t seed, Coords cc, int stub, uint32_t stream,
+    const MixConsts& c, float* prop, float* corr, float* u_acc) {
   uint32_t wd[kMixWords];
   if (stub) {
 #pragma unroll
@@ -93,15 +106,21 @@ __device__ __forceinline__ void mixture_propose(
   int idx[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    int k = i + r[j];
+    int k = i + (kParts ? 0 : r[j]);
     idx[j] = k >= h ? k - h : k;
   }
 #pragma unroll
   for (int k = 0; k < KT_NPARAMS; ++k) {
-    const float* cp = comp.p[k];
     float xi = th.p[k][i];
-    float pa = cp[idx[0]], da = cp[idx[1]], db = cp[idx[2]];
-    float wa = cp[idx[3]], wb = cp[idx[4]], wc = cp[idx[5]];
+    float pa, da, db, wa, wb, wc;
+    if constexpr (kParts) {
+      pa = parts.p[k][0][i], da = parts.p[k][1][i], db = parts.p[k][2][i];
+      wa = parts.p[k][3][i], wb = parts.p[k][4][i], wc = parts.p[k][5][i];
+    } else {
+      const float* cp = comp.p[k];
+      pa = cp[idx[0]], da = cp[idx[1]], db = cp[idx[2]];
+      wa = cp[idx[3]], wb = cp[idx[4]], wc = cp[idx[5]];
+    }
     float p_s = pa + z * (xi - pa);
     float tri = (fabsf(da - db) + fabsf(xi - db)) + fabsf(da - xi);
     float p_d = (xi + gamma * (da - db)) + ((gamma * tri) * c.inv300) *

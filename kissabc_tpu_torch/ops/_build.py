@@ -67,8 +67,11 @@ GEN_SIGNATURES = {
     "kt_streaming_scan_cost": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _I, _I,
                                           _P],
     "kt_fused_ais_sweep": [_P] * 8 + [_I, _I, _P] + [_I] * 6 + [_P],
+    "kt_fused_ais_sweep_parts": [_P] * 8 + [_I, _I, _P] + [_I] * 6
+                                + [_P, _P],
     "kt_fused_ais_sweep_occupancy": [_I, _I, _I, _P],
     "kt_fused_tempered_sweep": [_P] * 9 + [_I, _P, _I, _I, _P],
+    "kt_fused_tempered_sweep_parts": [_P] * 9 + [_I, _P, _I, _I, _P, _P],
     "kt_fused_abcde_generation": [_P] * 11 + [_I, _I, _F, _F] + [_I] * 7
                                  + [_P],
     "kt_fused_abcde_generation_occupancy": [_I, _I, _I, _P],

@@ -26,6 +26,13 @@ The seed is drawn on the generator's device and read by the kernel from
 device memory, so a generation reads nothing on the host. ``bits="stub"``
 replays the TPU kernel's stub stream at its coordinates; ``bits="hw"``
 is Philox4x32-10.
+
+On a mesh (``mesh=``) the gathers of ``core/abcde.py`` have already moved
+everything that crosses shards, as in the JAX package
+(pallas_kernels.py:1876-1879): the generation runs once per shard on the
+shard's slices of the population, the parents, ``lps``, ``ds``,
+``active`` and ``eps_i``, with the shard folded into the seed
+(``fold_seed``), and needs no transfer of its own.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..parallel import layout as L
+from ..parallel import mesh as M
 from ..utils.rng import uint32_words
 from . import _build, codegen, lane_groups
 from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
@@ -73,7 +82,8 @@ class FusedABCDEGeneration:
     name = "make_fused_abcde_generation"
 
     def __init__(self, prior, draw, reduce_cost, *, gamma, stats, nstats,
-                 ndraws, noise, cost_on, block, chunk, walker_tiles, bits):
+                 ndraws, noise, cost_on, block, chunk, walker_tiles, bits,
+                 mesh=None):
         self.prior, self.draw, self.reduce_cost = prior, draw, reduce_cost
         self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
         self.noise, self.block, self.chunk = noise, block, chunk
@@ -81,7 +91,7 @@ class FusedABCDEGeneration:
         self.push_cost = cost_on == "pushed"
         self.gamma = float(gamma)
         self.gam = float(np.float32(gamma))   # as the kernel rounds it
-        self.mesh = None
+        self.mesh = mesh
         self.d = prior.nparams
         self.structure = codegen.prior_marginals(prior)[1]
         # trace now: an unsupported op or prior family raises here
@@ -223,6 +233,8 @@ class FusedABCDEGeneration:
         return outs
 
     def __call__(self, gen, thetas, bases, lps, ds, active, eps_i):
+        if self.mesh is not None:
+            return self._sharded(gen, thetas, bases, lps, ds, active, eps_i)
         leaves, structure = self._leaves(thetas)
         bl = [self._leaves(b, what)[0]
               for what, b in zip(("ts", "ta", "tb"), bases)]
@@ -230,6 +242,34 @@ class FusedABCDEGeneration:
         out_th, olps, ods, gate = self.run(leaves, bl, lps, ds, active,
                                            eps_i, seed)
         return tree_of(out_th, structure), olps, ods, gate
+
+    def _sharded(self, gen, thetas, bases, lps, ds, active, eps_i):
+        """The generation on ``self.mesh``: every input a ``Sharded`` (a
+        whole tensor or tree is placed first), one seed word from
+        ``gen``, then the kernel once per shard with the shard's folded
+        seed. Returns Sharded (thetas, lps, ds, gate)."""
+        mesh = self.mesh
+
+        def place(t):
+            return t if isinstance(t, M.Sharded) else M.place(mesh, t)
+
+        thetas = place(thetas)
+        L.check_divides(thetas.n, mesh)
+        bases = [place(b) for b in bases]
+        lps, ds, active, eps_i = map(place, (lps, ds, active, eps_i))
+        structure = self._leaves(thetas.shards[0])[1]
+        seed = uint32_words(gen, 1)
+        outs = []
+        for j, g in enumerate(thetas.index):
+            bl = [self._leaves(b.shards[j], what)[0]
+                  for what, b in zip(("ts", "ta", "tb"), bases)]
+            outs.append(self.run(
+                self._leaves(thetas.shards[j])[0], bl, lps.shards[j],
+                ds.shards[j], active.shards[j], eps_i.shards[j],
+                M.fold_seed(seed, g).to(mesh.device_of(g))))
+        sh = [M.Sharded(mesh, [o[k] for o in outs], thetas.n)
+              for k in range(4)]
+        return (sh[0].map(lambda t: tree_of(t, structure)),) + tuple(sh[1:])
 
     def work(self, n, nsim=None):
         """(bytes, operations) of one generation over ``n`` walkers of
@@ -271,12 +311,11 @@ def make_fused_abcde_generation(prior, draw, reduce_cost, *, gamma: float,
     Returns ``gen(gen_, thetas, (ts, ta, tb), lps, ds, active, eps_i) ->
     (thetas, lps, ds, gate)`` with ``.gamma`` and ``.mesh``; ``gate`` is
     the prior gate as float 0/1 (the reference's ``nsims`` tally).
-    ``mesh=`` raises ``NotImplementedError``: its sharding comes in a
-    later slice."""
+    ``mesh``: the generation runs once per shard on a population sharded
+    over the mesh's walker axis (the module docstring); pass the same
+    mesh to ``ABCDE(..., mesh=...)``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_fused_abcde_generation(mesh=...): walker sharding of this "
-            "kernel comes in a later slice")
+        L.check_mesh(mesh, "make_fused_abcde_generation")
     if cost_on not in ("raw", "pushed"):
         raise ValueError(f"cost_on must be 'raw' or 'pushed', "
                          f"got {cost_on!r}")
@@ -284,4 +323,4 @@ def make_fused_abcde_generation(prior, draw, reduce_cost, *, gamma: float,
     return FusedABCDEGeneration(
         prior, draw, reduce_cost, gamma=gamma, stats=stats, nstats=nstats,
         ndraws=ndraws, noise=noise, cost_on=cost_on, block=block,
-        chunk=chunk, walker_tiles=walker_tiles, bits=bits)
+        chunk=chunk, walker_tiles=walker_tiles, bits=bits, mesh=mesh)

@@ -49,6 +49,8 @@ import math
 import numpy as np
 import torch
 
+from ..parallel import layout as L
+from ..parallel import mesh as M
 from ..utils.rng import uint32_words
 from . import _build, codegen, lane_groups
 from .kernels import (OPS_PER_DRAW, _box_muller, _check_bits, _moments_philox,
@@ -547,17 +549,90 @@ class MixtureHalfSweep:
                 f"prior has {self.d} scalar marginals but thetas has "
                 f"{len(leaves)} leaves")
 
+    @staticmethod
+    def _shard_words(seed, dev):
+        """A shard's seven words for the partners-given form: six unread
+        shift words, then the shard's seed (int64 on ``dev``)."""
+        seed = torch.as_tensor(seed).to(dev, torch.int64).reshape(1)
+        return torch.cat([torch.zeros(6, dtype=torch.int64, device=dev),
+                          seed])
+
+    def _sharded_halves(self, th, ld):
+        """The halves and their (lp, ll) placed on ``self.mesh``, as
+        ``Sharded`` leaf tuples: ((leaves a, leaves b), ((lp_a, ll_a),
+        (lp_b, ll_b)), structure)."""
+        mesh = self.mesh
+
+        def place(t):
+            return t if isinstance(t, M.Sharded) else M.place(mesh, t)
+
+        for t in th:
+            L.check_divides(t.n if isinstance(t, M.Sharded) else
+                            leaves_of(t, self.name)[0][0].shape[0], mesh,
+                            "half size {n}")
+        tha, thb = place(th[0]), place(th[1])
+        (lpa, lla), (lpb, llb) = ld
+        structure = leaves_of(tha.shards[0], self.name)[1]
+        lva, lvb = (t.map(lambda x: tuple(leaves_of(x, self.name)[0]))
+                    for t in (tha, thb))
+        self._check_leaves(list(lva.shards[0]), "half-A")
+        if tha.n < 3:
+            raise ValueError("need at least 6 walkers")
+        return (lva, lvb), tuple((place(a), place(b)) for a, b in (
+            (lpa, lla), (lpb, llb))), structure
+
+    def _sharded_half(self, gen, upd, lp, ll, comp, *extra):
+        """One half-update of ``Sharded`` leaf tuples: the half's seven
+        words from ``gen``, the six partners as shard-sized transfers
+        (``partner_rolls``: the shifts read on the host once), then the
+        kernel once per shard with the shard's folded seed
+        (``half_parts``). On a mesh of one shard the seed is not folded,
+        as in the JAX sweep, whose single-device form runs there: the
+        partner form given the rolls gives the snapshot form's bits.
+        Returns Sharded (leaves, lp, ll)."""
+        mesh = self.mesh
+        words = self._draws(gen)
+        parts = M.partner_rolls(comp, rot_shifts6(words[:6], upd.n), mesh)
+        outs = []
+        for j, g in enumerate(upd.index):
+            dev = mesh.device_of(g)
+            seed = (M.fold_seed(words[6], g) if upd.ndev > 1
+                    else words[6])
+            outs.append(self.half_parts(
+                list(upd.shards[j]), lp.shards[j], ll.shards[j],
+                parts.shards[j], seed.to(dev),
+                *(torch.as_tensor(e).to(dev) for e in extra)))
+        return tuple(M.Sharded(mesh, [tuple(o[0]) if k == 0 else o[k]
+                                      for o in outs], upd.n)
+                     for k in range(3))
+
+    def _mesh_sweep(self, gen, th, ld, *extra):
+        """A sweep on ``self.mesh`` (``extra``: tsmc's temperature): each
+        half a ``Sharded``, the kernel once per shard a half-update."""
+        (lva, lvb), ((lpa, lla), (lpb, llb)), structure = \
+            self._sharded_halves(th, ld)
+        lva, lpa, lla = self._sharded_half(gen, lva, lpa, lla, lvb, *extra)
+        lvb, lpb, llb = self._sharded_half(gen, lvb, lpb, llb, lva, *extra)
+
+        def tree(sh):
+            return sh.map(lambda t: tree_of(list(t), structure))
+
+        return (tree(lva), tree(lvb)), ((lpa, lla), (lpb, llb))
+
     def pushed(self, props):
         """The proposal as the prior and the simulator see it: pushed by
         the prior (discrete marginals rounded half to even), as float32."""
         pushed = self.prior.push_tree(tree_of(props, self.structure))
         return _f32_tree(pushed)
 
-    def proposal_plain(self, upd, comp, shifts, seed):
+    def proposal_plain(self, upd, comp, shifts, seed, partners=None):
         """The half-update's steps before the simulator or likelihood, in
         plain PyTorch: returns (proposal leaves, pushed tree, logpdf,
         inside mask, corr, accept uniform). The mask says which walkers
-        propose inside the prior's support."""
+        propose inside the prior's support. ``partners``: the
+        partners-given form, the 6 K partner leaves leaf-major (a shard's
+        blocks of ``partner_rolls``), read at each walker's own index in
+        place of ``comp`` and ``shifts``."""
         h = upd[0].shape[0]
         dev = upd[0].device
         sb_rows = self._sb_rows(h)
@@ -571,9 +646,10 @@ class MixtureHalfSweep:
         is_s, is_d, z, corr, gamma, nrm, u_acc = _mixture_setup(
             (words[0], words[1], words[2], pairs), self.d, self.mc)
         nzs, r = nrm[1:1 + self.d], nrm[1 + self.d:4 + self.d]
-        props = [_propose(is_s, is_d, z, gamma, r, nz, x,
-                          _rolled(c, shifts), self.mc)
-                 for x, nz, c in zip(upd, nzs, comp)]
+        parts = ([_rolled(c, shifts) for c in comp] if partners is None
+                 else [partners[6 * k:6 * k + 6] for k in range(len(upd))])
+        props = [_propose(is_s, is_d, z, gamma, r, nz, x, p, self.mc)
+                 for x, nz, p in zip(upd, nzs, parts)]
         pushed = self.pushed(props)
         lpp = self.prior.logpdf_tree(pushed).to(torch.float32)
         return props, pushed, lpp, lpp > _NEG_INF, corr, u_acc
@@ -588,9 +664,10 @@ class FusedAISSweep(MixtureHalfSweep):
 
     def __init__(self, prior, draw, reduce_cost, *, scale, stats, nstats,
                  ndraws, noise, a_stretch, block, chunk, walker_tiles, bits,
-                 halves):
+                 halves, mesh=None):
         super().__init__(prior, a_stretch=a_stretch, block=block,
                          walker_tiles=walker_tiles, bits=bits)
+        self.mesh = mesh
         self.draw, self.reduce_cost = draw, reduce_cost
         self.stats, self.nstats, self.ndraws = stats, nstats, ndraws
         self.noise, self.chunk, self.halves = noise, chunk, halves
@@ -604,15 +681,18 @@ class FusedAISSweep(MixtureHalfSweep):
             [_f32(1.0 / ndraws), *self.mc, self.inv_scale,
              _f32(2 * (self.d - 1))], np.float32)
 
-    def half_plain(self, upd, lp, ll, comp, shifts, seed, terms=False):
+    def half_plain(self, upd, lp, ll, comp, shifts, seed, terms=False,
+                   partners=None):
         """Plain version of ``kt_fused_ais_sweep``: returns (theta leaves,
         lp, ll) of the updated half; with ``terms``, also (inside mask,
         margin): the margin is the MH log-ratio less the accept draw (a
-        walker commits where it is >= 0 and inside)."""
+        walker commits where it is >= 0 and inside). ``partners``: the
+        partners-given form (``kt_fused_ais_sweep_parts``; ``comp`` and
+        ``shifts`` unused)."""
         h = upd[0].shape[0]
         seed = _seed_tensor(seed, upd[0].device)
         props, pushed, lpp, valid, corr, u_acc = self.proposal_plain(
-            upd, comp, shifts, seed)
+            upd, comp, shifts, seed, partners)
         moments = streaming_moment_cost_plain(
             self.draw, self.stats, self.nstats, pushed, seed, n=h,
             ndraws=self.ndraws, chunk=self.chunk, noise=self.noise,
@@ -632,24 +712,31 @@ class FusedAISSweep(MixtureHalfSweep):
             h, self.nstats, lane_groups.sm_count(torch.cuda.current_device()),
             lane_groups.is_light(self.unit))
 
-    def launch(self, upd, lp, ll, comp, words, outs, geometry=None):
+    def launch(self, upd, lp, ll, comp, words, outs, geometry=None,
+               partners=None):
         """Launch ``kt_fused_ais_sweep`` on checked CUDA buffers of one
         half: ``words`` int64 [7], ``outs`` = (theta leaves, lp, ll);
         ``geometry`` a ``lane_groups.Geometry`` (default
-        ``self.geometry(h)``)."""
+        ``self.geometry(h)``); ``partners``: the 6 K partner leaves of
+        the partners-given form (``kt_fused_ais_sweep_parts``, which reads
+        only the seed of ``words``)."""
         lib = _build.load_generated(self.unit.source)
         oth, olp, oll = outs
         h = upd[0].shape[0]
         g = self.geometry(h) if geometry is None else lane_groups.check(
             h, geometry.walkers, geometry.threads, geometry.lanes,
             self.nstats, lane_groups.unit_lanes(self.unit.source))
-        err = lib.kt_fused_ais_sweep(
-            _build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
-            _build.pointers(comp), words.data_ptr(), _build.pointers(oth),
-            olp.data_ptr(), oll.data_ptr(), h, self.ndraws,
-            self.fconsts.ctypes.data_as(ctypes.c_void_p),
-            int(self.bits == "stub"), self._sb_rows(h), self.chunk,
-            g.walkers, g.threads, g.lanes, _stream())
+        args = (_build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
+                _build.pointers(comp), words.data_ptr(), _build.pointers(oth),
+                olp.data_ptr(), oll.data_ptr(), h, self.ndraws,
+                self.fconsts.ctypes.data_as(ctypes.c_void_p),
+                int(self.bits == "stub"), self._sb_rows(h), self.chunk,
+                g.walkers, g.threads, g.lanes, _stream())
+        if partners is None:
+            err = lib.kt_fused_ais_sweep(*args)
+        else:
+            err = lib.kt_fused_ais_sweep_parts(
+                *args, _build.pointers([x.contiguous() for x in partners]))
         _build.check(lib, err, "fused_ais_sweep")
         launches["fused_ais_sweep"] += 1
 
@@ -697,7 +784,35 @@ class FusedAISSweep(MixtureHalfSweep):
                     geometry)
         return outs
 
+    def half_parts(self, upd, lp, ll, partners, seed, outs=None,
+                   geometry=None):
+        """One half-update of a shard of a mesh in the partners-given form:
+        ``partners`` the 6 K partner leaves leaf-major (the shard's blocks
+        of ``partner_rolls``), ``seed`` the shard's seed (a 0-d or [1]
+        int64 tensor holding a uint32): the plain version for CPU tensors,
+        ``kt_fused_ais_sweep_parts`` for CUDA tensors. Returns (theta
+        leaves, lp, ll)."""
+        dev = upd[0].device
+        if dev.type == "cpu":
+            res = self.half_plain(upd, lp, ll, None, None, seed,
+                                  partners=partners)
+            if outs is None:
+                return res
+            for o, v in zip(list(outs[0]) + list(outs[1:]),
+                            list(res[0]) + list(res[1:])):
+                o.copy_(v)
+            return outs
+        if outs is None:
+            outs = ([torch.empty_like(x) for x in upd], torch.empty_like(lp),
+                    torch.empty_like(ll))
+        self.launch([x.contiguous() for x in upd], lp.contiguous(),
+                    ll.contiguous(), upd, self._shard_words(seed, dev), outs,
+                    geometry, partners=partners)
+        return outs
+
     def sweep_halves(self, gen, th, ld):
+        if self.mesh is not None:
+            return self._mesh_sweep(gen, th, ld)
         tha_l, sa = leaves_of(th[0], "make_fused_ais_sweep")
         thb_l, _ = leaves_of(th[1], "make_fused_ais_sweep")
         self._check_leaves(tha_l, "half-A")
@@ -784,14 +899,26 @@ def make_fused_ais_sweep(prior, draw, reduce_cost, *, scale,
     the kernelized density's target average cost. Returns
     ``sweep(gen, thetas, (lp, ll)) -> (thetas, (lp, ll))`` over full
     ``[n]`` tuples, or with ``halves=True`` the halves-carry contract of
-    ``make_sweep_halves``. ``mesh=`` raises ``NotImplementedError``:
-    its sharding comes in a later slice."""
+    ``make_sweep_halves``.
+
+    ``mesh`` (with ``halves=True``): each half is a ``Sharded`` over the
+    mesh's walker axis (plain halves are placed on it), the six partners
+    of a half-update come as shard-sized transfers (``partner_rolls``,
+    which reads the half's shifts on the host once), and the kernel runs
+    once per shard in its partners-given form with the shard folded into
+    its seed (``fold_seed``), as the JAX sweep runs under ``shard_map``:
+    statistical parity with the single-device sweep. ``sweep.mesh`` is
+    the mesh."""
+    if mesh is not None and not halves:
+        raise ValueError(
+            "make_fused_ais_sweep(mesh=...) requires halves=True: "
+            "slicing a sharded full ensemble into halves would reshard "
+            "every sweep — carry the halves (make_sweep_halves layout)")
     if mesh is not None:
-        raise NotImplementedError(
-            "make_fused_ais_sweep(mesh=...): walker sharding of this kernel "
-            "comes in a later slice")
+        L.check_mesh(mesh, "make_fused_ais_sweep")
     stats, nstats = validate(stats, nmoments, noise, block, bits, chunk)
     return FusedAISSweep(
         prior, draw, reduce_cost, scale=scale, stats=stats, nstats=nstats,
         ndraws=ndraws, noise=noise, a_stretch=a_stretch, block=block,
-        chunk=chunk, walker_tiles=walker_tiles, bits=bits, halves=halves)
+        chunk=chunk, walker_tiles=walker_tiles, bits=bits, halves=halves,
+        mesh=mesh)

@@ -36,6 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..parallel import layout as L
 from . import _build, codegen
 from .fused_ais import (GEN_AIS_OPS_PER_PAIR, GEN_AIS_OPS_PER_WORD,
                         MixtureHalfSweep, _f32, rot_shifts6)
@@ -78,7 +79,7 @@ class FusedTemperedSweep(MixtureHalfSweep):
     name = "make_fused_tempered_sweep"
 
     def __init__(self, prior, loglike, *, a_stretch, block, walker_tiles,
-                 bits):
+                 bits, mesh=None):
         super().__init__(prior, a_stretch=a_stretch, block=block,
                          walker_tiles=walker_tiles, bits=bits)
         self.loglike = loglike
@@ -87,17 +88,21 @@ class FusedTemperedSweep(MixtureHalfSweep):
         self.fconsts = np.array([*self.mc, _f32(2 * (self.d - 1))],
                                 np.float32)
         self._fconsts_ptr = self.fconsts.ctypes.data_as(ctypes.c_void_p)
-        self.mesh = None
+        self.mesh = mesh
 
-    def half_plain(self, upd, lp, ll, comp, shifts, seed, lam, terms=False):
+    def half_plain(self, upd, lp, ll, comp, shifts, seed, lam, terms=False,
+                   partners=None):
         """Plain version of ``kt_fused_tempered_sweep``: returns (theta
         leaves, lp, ll) of the updated half; with ``terms``, also (inside
         mask, margin): the margin is the tempered MH log-ratio less the
-        accept draw (a walker commits where it is >= 0 and inside)."""
+        accept draw (a walker commits where it is >= 0 and inside).
+        ``partners``: the partners-given form
+        (``kt_fused_tempered_sweep_parts``; ``comp`` and ``shifts``
+        unused)."""
         dev = upd[0].device
         seed = _seed_tensor(seed, dev)
         props, pushed, lpp, valid, corr, u_acc = self.proposal_plain(
-            upd, comp, shifts, seed)
+            upd, comp, shifts, seed, partners)
         llp = torch.as_tensor(self.loglike(pushed), device=dev).to(
             torch.float32).expand(lpp.shape)
         lam = torch.as_tensor(lam, device=dev).to(torch.float32)
@@ -109,19 +114,25 @@ class FusedTemperedSweep(MixtureHalfSweep):
                torch.where(acc, lpp, lp), torch.where(acc, llp, ll))
         return out + ((valid, lw - logu),) if terms else out
 
-    def launch(self, upd, lp, ll, comp, words, lam, outs):
+    def launch(self, upd, lp, ll, comp, words, lam, outs, partners=None):
         """Launch ``kt_fused_tempered_sweep`` on checked CUDA buffers of
         one half: ``words`` int64 [7], ``lam`` float32 [1], ``outs`` =
-        (theta leaves, lp, ll)."""
+        (theta leaves, lp, ll); ``partners``: the 6 K partner leaves of
+        the partners-given form (``kt_fused_tempered_sweep_parts``, which
+        reads only the seed of ``words``)."""
         lib = _build.load_generated(self.unit.source)
         oth, olp, oll = outs
         h = upd[0].shape[0]
-        err = lib.kt_fused_tempered_sweep(
-            _build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
-            _build.pointers(comp), words.data_ptr(), lam.data_ptr(),
-            _build.pointers(oth), olp.data_ptr(), oll.data_ptr(), h,
-            self._fconsts_ptr,
-            int(self.bits == "stub"), self._sb_rows(h), _stream())
+        args = (_build.pointers(upd), lp.data_ptr(), ll.data_ptr(),
+                _build.pointers(comp), words.data_ptr(), lam.data_ptr(),
+                _build.pointers(oth), olp.data_ptr(), oll.data_ptr(), h,
+                self._fconsts_ptr, int(self.bits == "stub"),
+                self._sb_rows(h), _stream())
+        if partners is None:
+            err = lib.kt_fused_tempered_sweep(*args)
+        else:
+            err = lib.kt_fused_tempered_sweep_parts(
+                *args, _build.pointers([x.contiguous() for x in partners]))
         _build.check(lib, err, "fused_tempered_sweep")
         launches["fused_tempered_sweep"] += 1
 
@@ -159,6 +170,29 @@ class FusedTemperedSweep(MixtureHalfSweep):
         self.launch(upd, lp, ll, comp, words, _lam_tensor(lam, dev), outs)
         return outs
 
+    def half_parts(self, upd, lp, ll, partners, seed, lam, outs=None):
+        """One half-update of a shard of a mesh in the partners-given form
+        at temperature ``lam``: ``partners`` the 6 K partner leaves
+        leaf-major, ``seed`` the shard's seed: the plain version for CPU
+        tensors, ``kt_fused_tempered_sweep_parts`` for CUDA tensors.
+        Returns (theta leaves, lp, ll)."""
+        upd, _, lp, ll, dev = self._checked(upd, upd, lp, ll)
+        if dev.type == "cpu":
+            res = self.half_plain(upd, lp, ll, None, None, seed, lam,
+                                  partners=partners)
+            if outs is None:
+                return res
+            for o, v in zip(list(outs[0]) + list(outs[1:]),
+                            list(res[0]) + list(res[1:])):
+                o.copy_(v)
+            return outs
+        if outs is None:
+            outs = ([torch.empty_like(x) for x in upd], torch.empty_like(lp),
+                    torch.empty_like(ll))
+        self.launch(upd, lp, ll, upd, self._shard_words(seed, dev),
+                    _lam_tensor(lam, dev), outs, partners=partners)
+        return outs
+
     def _checked(self, upd, comp, lp, ll):
         """The half's leaves, the other half's leaves, lp and ll as
         float32 contiguous vectors of one length h on one CPU or CUDA
@@ -180,6 +214,8 @@ class FusedTemperedSweep(MixtureHalfSweep):
         return vecs[:k], vecs[k:2 * k], vecs[-2], vecs[-1], dev
 
     def __call__(self, gen, th, ld, lam):
+        if self.mesh is not None:
+            return self._mesh_sweep(gen, th, ld, torch.as_tensor(lam))
         tha_l, structure = leaves_of(th[0], self.name)
         thb_l, _ = leaves_of(th[1], self.name)
         self._check_leaves(tha_l, "half-A")
@@ -230,15 +266,16 @@ def make_fused_tempered_sweep(prior, loglike, *, a_stretch: float = 3.0,
     Returns ``sweep(gen, (tree_a, tree_b), ((lp_a, ll_a), (lp_b, ll_b)),
     lam)``: ``lp``/``ll`` are carried raw (unscaled), so ``lam`` (a float
     or a 0-d tensor, read by the kernel from device memory) can change
-    between sweeps. ``mesh=`` raises ``NotImplementedError``: its
-    sharding comes in a later slice."""
+    between sweeps. ``mesh``: each half is a ``Sharded`` over the mesh's
+    walker axis, the six partners come as shard-sized transfers and the
+    kernel runs once per shard in its partners-given form with the shard
+    folded into its seed, as ``make_fused_ais_sweep(mesh=...)``; pass the
+    same mesh to ``tsmc(..., mesh=...)``. ``sweep.mesh`` is the mesh."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_fused_tempered_sweep(mesh=...): walker sharding of this "
-            "kernel comes in a later slice")
+        L.check_mesh(mesh, "make_fused_tempered_sweep")
     if block % 128:
         raise ValueError(f"block must be a multiple of 128, got {block}")
     _check_bits(bits, block, 1)
     return FusedTemperedSweep(prior, loglike, a_stretch=a_stretch,
                               block=block, walker_tiles=walker_tiles,
-                              bits=bits)
+                              bits=bits, mesh=mesh)

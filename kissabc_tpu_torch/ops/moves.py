@@ -19,7 +19,12 @@ pure function of those draws (``propose_roll``/``propose_gather``,
 ``stretch_move``/``de_move``/``walk_move``/``mixture_move``,
 ``rollfused_from_words``), so tests can feed both packages the same
 words, shifts and partners. Shifts are computed on the generator's
-device: the split AIS sweep reads nothing on the host.
+device: the split AIS sweep reads nothing on the host. On a walker mesh
+(``mesh=``, halves ``Sharded``) the draws are still made on the whole
+half and cut into shards, so the proposals keep their bits; the rotation
+partners then move as shard-sized transfers (``partner_rolls``, which
+reads the six shifts on the host), the gathered ones come from the
+joined other half.
 """
 
 from __future__ import annotations
@@ -308,18 +313,23 @@ def _distinct_shifts(v, hc, ks):
     return out
 
 
-def _partners(gen, comp, h, hc, k, scheme):
-    """k mutually distinct partner trees for h walkers from ``comp``.
-    ``roll``: k distinct rotations, partner ``comp[(i + r_j) % hc]``
-    (``jnp.roll(x, -r)[:h]``), computed by index on the device;
-    ``gather``: per-walker random distinct indices (the reference law)."""
+def _partner_idx(gen, h, hc, k, scheme):
+    """The indices into ``comp`` of k mutually distinct partners for h
+    walkers. ``roll``: k distinct rotations, partner ``(i + r_j) % hc``
+    (``jnp.roll(x, -r)[:h]``), computed on the device; ``gather``:
+    per-walker random distinct indices (the reference law)."""
     if scheme == "roll":
         v = uint32_words(gen, k)
         pos = torch.arange(h, device=gen.device)
-        return [_take(comp, torch.remainder(pos + r, hc))
+        return [torch.remainder(pos + r, hc)
                 for r in _distinct_shifts(v, hc, (k,))]
-    raw = [_randint(gen, hc - j, (h,)) for j in range(k)]
-    return [_take(comp, i) for i in _bump_distinct(raw)]
+    return _bump_distinct([_randint(gen, hc - j, (h,)) for j in range(k)])
+
+
+def _partners(gen, comp, h, hc, k, scheme):
+    """k mutually distinct partner trees for h walkers from ``comp``
+    (``_partner_idx``)."""
+    return [_take(comp, i) for i in _partner_idx(gen, h, hc, k, scheme)]
 
 
 def _rows(words, start, count, like, h):
@@ -332,14 +342,16 @@ def _rows(words, start, count, like, h):
 
 
 def rollfused_from_words(half, comp, d, a_stretch, words, shifts,
-                         accept_lu=True):
+                         accept_lu=True, partners=None):
     """The rotation-scheme mixture as a pure function of its draws (the
     JAX package's ``_mixture_batched_rollfused``): ``words`` is the
     ``(6 + C [+ 1], h)`` block of uint32 words (move id, stretch z, DE
     gamma, one jitter row per parameter component, the three walk
     weights, the accept draw), ``shifts`` the six rotations (stretch 1,
-    DE 2, walk 3). Returns ``(prop, corr, lu)``; ``lu`` is None unless
-    ``accept_lu``."""
+    DE 2, walk 3). ``partners``: the six partner trees already rolled
+    (a shard's blocks of ``partner_rolls`` on a mesh), in place of
+    ``comp`` and ``shifts``. Returns ``(prop, corr, lu)``; ``lu`` is None
+    unless ``accept_lu``."""
     leaves = tree_leaves(half)
     h = leaves[0].shape[0]
     cols = [int(np.prod(x.shape[1:], dtype=np.int64)) for x in leaves]
@@ -355,76 +367,148 @@ def rollfused_from_words(half, comp, d, a_stretch, words, shifts,
     noise = tree_map(lambda _: next(it), half)
     r = _bits_to_normal(words[3 + C:6 + C])
     lu = _bits_to_log_uniform(words[6 + C]) if accept_lu else None
-    pos = torch.arange(h, device=words.device)
-
-    def partner(shift):
-        return _take(comp, torch.remainder(pos + shift, h))
-
-    s1, d1, d2, w1, w2, w3 = shifts
-    p_s, c_s = stretch_move(half, partner(s1), z, d)
-    p_d = de_move(half, partner(d1), partner(d2),
-                  _bits_to_normal(words[2]), noise, d)
-    p_w = walk_move(half, partner(w1), partner(w2), partner(w3), r)
+    if partners is None:
+        pos = torch.arange(h, device=words.device)
+        partners = [_take(comp, torch.remainder(pos + shift, h))
+                    for shift in shifts]
+    ps, d1, d2, w1, w2, w3 = partners
+    p_s, c_s = stretch_move(half, ps, z, d)
+    p_d = de_move(half, d1, d2, _bits_to_normal(words[2]), noise, d)
+    p_w = walk_move(half, w1, w2, w3, r)
     prop, corr = mixture_move(is_s, is_d, p_s, c_s, p_d, p_w)
     return prop, corr, lu
+
+
+def _cut_columns(mesh, words):
+    """A ``(R, h)`` block of per-walker words cut into the shards' ``(R,
+    s)`` blocks."""
+    from ..parallel.mesh import place
+    return place(mesh, words.T).map(lambda w: w.T)
+
+
+def _partner_trees(leaves, like, k):
+    """The k partner trees, structured like ``like``, from leaf-major
+    partner leaves (leaf l's k copies at ``k l .. k l + k - 1``)."""
+    nleaves = len(tree_leaves(like))
+    out = []
+    for j in range(k):
+        it = iter([leaves[k * l + j] for l in range(nleaves)])
+        out.append(tree_map(lambda _: next(it), like))
+    return out
 
 
 def _mixture_batched_rollfused(gen, half, comp, d, a_stretch, accept_lu, h):
     """All randomness of the rotation mixture from two draws of words: six
     for the partner shifts, and one ``(R, h)`` block for every per-walker
-    quantity."""
+    quantity. On a mesh (``half`` and ``comp`` ``Sharded``) the words are
+    cut into shards and the six partners come as shard-sized transfers
+    (``partner_rolls``, which reads the shifts on the host once); each
+    shard then moves by ``rollfused_from_words`` on its own device."""
+    from ..parallel.mesh import Sharded, partner_rolls
+    sharded = isinstance(half, Sharded)
+    like = half.shards[0] if sharded else half
     C = sum(int(np.prod(x.shape[1:], dtype=np.int64))
-            for x in tree_leaves(half))
+            for x in tree_leaves(like))
     shifts = _distinct_shifts(uint32_words(gen, 6), h, (1, 2, 3))
     R = 6 + C + (1 if accept_lu else 0)
     words = uint32_words(gen, R * h).reshape(R, h)
-    return rollfused_from_words(half, comp, d, a_stretch, words, shifts,
-                                accept_lu)
+    if not sharded:
+        return rollfused_from_words(half, comp, d, a_stretch, words, shifts,
+                                    accept_lu)
+    parts = partner_rolls(comp, torch.stack(shifts), half.mesh, half.axis)
+    out = half.map(lambda t, w, p: rollfused_from_words(
+        t, None, d, a_stretch, w, None, accept_lu,
+        partners=_partner_trees(p, t, 6)),
+        _cut_columns(half.mesh, words), parts)
+    return tuple(out.map(lambda o, i=i: o[i]) for i in range(3))
+
+
+def _moves_from_draws(half, parts, mid, z, gnorm, noise, r, d):
+    """The 4:2:1 mixture of the generic draws, given the six partner
+    trees (stretch 1, DE 2, walk 3): ``(prop, corr)``."""
+    p_s, c_s = stretch_move(half, parts[0], z, d)
+    p_d = de_move(half, parts[1], parts[2], gnorm, noise, d)
+    p_w = walk_move(half, parts[3], parts[4], parts[5], r)
+    return mixture_move(mid < 4, (mid >= 4) & (mid < 6), p_s, c_s, p_d, p_w)
 
 
 def mixture_batched(gen, half, comp, d, a_stretch=3.0, scheme="auto",
-                    accept_lu=False):
+                    accept_lu=False, mesh=None):
     """The 4:2:1 mixture over one half ensemble, one batched draw per
     random quantity. ``scheme="roll"`` (distinct random rotations of the
     complementary half) with equal halves takes the fused draw of
     ``_mixture_batched_rollfused``; otherwise each quantity is drawn on
     its own. With ``accept_lu=True`` returns ``(prop, corr, lu)``; ``lu``
-    is the fused accept draw on the rotation path, else None."""
-    h = tree_leaves(half)[0].shape[0]
-    hc = tree_leaves(comp)[0].shape[0]
+    is the fused accept draw on the rotation path, else None.
+
+    ``mesh``: ``half`` and ``comp`` are ``Sharded`` over it (plain trees
+    are placed on it first). Every draw is made on the whole half on the
+    generator's device, as without a mesh, and cut into shards; the
+    rotation partners move as shard-sized transfers, the gathered
+    partners are read from the joined complementary half (an
+    all-gather). The outputs are ``Sharded``, with the bits of
+    ``mesh=None``."""
+    from ..parallel.mesh import Sharded, join, place
+    if mesh is not None:
+        half, comp = (x if isinstance(x, Sharded) else place(mesh, x)
+                      for x in (half, comp))
+    sharded = isinstance(half, Sharded)
+    h = half.n if sharded else tree_leaves(half)[0].shape[0]
+    hc = comp.n if sharded else tree_leaves(comp)[0].shape[0]
     scheme = _resolve_scheme(scheme, h + hc)
     if scheme == "roll" and h == hc:
         out = _mixture_batched_rollfused(gen, half, comp, d, a_stretch,
                                          accept_lu, h)
         return out if accept_lu else out[:2]
     dev = gen.device
+    like = half.shards[0] if sharded else half
     mid = _randint(gen, 7, (h,))
-    (part,) = _partners(gen, comp, h, hc, 1, scheme)
+    idx = _partner_idx(gen, h, hc, 1, scheme)
     z = cdf_g_inv(torch.rand(h, generator=gen, device=dev), a_stretch)
-    p_s, c_s = stretch_move(half, part, z, d)
-    ta, tb = _partners(gen, comp, h, hc, 2, scheme)
+    idx += _partner_idx(gen, h, hc, 2, scheme)
     gnorm = torch.randn(h, generator=gen, device=dev)
-    p_d = de_move(half, ta, tb, gnorm, _noise_like(gen, half), d)
-    twa, twb, twc = _partners(gen, comp, h, hc, 3, scheme)
+    noise = tree_map(lambda x: torch.randn((h,) + tuple(x.shape[1:]),
+                                           generator=gen, device=dev), like)
+    idx += _partner_idx(gen, h, hc, 3, scheme)
     r = torch.randn((3, h), generator=gen, device=dev)
-    p_w = walk_move(half, twa, twb, twc, r)
-    prop, corr = mixture_move(mid < 4, (mid >= 4) & (mid < 6), p_s, c_s,
-                              p_d, p_w)
+    if not sharded:
+        prop, corr = _moves_from_draws(half, [_take(comp, i) for i in idx],
+                                       mid, z, gnorm, noise, r, d)
+        return (prop, corr, None) if accept_lu else (prop, corr)
+    m = half.mesh
+    full = join(comp)
+    out = half.map(
+        lambda t, ii, mi, zi, gi, ni, ri: _moves_from_draws(
+            t, [_take(tree_map(lambda x: x.to(mi.device), full), i)
+                for i in ii], mi, zi, gi, ni, ri.T, d),
+        place(m, tuple(idx)), place(m, mid), place(m, z), place(m, gnorm),
+        place(m, noise), place(m, r.T))
+    prop, corr = (out.map(lambda o, i=i: o[i]) for i in range(2))
     return (prop, corr, None) if accept_lu else (prop, corr)
 
 
 def propose_half(gen, half, comp, d, kernel=None, scheme="auto",
-                 accept_lu=False):
+                 mesh=None, accept_lu=False):
     """Propose for every walker of ``half`` (leaves ``[H, ...]``) with
     partners from ``comp``. The default is ``mixture_batched``; a
     single-walker kernel (``stretch_one``, ``de_one``, ``walk_one``, or
     one of the same signature) is mapped over the walkers with
     ``torch.func.vmap(randomness="different")``. Returns ``(props,
     corr)``, or ``(props, corr, lu)`` with ``accept_lu=True`` (``lu`` is
-    None unless the fused rotation draw made it)."""
+    None unless the fused rotation draw made it). ``mesh``: the halves
+    are ``Sharded`` over it, as ``mixture_batched`` takes them, with the
+    bits of ``mesh=None``; a single-walker kernel runs on the joined
+    halves and its outputs are cut into shards."""
     if kernel is None or kernel is mixture_one:
         return mixture_batched(gen, half, comp, d, scheme=scheme,
-                               accept_lu=accept_lu)
+                               accept_lu=accept_lu, mesh=mesh)
+    if mesh is not None:
+        from ..parallel.mesh import Sharded, join, place
+        half, comp = (join(x) if isinstance(x, Sharded) else x
+                      for x in (half, comp))
+        props, corr = propose_half(gen, half, comp, d, kernel=kernel)
+        out = (place(mesh, props), place(mesh, corr))
+        return out + (None,) if accept_lu else out
     hc = tree_leaves(comp)[0].shape[0]
     props, corr = vmap(lambda th: kernel(gen, th, comp, hc, d),
                        randomness="different")(half)

@@ -136,9 +136,14 @@ def quantile(x, q):
 
 
 def ess_weights(w):
-    """Kish effective sample size ``sum(w)^2 / sum(w^2)``."""
-    s = w.sum()
-    return s * s / (w * w).sum()
+    """Kish effective sample size ``sum(w)^2 / sum(w^2)`` of a vector or
+    a ``Sharded`` one; each sum is a float64 sum rounded once to float32,
+    on a mesh the shards' sums added over it (``parallel/layout.py``), so
+    the two layouts give the same ESS."""
+    from ..parallel.layout import layout_of
+    lay = layout_of(w)
+    s = lay.fsum(w)
+    return s * s / lay.fsum(lay.map(lambda x: x * x, w))
 
 
 def resolve_quantile_impl(impl, mesh, n=None):

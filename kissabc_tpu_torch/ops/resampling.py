@@ -38,7 +38,8 @@ def systematic_from_u0(weights, u0):
     if isinstance(weights, Sharded):
         return _systematic_sharded(weights, u0)
     n = weights.shape[0]
-    w = weights / weights.sum()
+    # the total a float64 sum rounded once, as on a mesh
+    w = weights / weights.to(torch.float64).sum().to(weights.dtype)
     # float64 partial sums rounded once (a float32 cumsum on the CPU
     # accumulates in float64 too): the same cum on every device, and on
     # a mesh
@@ -62,7 +63,8 @@ def _ancestors(x, n):
 def _systematic_sharded(weights, u0):
     from ..parallel.mesh import Sharded, exclusive_prefix, join, psum
     mesh, n = weights.mesh, weights.n
-    total = psum(mesh, [w.sum() for w in weights.shards])
+    total = psum(mesh, [w.to(torch.float64).sum()
+                        for w in weights.shards]).to(weights.shards[0].dtype)
     ws = [w / total.to(w.device) for w in weights.shards]
     pre = exclusive_prefix(mesh, [w.to(torch.float64).sum() for w in ws])
     xs = [n * (p + torch.cumsum(w.to(torch.float64), 0)).to(w.dtype)

@@ -44,12 +44,16 @@ from ..ops.tree import tree_leaves, tree_map
 # shard-sized transfers since the last reset: one a destination shard and
 # leaf for ``permute``, one a source shard and leaf for ``join``
 transfers = {"permute": 0, "join": 0}
+# values read on the host since the last reset: the partner shifts of a
+# sharded ensemble half-update, once each (``partner_rolls``)
+host_reads = {"shifts": 0}
 _hooks = []
 
 
 def reset_transfer_counts() -> None:
     for name in transfers:
         transfers[name] = 0
+    host_reads["shifts"] = 0
 
 
 def add_transport_hook(fn):
@@ -135,6 +139,20 @@ class Mesh:
         scalars (eps, counts, the stop flag) live there."""
         return next(d for d, r in zip(self.devices.flat, self.ranks.flat)
                     if r == self.rank)
+
+    def take(self, axis, i) -> "Mesh":
+        """The mesh of index ``i`` along ``axis``, that axis dropped: row
+        ``i`` of a ``(chain, walker)`` mesh is the walker mesh of chain
+        ``i``."""
+        k = self.axis_names.index(axis)
+        names = self.axis_names[:k] + self.axis_names[k + 1:]
+        devs = np.take(self.devices, [i], axis=k)
+        ranks = np.take(self.ranks, [i], axis=k)
+        if not names:   # a one-axis mesh: its device as a mesh of one
+            return Mesh(devs, ("walker",), ranks, self.rank,
+                        self.distributed)
+        return Mesh(np.squeeze(devs, k), names, np.squeeze(ranks, k),
+                    self.rank, self.distributed)
 
 
 def make_mesh(*, devices=None, **axes) -> Mesh:
@@ -281,6 +299,28 @@ def roll_walkers(tree, shift, mesh, axis: str = "walker"):
     zs = permute(ys, 1)
     return ys.map(lambda y, z: tree_map(
         lambda a, b: torch.cat([a, b])[t:t + s], y, z), zs)
+
+
+def partner_rolls(comp, shifts, mesh, axis: str = "walker"):
+    """The six rolled copies of the complementary half ``comp`` (a
+    ``Sharded`` of a tuple of leaves) that an ensemble half-update reads
+    its partners from, ``comp[(i + r_j) % h]`` for the shifts ``r_j``:
+    the counterpart of ``_partner_rolls`` (pallas_kernels.py:1137-1150).
+    Returns a ``Sharded`` whose shard holds the partner leaves
+    leaf-major (leaf k's six copies at ``6k .. 6k + 5``), each
+    bit-identical to ``torch.roll(leaf, -r_j)``'s block: ``roll_walkers``
+    of each shift, 2 shard-sized transfers per leaf, shift and shard, and
+    no join. The shifts pick the transfers' sources: a tensor of them is
+    read on the host once (``host_reads["shifts"]``)."""
+    if torch.is_tensor(shifts):
+        host_reads["shifts"] += 1
+        shifts = shifts.tolist()
+    rolled = [roll_walkers(comp, -int(r), mesh, axis) for r in shifts]
+    nleaves = len(tree_leaves(comp.shards[0]))
+    return Sharded(mesh, [
+        [tree_leaves(rolled[j].shards[s])[k] for k in range(nleaves)
+         for j in range(len(shifts))]
+        for s in range(len(comp.shards))], comp.n, axis)
 
 
 def constrainer(mesh, *axis_names):
@@ -445,7 +485,8 @@ def shard_batched_cost(cost_batched, mesh, axis: str = "walker"):
     return ShardedCost(cost_batched, mesh, axis)
 
 
-__all__ = ["Mesh", "make_mesh", "roll_walkers", "constrainer", "Sharded",
+__all__ = ["Mesh", "make_mesh", "roll_walkers", "partner_rolls",
+           "constrainer", "Sharded", "host_reads",
            "place", "join", "permute", "psum", "pmin", "pmax",
            "exclusive_prefix", "transfers", "reset_transfer_counts",
            "add_transport_hook", "remove_transport_hook", "walker_shards",

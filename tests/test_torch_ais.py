@@ -270,7 +270,7 @@ def test_positional_mcmcthreads_marker():
 def test_device_mesh_and_key_contract():
     model = kt.CommonLogDensity(1, lambda g: _randn(g, (1,)),
                                 lambda x: -0.5 * (x[0] ** 2))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.sample(model, kt.AIS(16), 16, mesh=object(), **CPU)
     if not torch.cuda.is_available():   # CUDA by default, no fallback
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -211,7 +211,7 @@ def test_validation():
     with pytest.raises(ValueError, match="cost_on"):
         kt.make_fused_abcde_generation(prior, draw, rc, gamma=GAMMA,
                                        cost_on="x")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.make_fused_abcde_generation(prior, draw, rc, gamma=GAMMA,
                                        mesh=object())
     bad = kt.make_fused_abcde_generation(prior, draw, rc, gamma=0.123, **KW)

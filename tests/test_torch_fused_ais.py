@@ -396,9 +396,12 @@ def test_validation_messages():
     with pytest.raises(ValueError, match="noise"):
         kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
                                 noise="poisson")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="requires halves=True"):
         kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
                                 mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
+                                halves=True, mesh=object())
     sw = kt.make_fused_ais_sweep(prior, draw, reduce_cost, scale=0.5,
                                  ndraws=50, block=128, chunk=128,
                                  bits="stub")

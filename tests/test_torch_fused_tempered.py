@@ -229,7 +229,7 @@ def test_validation_messages():
         kt.make_fused_tempered_sweep(prior, ll_elem, block=100)
     with pytest.raises(ValueError, match="bits"):
         kt.make_fused_tempered_sweep(prior, ll_elem, bits="tpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.make_fused_tempered_sweep(prior, ll_elem, mesh=object())
     with pytest.raises(NotImplementedError, match="not supported"):
         kt.make_fused_tempered_sweep(prior, lambda th: torch.erf(th))

@@ -178,9 +178,9 @@ def test_entry_points_validate_and_default_to_cuda():
         kt.ABCDE(pri, torch.abs, 0.1, alpha=1.0, device="cpu")
     with pytest.raises(ValueError, match=">= 3 particles"):
         kt.ABCDE(pri, torch.abs, 0.1, nparticles=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.ABCDE(pri, torch.abs, 0.1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.pfilter(pri, torch.abs, 100, mesh=object(), device="cpu")
     with pytest.raises(RuntimeError, match="could not initialize"):
         kt.pfilter(pri, lambda x: x * float("inf"), 20, device="cpu")

@@ -250,9 +250,9 @@ def test_knob_validation():
 
 
 def test_mesh_raises_and_device_defaults_to_cuda(monkeypatch):
-    # the counterpart of test_sharded_matches_unsharded: walker sharding
-    # is not ported, so mesh= refuses instead of running unsharded
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= takes a Mesh (tests/test_torch_parallel_samplers.py holds the
+    # sharded run against the unsharded one)
+    with pytest.raises(TypeError, match="Mesh"):
         kt.abc_rejection(kt.Uniform(0.0, 1.0), lambda th: th, 8, nsims=64,
                          mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -99,7 +99,7 @@ def test_tsmc_validation():
                                           lambda th: -0.5 * th * th)
         kt.tsmc(kt.Normal(0, 1), _loglike, sweep_fused=sw, mesh=object(),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         kt.tsmc(kt.Normal(0, 1), _loglike, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
