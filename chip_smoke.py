@@ -69,10 +69,22 @@ version and the snapshot form), ``mesh-tsmc`` (split bit-equal at 4096,
 #9 per shard at 131072), ``mesh-pfilter``, ``mesh-abcde`` (split
 bit-equal, #10 per shard at 16384 x 1000) and ``mesh-rejection`` (a
 PyTorch cost bit-equal, #1 per shard through ``shard_batched_cost``),
-and ABCDE on the one-rank nccl group. The line before the last is one
-JSON object with every kernel's launches on its path, its error against
-its plain version and its times; the last line is
-``{"ok": true, "device": {...}}``.
+and ABCDE on the one-rank nccl group. The walkthroughs of
+``examples_torch/`` come last: ``build-examples`` builds the units of
+their kernels that no other phase builds (started with the others),
+``examples-kernels`` holds those units (#4: Weibull, g-and-k ecdf; #5:
+OU, Wiener, SIR) against their plain versions at the walkthroughs'
+1024 walkers and times them, ``examples`` runs every walkthrough's
+``main()`` uncut on the card, its asserts inside, and prints its wall
+and its launches on an ``[example]`` line (#4 in ``example_streaming_sim``
+and ``example_fused_ais``, #5 in ``example_scan_sim`` and ``example_sir``,
+#6 in ``example_fused_ais``, #9 in ``example_tsmc``, each required above
+0; the others launch none), ``example-expmix`` runs ``example_expmix``
+at 10^6 draws a cost call under its own alarm, and ``matrix-priors``
+runs ``example_covariance``. The line before the last is one JSON
+object with every kernel's launches on its path (the walkthroughs'
+under their names in ``launches_by_path``), its error against its plain
+version and its times; the last line is ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card and nvcc; imports nothing of JAX. Without a card, or
 run from a directory without the package, it exits 1 and prints no result.
@@ -80,6 +92,7 @@ run from a directory without the package, it exits 1 and prints no result.
 
 import argparse
 import ctypes
+import importlib
 import json
 import math
 import os
@@ -95,6 +108,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCRIPT_LIMIT_S = 1000    # whole run, build included (the limit is 1200 s)
 FULL_SMC_LIMIT_S = 420   # the 2**20-particle smc run alone
 README_LIMIT_S = 300     # the README AIS run (2e4 half-updates) alone
+EXPMIX_LIMIT_S = 300     # example_expmix (10^6 draws a cost call) alone
+# the walkthroughs of examples_torch/, run by the examples phases (the
+# covariance example by matrix-priors, expmix in a phase of its own)
+EXAMPLES = ("example_n1", "example_n2", "example_socks", "example_gk",
+            "example_model_choice", "example_workflow",
+            "example_streaming_sim", "example_scan_sim", "example_sir",
+            "example_tsmc", "example_fused_ais")
+# the kernels each walkthrough reaches on the card; the others reach none
+EXAMPLE_KERNELS = {
+    "example_streaming_sim": ("streaming_moment_cost",),
+    "example_scan_sim": ("streaming_scan_cost",),
+    "example_sir": ("streaming_scan_cost",),
+    "example_tsmc": ("fused_tempered_sweep",),
+    "example_fused_ais": ("fused_ais_sweep", "streaming_moment_cost")}
 H100_F32_OPS = 67e12     # float32 outside the tensor cores, H100 SXM
 H100_BYTES = 3.35e12     # HBM3, H100 SXM
 EPSTOL = 0.011113        # README.md:84 of the reference
@@ -773,6 +800,40 @@ def main():
     table_units.setdefault(msweep.unit.source, []).append(
         "sweep smc-1m-generic-discrete")
 
+    # the walkthroughs of examples_torch/ and the units of their kernels:
+    # streaming_sim's two #4 units and scan_sim's two #5 units are new;
+    # fused_ais' #4 and #6, sir's #5 and tsmc's #9 are the flagship, SIR
+    # and conjugate units above (the same generated text)
+    EX = {name: importlib.import_module(f"examples_torch.{name}")
+          for name in EXAMPLES + ("example_covariance", "example_expmix")}
+    ex_stream, ex_scan = EX["example_streaming_sim"], EX["example_scan_sim"]
+    ex_fa = EX["example_fused_ais"]
+    ex_costs = {   # name: (cost, theta structure, prior), as main builds
+        "weibull": (ex_stream.cost, 2, ex_stream.prior),
+        "gk-ecdf": (ex_stream.make_gk_cost(ex_stream.gk_probes(dev)), 4,
+                    ex_stream.gk_prior)}
+    ex_scans = {
+        "ou": (ex_scan.cost, 3, ex_scan.prior),
+        "wiener": (ex_scan.cost2, 2, ex_scan.prior2),
+        "sir": (kt.make_streaming_scan_cost(
+            sstep, sinit, sreduce, observe=sobserve, series=sseries,
+            nsteps=2 * models.SIR_DAYS), 2, models.sir()[0])}
+    built = {**units, **ais_units, **t5_units, **table_units}
+    ex_units = {}
+    for name, (c, k, _) in {**ex_costs, **ex_scans}.items():
+        if c.unit(k).source not in built:
+            ex_units.setdefault(c.unit(k).source, []).append(f"example {name}")
+    for what, unit in (
+            ("fused_ais #4", kt.make_streaming_moment_cost(
+                ex_fa.draw, ex_fa.reduce_cost).unit(2)),
+            ("fused_ais #6", kt.make_fused_ais_sweep(
+                ex_fa.prior, ex_fa.draw, ex_fa.reduce_cost,
+                scale=ex_fa.SCALE).unit),
+            ("tsmc #9", kt.make_fused_tempered_sweep(
+                kt.Normal(0, 1), EX["example_tsmc"].loglike_elem).unit)):
+        check(unit.source in built, f"example {what}: its unit is not one "
+              "the build phases start")
+
     ptxas = {}   # unit names -> ptxas lines, each after its function
 
     def ptxas_lines(log, prefix):
@@ -796,6 +857,7 @@ def main():
         ais_jobs = [_build.start(text) for text in ais_units]
         t5_jobs = [_build.start(text) for text in t5_units]
         table_jobs = [_build.start(text) for text in table_units]
+        ex_jobs = [_build.start(text) for text in ex_units]
         radius_job = _build.start(RADIUS_CHECK)
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
@@ -858,6 +920,39 @@ def main():
                      f"smc-1m-generic-priors' #3 and "
                      f"smc-1m-generic-discrete's #3, started with the "
                      f"others; nvcc seconds {secs7}")
+
+    with Phase("build-examples") as ph:
+        secs_ex = {}
+        for (text, names), job in zip(ex_units.items(), ex_jobs):
+            _, secs, log = job.wait()
+            ptxas_lines(log, "/".join(names))
+            _build.load_generated(text)
+            secs_ex["/".join(names)] = round(secs, 2)
+        ph.result = (f"{len(ex_units)} generated units of the walkthroughs "
+                     f"of examples_torch/ (#4: Weibull, g-and-k ecdf; #5: "
+                     f"OU, Wiener), started with the others; nvcc seconds "
+                     f"{secs_ex}")
+
+    ex_runs = {}   # walkthrough -> wall and launches
+
+    def run_example(name):
+        """``main()`` of one walkthrough of examples_torch/ on the card
+        (its asserts inside), its wall and the kernels it launched;
+        returns main's result."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = EX[name].main()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in counts().items() if v}
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            check(launched.get(k, 0) > 0, f"{name} launched no {k}")
+        check(set(launched) <= set(EXAMPLE_KERNELS.get(name, ())),
+              f"{name} launched {launched}")
+        ex_runs[name] = dict(wall_s=wall, launches=launched)
+        say(f"[example] {name}: {wall:.3f} s, launches {launched}")
+        return out
 
     with Phase("radius-exhaustive") as ph:
         radius_job.wait()
@@ -3141,7 +3236,7 @@ def main():
         # cost (torch.func.vmap; no kernel of the port: the JAX kernels
         # take only [n] leaves): smc on LKJ(2, 1.0) at the settings of
         # tests/test_distributions.py:1259-1280; the covariance example
-        # (examples/example_covariance.py:30-74, uncut, ported inline);
+        # (examples_torch/example_covariance.py, uncut);
         # AIS on the LKJ prior; then each family's logpdf on the card
         # against the CPU and 10^5 draws against statistics.mean/cov
         out = {}
@@ -3166,39 +3261,12 @@ def main():
         out["lkj-smc"] = dict(iterations=r.iterations, eps=float(r.eps),
                               r=P[1].mean(), wall_s=wall)
 
-        true_r, true_s, nobs = 0.6, (1.5, 0.7), 2000
-        true_cov = np.diag(true_s) @ np.array(
-            [[1.0, true_r], [true_r, 1.0]]) @ np.diag(true_s)
-        obs = np.random.default_rng(1).multivariate_normal(
-            [0.0, 0.0], true_cov, size=nobs)
-        obs_s1, obs_s2 = np.std(obs, axis=0)
-        obs_r = np.corrcoef(obs.T)[0, 1]
-        o1, o2, orr = (float(np.float32(v)) for v in (obs_s1, obs_s2,
-                                                      obs_r))
-
-        def cov_cost(theta, g):
-            R, s1, s2 = theta
-            cl, _ = torch.linalg.cholesky_ex(R)
-            x = (torch.randn((nobs, 2), generator=g, device=g.device)
-                 @ cl.T) * torch.stack([s1, s2])
-            sd = torch.std(x, dim=0, correction=0)
-            rh = torch.mean(x[:, 0] * x[:, 1]) / (sd[0] * sd[1])
-            return (torch.abs(sd[0] - o1) / o1 + torch.abs(sd[1] - o2) / o2
-                    + torch.abs(rh - orr))
-
-        t0 = time.perf_counter()
-        r = kt.smc(kt.Factored(kt.LKJ(2, 1.0), kt.LogUniform(0.1, 10.0),
-                               kt.LogUniform(0.1, 10.0)), cov_cost,
-                   nparticles=256, max_iters=400, key=11)
-        wall = time.perf_counter() - t0
-        r_post, s1_post, s2_post = r.P[1], r.P[4], r.P[5]
-        check(abs(r_post.mean() - obs_r) < 0.1, f"covariance r {r_post}")
-        check(abs(s1_post.mean() - obs_s1) < 0.15, f"covariance s1 {s1_post}")
-        check(abs(s2_post.mean() - obs_s2) < 0.1, f"covariance s2 {s2_post}")
+        # examples_torch/example_covariance.py, uncut (its asserts inside)
+        r, obs = run_example("example_covariance")
         out["covariance"] = dict(
-            iterations=r.iterations, eps=float(r.eps), r=r_post.mean(),
-            s1=s1_post.mean(), s2=s2_post.mean(), obs=[obs_r, obs_s1, obs_s2],
-            wall_s=wall)
+            iterations=r.iterations, eps=float(r.eps), r=r.P[1].mean(),
+            s1=r.P[4].mean(), s2=r.P[5].mean(), obs=list(obs),
+            wall_s=ex_runs["example_covariance"]["wall_s"])
 
         t0 = time.perf_counter()
         ra = kt.sample(kt.ApproxKernelizedPosterior(kt.LKJ(2, 1.0), corr_cost,
@@ -3956,6 +4024,80 @@ def main():
         mesh10["rejection"] = out
         ph.result = json.dumps(out)
 
+    # ---- the walkthroughs of examples_torch/ -----------------------------
+    ex_times = {}   # kernel -> walkthrough unit -> its times and error
+
+    with Phase("examples-kernels") as ph:
+        # the walkthroughs' units of #4 and #5 at their width, 1024 walkers
+        # (SIR's unit is sir-stub's, here on Philox bits), each against its
+        # plain version on the same inputs at the golden tolerance; the
+        # g-and-k ecdf's indicator summaries flip where a draw lies within
+        # an ulp of a probe, so they are held within 2 / ndraws (two draws
+        # a walker) and the unequal values counted
+        seed_ex = torch.tensor([19], dtype=torch.int64, device=dev)
+        for name, (c, k, pr) in {**ex_costs, **ex_scans}.items():
+            th = tuple(x.contiguous() for x in pr.sample_tree(gen, 1024))
+            if name in ex_scans:
+                kernel, fn, plain_fn = ("streaming_scan_cost", c.means,
+                                        c.means_plain)
+            else:
+                kernel, fn, plain_fn = ("streaming_moment_cost", c.moments,
+                                        c.moments_plain)
+            got = torch.stack(fn(th, seed_ex))
+            want, plain = cuda_timed(
+                torch, lambda: torch.stack(plain_fn(th, seed_ex)))
+            if name == "gk-ecdf":
+                err = max_err(got, want)
+                check(err <= 2.0 / c.ndraws + 1e-6, f"example gk-ecdf: "
+                      f"max|err| {err} against the plain version")
+            else:
+                err = max(assert_close(torch, g, w, f"example {name} {p}")
+                          for p, (g, w) in enumerate(zip(got, want)))
+            b, by = bound(c.work(1024, k))
+            ex_times.setdefault(kernel, {})[name] = dict(
+                width=1024, max_abs_err=err, unequal=int((got != want).sum()),
+                ms=device_ms(torch, lambda: fn(th, seed_ex), 20,
+                             f"{kernel}_kernel"),
+                events_ms=cuda_ms(torch, lambda: fn(th, seed_ex), 20),
+                plain_ms=plain, bound_ms=b, bound_by=by)
+        ph.result = json.dumps(ex_times)
+
+    with Phase("examples") as ph:
+        # every walkthrough's main() at its own settings, uncut, its
+        # asserts inside; the JAX tests' checks of those without asserts
+        # (tests/test_examples.py:8-21, :94-107, :110-124), and for
+        # example_gk the g-and-k bands of example_streaming_sim
+        res = {name: run_example(name) for name in EXAMPLES}
+        for post in (res["example_n1"][0], res["example_n1"][1].P):
+            check(abs(post[0].mean() - 2.0) < 0.05, f"example_n1: {post}")
+        for post in (res["example_n2"][0], res["example_n2"][1].P):
+            check(abs(post[0].mean() - 1.0) < 0.25, f"example_n2: {post}")
+        gk = res["example_gk"]
+        check(gk.eps <= 0.05 and all(
+            p_.approx(t_, atol=a_) for p_, t_, a_ in zip(
+                gk.P, (3.0, 1.0, 2.0, 0.5), (0.3, 0.35, 0.7, 0.4))),
+            f"example_gk: eps {gk.eps}, {gk.P}")
+        ts, tsf, logz = res["example_tsmc"]
+        check(abs(ts.log_evidence - logz) < 0.5
+              and abs(tsf.log_evidence - logz) < 0.5,
+              f"example_tsmc: log-evidence {ts.log_evidence}, fused "
+              f"{tsf.log_evidence}, analytic {logz}")
+        ph.result = json.dumps(ex_runs)
+
+    with Phase("example-expmix") as ph:
+        # 10^6 draws a cost call, AIS(100), 100 samples after 2000
+        # discarded: the JAX test's bands (tests/test_examples.py:127-145,
+        # u1 0.49 +- 0.12, p1 0.88 +- 0.12), no tighter; the reference's
+        # CI is printed beside the posterior
+        _alarm(EXPMIX_LIMIT_S)
+        u1p, p1p = run_example("example_expmix")
+        _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
+        check(u1p.approx(0.49, atol=0.12) and p1p.approx(0.88, atol=0.12),
+              f"example_expmix: u1 {u1p}, p1 {p1p}")
+        ex_runs["example_expmix"].update(u1=[u1p.mean(), u1p.std()],
+                                         p1=[p1p.mean(), p1p.std()])
+        ph.result = json.dumps(ex_runs["example_expmix"])
+
     for rec in records:   # the prior table's times beside #3's and #6's
         if rec["name"] == "fused_smc_sweep":
             rec["prior_table"] = {k: v for k, v in table_times.items()
@@ -4042,8 +4184,9 @@ def main():
                                      mesh_cost_err["normal_summary_cost"])
             rec["rejection_budget"] = rejection_budget
         if rec["name"] == "streaming_scan_cost":
-            rec.setdefault("launches_by_path", {})["mesh-costs"] = \
-                mesh_launches["streaming_scan_cost"]
+            rec["launches_by_path"] = {
+                "smc-scan-ar1": rec["launches"],
+                "mesh-costs": mesh_launches["streaming_scan_cost"]}
             rec["launches"] += mesh_launches["streaming_scan_cost"]
             rec["max_abs_err"] = max(rec["max_abs_err"],
                                      mesh_cost_err["streaming_scan_cost"])
@@ -4065,6 +4208,20 @@ def main():
             rec["max_abs_err"] = max(rec["max_abs_err"], *(
                 v["max_abs_err"] for v in form.values()
                 if isinstance(v, dict)), form.get("max_abs_err", 0.0))
+    for rec in records:   # the walkthroughs' launches and kernel checks
+        for name in EXAMPLE_KERNELS:
+            n = ex_runs[name]["launches"].get(rec["name"], 0)
+            if not n:
+                continue
+            if "launches_by_path" not in rec:
+                rec["launches_by_path"] = {"single device": rec["launches"]}
+            rec["launches_by_path"][name] = n
+            rec["launches"] += n
+        if rec["name"] in ex_times:
+            rec["examples"] = ex_times[rec["name"]]
+            rec["max_abs_err"] = max(rec["max_abs_err"], *(
+                v["max_abs_err"] for v in ex_times[rec["name"]].values()))
+    say(json.dumps({"examples": ex_runs}))
     say(json.dumps({"mesh": {"roll": mesh_roll, "smc": mesh_smc,
                              "smc_1m_generic": mesh_1m, **mesh10}}))
     signal.alarm(0)

@@ -44,7 +44,7 @@ import torch
 from ..ops.tree import tgather, tree_map, tselect
 from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.hostfetch import fetch
+from ..utils.hostfetch import fetch, fetch_tree
 from ..utils.rng import as_generator, log_uniform, uint32_words
 from .pfilter import (_INIT_FAILED, _batched_cost, _check_cost_on,
                       _init_with_retry, _logpdf)
@@ -215,7 +215,7 @@ def ABCDE(prior, cost, eps_target: float, *, nparticles: int = 50,
                   f"eps_range=({float(lay.min(ds))},{float(lay.max(ds))})")
     ds_np = fetch(lay.join(ds))
     return ABCDEResult(
-        P=particles_from_tree(tree_map(fetch, prior.push_tree(
+        P=particles_from_tree(fetch_tree(prior.push_tree(
             lay.join(thetas)))),
         C=Particles(ds_np),
         reached_eps=bool(ds_np.max() <= eps_target),

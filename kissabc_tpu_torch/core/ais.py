@@ -54,7 +54,7 @@ from ..parallel import layout as L
 from ..parallel import mesh as M
 from ..particles import particles_from_tree
 from ..utils.device import resolve_device
-from ..utils.hostfetch import fetch
+from ..utils.hostfetch import fetch, fetch_tree
 from ..utils.rng import as_generator, log_uniform, uint32_words
 
 
@@ -455,7 +455,7 @@ def sample(model, sampler: AIS, ns, *args, ntransitions: int = 1,
     if chains is None:
         flat, _ = sample_raw(model, sampler, ns, key=key, schedule=schedule,
                              **kw)
-        return particles_from_tree(tree_map(fetch, flat))
+        return particles_from_tree(fetch_tree(flat))
     if schedule != "red_black":
         raise ValueError(
             "schedule='sequential' is single-chain only; drop chains= or "

@@ -40,7 +40,7 @@ from ..ops.quantile import (masked_quantile_bisect, quantile,
 from ..ops.tree import tfloat, tgather, tree_map, tselect
 from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.hostfetch import fetch
+from ..utils.hostfetch import fetch, fetch_tree
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost
 
@@ -241,7 +241,7 @@ def pfilter(prior, cost, N: int, *, q: float = 0.7, eff_tol: float = 0.1,
             RuntimeWarning, stacklevel=2)
     thetas, cs = lay.join(thetas), lay.join(cs)
     return PFilterResult(
-        P=particles_from_tree(tree_map(fetch, prior.push_tree(thetas))),
+        P=particles_from_tree(fetch_tree(prior.push_tree(thetas))),
         C=Particles(fetch(cs)),
         eps=float(eps),
         iterations=it,

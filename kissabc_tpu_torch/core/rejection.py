@@ -51,7 +51,7 @@ import torch
 from ..ops.tree import tfloat, tgather, tree_leaves, tree_map
 from ..parallel import layout as L
 from ..particles import Particles, particles_from_tree
-from ..utils.hostfetch import fetch
+from ..utils.hostfetch import fetch, fetch_tree
 from ..utils.rng import as_generator
 from .density import per_walker_cost
 
@@ -261,7 +261,7 @@ def abc_rejection(prior, cost, nparticles: int, *, eps: float | None = None,
                 RuntimeWarning, stacklevel=2)
 
     logz = (math.log(naccept) - math.log(total)) if naccept else -math.inf
-    pushed = tree_map(fetch, prior.push_tree(thetas))
+    pushed = fetch_tree(prior.push_tree(thetas))
     return RejectionResult(
         P=particles_from_tree(pushed),
         C=Particles(cs),

@@ -46,7 +46,7 @@ from ..ops.resampling import systematic
 from ..ops.tree import tfloat, tgather, tree_map, tselect
 from ..parallel import layout as L
 from ..particles import particles_from_tree
-from ..utils.hostfetch import fetch
+from ..utils.hostfetch import fetch_tree
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost
 
@@ -263,7 +263,7 @@ def tsmc(prior, loglike, *, nparticles: int = 1000, alpha: float = 0.5,
     (thetas, _, _, lam, logz, ess), it = program(as_generator(key, dev))
     pushed = prior.push_tree(lay.join(thetas))
     return TSMCResult(
-        P=particles_from_tree(tree_map(fetch, pushed)),
+        P=particles_from_tree(fetch_tree(pushed)),
         log_evidence=float(logz),
         lam=float(lam),
         iterations=it,

@@ -135,6 +135,12 @@ def quantile(x, q):
     return masked_quantile(x, torch.ones_like(x, dtype=torch.bool), q)
 
 
+def ess_count(mask):
+    """The reference's actual ESS: the number of alive particles
+    (smc.jl:142)."""
+    return mask.sum()
+
+
 def ess_weights(w):
     """Kish effective sample size ``sum(w)^2 / sum(w^2)`` of a vector or
     a ``Sharded`` one; each sum is a float64 sum rounded once to float32,

@@ -232,13 +232,13 @@ class Particles:
         return Particles(np.abs(self.particles))
 
 
-def particles_from_tree(columns):
+def particles_from_tree(tree_of_columns):
     """Convert a posterior (a tuple of ``[n]`` / ``[n, d]`` arrays, or one
     array) into the reference's output convention: a list of
     per-dimension ``Particles``, unwrapped when there is exactly one
     (KissABC.jl:90-93, smc.jl:202-204)."""
-    leaves = list(columns) if isinstance(columns, (tuple, list)) \
-        else [columns]
+    leaves = list(tree_of_columns) \
+        if isinstance(tree_of_columns, (tuple, list)) else [tree_of_columns]
     cols = []
     for leaf in leaves:
         a = _as_np(leaf)

@@ -28,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.tree import tree_leaves, tree_map
-from .hostfetch import fetch
+from ..ops.tree import tree_leaves
+from .hostfetch import fetch, fetch_tree
 from .rng import uint32_words
 
 
@@ -56,7 +56,7 @@ def host_cost(fn, dtype=torch.float32):
                 "be vmapped per-walker.")
         n = lead.shape[0]
         seeds = fetch(uint32_words(gen, n)).astype(np.uint32)
-        out = fn(tree_map(fetch, thetas), seeds)
+        out = fn(fetch_tree(thetas), seeds)
         return torch.as_tensor(np.asarray(out), device=lead.device).to(dtype)
 
     return batched

@@ -21,6 +21,7 @@ from kissabc_tpu.ops import moves as jmoves
 from kissabc_tpu.ops import quantile as jq
 from kissabc_tpu.ops import resampling as jres
 from kissabc_tpu.particles import hpdi as jhpdi
+from kissabc_tpu.utils.hostfetch import fetch_tree as jfetch_tree
 from kissabc_tpu_torch import distributions as D
 from kissabc_tpu_torch.ops import moves as tmoves
 from kissabc_tpu_torch.ops import quantile as tq
@@ -28,6 +29,7 @@ from kissabc_tpu_torch.ops import resampling as tres
 from kissabc_tpu_torch.ops.tree import tgather, tselect
 from kissabc_tpu_torch.particles import Particles, hpdi, particles_from_tree
 from kissabc_tpu_torch.utils.device import resolve_device
+from kissabc_tpu_torch.utils.hostfetch import fetch_tree
 from kissabc_tpu_torch.utils.rng import as_generator
 
 REPO = Path(__file__).resolve().parents[1]
@@ -312,6 +314,32 @@ def test_particles_and_hpdi_match_jax():
     assert len(Particles(100, D.Normal(0, 1), key=1)) == 100
 
 
+def test_particles_from_tree_by_keyword_matches_jax():
+    rng = np.random.default_rng(7)
+    cols = (rng.normal(size=50), rng.normal(size=(50, 2, 2)))
+    got = particles_from_tree(tree_of_columns=cols)
+    want = ka.particles_from_tree(tree_of_columns=cols)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert np.array_equal(g.particles, w.particles)
+
+
+def test_ess_count_matches_jax():
+    mask = np.random.default_rng(8).random(257) < 0.3
+    got = tq.ess_count(torch.from_numpy(mask))
+    assert int(got) == int(jq.ess_count(jnp.asarray(mask))) == mask.sum()
+
+
+def test_fetch_tree_matches_jax():
+    rng = np.random.default_rng(9)
+    a, b, c = (rng.normal(size=s).astype(np.float32) for s in (5, (5, 3), 4))
+    got = fetch_tree((torch.from_numpy(a), [torch.from_numpy(b), c]))
+    want = jfetch_tree((jnp.asarray(a), [jnp.asarray(b), c]))
+    assert isinstance(got, tuple) and isinstance(got[1], list)
+    for g, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert isinstance(g, np.ndarray) and np.array_equal(g, w)
+
+
 def test_as_generator():
     g = as_generator(5, "cpu")
     assert isinstance(g, torch.Generator) and as_generator(g, "cpu") is g
@@ -342,10 +370,14 @@ _FORBIDDEN = re.compile(
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "kissabc_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_smc.py"]
+    files += sorted((REPO / "examples_torch").glob("*.py"))
+    files += sorted((REPO / "tools").glob("profile_torch_*.py"))
+    files += [REPO / "chip_smoke.py"]
     assert len(files) > 10
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"kissabc_tpu_torch/ops/codegen.py",
+            "examples_torch/example_streaming_sim.py",
+            "tools/profile_torch_smc.py",
             "kissabc_tpu_torch/ops/streaming.py",
             "kissabc_tpu_torch/ops/fused_smc.py",
             "kissabc_tpu_torch/core/rejection.py",
