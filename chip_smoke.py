@@ -74,7 +74,9 @@ and ABCDE on the one-rank nccl group. The walkthroughs of
 their kernels that no other phase builds (started with the others),
 ``examples-kernels`` holds those units (#4: Weibull, g-and-k ecdf; #5:
 OU, Wiener, SIR) against their plain versions at the walkthroughs'
-1024 walkers and times them, ``examples`` runs every walkthrough's
+1024 walkers, and one half-update of #9 (``example_tsmc``'s unit, h =
+2000) and of #6 (``example_fused_ais``' unit, h = 2048) against theirs,
+and times them, ``examples`` runs every walkthrough's
 ``main()`` uncut on the card, its asserts inside, and prints its wall
 and its launches on an ``[example]`` line (#4 in ``example_streaming_sim``
 and ``example_fused_ais``, #5 in ``example_scan_sim`` and ``example_sir``,
@@ -3260,6 +3262,7 @@ def main():
         check(P[1].particles.max() <= 1.0 + 1e-6, "LKJ smc: r > 1")
         out["lkj-smc"] = dict(iterations=r.iterations, eps=float(r.eps),
                               r=P[1].mean(), wall_s=wall)
+        check(not any(counts().values()), "lkj-smc ran a kernel")
 
         # examples_torch/example_covariance.py, uncut (its asserts inside)
         r, obs = run_example("example_covariance")
@@ -3282,7 +3285,7 @@ def main():
         check(bool((np.linalg.eigvalsh(x) > 0).all()),
               "LKJ AIS: a posterior matrix is not positive definite")
         out["lkj-ais"] = dict(r=ra[1].mean(), r_sd=ra[1].std(), wall_s=wall)
-        check(not any(counts().values()), "matrix-priors ran a kernel")
+        check(not any(counts().values()), "lkj-ais ran a kernel")
 
         for k, (name, (d, bad, checks)) in enumerate(families.items()):
             xc = torch.cat([d.sample(cpu_gen, (4096,)).to(torch.float32),
@@ -4059,6 +4062,54 @@ def main():
                 ms=device_ms(torch, lambda: fn(th, seed_ex), 20,
                              f"{kernel}_kernel"),
                 events_ms=cuda_ms(torch, lambda: fn(th, seed_ex), 20),
+                plain_ms=plain, bound_ms=b, bound_by=by)
+        # the walkthroughs' #9 and #6 at their own widths, one half-update
+        # each on Philox bits, the same inputs on both sides, held to the
+        # plain version by ais_compare: example_tsmc's conjugate unit at
+        # h = 2000 (4000 particles: the last warp partial) at lam 0.3,
+        # example_fused_ais' flagship unit at h = 2048 (4096 walkers)
+        ex_halves = {}
+        n = 4000
+        sw = kt.make_fused_tempered_sweep(kt.Normal(0, 1),
+                                          EX["example_tsmc"].loglike_elem)
+        leaves = [torch.randn(n, generator=gen, device=dev)]
+        pushed = sw.pushed(leaves)
+        ex_halves["fused_tempered_sweep"] = (
+            "tsmc-conjugate", sw, leaves,
+            kt.Normal(0, 1).logpdf_tree(pushed).float(),
+            EX["example_tsmc"].loglike_elem(pushed).float(), (0.3,))
+        n = 4096
+        sw = kt.make_fused_ais_sweep(ex_fa.prior, ex_fa.draw,
+                                     ex_fa.reduce_cost, scale=ex_fa.SCALE)
+        # a population of the posterior's size (mu 2 +- 0.02, sigma 0.04
+        # +- 0.001), its loglikelihoods -cost / scale of the exact
+        # moments, so some 20% of the walkers commit, as in the run
+        leaves = [uniform(n, 1.98, 2.02), uniform(n, 0.039, 0.041)]
+        ex_halves["fused_ais_sweep"] = (
+            "fused-ais-flagship", sw, leaves,
+            ex_fa.prior.logpdf_tree(sw.pushed(leaves)).float(),
+            (-torch.hypot(leaves[0] - 2.0, (leaves[1] - 0.04) * 50.0)
+             / ex_fa.SCALE).float(), ())
+        for kernel, (name, sw, leaves, lp, ll, extra) in ex_halves.items():
+            n = leaves[0].shape[0]
+            h = n // 2
+            upd, cmp_ = [x[:h] for x in leaves], [x[h:] for x in leaves]
+            args = (upd, lp[:h], ll[:h], cmp_)
+            got = sw.half_words(*args, words7(0), *extra)
+            want, plain = cuda_timed(torch, lambda: sw.half_plain(
+                *args, shifts_of(words7(0), h), seed_t, *extra, terms=True))
+            r = ais_compare(flat(got), flat(want), upd + [lp[:h], ll[:h]],
+                            f"example {name} h={h}", want[3][1])
+            check(r[2] > 0, f"example {name} h={h} committed nothing")
+            b, by = bound(sw.work(h) if extra else
+                          sw.work(h, int(want[3][0].sum())))
+            ex_times.setdefault(kernel, {})[name] = dict(
+                width=h, max_abs_err=r[0], unequal=r[1], commits=r[2],
+                borderline=r[3],
+                ms=device_ms(torch, lambda: sw.half_words(
+                    *args, words7(0), *extra), 20, f"{kernel}_kernel"),
+                events_ms=cuda_ms(torch, lambda: sw.half_words(
+                    *args, words7(0), *extra), 20),
                 plain_ms=plain, bound_ms=b, bound_by=by)
         ph.result = json.dumps(ex_times)
 

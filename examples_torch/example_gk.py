@@ -14,7 +14,6 @@ its 1000 draws for the octiles), mapped over the walkers by vmap.
     python examples_torch/example_gk.py [--device cpu]
 """
 
-import math
 import os
 import sys
 
@@ -23,10 +22,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import torch
 
 import kissabc_tpu_torch as kt
+from examples_torch.example_n2 import quantiles
 from kissabc_tpu_torch.utils.device import resolve_device
 
 TRUE = (3.0, 1.0, 2.0, 0.5)
 NDRAWS = 1000
+NPARTICLES = 4096
 OCTILES = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875)
 
 
@@ -40,31 +41,18 @@ def gk_sample(gen, theta, n=NDRAWS):
     return gk_quantile(z, a, b, g, k)
 
 
-def summaries(x):
-    """The octiles of ``x``, type 7 (numpy's default, as
-    ``jnp.quantile``), from one sort."""
-    xs = torch.sort(x).values
-    out = []
-    for q in OCTILES:
-        h = (x.shape[-1] - 1) * q
-        lo = math.floor(h)
-        hi = min(lo + 1, x.shape[-1] - 1)
-        out.append(xs[lo] + (h - lo) * (xs[hi] - xs[lo]))
-    return torch.stack(out)
-
-
 def observed(device):
     """The octiles of 10000 draws at ``TRUE``, from the generator seeded
     0."""
     gen = torch.Generator(device=device).manual_seed(0)
-    return summaries(gk_sample(gen, TRUE, 10_000))
+    return quantiles(gk_sample(gen, TRUE, 10_000), OCTILES)
 
 
 prior = kt.Factored(kt.Uniform(0, 10), kt.Uniform(0, 4),
                     kt.Uniform(0, 10), kt.Uniform(0, 4))
 
 
-def main(device=None, data_summ=None, nparticles=4096):
+def main(device=None, data_summ=None):
     """smc on the g-and-k model; ``data_summ``: the observed octiles
     (default ``observed(device)``)."""
     dev = resolve_device(device)
@@ -72,10 +60,10 @@ def main(device=None, data_summ=None, nparticles=4096):
         data_summ, dtype=torch.float32, device=dev)
 
     def cost(theta, gen):
-        s = summaries(gk_sample(gen, theta))
+        s = quantiles(gk_sample(gen, theta), OCTILES)
         return torch.sqrt(torch.mean(torch.square(s - data_summ)))
 
-    res = kt.smc(prior, cost, nparticles=nparticles, alpha=0.95,
+    res = kt.smc(prior, cost, nparticles=NPARTICLES, alpha=0.95,
                  epstol=0.05, key=1, device=dev)
     names = "abgk"
     for name, p in zip(names, res.P):

@@ -39,6 +39,7 @@ from kissabc_tpu_torch.utils.device import resolve_device
 
 TRUE_K, TRUE_LAM = 1.7, 2.0
 NDRAWS = 4000
+ALPHA = 0.95   # smc's survival fraction an iteration, both fits
 
 # observed moments at the true parameters (exact, host-side):
 # E[X^p] = lam^p * Gamma(1 + p/k)
@@ -111,14 +112,13 @@ gk_prior = kt.Factored(kt.Uniform(0, 10), kt.Uniform(0, 5),
                        kt.Uniform(0, 10), kt.Uniform(0, 2.5))
 
 
-def main(device=None, probes=None, alpha=0.95):
+def main(device=None, probes=None):
     """The Weibull and the g-and-k fits; ``probes``: the g-and-k probe
-    points (default ``gk_probes(device)``); ``alpha``: smc's
-    survival fraction an iteration (the default's)."""
+    points (default ``gk_probes(device)``)."""
     dev = resolve_device(device)
     probes = gk_probes(dev) if probes is None else tuple(
         float(t) for t in probes)
-    res = kt.smc(prior, cost, nparticles=1024, alpha=alpha, epstol=0.01,
+    res = kt.smc(prior, cost, nparticles=1024, alpha=ALPHA, epstol=0.01,
                  cost_vectorized=True, key=7, device=dev)
     kp, lamp = res.P
     print("shape k:", kp, f"  (true {TRUE_K})")
@@ -128,7 +128,7 @@ def main(device=None, probes=None, alpha=0.95):
     assert lamp.approx(TRUE_LAM, atol=0.3), lamp
 
     res2 = kt.smc(gk_prior, make_gk_cost(probes), nparticles=1024,
-                  alpha=alpha, epstol=0.02, cost_vectorized=True, key=3,
+                  alpha=ALPHA, epstol=0.02, cost_vectorized=True, key=3,
                   device=dev)
     names = "abgk"
     for name, true, p in zip(names, GK_TRUE, res2.P):

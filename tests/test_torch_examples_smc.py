@@ -7,7 +7,8 @@ its JAX example's check; and the rules every walkthrough keeps.
   choice are constants; covariance's come from numpy's generator seeded
   1 in both packages, so both see the same data.
 - ``example_gk`` runs on the JAX example's observed octiles
-  (``DATA_SUMM``), cut from 4096 to 512 particles (both packages take
+  (``DATA_SUMM``), cut from 4096 to 512 particles (``NPARTICLES``, set
+  by ``monkeypatch``; both packages take
   some 265 iterations to eps 0.05, and the per-walker sort of 1000 draws
   at 4096 takes minutes of CPU), beside the JAX example's smc at the
   same 512 particles. The JAX example has no assert, so the
@@ -74,12 +75,13 @@ def test_example_covariance(capsys):
     assert abs(res.P[5].mean() - obs_s2) < 0.1
 
 
-def test_example_gk_against_jax():
+def test_example_gk_against_jax(monkeypatch):
     """512 particles in both packages (cut from 4096)."""
     jmod = jax_example("example_gk")
     data = np.array(jmod.DATA_SUMM)
-    res = torch_example("example_gk").main(device="cpu", data_summ=data,
-                                            nparticles=512)
+    mod = torch_example("example_gk")
+    monkeypatch.setattr(mod, "NPARTICLES", 512)
+    res = mod.main(device="cpu", data_summ=data)
     want = ka.smc(jmod.prior, jmod.cost, nparticles=512, alpha=0.95,
                   epstol=0.05, key=1)
     assert res.eps <= 0.05 and want.eps <= 0.05

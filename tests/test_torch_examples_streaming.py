@@ -5,7 +5,7 @@ examples' checks.
 
 - ``example_streaming_sim`` on the JAX example's probe points
   (``GK_PROBES``), with one cut: smc's ``alpha`` 0.5 (from 0.95) in both
-  fits. The plain version of #4 makes its draws one Philox call at a
+  fits (``ALPHA``, set by ``monkeypatch``). The plain version of #4 makes its draws one Philox call at a
   time, as the kernel sums them, so a cost call of 1024 walkers x 4000
   draws takes about a second of CPU whatever the particle count; at
   alpha 0.95 the two fits take 169 + 150 iterations (11 minutes), at 0.5
@@ -28,11 +28,12 @@ from walkthroughs import (jax_example, one_torch_thread,  # noqa: F401
                           torch_example)
 
 
-def test_example_streaming_sim(capsys):
+def test_example_streaming_sim(capsys, monkeypatch):
     """alpha 0.5 (module docstring)."""
     probes = jax_example("example_streaming_sim").GK_PROBES
-    res, res2 = torch_example("example_streaming_sim").main(
-        device="cpu", probes=probes, alpha=0.5)
+    mod = torch_example("example_streaming_sim")
+    monkeypatch.setattr(mod, "ALPHA", 0.5)
+    res, res2 = mod.main(device="cpu", probes=probes)
     out = capsys.readouterr().out
     assert "shape k" in out and "scale lam" in out
     assert res.eps <= 0.01 and res2.eps <= 0.02

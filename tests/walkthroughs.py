@@ -2,20 +2,27 @@
 the torch walkthrough of one name, one torch thread, and the rule that
 holds a posterior mean to the JAX run's.
 
-Tolerance of a posterior mean against the JAX run's: the larger of the
-two runs' posterior sds. Both sample the same posterior on the same data
-with other random streams; with an effective sample size of at least 50
-(AIS's samples come in autocorrelated blocks, smc's particles are
-resampled), the difference of the two means has sd at most
-sd * sqrt(2 / 50) = 0.2 sd, so one sd is five of its sds.
+Tolerance of a posterior mean against the JAX run's: both runs sample
+the same posterior on the same data with other random streams, so the
+difference of the two means has sd sqrt(sd1^2 / ess1 + sd2^2 / ess2),
+each run's posterior sd over its effective sample size; the test allows
+four of those sds. The effective sample size is measured, not assumed:
+AIS's samples (``walkers`` a block, block-major) by ``kt.ess`` on the
+``[walkers, blocks]`` chain layout, which counts the autocorrelation
+along each walker; an smc or tsmc population by its distinct particles
+(resampling copies a particle, and a copy adds nothing). Each must be at
+least 50, else the tolerance would rest on too few samples.
 """
 
 import importlib
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+
+import kissabc_tpu_torch as kt
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -43,10 +50,28 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def assert_means_agree(got, want, what):
-    """Each posterior mean of ``got`` within the larger posterior sd of
-    the JAX run's ``want`` (the module docstring)."""
+def effective_size(p, walkers=None):
+    """The effective sample size of one parameter's posterior ``p`` (a
+    ``Particles`` of either package): ``kt.ess`` on the chain layout of
+    AIS samples with ``walkers`` walkers, else the distinct particles
+    (the module docstring)."""
+    x = np.asarray(p.particles, np.float64)
+    if walkers is None:
+        return float(len(np.unique(x)))
+    return float(kt.ess(x.reshape(-1, walkers).T))
+
+
+def assert_means_agree(got, want, what, walkers=None):
+    """Each posterior mean of ``got`` within four sds of the difference
+    of the means from the JAX run's ``want``, each run's effective sample
+    size at least 50 (the module docstring); ``walkers``: AIS samples of
+    that many walkers a block, else smc or tsmc populations."""
     for i, (g, w) in enumerate(zip(got, want)):
-        tol = max(g.std(), w.std())
+        ess_g, ess_w = effective_size(g, walkers), effective_size(w, walkers)
+        assert min(ess_g, ess_w) >= 50, (
+            f"{what} parameter {i}: effective sample sizes {ess_g:.1f}, "
+            f"JAX {ess_w:.1f}")
+        tol = 4.0 * np.sqrt(g.std() ** 2 / ess_g + w.std() ** 2 / ess_w)
         assert abs(g.mean() - w.mean()) < tol, (
-            f"{what} parameter {i}: {g} against JAX {w}")
+            f"{what} parameter {i}: {g} against JAX {w}, tolerance "
+            f"{tol:.3g} at effective sizes {ess_g:.1f}, {ess_w:.1f}")
