@@ -83,7 +83,14 @@ and ``example_fused_ais``, #5 in ``example_scan_sim`` and ``example_sir``,
 #6 in ``example_fused_ais``, #9 in ``example_tsmc``, each required above
 0; the others launch none), ``example-expmix`` runs ``example_expmix``
 at 10^6 draws a cost call under its own alarm, and ``matrix-priors``
-runs ``example_covariance``. The line before the last is one JSON
+runs ``example_covariance``. Then ``conformance`` holds the port to
+the JAX package's conformance tests on the card (``conformance()``: the
+consistency battery's legs for every family of ``tests/battery_specs.py``
+on CUDA generators, ``DiscreteUniform``'s int32 draws,
+``Factored.rand``/``sample``, ``init_sample``, and the bimodal smc of
+``tests/test_gk_multimodal.py`` on one device and on 4 shards) and
+prints one JSON line with its wall and its counts; any failed check
+fails the run. The line before the last is one JSON
 object with every kernel's launches on its path (the walkthroughs'
 under their names in ``launches_by_path``), its error against its plain
 version and its times; the last line is ``{"ok": true, "device": {...}}``.
@@ -526,6 +533,171 @@ def matrix_families(kt, np):
                                 (x @ np.swapaxes(x, -1, -2)).mean(0)
                                 - eye(4)).max() < 0.03)]),
     }
+
+
+def conformance(torch, np, kt, dev):
+    """The ``conformance`` phase's checks on the card: the consistency
+    battery's sample, logpdf and KS legs (and the quantile leg, and a
+    discrete family's int32 draws, pmf and push) for every family of
+    ``tests/battery_specs.py`` on a CUDA generator seeded 11;
+    ``DiscreteUniform``'s int32 draws; ``Factored.rand``/``sample`` and
+    the three density models' ``init_sample`` (structure, dtypes, device,
+    law); and the bimodal smc of ``tests/test_gk_multimodal.py`` at 1000
+    particles on the card and on ``make_mesh(walker=4, devices=["cuda:0"]
+    * 4)``, the sharded run equal to the unsharded one. Returns
+    ``{"passed": n, "failed": n, "failures": {check: message}}``; a
+    failed check is counted, not raised."""
+    import scipy.stats as st
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from battery_specs import CONTINUOUS, DISCRETE, build
+    from kissabc_tpu_torch.parallel.mesh import make_mesh
+    passed, failures = [], {}
+    devtype = torch.device(dev).type   # "cuda" on the card
+
+    def run(name, fn):
+        try:
+            fn()
+            passed.append(name)
+        except Exception as e:   # counted; the phase fails on any
+            failures[name] = f"{type(e).__name__}: {e}"[:300]
+
+    def gen(seed=11):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def on_card(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def continuous(d):
+        x = d.sample(gen(), (8000,))
+        check(x.device.type == devtype and x.shape == (8000,)
+              and bool(torch.isfinite(x).all()), "draws finite, on dev")
+        bad = ~torch.isfinite(d.logpdf(x))
+        if isinstance(d, kt.Arcsine):   # draws on b: logpdf(b) = -inf, as
+            check(bool((x[bad] == float(d.b)).all()),   # in the JAX package
+                  "non-finite logpdf only on b")
+        else:
+            check(not bool(bad.any()), "logpdf finite at the draws")
+        if hasattr(d, "cdf"):
+            ks = st.kstest(x[:4000].cpu().numpy(), lambda v: d.cdf(
+                on_card(v)).cpu().numpy().astype(np.float64))
+            check(ks.pvalue > 1e-4, f"KS p={ks.pvalue}")
+        if hasattr(d, "cdf") and hasattr(d, "quantile"):
+            qs = np.asarray([0.05, 0.25, 0.5, 0.75, 0.95], np.float32)
+            back = d.cdf(d.quantile(on_card(qs))).cpu().numpy()
+            check(np.allclose(back, qs, atol=5e-3),
+                  f"cdf(quantile(q)) {back}")
+
+    def discrete(d):
+        x = d.sample(gen(), (8000,))
+        check(x.dtype == torch.int32 and x.device.type == devtype,
+              f"draws {x.dtype} on {x.device}")
+        check(bool(torch.isfinite(d.logpdf(x)).all()),
+              "logpmf finite at the draws")
+        vals, counts = torch.unique(x, return_counts=True)
+        emp = counts.cpu().numpy() / 8000
+        model = torch.exp(d.logpdf(vals)).cpu().numpy()
+        err = 5.0 * np.sqrt(np.maximum(model * (1 - model), 1e-12) / 8000)
+        check(not (np.abs(emp - model) > np.maximum(err, 0.01)).any(),
+              f"pmf {emp} against {model}")
+        check(d.push(x.to(torch.float32) + 0.3).dtype == torch.int32,
+              "push to int32")
+
+    for spec in CONTINUOUS:
+        run(f"battery {spec}", lambda s=spec: continuous(build(kt, s)))
+    for spec in DISCRETE:
+        run(f"battery {spec}", lambda s=spec: discrete(build(kt, s)))
+
+    def discrete_uniform():
+        x = kt.DiscreteUniform(-2, 7).sample(gen(), (8000,))
+        check(x.dtype == torch.int32 and x.device.type == devtype
+              and int(x.min()) == -2 and int(x.max()) == 7,
+              f"{x.dtype} on {x.device}, range {int(x.min())}..{int(x.max())}")
+
+    def leaves(tree):
+        return [(tuple(v.shape), v.dtype, v.device.type) for v in tree]
+
+    f32, i32 = torch.float32, torch.int32
+    cov = np.array([[1.0, 0.3], [0.3, 0.5]])
+    fac = kt.Factored(kt.DiscreteUniform(1, 6), kt.Normal(0.5, 2.0),
+                      kt.MvNormal(np.zeros(2), cov))
+
+    def factored():
+        g = gen(5)
+        one = [((), i32, devtype), ((), f32, devtype), ((2,), f32, devtype)]
+        r = fac.rand(g)
+        check(isinstance(r, tuple) and leaves(r) == one, f"rand {leaves(r)}")
+        check(leaves(fac.sample(g)) == one, "sample(gen)")
+        check(leaves(fac.sample(g, (3, 2))) == [
+            ((3, 2), i32, devtype), ((3, 2), f32, devtype),
+            ((3, 2, 2), f32, devtype)], "sample(gen, (3, 2))")
+        k, z, _ = fac.sample(g, (8000,))
+        pmf = torch.bincount(k.to(torch.int64), minlength=7)[1:].cpu()
+        check(bool(((pmf / 8000 - 1 / 6).abs() < 0.02).all()),
+              f"DiscreteUniform(1, 6) pmf {pmf}")
+        check(abs(float(z.mean()) - 0.5) < 6 * 2.0 / math.sqrt(8000)
+              and abs(float(z.std()) - 2.0) < 0.1,
+              f"Normal(0.5, 2) mean {float(z.mean())} sd {float(z.std())}")
+
+    def init_samples():
+        prior = kt.Factored(kt.DiscreteUniform(1, 6), kt.Normal(0.5, 2.0))
+        models_ = {
+            "ApproxKernelizedPosterior": kt.ApproxKernelizedPosterior(
+                prior, lambda th: th[1], 0.1),
+            "ApproxPosterior": kt.ApproxPosterior(prior, lambda th: th[1],
+                                                  0.1),
+            "CommonLogDensity": kt.CommonLogDensity(
+                2, lambda g: (torch.randint(1, 7, (), generator=g,
+                                            device=g.device, dtype=i32),
+                              0.5 + 2.0 * torch.randn(2, generator=g,
+                                                      device=g.device)),
+                lambda x: -torch.sum(x[1] ** 2))}
+        g = gen(3)
+        for name, m in models_.items():
+            want = [((), f32, devtype), ((2,) if name == "CommonLogDensity"
+                                        else (), f32, devtype)]
+            got = leaves(m.init_sample(g))
+            check(got == want, f"{name}: {got}")
+            draws = [m.init_sample(g) for _ in range(1000)]
+            k = torch.stack([d[0] for d in draws]).cpu()
+            z = torch.stack([d[1].reshape(-1)[0] for d in draws]).cpu()
+            check(float(k.min()) == 1 and float(k.max()) == 6
+                  and abs(float(k.mean()) - 3.5) < 6 * 1.708 / math.sqrt(1000)
+                  and abs(float(z.mean()) - 0.5) < 6 * 2.0 / math.sqrt(1000),
+                  f"{name}: means {float(k.mean())}, {float(z.mean())}")
+
+    def bimodal(x, g):   # tests/test_gk_multimodal.py: modes at +-2
+        return torch.abs(x * x - 4.0) + 0.1 * torch.abs(
+            torch.randn((), generator=g, device=g.device))
+
+    def mixing(res):
+        x = res.P.particles
+        frac = float((x > 0).mean())
+        check(0.2 < frac < 0.8 and np.abs(np.abs(x) - 2).mean() < 0.2,
+              f"positive share {frac}, |x| {np.abs(x).mean()}")
+
+    def multimodal_one_device():
+        mixing(kt.smc(kt.Uniform(-10, 10), bimodal, nparticles=1000,
+                      alpha=0.9, epstol=0.2, key=22, device=dev))
+
+    def multimodal_mesh():
+        mesh = make_mesh(walker=4, devices=[
+            "cuda:0" if devtype == "cuda" else "cpu"] * 4)
+        res = kt.smc(kt.Uniform(-10, 10), bimodal, nparticles=1000,
+                     alpha=0.9, epstol=0.2, mesh=mesh, key=23, device=dev)
+        mixing(res)
+        one = kt.smc(kt.Uniform(-10, 10), bimodal, nparticles=1000,
+                     alpha=0.9, epstol=0.2, key=23, device=dev)
+        check(np.allclose(np.sort(res.P.particles),
+                          np.sort(one.P.particles), rtol=1e-5, atol=0),
+              "the sharded run differs from the unsharded one")
+
+    run("DiscreteUniform(-2, 7) int32", discrete_uniform)
+    run("Factored.rand/sample", factored)
+    run("init_sample", init_samples)
+    run("multimodal one device", multimodal_one_device)
+    run("multimodal mesh walker=4", multimodal_mesh)
+    return {"passed": len(passed), "failed": len(failures),
+            "failures": failures}
 
 
 def main():
@@ -4148,6 +4320,14 @@ def main():
         ex_runs["example_expmix"].update(u1=[u1p.mean(), u1p.std()],
                                          p1=[p1p.mean(), p1p.std()])
         ph.result = json.dumps(ex_runs["example_expmix"])
+
+    with Phase("conformance") as ph:
+        t0 = time.perf_counter()
+        conf = conformance(torch, np, kt, dev)
+        conf["seconds"] = time.perf_counter() - t0
+        say(json.dumps({"conformance": conf}))
+        check(conf["failed"] == 0, f"conformance: {conf['failed']} failed")
+        ph.result = f"{conf['passed']} passed, {conf['failed']} failed"
 
     for rec in records:   # the prior table's times beside #3's and #6's
         if rec["name"] == "fused_smc_sweep":

@@ -2,9 +2,9 @@
 ``kissabc_tpu/core/density.py`` (the reference's ``src/types.jl``).
 
 Three targets, each with the protocol the AIS sampler drives
-(types.jl:3-8): ``init_batch``, ``loglike_batch``, ``nparams``,
-``accept_lu``/``accept_batch``, ``ld_valid``, ``push``. A log-density
-record (``ld``) is
+(types.jl:3-8): ``init_batch`` (``init_sample`` for one walker),
+``loglike_batch``, ``nparams``, ``accept_lu``/``accept_batch``,
+``ld_valid``, ``push``. A log-density record (``ld``) is
 
 - ``ApproxKernelizedPosterior``: ``(logprior, loglikelihood)``;
 - ``ApproxPosterior``: ``(logprior, cost)``;
@@ -32,7 +32,7 @@ import inspect
 import torch
 from torch.func import vmap
 
-from ..ops.tree import tfloat, tree_leaves
+from ..ops.tree import tfloat, tree_leaves, tree_map
 from ..utils.rng import log_uniform
 
 _f32 = torch.float32
@@ -140,6 +140,11 @@ class Density:
         """``n`` initial walkers, float (the reference's ``op(float,
         ...)`` init)."""
         raise NotImplementedError
+
+    def init_sample(self, gen):
+        """One initial walker, float: ``init_batch``'s draw of one walker
+        without its walker axis."""
+        return tree_map(lambda x: x[0], self.init_batch(gen, 1))
 
     def loglike(self, theta_pushed, gen):
         """One walker's ``ld`` (the sequential schedule)."""
@@ -263,6 +268,9 @@ class CommonLogDensity(Density):
     def init_batch(self, gen, n):
         draw = vmap(lambda _: self.sample_init(gen), randomness="different")
         return tfloat(draw(torch.zeros(n, device=gen.device)))
+
+    def init_sample(self, gen):
+        return tfloat(self.sample_init(gen))
 
     def loglike_batch(self, pushed, gen):
         out = self._batched(pushed, gen)

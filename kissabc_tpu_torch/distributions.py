@@ -1875,9 +1875,10 @@ class NoncentralChisq(Distribution):
 # --------------------------------------------------------------------------
 
 class DiscreteUniform(Distribution):
-    """Integers ``a..b`` with equal mass. Samples are int64; the
-    population evolves them in float32 and ``push`` rounds half to even
-    to int32, as the JAX package's discrete push does."""
+    """Integers ``a..b`` with equal mass. Samples are int32, as in the
+    JAX package; the population evolves them in float32 and ``push``
+    rounds half to even to int32, as the JAX package's discrete push
+    does."""
 
     _fields = ("a", "b")
     discrete = True
@@ -1887,8 +1888,10 @@ class DiscreteUniform(Distribution):
         self._lpmf = _f32(np.log(self.b - self.a + 1))
 
     def sample(self, gen, shape=()):
+        # an int64 draw cast to int32: the values and the generator's
+        # stream are those of the int64 draw
         return torch.randint(int(self.a), int(self.b) + 1, shape,
-                             generator=gen, device=gen.device)
+                             generator=gen, device=gen.device).to(torch.int32)
 
     def logpdf(self, x):
         inside = (x >= float(self.a)) & (x <= float(self.b))
@@ -3204,11 +3207,11 @@ class LKJCholesky(Distribution):
         nrm = torch.linalg.norm(x, dim=-1, keepdim=True)
         return x / torch.clamp(nrm, min=1e-30)
 
-    def logpdf(self, x):
-        diag = torch.diagonal(x, dim1=-2, dim2=-1)
+    def logpdf(self, L):
+        diag = torch.diagonal(L, dim1=-2, dim2=-1)
         ok = torch.all(diag > 0, dim=-1)
         ds = torch.where(diag > 0, diag, 1.0)
-        lp = torch.sum(self._host("_dexp", x)[1:] * torch.log(ds[..., 1:]),
+        lp = torch.sum(self._host("_dexp", L)[1:] * torch.log(ds[..., 1:]),
                        dim=-1)
         return torch.where(ok, lp - float(self._lz), _full(lp, _NEG_INF))
 
@@ -3256,8 +3259,8 @@ class LKJ(Distribution):
         eye = torch.eye(self.d, device=x.device)
         return _symmetrize(x) * (1.0 - eye) + eye
 
-    def logpdf(self, x):
-        cl, ok = _cholesky(x)
+    def logpdf(self, R):
+        cl, ok = _cholesky(R)
         lp = (float(self.eta) - 1.0) * _tri_logdet(cl) - float(self._lc)
         return _spd_only(lp, ok)
 
@@ -3278,8 +3281,17 @@ class Factored(Distribution):
     def nparams(self):
         return len(self.p)
 
+    def rand(self, gen):
+        """One draw: a tuple with one value per marginal."""
+        return self.sample(gen)
+
+    def sample(self, gen, shape=()):
+        """A tuple with one array of ``shape`` per marginal, each in its
+        marginal's dtype (``shape=()``: one value per marginal)."""
+        return tuple(d.sample(gen, shape) for d in self.p)
+
     def sample_tree(self, gen, n):
-        return tuple(d.sample(gen, (n,)) for d in self.p)
+        return self.sample(gen, (n,))
 
     def logpdf(self, x):
         return sum(d.logpdf(xi) for d, xi in zip(self.p, x))

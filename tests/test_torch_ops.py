@@ -4,6 +4,13 @@ helpers, device selection — and the rule that the port imports nothing
 of JAX or of the JAX package.
 
 Inputs are made with numpy from a seed and handed to both packages.
+
+It mirrors ``tests/test_ops.py`` (the masked quantile, ``replicate``,
+systematic resampling; ``sample_distinct``/``masked_distinct`` are held
+in ``tests/test_torch_pfilter_abcde.py`` and ``tests/test_torch_moves.py``,
+``ess_weights`` in ``tests/test_torch_tsmc.py``) and
+``tests/test_factored_push.py`` (``Factored``'s logpdf, push and draws;
+the push's round half to even).
 """
 
 import math

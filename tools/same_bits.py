@@ -2,7 +2,7 @@
 """Whether the CUDA kernels of this checkout give, bit for bit, the
 outputs of the kernels of another checkout on the same inputs.
 
-    python3 tools/same_bits.py --parent DIR [--n N]
+    python3 tools/same_bits.py --parent DIR [--n N] [--only TEXT ...]
 
 Loads the package of this checkout and the one under DIR side by side
 (the second under another module name, so each builds its own libraries
@@ -14,8 +14,12 @@ step's words gets ``fused_sweep_words``, a tree whose kernel takes
 partner differences gets the rolls ``roll_shifts`` makes of the same
 words), #3 ``fused_smc_sweep`` (the flagship
 model on Philox at 2**20, g-and-k with ECDF statistics on stub bits),
-#3 also on the prior table's P1 and P2 (``chip_smoke.prior_table_priors``,
-stub bits, 65536 walkers),
+#3 also on the prior table's P1-P4 (``chip_smoke.prior_table_priors``,
+stub bits, 65536 walkers), each tree on its own draws (so a change in a
+family's draws shows: P4 holds ``DiscreteUniform(1, 6)``), #6 (a sweep)
+and #10 on P4 likewise,
+``smc-1m-generic-discrete`` (``chip_smoke.py``'s phase, smc at 2^20 on
+the mixed discrete prior through #4 and #3, end to end),
 #4 ``streaming_moment_cost`` (flagship and g-and-k, Philox and stub; the
 flagship model also at 1000, 16384 and 16384 + 37 walkers, each tree at
 its default geometry),
@@ -34,7 +38,8 @@ launches take raw words gets the words, a tree whose launches take
 shifts gets ``rot_shifts6`` of the same words) and #10
 ``fused_abcde_generation`` (flagship, Philox and stub at n, and at 16384
 and 16384 + 37, a width that is no multiple of a block). Prints
-one JSON line per case with the count of output values that differ (0:
+one JSON line per case (``--only TEXT``: only the cases whose name holds
+TEXT) with the count of output values that differ (0:
 the same bits), then the card and its power limit; exits 1 if any case
 differs. Against a parent from before the repair of the flagship Philox
 moment sums (ROADMAP C2; its ``moments_philox`` differs), the cases that
@@ -182,31 +187,78 @@ def cases(torch, n, big):
                           torch.tensor(False, device=dev), rs)
         return run
 
-    table_leaves = {}
+    def table_draws(p, pname, m=65536):
+        """A population of a prior-table prior drawn by the tree ``p``
+        itself, from a generator seeded 31, as float32 leaves: a tree
+        whose draws differ (values or stream) shows in the outputs."""
+        prior = prior_table_priors(p)[pname]
+        g = torch.Generator(device=dev).manual_seed(31)
+        return prior, [x.to(torch.float32).contiguous()
+                       for x in prior.sample_tree(g, m)]
+
+    def table_models(p):
+        _, draw, reduce_cost = p.models.flagship()
+        return (lambda th, e: draw(th[:2], e),
+                lambda th, mo: reduce_cost(th[:2], mo))
 
     def k3_table(pname, m=65536):
-        """#3 on a prior-table prior of 16 continuous marginals (stub
-        bits, the flagship model on the first two leaves), as
-        chip_smoke.py's prior-table: the leaves drawn once from the first
-        tree's prior."""
+        """#3 on a prior-table prior, each tree on its own draws."""
         def run(p):
-            prior = prior_table_priors(p)[pname]
-            _, draw, reduce_cost = p.models.flagship()
-            sw = p.make_fused_smc_sweep(
-                prior, lambda th, e: draw(th[:2], e),
-                lambda th, mo: reduce_cost(th[:2], mo), bits="stub")
-            if pname not in table_leaves:
-                g = torch.Generator(device=dev).manual_seed(31)
-                table_leaves[pname] = [x.to(torch.float32).contiguous()
-                                       for x in prior.sample_tree(g, m)]
-            th = table_leaves[pname]
-            lps = prior.logpdf_tree(tuple(th)).to(torch.float32)
+            prior, th = table_draws(p, pname, m)
+            sw = p.make_fused_smc_sweep(prior, *table_models(p),
+                                        bits="stub")
+            lps = prior.logpdf_tree(prior.push_tree(tuple(th))).to(
+                torch.float32)
             rs = torch.tensor([5, m // 2 + 3, 12345], dtype=torch.int64,
                               device=dev)
-            return sw.run(th, xs[:m], lps, alive[:m],
-                          torch.tensor(30.0, device=dev),
-                          torch.tensor(False, device=dev), rs)
+            return th, sw.run(th, xs[:m], lps, alive[:m],
+                              torch.tensor(30.0, device=dev),
+                              torch.tensor(False, device=dev), rs)
         return run
+
+    def k6_drawn(pname, m=65536):
+        """One whole #6 sweep from a generator on a prior-table prior,
+        each tree on its own draws."""
+        def run(p):
+            prior, th = table_draws(p, pname, m)
+            sw = p.make_fused_ais_sweep(prior, *table_models(p), scale=0.5,
+                                        bits="stub")
+            lp = prior.logpdf_tree(prior.push_tree(tuple(th))).to(
+                torch.float32)
+            g = torch.Generator(device=dev).manual_seed(21)
+            return th, sw(g, tuple(th), (lp, lp_ll[1][:m]))
+        return run
+
+    def k10_drawn(pname, m=65536):
+        """One #10 generation on a prior-table prior, each tree on its
+        own draws."""
+        def run(p):
+            prior, leaves = table_draws(p, pname, m)
+            g = p.make_fused_abcde_generation(
+                prior, *table_models(p), gamma=2.38 / math.sqrt(32.0),
+                bits="stub")
+            bases = [[x[i[:m] % m] for x in leaves] for i in idx]
+            lps = g.prior.logpdf_tree(g.prior.push_tree(tuple(leaves))) \
+                .float().contiguous()
+            eps_i = torch.where(ds[:m] <= 0.3, 0.3, 0.8)
+            return leaves, g.run(leaves, bases, lps, ds[:m], active[:m],
+                                 eps_i, seed)
+        return run
+
+    def smc_discrete(p):
+        """chip_smoke.py's smc-1m-generic-discrete end to end: the mixed
+        discrete prior at 2^20 through #4 at the init and #3 every sweep;
+        the posterior, its costs, eps and the iterations."""
+        prior, draw, reduce_cost = p.models.mixed_discrete()
+        res = p.smc(prior, p.make_streaming_moment_cost(draw, reduce_cost,
+                                                        ndraws=500),
+                    cost_vectorized=True, nparticles=big, epstol=0.08,
+                    sweep_fused=p.make_fused_smc_sweep(
+                        prior, draw, reduce_cost, ndraws=500), key=5,
+                    device=dev)
+        return ([torch.as_tensor(q.particles) for q in res.P]
+                + [torch.as_tensor(res.C), torch.tensor(res.eps),
+                   torch.tensor(res.iterations)])
 
     def k4(model, bits, m=n):
         def run(p):
@@ -340,8 +392,14 @@ def cases(torch, n, big):
             ("#2 hw", k2("hw")), ("#2 stub", k2("stub")),
             ("#3 flagship hw 2^20", k3("flagship", "hw", big)),
             ("#3 g-and-k-ecdf stub", k3("gk", "stub", n)),
-            ("#3 prior-table P1 stub 65536", k3_table("P1")),
-            ("#3 prior-table P2 stub 65536", k3_table("P2")),
+            ("#3 prior-table P1 stub 65536, own draws", k3_table("P1")),
+            ("#3 prior-table P2 stub 65536, own draws", k3_table("P2")),
+            ("#3 prior-table P3 stub 65536, own draws", k3_table("P3")),
+            ("#3 prior-table P4 stub 65536, own draws", k3_table("P4")),
+            ("#6 prior-table P4 stub 65536, own draws, a sweep",
+             k6_drawn("P4")),
+            ("#10 prior-table P4 stub 65536, own draws", k10_drawn("P4")),
+            ("smc-1m-generic-discrete", smc_discrete),
             ("#4 flagship hw", k4("flagship", "hw")),
             ("#4 flagship stub", k4("flagship", "stub")),
             ("#4 g-and-k hw", k4("gk", "hw")),
@@ -404,6 +462,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--n", type=int, default=131072)
+    ap.add_argument("--only", action="append", metavar="TEXT",
+                    help="run only the cases whose name holds TEXT "
+                    "(repeatable)")
     args = ap.parse_args()
     import torch
 
@@ -415,6 +476,8 @@ def main():
     differ = 0
     c2 = philox_moments_changed(args.parent)
     for name, fn in cases(torch, args.n, 1 << 20):
+        if args.only and not any(t in name for t in args.only):
+            continue
         a, b = flat(fn(new)), flat(fn(old))
         torch.cuda.synchronize()
         unequal = sum(int((x != y).sum()) - int((x.isnan() & y.isnan()).sum())
