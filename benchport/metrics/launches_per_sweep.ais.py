@@ -1,0 +1,9 @@
+"""Device operations (kernels, copies, memsets) of the profiled block of
+AIS sweeps over its sweeps: the driver loop's launches."""
+from metrics import _trace
+
+
+def read(ctx):
+    if not ctx.get("trace"):
+        return None
+    return _trace.per_unit(ctx, len(ctx["trace"]["ops"]), "sweeps")
