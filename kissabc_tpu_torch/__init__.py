@@ -22,7 +22,9 @@ SMC-ABC:
   reduce_cost))``;
 - ``smc_stepped``, the same program stepped from the host, with
   ``IterLog`` records and checkpoint/resume (``checkpoint``);
-  ``trace`` profiles a block;
+  ``trace`` profiles a block; ``tracing`` records the program's spans
+  and ``spans`` returns them (``utils/logging.py``, with the counters
+  of launches, host syncs and host copies);
 - the priors of ``distributions.py``: every univariate family of the
   JAX package (46 continuous and discrete families from ``Beta`` to
   ``PoissonBinomial``), ``Truncated`` (over any base with a quantile;
@@ -137,15 +139,16 @@ from .statistics import (  # noqa: F401
 from .utils import checkpoint  # noqa: F401
 from .utils.diagnostics import ess, rhat  # noqa: F401
 from .utils.host_sim import host_cost  # noqa: F401
-from .utils.logging import IterLog, trace  # noqa: F401
+from .utils.logging import IterLog, spans, trace, tracing  # noqa: F401
 
 __all__ = ["smc", "smc_stepped", "SMCResult", "Factored", "Uniform",
            "Normal", "Truncated", "TruncatedNormal", "DiscreteUniform",
            "MvNormal", "Particles", "make_flagship_cost_batched",
            "make_fused_flagship_sweep", "make_streaming_moment_cost",
            "make_streaming_scan_cost", "make_fused_smc_sweep", "IterLog",
-           "trace", "AIS", "sample", "sample_raw", "MCMCThreads",
-           "MCMCDistributed", "make_run", "make_sweep", "make_sweep_halves",
+           "trace", "tracing", "spans", "AIS", "sample", "sample_raw",
+           "MCMCThreads", "MCMCDistributed", "make_run", "make_sweep",
+           "make_sweep_halves",
            "checkpoint", "ApproxKernelizedPosterior", "ApproxPosterior",
            "CommonLogDensity", "make_fused_ais_sweep",
            "make_fused_flagship_ais_sweep",

@@ -80,6 +80,7 @@ from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
+from ..utils.logging import device_scalar, host_read, span
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
@@ -232,62 +233,76 @@ class _SMCProgram:
         return state
 
     def body(self, state: _SMCState) -> _SMCState:
-        gen, thetas, xs, lps, alive, eps, logz, it = state[:8]
-        n = self.n
-        it = it + 1
-        eps_v = eps
-        # walkers representing prior | cost < eps_v
-        prev_cnt = self.alive_count(alive)
-        eps = self.qfn(xs, alive, self.alpha)
-        xmin = self._xmin(xs, alive)
-        flag = ~(eps > xmin)
-        alive = self._alive(xs, eps, flag)
-        ess = self.alive_count(alive)
-        # evidence: the survival fraction of this eps-lowering (counts
-        # taken before resampling)
-        logz = logz + (torch.log(ess.to(_f32)) - torch.log(prev_cnt.to(_f32)))
+        """One iteration, in a ``smc.iter`` span whose children are the
+        phases: ``smc.threshold``, ``smc.resample`` and one ``smc.sweep``
+        a retry round."""
+        with span("smc.iter"):
+            gen, thetas, xs, lps, alive, eps, logz, it = state[:8]
+            n = self.n
+            it = it + 1
+            eps_v = eps
+            with span("smc.threshold"):
+                # walkers representing prior | cost < eps_v
+                prev_cnt = self.alive_count(alive)
+                eps = self.qfn(xs, alive, self.alpha)
+                xmin = self._xmin(xs, alive)
+                flag = ~(eps > xmin)
+                alive = self._alive(xs, eps, flag)
+                ess = self.alive_count(alive)
+                # evidence: the survival fraction of this eps-lowering (counts
+                # taken before resampling)
+                logz = logz + (torch.log(ess.to(_f32))
+                               - torch.log(prev_cnt.to(_f32)))
 
-        # Step 2 — resampling (smc.jl:145-153), only when ESS is low
-        if bool(self.alpha * ess.to(_f32) <= n * self.min_r_ess):
-            thetas, xs, lps, alive = self._resample(gen, thetas, xs, lps,
-                                                    alive)
-            ess = torch.full_like(ess, n)
+            # Step 2 — resampling (smc.jl:145-153), only when ESS is low
+            with span("smc.resample"):
+                if host_read("resample flag", bool,
+                             self.alpha * ess.to(_f32) <= n * self.min_r_ess):
+                    thetas, xs, lps, alive = self._resample(gen, thetas, xs,
+                                                            lps, alive)
+                    ess = torch.full_like(ess, n)
 
-        if self.verbose:
-            print(f"smc it={int(it)} eps={float(eps)} ESS={int(ess)}")
+            if self.verbose:
+                print(f"smc it={host_read('verbose', int, it)} "
+                      f"eps={host_read('verbose', float, eps)} "
+                      f"ESS={host_read('verbose', int, ess)}")
 
-        # Step 3 — MCMC with accept-accumulating retries (smc.jl:156-193)
-        accepted = torch.zeros((), dtype=torch.int64, device=self.device)
-        for r in range(self.retry_n):
-            if r > 0 and not bool(accepted < self.tol_count):
-                break
-            thetas, xs, lps, got = self.mcmc_sweep(gen, thetas, xs, lps,
-                                                   alive, eps, flag)
-            accepted = accepted + got
+            # Step 3 — MCMC with accept-accumulating retries (smc.jl:156-193)
+            accepted = torch.zeros((), dtype=torch.int64, device=self.device)
+            for r in range(self.retry_n):
+                with span("smc.sweep", round=r):
+                    if r > 0 and not host_read("retry flag", bool,
+                                               accepted < self.tol_count):
+                        break
+                    thetas, xs, lps, got = self.mcmc_sweep(
+                        gen, thetas, xs, lps, alive, eps, flag)
+                    accepted = accepted + got
 
-        stall = 2.0 * torch.abs(eps_v - eps) < self.r_epstol * (
-            torch.abs(eps_v) + torch.abs(eps))
-        done = stall | (eps <= self.epstol) | (accepted < self.tol_count)
-        return _SMCState(gen, thetas, xs, lps, alive, eps, logz, it,
-                         accepted, done)
+            stall = 2.0 * torch.abs(eps_v - eps) < self.r_epstol * (
+                torch.abs(eps_v) + torch.abs(eps))
+            done = stall | (eps <= self.epstol) | (accepted < self.tol_count)
+            return _SMCState(gen, thetas, xs, lps, alive, eps, logz, it,
+                             accepted, done)
 
     def cond(self, state: _SMCState) -> bool:
         """One host read per iteration: the stop flag and the count."""
-        done, it = torch.stack((state.done.to(torch.int64),
-                                state.it)).tolist()
+        with span("smc.cond"):
+            done, it = host_read("cond", torch.Tensor.tolist, torch.stack(
+                (state.done.to(torch.int64), state.it)))
         return not done and it < self.max_iters
 
     def init_state(self, gen) -> _SMCState:
-        thetas, xs, lps = self.init(gen)
-        dev = self.device
-        return _SMCState(
-            gen, thetas, xs, lps,
-            self.place(torch.ones(self.n, dtype=torch.bool, device=dev)),
-            torch.tensor(float("inf"), dtype=_f32, device=dev),
-            torch.tensor(0.0, dtype=_f32, device=dev),
-            torch.tensor(0, dtype=torch.int64, device=dev),
-            torch.tensor(0, dtype=torch.int64, device=dev),
-            torch.tensor(False, device=dev))
+        with span("smc.init"):
+            thetas, xs, lps = self.init(gen)
+            dev = self.device
+            return _SMCState(
+                gen, thetas, xs, lps,
+                self.place(torch.ones(self.n, dtype=torch.bool, device=dev)),
+                device_scalar("init", float("inf"), _f32, dev),
+                device_scalar("init", 0.0, _f32, dev),
+                device_scalar("init", 0, torch.int64, dev),
+                device_scalar("init", 0, torch.int64, dev),
+                device_scalar("init", False, torch.bool, dev))
 
     def __call__(self, gen) -> _SMCState:
         state = self.init_state(gen)
@@ -463,27 +478,28 @@ def _program(prior, cost, *, nparticles, alpha, mcmc_retrys, mcmc_tol,
 
 
 def _result(program, state, caller, max_iters) -> SMCResult:
-    prior = program.prior
-    state = program.checkpoint_view(state)
-    if not bool(state.done):
-        # the reference loops until an eps stall / epstol / acceptance
-        # collapse; max_iters is this build's safety bound
-        warnings.warn(
-            f"{caller}: stopped at the max_iters={max_iters} safety bound "
-            "before any stopping rule (eps stall / epstol / acceptance "
-            "collapse) fired; the posterior may not be converged.",
-            RuntimeWarning, stacklevel=3)
-    alive_np = fetch(state.alive)
-    pushed = prior.push_tree(state.thetas)
-    pushed_alive = tree_map(lambda x: fetch(x)[alive_np], pushed)
-    return SMCResult(
-        P=particles_from_tree(pushed_alive),
-        C=fetch(state.xs),
-        eps=float(state.eps),
-        iterations=int(state.it),
-        ess=int(alive_np.sum()),
-        log_evidence=float(state.logz),
-    )
+    with span("smc.result"):
+        prior = program.prior
+        state = program.checkpoint_view(state)
+        if not host_read("result", bool, state.done):
+            # the reference loops until an eps stall / epstol / acceptance
+            # collapse; max_iters is this build's safety bound
+            warnings.warn(
+                f"{caller}: stopped at the max_iters={max_iters} safety bound "
+                "before any stopping rule (eps stall / epstol / acceptance "
+                "collapse) fired; the posterior may not be converged.",
+                RuntimeWarning, stacklevel=3)
+        alive_np = fetch(state.alive)
+        pushed = prior.push_tree(state.thetas)
+        pushed_alive = tree_map(lambda x: fetch(x)[alive_np], pushed)
+        return SMCResult(
+            P=particles_from_tree(pushed_alive),
+            C=fetch(state.xs),
+            eps=host_read("result", float, state.eps),
+            iterations=host_read("result", int, state.it),
+            ess=int(alive_np.sum()),
+            log_evidence=host_read("result", float, state.logz),
+        )
 
 
 def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
@@ -525,8 +541,9 @@ def smc(prior, cost, *, nparticles: int = 100, alpha: float = 0.95,
         cost_vectorized=cost_vectorized, partner_scheme=partner_scheme,
         quantile_impl=quantile_impl, sweep_fused=sweep_fused, device=device,
         caller="smc")
-    state = program(as_generator(key, program.device))
-    return _result(program, state, "smc", max_iters)
+    with span("smc.solve", nparticles=nparticles):
+        state = program(as_generator(key, program.device))
+        return _result(program, state, "smc", max_iters)
 
 
 def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
@@ -559,22 +576,25 @@ def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
         cost_vectorized=cost_vectorized, partner_scheme=partner_scheme,
         quantile_impl=quantile_impl, sweep_fused=sweep_fused, device=device,
         caller="smc_stepped")
-    state = program.init_state(as_generator(key, program.device))
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        state, _meta = ckpt.load(checkpoint_path,
-                                 program.checkpoint_view(state))
-        state = program.from_checkpoint(state)
-    # on a mesh of several processes, the first writes the checkpoint
-    writer = mesh is None or mesh.rank == 0
-    while program.cond(state):
-        state = program.body(state)
-        it = int(state.it)
-        if log is not None:
-            log.emit(iteration=it, eps=float(state.eps),
-                     ess=int(program.alive_count(state.alive)),
-                     accepted=int(state.acc))
-        if checkpoint_path and it % checkpoint_every == 0:
-            view = program.checkpoint_view(state)
-            if writer:
-                ckpt.save(checkpoint_path, view, {"iteration": it})
-    return _result(program, state, "smc_stepped", max_iters)
+    with span("smc.solve", nparticles=nparticles):
+        state = program.init_state(as_generator(key, program.device))
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            state, _meta = ckpt.load(checkpoint_path,
+                                     program.checkpoint_view(state))
+            state = program.from_checkpoint(state)
+        # on a mesh of several processes, the first writes the checkpoint
+        writer = mesh is None or mesh.rank == 0
+        while program.cond(state):
+            state = program.body(state)
+            it = host_read("stepped", int, state.it)
+            if log is not None:
+                log.emit(iteration=it,
+                         eps=host_read("stepped", float, state.eps),
+                         ess=host_read("stepped", int,
+                                       program.alive_count(state.alive)),
+                         accepted=host_read("stepped", int, state.acc))
+            if checkpoint_path and it % checkpoint_every == 0:
+                view = program.checkpoint_view(state)
+                if writer:
+                    ckpt.save(checkpoint_path, view, {"iteration": it})
+        return _result(program, state, "smc_stepped", max_iters)

@@ -44,6 +44,7 @@ import torch
 
 from ..parallel import layout as L
 from ..parallel import mesh as M
+from ..utils.logging import register_counters
 from ..utils.rng import uint32_words
 from . import _build, codegen, lane_groups
 from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
@@ -51,8 +52,9 @@ from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
 from .streaming import (NOISE_OPS, leaves_of, streaming_moment_cost_plain,
                         tree_of, validate)
 
-# launches of the CUDA kernel since the last reset (plain ints)
-launches = {"fused_abcde_generation": 0}
+# launches of the CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"fused_abcde_generation": 0})
 
 # Philox streams (third counter word), as in csrc/generic.cuh
 STREAM_ABCDE_WALKER, STREAM_ABCDE_SIM = 11, 12

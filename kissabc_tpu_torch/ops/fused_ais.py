@@ -51,6 +51,7 @@ import torch
 
 from ..parallel import layout as L
 from ..parallel import mesh as M
+from ..utils.logging import register_counters, span
 from ..utils.rng import uint32_words
 from . import _build, codegen, lane_groups
 from .kernels import (OPS_PER_DRAW, _box_muller, _check_bits, _moments_philox,
@@ -61,8 +62,10 @@ from .moves import _distinct_shifts
 from .streaming import (NOISE_OPS, leaves_of, streaming_moment_cost_plain,
                         tree_of, validate)
 
-# launches of each CUDA kernel since the last reset (plain ints)
-launches = {"fused_ais_half": 0, "fused_ais_full": 0, "fused_ais_sweep": 0}
+# launches of each CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {
+    "fused_ais_half": 0, "fused_ais_full": 0, "fused_ais_sweep": 0})
 
 # as in csrc/ais.cu: threads a block, walkers a block at most
 AIS_MAX_THREADS, AIS_MAX_WALKERS = 512, 1024
@@ -811,43 +814,56 @@ class FusedAISSweep(MixtureHalfSweep):
         return outs
 
     def sweep_halves(self, gen, th, ld):
-        if self.mesh is not None:
-            return self._mesh_sweep(gen, th, ld)
-        tha_l, sa = leaves_of(th[0], "make_fused_ais_sweep")
-        thb_l, _ = leaves_of(th[1], "make_fused_ais_sweep")
-        self._check_leaves(tha_l, "half-A")
-        (lpa, lla), (lpb, llb) = ld
-        h = tha_l[0].shape[0]
-        if h < 3:
-            raise ValueError("need at least 6 walkers")
-        tha_l, lpa, lla = self.half_words(tha_l, lpa, lla, thb_l,
-                                          self._draws(gen))
-        thb_l, lpb, llb = self.half_words(thb_l, lpb, llb, tha_l,
-                                          self._draws(gen))
-        return ((tree_of(tha_l, sa), tree_of(thb_l, sa)),
-                ((lpa, lla), (lpb, llb)))
+        """A sweep of the halves carry, in an ``ais.sweep`` span with one
+        ``ais.half`` child a half-update (its words' draw and its
+        launch; on a mesh the whole sweep is one span)."""
+        with span("ais.sweep"):
+            if self.mesh is not None:
+                return self._mesh_sweep(gen, th, ld)
+            tha_l, sa = leaves_of(th[0], "make_fused_ais_sweep")
+            thb_l, _ = leaves_of(th[1], "make_fused_ais_sweep")
+            self._check_leaves(tha_l, "half-A")
+            (lpa, lla), (lpb, llb) = ld
+            h = tha_l[0].shape[0]
+            if h < 3:
+                raise ValueError("need at least 6 walkers")
+            with span("ais.half"):
+                tha_l, lpa, lla = self.half_words(tha_l, lpa, lla, thb_l,
+                                                  self._draws(gen))
+            with span("ais.half"):
+                thb_l, lpb, llb = self.half_words(thb_l, lpb, llb, tha_l,
+                                                  self._draws(gen))
+            return ((tree_of(tha_l, sa), tree_of(thb_l, sa)),
+                    ((lpa, lla), (lpb, llb)))
 
     def sweep(self, gen, thetas, lds):
-        leaves, structure = leaves_of(thetas, "make_fused_ais_sweep")
-        self._check_leaves(leaves, "thetas")
-        lp, ll = (t.to(torch.float32).contiguous() for t in lds)
-        n = leaves[0].shape[0]
-        if n % 2:
-            raise ValueError(
-                f"the fused AIS sweep needs an even walker count, got {n}")
-        h = n // 2
-        if h < 3:
-            raise ValueError("need at least 6 walkers")
-        oth = [torch.empty_like(x) for x in leaves]
-        olp, oll = torch.empty_like(lp), torch.empty_like(ll)
-        for half in (0, 1):
-            sl, co = (slice(0, h), slice(h, n)) if half == 0 else (
-                slice(h, n), slice(0, h))
-            comp = [(x if half == 0 else o)[co] for x, o in zip(leaves, oth)]
-            self.half_words([x[sl] for x in leaves], lp[sl], ll[sl], comp,
-                            self._draws(gen),
-                            outs=([o[sl] for o in oth], olp[sl], oll[sl]))
-        return tree_of(oth, structure), (olp, oll)
+        """A sweep of the full ensemble, in an ``ais.sweep`` span with
+        one ``ais.half`` child a half-update (its words' draw and its
+        launch)."""
+        with span("ais.sweep"):
+            leaves, structure = leaves_of(thetas, "make_fused_ais_sweep")
+            self._check_leaves(leaves, "thetas")
+            lp, ll = (t.to(torch.float32).contiguous() for t in lds)
+            n = leaves[0].shape[0]
+            if n % 2:
+                raise ValueError(
+                    f"the fused AIS sweep needs an even walker count, got {n}")
+            h = n // 2
+            if h < 3:
+                raise ValueError("need at least 6 walkers")
+            oth = [torch.empty_like(x) for x in leaves]
+            olp, oll = torch.empty_like(lp), torch.empty_like(ll)
+            for half in (0, 1):
+                sl, co = (slice(0, h), slice(h, n)) if half == 0 else (
+                    slice(h, n), slice(0, h))
+                comp = [(x if half == 0 else o)[co]
+                        for x, o in zip(leaves, oth)]
+                with span("ais.half"):
+                    self.half_words(
+                        [x[sl] for x in leaves], lp[sl], ll[sl], comp,
+                        self._draws(gen),
+                        outs=([o[sl] for o in oth], olp[sl], oll[sl]))
+            return tree_of(oth, structure), (olp, oll)
 
     def __call__(self, gen, thetas, lds):
         if self.halves:

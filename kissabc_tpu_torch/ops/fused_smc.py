@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..parallel import mesh as M
+from ..utils.logging import host_read, register_counters
 from ..utils.rng import uint32_words
 from . import _build, codegen
 from .kernels import (_seed_tensor, _stream, philox4x32_10, plan_tiles,
@@ -56,8 +57,9 @@ from .streaming import (NOISE_OPS, STREAM_GEN_SWEEP_SIM,
                         STREAM_GEN_SWEEP_WALKER, _device_of, leaves_of,
                         streaming_moment_cost_plain, tree_of, validate)
 
-# launches of the CUDA kernel since the last reset (plain ints)
-launches = {"fused_smc_sweep": 0}
+# launches of the CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"fused_smc_sweep": 0})
 
 # threads per block of the kernel, which compacts the block's gate-1
 # walkers onto its first threads: the block size at most
@@ -181,7 +183,8 @@ class FusedSMCSweep:
                 f"prior has {self.d} scalar marginals but thetas has "
                 f"{len(lv.shards[0])} leaves")
         words = uint32_words(gen, 3)
-        r1, r2 = roll_shifts(words[:2].tolist(), n)
+        r1, r2 = roll_shifts(host_read("roll shifts", torch.Tensor.tolist,
+                                       words[:2]), n)
         ta = M.roll_walkers(lv, r2, mesh)
         tb = M.roll_walkers(lv, r1, mesh)
         outs = []

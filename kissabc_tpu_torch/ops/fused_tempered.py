@@ -37,14 +37,16 @@ import numpy as np
 import torch
 
 from ..parallel import layout as L
+from ..utils.logging import register_counters
 from . import _build, codegen
 from .fused_ais import (GEN_AIS_OPS_PER_PAIR, GEN_AIS_OPS_PER_WORD,
                         MixtureHalfSweep, _f32, rot_shifts6)
 from .kernels import _check_bits, _seed_tensor, _stream
 from .streaming import leaves_of, tree_of
 
-# launches of the CUDA kernel since the last reset (plain ints)
-launches = {"fused_tempered_sweep": 0}
+# launches of the CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"fused_tempered_sweep": 0})
 
 # Philox stream (third counter word) of the walkers' words, as in
 # csrc/tempered.cuh

@@ -32,12 +32,15 @@ import numpy as np
 import torch
 from scipy import special as sps
 
+from ..utils.logging import register_counters
 from ..utils.rng import uint32_words
 from . import _build, lane_groups
 from .moves import roll_shifts
 
-# launches of each CUDA kernel since the last reset (plain ints)
-launches = {"normal_summary_cost": 0, "fused_sweep": 0}
+# launches of each CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"normal_summary_cost": 0,
+                                           "fused_sweep": 0})
 
 
 def reset_launch_counts() -> None:

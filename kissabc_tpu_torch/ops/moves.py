@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..utils.logging import host_read
 from ..utils.rng import uint32_words
 from .tree import sample_distinct, tree_leaves, tree_map
 
@@ -106,7 +107,8 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
     z = torch.randn(n, generator=gen, device=dev)
     w = max_stretch * z / math.sqrt(d)
     if scheme == "roll":
-        r1, r2 = roll_shifts(uint32_words(gen, 2).tolist(), n)
+        r1, r2 = roll_shifts(host_read("roll shifts", torch.Tensor.tolist,
+                                       uint32_words(gen, 2)), n)
         if not sharded:
             return propose_roll(ens, w, r1, r2)
         ra, rb = roll_walkers(ens, r1, ens.mesh), roll_walkers(ens, r2,

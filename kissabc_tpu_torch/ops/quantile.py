@@ -6,11 +6,17 @@ the same float32 formula as the JAX package, so on the same float32
 input they give the same bits (``tests/test_torch_ops.py``). Unsigned
 32-bit key arithmetic is carried in int64 tensors, whose values stay in
 ``[0, 2**32)``.
+
+Each quantile makes its ``inf`` constant with ``device_scalar``: on a
+card that is a blocking host-to-device copy, counted in the spans'
+``host_copies`` (``utils/logging.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.logging import device_scalar
 
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
@@ -20,7 +26,7 @@ def masked_quantile(x, mask, q):
     """Type-7 quantile of ``x[mask]`` without dynamic shapes: masked-out
     entries are sorted to the end as +inf."""
     n = x.shape[0]
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    inf = device_scalar("quantile inf", float("inf"), x.dtype, x.device)
     xs = torch.sort(torch.where(mask, x, inf)).values
     m = mask.sum()
     h = (m - 1).to(x.dtype) * q
@@ -98,7 +104,8 @@ def _kth_smallest(x, mask, k, iters=33):
         below = px.sum([(f & (u <= on(mid, u))).sum()
                         for f, u in zip(finite, keys)]) < kf + 1
         lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=px.home)
+    inf = device_scalar("quantile inf", float("inf"), torch.float32,
+                        px.home)
     return torch.where(k < n_neg, -inf,
                        torch.where(kf < n_fin, _f32_unkey(hi), inf))
 
@@ -120,7 +127,7 @@ def masked_quantile_bisect(x, mask, q):
     count_le = px.sum([(b & (v <= on(xlo, v))).sum()
                        for v, b in zip(xs, ms)])
     above = [b & (v > on(xlo, v)) for v, b in zip(xs, ms)]
-    inf = torch.tensor(float("inf"), dtype=dtype, device=px.home)
+    inf = device_scalar("quantile inf", float("inf"), dtype, px.home)
     xhi_strict = px.min([torch.where(a, v, on(inf, v)).min()
                          for a, v in zip(above, xs)])
     any_above = px.sum([a.sum() for a in above]) > 0

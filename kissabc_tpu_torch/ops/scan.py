@@ -44,14 +44,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.logging import register_counters
 from ..utils.rng import uint32_words
 from . import _build, codegen
 from .kernels import (_check_bits, _seed_tensor, _stream, philox4x32_10,
                       plan_tiles, stub_bits)
 from .streaming import NOISE_OPS, _device_of, _noise_pair, leaves_of, tree_of
 
-# launches of the CUDA kernel since the last reset (plain ints)
-launches = {"streaming_scan_cost": 0}
+# launches of the CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"streaming_scan_cost": 0})
 
 # Philox stream (third counter word) of the scan kernel, as in csrc/scan.cuh
 STREAM_SCAN = 6

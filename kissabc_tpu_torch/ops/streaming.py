@@ -35,13 +35,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.logging import register_counters
 from ..utils.rng import uint32_words
 from . import _build, codegen, lane_groups
 from .kernels import (_box_muller, _check_bits, _seed_tensor, _stream,
                       philox4x32_10, plan_tiles, stub_bits, to_unit)
 
-# launches of the CUDA kernel since the last reset (plain ints)
-launches = {"streaming_moment_cost": 0}
+# launches of the CUDA kernel since the last reset (plain ints), registered
+# with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"streaming_moment_cost": 0})
 
 # Philox streams (third counter word) of the generic kernels, as in
 # csrc/generic.cuh

@@ -40,13 +40,15 @@ import numpy as np
 import torch
 
 from ..ops.tree import tree_leaves, tree_map
+from ..utils.logging import host_read, register_counters
 
 # shard-sized transfers since the last reset: one a destination shard and
 # leaf for ``permute``, one a source shard and leaf for ``join``
-transfers = {"permute": 0, "join": 0}
+transfers = register_counters("transfers.", {"permute": 0, "join": 0})
 # values read on the host since the last reset: the partner shifts of a
-# sharded ensemble half-update, once each (``partner_rolls``)
-host_reads = {"shifts": 0}
+# sharded ensemble half-update, once each (``partner_rolls``); each is
+# also one of the spans' ``host_syncs`` (utils/logging.py)
+host_reads = register_counters("mesh_reads.", {"shifts": 0})
 _hooks = []
 
 
@@ -314,7 +316,7 @@ def partner_rolls(comp, shifts, mesh, axis: str = "walker"):
     read on the host once (``host_reads["shifts"]``)."""
     if torch.is_tensor(shifts):
         host_reads["shifts"] += 1
-        shifts = shifts.tolist()
+        shifts = host_read("partner shifts", torch.Tensor.tolist, shifts)
     rolled = [roll_walkers(comp, -int(r), mesh, axis) for r in shifts]
     nleaves = len(tree_leaves(comp.shards[0]))
     return Sharded(mesh, [

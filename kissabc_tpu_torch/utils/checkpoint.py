@@ -18,6 +18,8 @@ import os
 import numpy as np
 import torch
 
+from .hostfetch import fetch
+
 _SEP = "\x1f"  # key-path separator inside the npz archive
 
 
@@ -54,9 +56,7 @@ def _unflatten(like, leaves):
 def _to_numpy(leaf):
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy()
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+    return fetch(leaf)
 
 
 def save(path: str, tree, meta: dict | None = None) -> None:

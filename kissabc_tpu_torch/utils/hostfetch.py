@@ -14,12 +14,18 @@ import numpy as np
 import torch
 
 from ..ops.tree import tree_map
+from .logging import host_read
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy()
 
 
 def fetch(x) -> np.ndarray:
-    """``x.detach().cpu().numpy()`` for a tensor, ``np.asarray`` else."""
+    """``x.detach().cpu().numpy()`` for a tensor (a read counted in
+    ``host_syncs``, ``utils/logging.py``), ``np.asarray`` else."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return host_read("fetch", _numpy, x)
     return np.asarray(x)
 
 
