@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--save-ais-inputs PATH]
 
-Builds the CUDA kernels with nvcc — ``kissabc_tpu_torch/csrc/flagship.cu``
-and, one nvcc each and all at once, the generic kernels of
+Builds the CUDA kernels with nvcc — ``kissabc_tpu_torch/csrc/flagship.cu``,
+the radix select ``csrc/select.cu`` and, one nvcc each and all at once,
+the generic kernels of
 ``csrc/generic.cuh`` and the scan kernel of ``csrc/scan.cuh`` with the
 user models the script defines compiled into them — holds each kernel
 against its plain PyTorch version on the card, and drives the port's
@@ -46,9 +47,11 @@ covariance example, AIS on ``LKJ(2)``, and each family's logpdf and
 10^5 draws on the card). For the kernels redesigned
 since, ``radius-exhaustive`` holds the Box-Muller radius of
 ``csrc/common.cuh`` against ``sqrtf(-2 log1pf(-u))`` at all 2^23 inputs,
-and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads
-and kernel #2 (which takes the step's raw words and derives its partners)
-at each geometry of ``GEOMETRIES_2``, ``scan-kernel-times`` kernel #5 in
+and ``kernel-times`` times kernel #3 in blocks of 128 to 1024 threads,
+kernel #2 (which takes the step's raw words and derives its partners)
+at each geometry of ``GEOMETRIES_2`` and the radix select of
+``csrc/select.cu`` (the smc threshold's quantile at 2^20, whose launches
+``smc-full`` counts) against its plain version bit for bit, ``scan-kernel-times`` kernel #5 in
 blocks of ``SCAN_THREADS``, all of which must give equal outputs;
 ``ais-stub`` and ``ais-kernel-times`` hand #6, #7 and #8 raw words
 (their kernels derive the shifts) and check #7 and #8 on two word sets
@@ -735,16 +738,17 @@ def main():
     from kissabc_tpu_torch.ops import kernels as K
     from kissabc_tpu_torch.ops import lane_groups as LG
     from kissabc_tpu_torch.ops import moves as M
+    from kissabc_tpu_torch.ops import quantile as Q
     from kissabc_tpu_torch.ops import scan as SC
     from kissabc_tpu_torch.ops import streaming as S
 
     def reset_counts():
-        for module in (K, S, F, SC, FA, FT, FD):
+        for module in (K, S, F, SC, FA, FT, FD, Q):
             module.reset_launch_counts()
 
     def counts():
         return {**K.launches, **S.launches, **F.launches, **SC.launches,
-                **FA.launches, **FT.launches, **FD.launches}
+                **FA.launches, **FT.launches, **FD.launches, **Q.launches}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1033,11 +1037,16 @@ def main():
         table_jobs = [_build.start(text) for text in table_units]
         ex_jobs = [_build.start(text) for text in ex_units]
         radius_job = _build.start(RADIUS_CHECK)
+        select_job = _build.start_select()
         lib_path, build_s, log = jobs[0].wait()
         ptxas_lines(log, "flagship")
         _build.load()
+        select_path, select_s, log = select_job.wait()
+        ptxas_lines(log, "select")
+        _build.load_select()
         ph.result = (f"{lib_path.name} (flagship.cu + ais.cu) compiled in "
-                     f"{build_s:.2f} s")
+                     f"{build_s:.2f} s, {select_path.name} (select.cu) in "
+                     f"{select_s:.2f} s")
 
     with Phase("build-generic") as ph:
         slowest = 0.0
@@ -1376,6 +1385,11 @@ def main():
         res, wall, launched = run_smc(1 << 20, min_r_ess=0.5)
         _alarm(max(1, int(SCRIPT_LIMIT_S - (time.perf_counter() - t_start))))
         smc_launches = launched["normal_summary_cost"]
+        # the threshold: one radix select an iteration at 2^20 on a card
+        select_launches = launched["masked_quantile"]
+        check(select_launches == res.iterations,
+              f"smc-full launched masked_quantile {select_launches} times "
+              f"in {res.iterations} iterations")
         ph.result = (f"n=2^20 iterations {res.iterations} eps {res.eps:.6f}"
                      f" mu {res.P[0].mean():.5f} sigma {res.P[1].mean():.5f}"
                      f" wall {wall:.3f} s launches {launched}")
@@ -1602,6 +1616,36 @@ def main():
             launches=smc_launches, max_abs_err=err1, matched=True,
             ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
             library_ms=None))
+
+        # the radix select S on these 2^20 costs at the smc's alpha 0.95:
+        # its bits against its plain version's (the bisection) with every
+        # walker alive and with ~95% alive, its times on the latter; the
+        # library's time is the sort quantile's (torch.sort)
+        costs_s = got
+        for alive_s in (torch.ones(n, dtype=torch.bool, device=dev),
+                        uniform(n, 0.0, 1.0) < 0.95):
+            s_got = Q.masked_quantile_select(costs_s, alive_s, 0.95)
+            s_want = Q.masked_quantile_bisect_plain(costs_s, alive_s, 0.95)
+            check(same_bits(s_got, s_want), f"masked_quantile n=2^20: "
+                  f"{s_got.item()}, the bisection {s_want.item()}")
+        ms_s = device_ms(torch, lambda: Q.masked_quantile_select(
+            costs_s, alive_s, 0.95), 20, "masked_quantile_kernel")
+        events_s = cuda_ms(torch, lambda: Q.masked_quantile_select(
+            costs_s, alive_s, 0.95), 50)
+        plain_s = cuda_ms(torch, lambda: Q.masked_quantile_bisect_plain(
+            costs_s, alive_s, 0.95), 5, warmup=1)
+        library_s = cuda_ms(torch, lambda: Q.masked_quantile(
+            costs_s, alive_s, 0.95), 20)
+        b_s, by_s = bound(Q.masked_quantile_work(n))
+        records.append(dict(
+            name="masked_quantile", route="cuda",
+            source="kissabc_tpu_torch/csrc/select.cu", replaces=None,
+            launches=select_launches, max_abs_err=0.0, matched=True,
+            ms=ms_s, events_ms=events_s, plain_ms=plain_s, bound_ms=b_s,
+            bound_by=by_s, library_ms=library_s,
+            library_note="the sort quantile (torch.sort)",
+            threads=Q.SELECT_THREADS,
+            registers=ptxas.get("select", [])))
 
         n = 131072
         mu, sg = prior.sample_tree(gen, n)
@@ -3660,6 +3704,8 @@ def main():
               f"{counted.calls} sweeps, not once per shard a sweep")
         check(launched["normal_summary_cost"] == launched["fused_sweep"] == 0,
               "mesh-smc-1m-generic launched a flagship kernel")
+        check(launched["masked_quantile"] == 0, "mesh-smc-1m-generic's "
+              "threshold launched the one-device radix select")
         mu_p, sg_p = res.P
         check(res.eps <= EPSTOL, f"eps {res.eps} > {EPSTOL}")
         check(abs(mu_p.mean() - 2.0) < 0.05, f"mean mu {mu_p.mean()}")
@@ -4330,6 +4376,14 @@ def main():
         ph.result = f"{conf['passed']} passed, {conf['failed']} failed"
 
     for rec in records:   # the prior table's times beside #3's and #6's
+        if rec["name"] == "masked_quantile":
+            rec["launches_by_path"] = {
+                "smc-full": select_launches,
+                "smc-1m-generic": generic_launches["masked_quantile"],
+                "smc-1m-generic-priors": priors_launches["masked_quantile"],
+                "smc-1m-generic-discrete":
+                    discrete_launches["masked_quantile"]}
+            rec["launches"] = sum(rec["launches_by_path"].values())
         if rec["name"] == "fused_smc_sweep":
             rec["prior_table"] = {k: v for k, v in table_times.items()
                                   if k.startswith("#3")}

@@ -1,11 +1,14 @@
 """Builds the CUDA kernels with ``nvcc`` into ``build/kissabc_tpu_torch/``
 at first use and loads them with ``ctypes``.
 
-Two kinds of translation unit:
+Three kinds of translation unit:
 
 - the hand-written sources, built into one library (``build()``,
   ``load()``): ``csrc/flagship.cu``, the flagship smc kernels, and
   ``csrc/ais.cu``, the flagship AIS sweeps;
+- ``csrc/select.cu``, the masked quantile's radix select, built alone
+  into ``libselect-<sha>.so`` (``start_select()``, ``load_select()``), so
+  that a run which needs only the quantile builds only it;
 - a generated unit per user model: the device functions that
   ``ops/codegen.py`` emits, then ``#include "generic.cuh"`` (i.i.d.
   simulators, the fused smc and AIS sweeps, the ABC-DE generation),
@@ -37,6 +40,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "flagship.cu", CSRC / "ais.cu")
+SELECT_SOURCE = CSRC / "select.cu"
 HEADERS = (CSRC / "common.cuh", CSRC / "compact.cuh", CSRC / "generic.cuh",
            CSRC / "scan.cuh", CSRC / "moments.cuh", CSRC / "walkers.cuh",
            CSRC / "tempered.cuh", CSRC / "shifts.cuh")
@@ -57,6 +61,11 @@ _SIGNATURES = {
     "kt_fused_ais_half": [_P] * 11 + [_I, _P, _P, _I, _I, _P],
     "kt_fused_ais_full": [_P] * 9 + [_I, _P, _P, _I, _I, _P],
     "kt_fused_ais_full_grid": [_I, _I, _I, _P],
+}
+SELECT_SIGNATURES = {
+    "kt_masked_quantile": [_P, _P, _I, _F, _P, _P, _I, _I, _P],
+    "kt_masked_quantile_grid": [_I, _P],
+    "kt_masked_quantile_scratch_words": [],
 }
 GEN_SIGNATURES = {
     "kt_streaming_moment_cost": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
@@ -97,6 +106,13 @@ def library_path() -> Path:
     digest = _digest(*(f.read_bytes() for f in SOURCES + HEADERS),
                      " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libflagship-{digest}.so"
+
+
+def select_path() -> Path:
+    """The library of the radix select, keyed by its source and the
+    flags."""
+    digest = _digest(SELECT_SOURCE.read_bytes(), " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libselect-{digest}.so"
 
 
 def generated_path(text: str) -> Path:
@@ -152,6 +168,11 @@ def start(text: str | None = None) -> _Job:
     return _Job(lib, (source,), GEN_FLAGS)
 
 
+def start_select() -> _Job:
+    """Start compiling the radix select unless its library exists."""
+    return _Job(select_path(), (SELECT_SOURCE,), NVCC_FLAGS)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the hand-written sources unless a library for them
     exists. Returns (library path, seconds spent compiling, compiler
@@ -179,6 +200,12 @@ def _bind(path: Path, signatures) -> ctypes.CDLL:
 def load() -> ctypes.CDLL:
     """The built library of the hand-written sources."""
     return _bind(build()[0], _SIGNATURES)
+
+
+@functools.cache
+def load_select() -> ctypes.CDLL:
+    """The built library of the radix select."""
+    return _bind(start_select().wait()[0], SELECT_SIGNATURES)
 
 
 @functools.cache

@@ -7,19 +7,44 @@ input they give the same bits (``tests/test_torch_ops.py``). Unsigned
 32-bit key arithmetic is carried in int64 tensors, whose values stay in
 ``[0, 2**32)``.
 
-Each quantile makes its ``inf`` constant with ``device_scalar``: on a
-card that is a blocking host-to-device copy, counted in the spans'
-``host_copies`` (``utils/logging.py``).
+``masked_quantile_bisect`` dispatches on what it is given:
+
+- one CUDA vector: one cooperative launch of the hand-written radix
+  select ``csrc/select.cu`` (``masked_quantile_select``), which makes
+  no host read and no copy; a refused launch raises;
+- a CPU vector: ``masked_quantile_bisect_plain``, the bisection in
+  PyTorch, the kernel's plain version;
+- ``Sharded`` vectors: the same bisection, every count and extreme
+  reduced over the mesh.
+
+The sort and the plain bisection make their ``inf`` constant with
+``device_scalar``: off the CPU that is a blocking host-to-device copy,
+counted in the spans' ``host_copies`` (``utils/logging.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from ..utils.logging import device_scalar
+from ..utils.logging import device_scalar, register_counters
+from . import _build
 
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
+
+# launches of the radix select (a plain int), registered with the counters that each span records (utils/logging.py)
+launches = register_counters("launches.", {"masked_quantile": 0})
+# threads a block of the radix select (at 2^20 on the H100, 16.9 us a
+# launch against 19.6 us at 512 and 33.7 us at 256; PERF.md)
+SELECT_THREADS = 1024
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def masked_quantile(x, mask, q):
@@ -111,11 +136,87 @@ def _kth_smallest(x, mask, k, iters=33):
 
 
 def masked_quantile_bisect(x, mask, q):
-    """Type-7 masked quantile without sorting: exact order statistics by
-    value bisection and a duplicate-aware neighbour lookup. The same
-    results as ``masked_quantile``. On a mesh (``x`` and ``mask``
-    ``Sharded``) every step is a scalar reduction over the shards, and
-    the result the same as on the joined vectors."""
+    """Type-7 masked quantile without sorting: exact order statistics
+    and a duplicate-aware neighbour lookup, the same results as
+    ``masked_quantile``. One CUDA vector goes to the radix select
+    kernel, which takes float32 ``x`` only (another dtype raises
+    ``TypeError``); a CPU vector or ``Sharded`` vectors go to the
+    bisection."""
+    from ..parallel.mesh import Sharded
+    if not isinstance(x, Sharded) and x.device.type == "cuda":
+        return masked_quantile_select(x, mask, q)
+    return masked_quantile_bisect_plain(x, mask, q)
+
+
+@functools.cache
+def _select_plan(device_index: int) -> tuple[int, int]:
+    """(co-resident blocks, scratch words) of the radix select on a
+    card: the blocks of ``SELECT_THREADS`` that fit on it at once, as a
+    cooperative launch needs, and the scratch the kernel takes."""
+    lib = _build.load_select()
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        _build.check(lib, lib.kt_masked_quantile_grid(SELECT_THREADS, out),
+                     "masked_quantile occupancy")
+    return out[0] * out[1], lib.kt_masked_quantile_scratch_words()
+
+
+def _select_operands(x, mask):
+    """``x`` and ``mask`` as the radix select reads them: contiguous
+    vectors of one length, ``x`` float32 and ``mask`` bool (a mask of
+    another dtype is taken as its nonzero entries). A ``x`` of another
+    dtype raises ``TypeError``: the bisection would interpolate it in its
+    own dtype."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"masked_quantile_select takes float32 x, got "
+                        f"{x.dtype}")
+    if x.dim() != 1 or mask.shape != x.shape:
+        raise ValueError("masked_quantile_select takes vectors of one "
+                         f"length, got {tuple(x.shape)} and "
+                         f"{tuple(mask.shape)}")
+    return x.contiguous(), mask.to(torch.bool).contiguous()
+
+
+def masked_quantile_select(x, mask, q):
+    """``masked_quantile_bisect`` of one CUDA vector by the radix select
+    of ``csrc/select.cu`` in one launch of ``SELECT_THREADS`` threads a
+    block over at most the co-resident blocks: its bits, no host read, no
+    copy. ``x`` float32 and ``mask`` of the same length on one card, ``q``
+    a number; a 0-dim float32 tensor on the card."""
+    if x.device.type != "cuda" or mask.device != x.device:
+        raise ValueError("masked_quantile_select takes x and mask on one "
+                         f"CUDA device, got {x.device} and {mask.device}")
+    x, mask = _select_operands(x, mask)
+    n = x.shape[0]
+    index = x.device.index if x.device.index is not None else \
+        torch.cuda.current_device()
+    co_resident, words = _select_plan(index)
+    blocks = min(max(1, -(-n // (4 * SELECT_THREADS))), co_resident)
+    lib = _build.load_select()
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(words, dtype=torch.int32, device=x.device)
+    err = lib.kt_masked_quantile(
+        x.data_ptr(), mask.data_ptr(), n, float(q), out.data_ptr(),
+        scratch.data_ptr(), blocks, SELECT_THREADS,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "masked_quantile")
+    launches["masked_quantile"] += 1
+    return out
+
+
+def masked_quantile_work(n):
+    """(bytes, operations) the radix select must move and do: ``x`` and
+    the mask read once (5 bytes an entry) and the result written; one
+    key and one digit an entry."""
+    return 5 * n + 4, 2 * n
+
+
+def masked_quantile_bisect_plain(x, mask, q):
+    """The bisection: exact order statistics by value bisection and a
+    duplicate-aware neighbour lookup (the plain version of the radix
+    select). On a mesh (``x`` and ``mask`` ``Sharded``) every step is a
+    scalar reduction over the shards, and the result the same as on the
+    joined vectors."""
     px, pm = _Parts(x), _Parts(mask)
     xs, ms, on = px.blocks, pm.blocks, px.on
     m = px.sum([b.sum() for b in ms])

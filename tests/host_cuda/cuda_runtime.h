@@ -1,16 +1,19 @@
 // A host emulation of the CUDA features that the lane-group kernels of
-// kissabc_tpu_torch/csrc/generic.cuh and the flagship AIS sweeps of
-// csrc/ais.cu use, for tests/test_torch_lane_groups.py and
-// tests/test_torch_ais_compaction.py: one std::thread per CUDA thread,
+// kissabc_tpu_torch/csrc/generic.cuh, the flagship AIS sweeps of
+// csrc/ais.cu and the radix select of csrc/select.cu use, for
+// tests/test_torch_lane_groups.py, tests/test_torch_ais_compaction.py and
+// tests/test_torch_quantile_emulated.py: one std::thread per CUDA thread,
 // blocks one after another, static __shared__ variables shared by the
 // block's threads, __syncthreads a block barrier, and each warp collective
 // (__syncwarp, __ballot_sync, __shfl_sync, __shfl_xor_sync) a rendezvous of
 // the lanes of its mask that aborts on a lane outside the mask or a wait
-// of 20 s (a deadlock). A cooperative launch (cudaLaunchCooperativeKernel)
-// starts every block's threads at once, but runs one block at a time: the
-// grid barrier (cooperative_groups.h, grid_group::sync) hands the turn to
-// the next block, and past the last block back to the first, so every
-// block has passed the barrier's earlier side before any block runs on.
+// of 20 s (a deadlock). atomicAdd and atomicMin on 32-bit unsigned values
+// are atomic across the emulated threads. A cooperative launch
+// (cudaLaunchCooperativeKernel) starts every block's threads at once, but
+// runs one block at a time: the grid barrier (cooperative_groups.h,
+// grid_group::sync) hands the turn to the next block, and past the last
+// block back to the first, so every block has passed the barrier's
+// earlier side before any block runs on.
 // The static __shared__ variables are then reused from block to block, so
 // nothing in shared memory may stay live across the grid barrier (what the
 // card would keep). The float intrinsics round as plain float arithmetic
@@ -43,6 +46,9 @@
 
 struct float2 {
   float x, y;
+};
+struct float4 {
+  float x, y, z, w;
 };
 struct kt_uint3 {
   unsigned x = 0, y = 0, z = 0;
@@ -109,6 +115,18 @@ inline float kt_host_lgammaf(float x) {
 #define lgammaf kt_host_lgammaf
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline float __ldcg(const float* p) { return *p; }
+inline unsigned __ldcg(const unsigned* p) { return *p; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicMin(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline float __ldg(const float* p) { return *p; }
 
 struct KtWarp {
