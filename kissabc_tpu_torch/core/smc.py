@@ -37,6 +37,13 @@ Two cost contracts, as in the JAX package:
 host, with ``IterLog`` records and checkpoint/resume
 (``utils/checkpoint.py``).
 
+On one card, with the split sweep, the radix-select quantile, a prior
+of Uniform and Normal marginals and a kernel cost that a CUDA graph can
+record (``graph_safe``: the scan cost), every iteration after the first
+replays as two CUDA graphs (``_IterGraphs``): the same kernels on the
+same draws, so the same bits, with a few host calls in place of some
+ninety PyTorch operations.
+
 ``mesh=`` (a ``Mesh`` of ``parallel/mesh.py`` with a ``walker`` axis)
 shards the population: particles, costs, log-priors and the alive mask
 live as ``Sharded`` blocks of n/ndev walkers, each on its device, and
@@ -62,6 +69,7 @@ shifts once a sweep).
 
 from __future__ import annotations
 
+import gc
 import math
 import os
 import warnings
@@ -80,7 +88,8 @@ from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.logging import device_scalar, host_read, span
+from ..utils.logging import (add_counts, counts, device_scalar, host_read,
+                             span)
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
@@ -159,6 +168,8 @@ class _SMCProgram:
         self.device = torch.device(device)
         self.sort = resolve_quantile_impl(quantile_impl, None,
                                           nparticles) == "sort"
+        # the iteration's CUDA graphs, captured at the second iteration
+        self._graphs, self._warm = None, False
 
     def qfn(self, xs, alive, q):
         return (masked_quantile if self.sort
@@ -191,20 +202,28 @@ class _SMCProgram:
 
     def mcmc_sweep(self, gen, thetas, xs, lps, alive, eps, flag):
         """One retry round of the rejuvenation sweep (smc.jl:159-191);
-        proposals all read the pre-sweep snapshot."""
+        proposals all read the pre-sweep snapshot. The split sweep (no
+        ``sweep_fused``) records its phases as children of ``smc.sweep``."""
         if self.sweep_fused is not None:
             return self.sweep_fused(gen, thetas, xs, lps, alive, eps, flag)
-        props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
-                                      self.max_stretch,
-                                      scheme=self.partner_scheme,
-                                      mesh=self.mesh)
-        lprob = self.place(log_uniform(gen, (self.n,)))
-        lpp = self.logpdf(props)
-        xp = self.batch_cost(props, gen)
-        thetas, xs, lps, commit = self.smap(
-            lambda *a: mh_step(*a, eps, flag), props, thetas, xs, lps, lpp,
-            lprob, xp, alive)
-        return thetas, xs, lps, self.total(commit)
+        # spans: smc.propose, smc.accept (the log-u draw and the log-prior,
+        # drawn before the cost's seed), smc.cost, smc.accept (the gates
+        # and the commit); the draws keep their order on the generator
+        with span("smc.propose"):
+            props = gaussian_diff_propose(gen, thetas, self.prior.nparams,
+                                          self.max_stretch,
+                                          scheme=self.partner_scheme,
+                                          mesh=self.mesh)
+        with span("smc.accept"):
+            lprob = self.place(log_uniform(gen, (self.n,)))
+            lpp = self.logpdf(props)
+        with span("smc.cost"):
+            xp = self.batch_cost(props, gen)
+        with span("smc.accept"):
+            thetas, xs, lps, commit = self.smap(
+                lambda *a: mh_step(*a, eps, flag), props, thetas, xs, lps,
+                lpp, lprob, xp, alive)
+            return thetas, xs, lps, self.total(commit)
 
     def alive_count(self, alive):
         return self.total(alive)
@@ -232,10 +251,52 @@ class _SMCProgram:
     def from_checkpoint(self, state):
         return state
 
+    def threshold(self, xs, alive, logz):
+        """Step 1: the threshold ``eps``, the boundary flag, the alive
+        mask, the alive count and the evidence (the survival fraction of
+        this eps-lowering)."""
+        prev_cnt = self.alive_count(alive)
+        eps = self.qfn(xs, alive, self.alpha)
+        xmin = self._xmin(xs, alive)
+        flag = ~(eps > xmin)
+        alive = self._alive(xs, eps, flag)
+        ess = self.alive_count(alive)
+        logz = logz + (torch.log(ess.to(_f32)) - torch.log(prev_cnt.to(_f32)))
+        return eps, flag, alive, ess, logz
+
+    def resample_test(self, ess):
+        return self.alpha * ess.to(_f32) <= self.n * self.min_r_ess
+
+    def stop_test(self, eps_v, eps, accepted):
+        """Step 5: an eps stall, epstol reached, or too few accepts."""
+        stall = 2.0 * torch.abs(eps_v - eps) < self.r_epstol * (
+            torch.abs(eps_v) + torch.abs(eps))
+        return stall | (eps <= self.epstol) | (accepted < self.tol_count)
+
+    def graphable(self) -> bool:
+        """Whether the iteration runs as CUDA graphs (``_IterGraphs``):
+        on one card, with the split sweep and no retries, the radix
+        select, a prior of written-out marginals and a batched cost that
+        says it can be captured (``graph_safe``)."""
+        return (self.mesh is None and self.device.type == "cuda"
+                and self.sweep_fused is None and self.retry_n == 1
+                and not self.sort and not self.verbose
+                and getattr(self.cost, "graph_safe", False)
+                and _elementwise_prior(self.prior))
+
     def body(self, state: _SMCState) -> _SMCState:
         """One iteration, in a ``smc.iter`` span whose children are the
         phases: ``smc.threshold``, ``smc.resample`` and one ``smc.sweep``
-        a retry round."""
+        a retry round. Where ``graphable``, the first iteration runs
+        eagerly (it loads and warms every kernel) and the next ones
+        replay it as CUDA graphs (captured in a ``smc.capture`` span)."""
+        if self._graphs is not None:
+            return self._graphs.body(state)
+        if self._warm:
+            with span("smc.capture"):
+                self._graphs = _IterGraphs(self, state)
+            return self._graphs.body(state)
+        self._warm = self.graphable()
         with span("smc.iter"):
             gen, thetas, xs, lps, alive, eps, logz, it = state[:8]
             n = self.n
@@ -243,21 +304,11 @@ class _SMCProgram:
             eps_v = eps
             with span("smc.threshold"):
                 # walkers representing prior | cost < eps_v
-                prev_cnt = self.alive_count(alive)
-                eps = self.qfn(xs, alive, self.alpha)
-                xmin = self._xmin(xs, alive)
-                flag = ~(eps > xmin)
-                alive = self._alive(xs, eps, flag)
-                ess = self.alive_count(alive)
-                # evidence: the survival fraction of this eps-lowering (counts
-                # taken before resampling)
-                logz = logz + (torch.log(ess.to(_f32))
-                               - torch.log(prev_cnt.to(_f32)))
+                eps, flag, alive, ess, logz = self.threshold(xs, alive, logz)
 
             # Step 2 — resampling (smc.jl:145-153), only when ESS is low
             with span("smc.resample"):
-                if host_read("resample flag", bool,
-                             self.alpha * ess.to(_f32) <= n * self.min_r_ess):
+                if host_read("resample flag", bool, self.resample_test(ess)):
                     thetas, xs, lps, alive = self._resample(gen, thetas, xs,
                                                             lps, alive)
                     ess = torch.full_like(ess, n)
@@ -278,9 +329,7 @@ class _SMCProgram:
                         gen, thetas, xs, lps, alive, eps, flag)
                     accepted = accepted + got
 
-            stall = 2.0 * torch.abs(eps_v - eps) < self.r_epstol * (
-                torch.abs(eps_v) + torch.abs(eps))
-            done = stall | (eps <= self.epstol) | (accepted < self.tol_count)
+            done = self.stop_test(eps_v, eps, accepted)
             return _SMCState(gen, thetas, xs, lps, alive, eps, logz, it,
                              accepted, done)
 
@@ -304,11 +353,156 @@ class _SMCProgram:
                 device_scalar("init", 0, torch.int64, dev),
                 device_scalar("init", False, torch.bool, dev))
 
+    def release(self):
+        """Drop the iteration's CUDA graphs (after the loop: the stop
+        test's read has waited for their last replay)."""
+        self._graphs = None
+
     def __call__(self, gen) -> _SMCState:
         state = self.init_state(gen)
-        while self.cond(state):
-            state = self.body(state)
+        try:
+            while self.cond(state):
+                state = self.body(state)
+        finally:
+            self.release()
         return state
+
+
+def _elementwise_prior(prior) -> bool:
+    """A prior whose push and log-density are elementwise arithmetic with
+    constants from Python (no table, no host copy): Uniform and Normal
+    marginals."""
+    from ..distributions import Factored, Normal, Uniform
+    parts = prior.p if isinstance(prior, Factored) else (prior,)
+    return all(type(d) in (Uniform, Normal) for d in parts)
+
+
+# the memory pool of every graph of the smc loop, one a process: a graph
+# keeps nothing live between its replays and the graphs run one after
+# another on one stream, so a capture may take the blocks that earlier
+# ones freed. The last solve's graphs are kept (``_LAST``) until the next
+# capture has been made, so that their pool, and its memory, lives on: a
+# capture into a new pool would take new memory (cudaMalloc) each solve.
+_POOL = []
+_LAST = []
+
+
+def _graph_pool():
+    if not _POOL:
+        _POOL.append(torch.cuda.graph_pool_handle())
+    return _POOL[0]
+
+
+class _Captured:
+    """The CUDA work of ``fn()`` recorded once as a CUDA graph on a side
+    stream, the generators ``gens`` registered with it (each replay
+    advances them by the graph's draws, as running ``fn`` would), and
+    replayed on the current stream. The counters that ``fn``'s Python
+    moved while it was recorded are taken back, and added at each
+    replay."""
+
+    def __init__(self, fn, device, gens=()):
+        self.graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            self.graph.register_generator_state(g)
+        before = counts()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        # a collection while recording could destroy an earlier graph,
+        # which a capture does not permit
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(pool=_graph_pool(),
+                                         capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.delta = {k: v - before[k] for k, v in counts().items()
+                      if v != before[k]}
+        add_counts({k: -v for k, v in self.delta.items()})
+
+    def replay(self):
+        self.graph.replay()
+        add_counts(self.delta)
+
+
+class _IterGraphs:
+    """The iteration of ``_SMCProgram.body`` as two CUDA graphs on one
+    card: ``pre`` the threshold, the alive mask, the evidence and the
+    resampling test; ``post`` the split sweep and the stop test. Between them the host reads the
+    resampling flag and, when it is set, resamples in PyTorch; ``cond``
+    reads the stop flag after ``post``. Both graphs read and write one set
+    of buffers, ``state``, which is the loop's state from the first replay
+    on. A replay runs the kernels that were recorded, with their
+    arguments, on draws at the offsets the eager iteration would take:
+    the same bits, with a few host calls in place of some ninety PyTorch
+    operations."""
+
+    def __init__(self, program, state):
+        self.program = p = program
+        self.state = state._replace(
+            thetas=tree_map(torch.clone, state.thetas),
+            **{f: getattr(state, f).clone() for f in _BUFFERS[1:]})
+        self.eps_v = state.eps.clone()
+        self.flag = torch.zeros((), dtype=torch.bool, device=p.device)
+        self.rflag = torch.zeros((), dtype=torch.bool, device=p.device)
+        self.pre = _Captured(self._pre, p.device)
+        self.post = _Captured(self._post, p.device, (state.key,))
+        _LAST[:] = [self.pre, self.post]
+
+    def _pre(self):
+        p, s = self.program, self.state
+        eps, flag, alive, ess, logz = p.threshold(s.xs, s.alive, s.logz)
+        self.eps_v.copy_(s.eps)
+        for dst, src in ((s.eps, eps), (self.flag, flag), (s.alive, alive),
+                         (s.logz, logz), (self.rflag, p.resample_test(ess))):
+            dst.copy_(src)
+        s.it.add_(1)
+
+    def _post(self):
+        p, s = self.program, self.state
+        thetas, xs, lps, got = p.mcmc_sweep(
+            s.key, s.thetas, s.xs, s.lps, s.alive, s.eps, self.flag)
+        accepted = torch.zeros((), dtype=torch.int64, device=p.device) + got
+        self._put(thetas=thetas, xs=xs, lps=lps, acc=accepted,
+                  done=p.stop_test(self.eps_v, s.eps, accepted))
+
+    def _put(self, **fields):
+        """Copy tensors into the buffers of ``state`` (a tree field leaf by
+        leaf) unless they are those buffers."""
+        for f, v in fields.items():
+            tree_map(lambda dst, src: dst is src or dst.copy_(src),
+                     getattr(self.state, f), v)
+
+    def body(self, state):
+        p, s = self.program, self.state
+        if state.key is not s.key:
+            raise ValueError("the smc loop's generator changed under its "
+                             "CUDA graphs")
+        with span("smc.iter"):
+            self._put(**{f: getattr(state, f) for f in _BUFFERS})
+            with span("smc.threshold"):
+                self.pre.replay()
+            with span("smc.resample"):
+                if host_read("resample flag", bool, self.rflag):
+                    thetas, xs, lps, alive = p._resample(
+                        s.key, s.thetas, s.xs, s.lps, s.alive)
+                    self._put(thetas=thetas, xs=xs, lps=lps, alive=alive)
+            with span("smc.sweep", round=0):
+                self.post.replay()
+            return s
+
+
+# the fields of ``_SMCState`` that ``_IterGraphs`` keeps in its buffers
+_BUFFERS = ("thetas", "xs", "lps", "alive", "eps", "logz", "it", "acc",
+            "done")
 
 
 class _ShardedSMCProgram(_SMCProgram):
@@ -584,17 +778,20 @@ def smc_stepped(prior, cost, *, checkpoint_path: str | None = None,
             state = program.from_checkpoint(state)
         # on a mesh of several processes, the first writes the checkpoint
         writer = mesh is None or mesh.rank == 0
-        while program.cond(state):
-            state = program.body(state)
-            it = host_read("stepped", int, state.it)
-            if log is not None:
-                log.emit(iteration=it,
-                         eps=host_read("stepped", float, state.eps),
-                         ess=host_read("stepped", int,
-                                       program.alive_count(state.alive)),
-                         accepted=host_read("stepped", int, state.acc))
-            if checkpoint_path and it % checkpoint_every == 0:
-                view = program.checkpoint_view(state)
-                if writer:
-                    ckpt.save(checkpoint_path, view, {"iteration": it})
+        try:
+            while program.cond(state):
+                state = program.body(state)
+                it = host_read("stepped", int, state.it)
+                if log is not None:
+                    log.emit(iteration=it,
+                             eps=host_read("stepped", float, state.eps),
+                             ess=host_read("stepped", int,
+                                           program.alive_count(state.alive)),
+                             accepted=host_read("stepped", int, state.acc))
+                if checkpoint_path and it % checkpoint_every == 0:
+                    view = program.checkpoint_view(state)
+                    if writer:
+                        ckpt.save(checkpoint_path, view, {"iteration": it})
+        finally:
+            program.release()
         return _result(program, state, "smc_stepped", max_iters)

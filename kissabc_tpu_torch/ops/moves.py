@@ -63,6 +63,15 @@ def roll_shifts(words, n):
     return r1, r2 + (r2 >= r1)
 
 
+def roll_shifts_on(words, n):
+    """``roll_shifts`` of an int64 tensor of two words, on its device:
+    two 0-dim int64 tensors, the same numbers, read by nothing on the
+    host."""
+    r1 = words[0] % (n - 1) + 1
+    r2 = words[1] % (n - 2) + 1
+    return r1, r2 + (r2 >= r1).to(r2.dtype)
+
+
 def _scale(w, x):
     return w.reshape((w.shape[0],) + (1,) * (x.dim() - 1))
 
@@ -73,6 +82,16 @@ def propose_roll(ens, w, r1, r2):
     return tree_map(
         lambda x: x + (torch.roll(x, r2, 0) - torch.roll(x, r1, 0))
         * _scale(w, x), ens)
+
+
+def propose_roll_on(ens, w, r1, r2):
+    """``propose_roll`` with the shifts as device tensors: each rotation
+    a gather at ``(i - r) % n``, which is what ``torch.roll`` reads, so
+    the same bits without the shifts on the host."""
+    n = w.shape[0]
+    i = torch.arange(n, device=w.device)
+    ia, ib = (i - r1) % n, (i - r2) % n
+    return tree_map(lambda x: x + (x[ib] - x[ia]) * _scale(w, x), ens)
 
 
 def propose_gather(ens, w, a, b, full=None):
@@ -94,7 +113,9 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
     law and gets the same proposals: the draws are made on the whole
     population and cut into shards, the rolls go through
     ``roll_walkers`` (shard-sized transfers) and a gather joins the
-    population first (an all-gather, as GSPMD lowers it)."""
+    population first (an all-gather, as GSPMD lowers it). An unsharded
+    roll keeps its shifts on the device (``propose_roll_on``): no host
+    read, so a CUDA graph can record it."""
     from ..parallel.mesh import Sharded, join, place, roll_walkers
     sharded = isinstance(ens, Sharded)
     n = ens.n if sharded else tree_leaves(ens)[0].shape[0]
@@ -107,10 +128,11 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
     z = torch.randn(n, generator=gen, device=dev)
     w = max_stretch * z / math.sqrt(d)
     if scheme == "roll":
-        r1, r2 = roll_shifts(host_read("roll shifts", torch.Tensor.tolist,
-                                       uint32_words(gen, 2)), n)
+        words = uint32_words(gen, 2)
         if not sharded:
-            return propose_roll(ens, w, r1, r2)
+            return propose_roll_on(ens, w, *roll_shifts_on(words, n))
+        r1, r2 = roll_shifts(host_read("roll shifts", torch.Tensor.tolist,
+                                       words), n)
         ra, rb = roll_walkers(ens, r1, ens.mesh), roll_walkers(ens, r2,
                                                                ens.mesh)
         return ens.map(lambda t, ta, tb, wi: tree_map(

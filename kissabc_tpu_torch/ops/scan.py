@@ -19,7 +19,8 @@ callables on ``[n]`` tensors:
 
 - a CPU tensor runs the plain version (the CPU tests);
 - a CUDA tensor launches the kernel or raises — there is no fallback;
-- ``launches`` counts the kernel's launches.
+- ``launches`` counts the kernel's launches, ``walker_steps`` the
+  walkers times steps simulated either way.
 
 The model contract: ``theta`` is the population's tree (a tuple of
 leaves for a ``Factored`` prior); the state ``x`` is one scalar or a
@@ -44,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.logging import register_counters
+from ..utils.logging import register_counters, span
 from ..utils.rng import uint32_words
 from . import _build, codegen
 from .kernels import (_check_bits, _seed_tensor, _stream, philox4x32_10,
@@ -54,6 +55,9 @@ from .streaming import NOISE_OPS, _device_of, _noise_pair, leaves_of, tree_of
 # launches of the CUDA kernel since the last reset (plain ints), registered
 # with the counters that each span records (utils/logging.py)
 launches = register_counters("launches.", {"streaming_scan_cost": 0})
+# walkers x steps simulated by ``means`` (the kernel or the plain
+# version), registered as ``scan.walker_steps``
+walker_steps = register_counters("scan.", {"walker_steps": 0})
 
 # Philox stream (third counter word) of the scan kernel, as in csrc/scan.cuh
 STREAM_SCAN = 6
@@ -179,6 +183,11 @@ class StreamingScanCost:
     kernel's and the plain version's per-walker means on the same
     inputs, for the checks on the card."""
 
+    # a call on the card is the seed's draw, #5's launch on the current
+    # stream and ``reduce_cost``'s tensor arithmetic: smc records it in a
+    # CUDA graph (core/smc.py ``_IterGraphs``)
+    graph_safe = True
+
     def __init__(self, step, init, reduce_cost, *, nsteps, observe, series,
                  noise, block, sub_rows, walker_tiles, bits):
         self.step, self.init, self.observe = step, init, observe
@@ -224,9 +233,10 @@ class StreamingScanCost:
         CUDA tensors (``[nstats, n]`` rows)."""
         leaves, structure = self._leaves(thetas)
         dev = _device_of(leaves)
+        n = leaves[0].shape[0]
+        walker_steps["walker_steps"] += n * self.nsteps
         if dev.type == "cpu":
             return self.means_plain(thetas, seed)
-        n = leaves[0].shape[0]
         out = torch.empty((self.unit(structure).nstats, n),
                           dtype=torch.float32, device=dev)
         self.launch(n, leaves, _seed_tensor(seed, dev), out, n,
@@ -253,7 +263,10 @@ class StreamingScanCost:
         _build.check(lib, err, "streaming_scan_cost")
 
     def __call__(self, thetas, gen):
-        return self.seeded(thetas, uint32_words(gen, 1))
+        """The batched cost, in a ``scan.cost`` span: the seed's draw, the
+        launch (or the plain version) and ``reduce_cost``."""
+        with span("scan.cost"):
+            return self.seeded(thetas, uint32_words(gen, 1))
 
     def seeded(self, thetas, seed):
         """The cost with a given seed (int64 tensor ``[1]`` on the
@@ -295,7 +308,8 @@ def make_streaming_scan_cost(step, init, reduce_cost, *, nsteps: int,
     series : optional array, or tuple or list of arrays, of shape
         ``(nsteps,)``: per-step constants (e.g. an observed time series).
     reduce_cost : ``(thetas, means) -> costs[n]``, plain PyTorch on
-        ``[n]`` tensors.
+        ``[n]`` tensors that reads no value into Python: on one card smc
+        records the cost's call in a CUDA graph (``graph_safe``).
     noise : ``"normal"`` or ``"uniform"``.
     block, sub_rows, walker_tiles : the TPU kernel's tiling; they place
         the stub stream (``bits="stub"``).

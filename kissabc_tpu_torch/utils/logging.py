@@ -82,6 +82,15 @@ def counts() -> dict:
     return dict(zip(_names, _values()))
 
 
+def add_counts(delta: dict) -> None:
+    """Add ``delta`` (by ``prefix + name``, as ``counts()`` names them) to
+    the registered counters: what a replayed CUDA graph launches without
+    running the Python that counts it."""
+    for name, group, key in zip(_names, _dicts, _keys):
+        if name in delta:
+            group[key] += delta[name]
+
+
 class _Null:
     """The context of a span while nothing is recorded."""
 
