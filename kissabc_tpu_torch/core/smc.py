@@ -37,12 +37,13 @@ Two cost contracts, as in the JAX package:
 host, with ``IterLog`` records and checkpoint/resume
 (``utils/checkpoint.py``).
 
-On one card, with the split sweep, the radix-select quantile, a prior
-of Uniform and Normal marginals and a kernel cost that a CUDA graph can
-record (``graph_safe``: the scan cost), every iteration after the first
-replays as two CUDA graphs (``_IterGraphs``): the same kernels on the
-same draws, so the same bits, with a few host calls in place of some
-ninety PyTorch operations.
+On one card, with the radix-select quantile, a prior of Uniform and
+Normal marginals and a sweep that a CUDA graph can record
+(``graph_safe``: the one-card fused sweep ``FusedSMCSweep``, or the split
+sweep with the scan cost), every iteration after the first replays as
+two CUDA graphs (``_IterGraphs``): the same kernels on the same draws,
+so the same bits, with a few host calls in place of the iteration's
+sixty to ninety PyTorch operations.
 
 ``mesh=`` (a ``Mesh`` of ``parallel/mesh.py`` with a ``walker`` axis)
 shards the population: particles, costs, log-priors and the alive mask
@@ -88,8 +89,8 @@ from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.logging import (add_counts, counts, device_scalar, host_read,
-                             span)
+from ..utils.logging import (add_counts, counters, counts, device_scalar,
+                             host_read, span)
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
@@ -275,13 +276,15 @@ class _SMCProgram:
 
     def graphable(self) -> bool:
         """Whether the iteration runs as CUDA graphs (``_IterGraphs``):
-        on one card, with the split sweep and no retries, the radix
-        select, a prior of written-out marginals and a batched cost that
-        says it can be captured (``graph_safe``)."""
+        on one card, with no retries, the radix select, a prior of
+        written-out marginals and a sweep that says it can be captured
+        (``graph_safe``): the fused sweep where there is one (the cost
+        then runs only in the init, outside the graphs), else the split
+        sweep's batched cost."""
+        sweep = self.cost if self.sweep_fused is None else self.sweep_fused
         return (self.mesh is None and self.device.type == "cuda"
-                and self.sweep_fused is None and self.retry_n == 1
-                and not self.sort and not self.verbose
-                and getattr(self.cost, "graph_safe", False)
+                and self.retry_n == 1 and not self.sort and not self.verbose
+                and getattr(sweep, "graph_safe", False)
                 and _elementwise_prior(self.prior))
 
     def body(self, state: _SMCState) -> _SMCState:
@@ -383,8 +386,12 @@ def _elementwise_prior(prior) -> bool:
 # ones freed. The last solve's graphs are kept (``_LAST``) until the next
 # capture has been made, so that their pool, and its memory, lives on: a
 # capture into a new pool would take new memory (cudaMalloc) each solve.
+# Every capture records on one side stream a device (``_STREAMS``): the
+# allocator hands a free block only to the stream that freed it, so a
+# capture on a new stream would take new memory each solve too.
 _POOL = []
 _LAST = []
+_STREAMS = {}
 
 
 def _graph_pool():
@@ -393,20 +400,30 @@ def _graph_pool():
     return _POOL[0]
 
 
+def _capture_stream(device):
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
 class _Captured:
-    """The CUDA work of ``fn()`` recorded once as a CUDA graph on a side
-    stream, the generators ``gens`` registered with it (each replay
-    advances them by the graph's draws, as running ``fn`` would), and
+    """The CUDA work of ``fn()`` recorded once as a CUDA graph on the
+    device's capture stream, the generators ``gens`` registered with it
+    (each replay advances them by the graph's draws, as running ``fn``
+    would), and
     replayed on the current stream. The counters that ``fn``'s Python
     moved while it was recorded are taken back, and added at each
-    replay."""
+    replay; each replay also counts one ``graph_replays``."""
 
     def __init__(self, fn, device, gens=()):
         self.graph = torch.cuda.CUDAGraph()
         for g in gens:
             self.graph.register_generator_state(g)
         before = counts()
-        side = torch.cuda.Stream(device)
+        side = _capture_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         # a collection while recording could destroy an earlier graph,
         # which a capture does not permit
@@ -431,19 +448,23 @@ class _Captured:
     def replay(self):
         self.graph.replay()
         add_counts(self.delta)
+        counters["graph_replays"] += 1
 
 
 class _IterGraphs:
     """The iteration of ``_SMCProgram.body`` as two CUDA graphs on one
     card: ``pre`` the threshold, the alive mask, the evidence and the
-    resampling test; ``post`` the split sweep and the stop test. Between them the host reads the
+    resampling test; ``post`` the sweep (the fused kernel #3, or the
+    split sweep) and the stop test. Between them the host reads the
     resampling flag and, when it is set, resamples in PyTorch; ``cond``
     reads the stop flag after ``post``. Both graphs read and write one set
     of buffers, ``state``, which is the loop's state from the first replay
     on. A replay runs the kernels that were recorded, with their
     arguments, on draws at the offsets the eager iteration would take:
-    the same bits, with a few host calls in place of some ninety PyTorch
-    operations."""
+    the same bits, with a few host calls in place of the iteration's
+    PyTorch operations. The fused sweep writes fresh outputs and reads
+    the partners from ``state``'s pre-sweep buffers, into which ``_put``
+    then copies them."""
 
     def __init__(self, program, state):
         self.program = p = program

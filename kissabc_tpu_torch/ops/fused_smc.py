@@ -26,7 +26,10 @@ The contract is ``smc``'s inner sweep, so the sweep plugs into
 
 Nothing of it is read on the host: the shifts and the seed are drawn on
 the generator's device and the kernel reads them, ``eps`` and ``flag``
-from device memory; ``naccept`` is a device tensor.
+from device memory; ``naccept`` is a device tensor. So on one card
+(``graph_safe``) ``smc`` records it in the CUDA graph of its iteration
+(``core/smc.py`` ``_IterGraphs``, the ``post`` graph), and every
+iteration after the first replays it.
 
 On a mesh (``make_fused_smc_sweep(..., mesh=mesh)``, the population a
 ``Sharded``), as the JAX sweep: the two partner rolls of the snapshot go
@@ -128,6 +131,16 @@ class FusedSMCSweep:
             draw, structure=self.structure, nstats=nstats, stats=stats,
             nmoments=nstats, noise=noise, reduce_cost=reduce_cost,
             prior=prior)
+
+    @property
+    def graph_safe(self) -> bool:
+        """Whether a CUDA graph can record the sweep (``smc``'s
+        ``_IterGraphs``): on one device (no mesh) nothing of it is read on
+        the host, every operand (the three words, the shifts and the seed
+        drawn from them, ``eps``, ``flag``) is on the device, and #3
+        launches on the current stream. On a mesh the shifts are read on
+        the host, since they choose the transfers' sources."""
+        return self.mesh is None
 
     def _leaves(self, thetas):
         """(leaves, n, the caller's structure). As the JAX sweep, only

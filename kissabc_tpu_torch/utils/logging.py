@@ -15,9 +15,11 @@
 - the counters: every kernel's launches (the ``launches`` dicts of
   ``ops/``, registered here as the same objects), the mesh's transfers,
   and ``host_syncs`` (reads of a tensor's value into Python, each a wait
-  for the card on CUDA) and ``host_copies`` (blocking host-to-device
-  copies). They always count; ``counts()`` reads them all, and each span
-  records how much each counter moved inside it.
+  for the card on CUDA), ``host_copies`` (blocking host-to-device
+  copies) and ``graph_replays`` (replays of a CUDA graph of the smc
+  iteration, ``core/smc.py`` ``_Captured``). They always count;
+  ``counts()`` reads them all, and each span records how much each
+  counter moved inside it.
 
 A span is a dict: ``name``, ``id``, ``parent`` (the id of the innermost
 span open at its start, or None), ``root`` (the id of its outermost
@@ -49,9 +51,10 @@ _spans: list[dict] = []
 _stack: list[dict] = []
 _state = {"tracing": 0, "next_id": 0, "dropped": 0}
 
-# blocking reads and copies between the host and the device since the
-# process started (plain ints, always counted)
-counters = {"host_syncs": 0, "host_copies": 0}
+# blocking reads and copies between the host and the device, and replays
+# of the smc iteration's CUDA graphs, since the process started (plain
+# ints, always counted)
+counters = {"host_syncs": 0, "host_copies": 0, "graph_replays": 0}
 # every registered counter: its name, its dict and its key there (flat,
 # so that a span reads them all in one pass)
 _names: list[str] = []

@@ -6,34 +6,43 @@ everything but the recording itself: the split of the iteration into
 resampling between them, the rotation shifts kept on the device, and the
 stop test, against the eager loop bit for bit, on the same key.
 
+The same holds for the fused sweep (``FusedSMCSweep``, its plain
+version on the CPU) in ``post``: iterations, eps, costs, population and
+the generator's final state equal the eager loop's, and
+``graph_replays`` counts two replays an iteration after the first.
+
 Also: ``propose_roll_on`` equals ``propose_roll`` on the same words,
 and ``gaussian_diff_propose`` a roll by shifts read on the host,
-``graphable`` holds the graphs to one card, the split sweep, the radix
-select, written-out marginals and a cost that says it can be captured,
-and ``add_counts`` moves the registered counters. Each test takes under
+``graphable`` holds the graphs to one card, the radix select,
+written-out marginals, no retries and a sweep that says it can be
+captured (a one-card fused sweep, or the split sweep's cost), and
+``add_counts`` moves the registered counters. Each test takes under
 10 s.
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
 import kissabc_tpu_torch as kt
+from kissabc_tpu_torch import models
 from kissabc_tpu_torch.core import smc as S
 from kissabc_tpu_torch.ops import moves
 from kissabc_tpu_torch.ops import scan as SC
+from kissabc_tpu_torch.parallel.mesh import make_mesh
 from kissabc_tpu_torch.utils import logging as L
 from kissabc_tpu_torch.utils.rng import uint32_words
 
 
-class _Replayed:
-    """``_Captured`` without a card: the function runs at each replay."""
+class _Replayed(S._Captured):
+    """``_Captured`` without a card: its "graph" runs the function at
+    each replay, whose Python counts what it launches (no delta)."""
 
     def __init__(self, fn, device, gens=()):
-        self.fn = fn
-
-    def replay(self):
-        self.fn()
+        self.graph = types.SimpleNamespace(replay=fn)
+        self.delta = {}
 
 
 def _ar1():
@@ -82,6 +91,45 @@ def test_graphed_iteration_equals_the_eager_one(monkeypatch, key, stepped):
     np.testing.assert_array_equal(eager[2], graphed[2])
     for a, b in zip(eager[3], graphed[3]):
         np.testing.assert_array_equal(a, b)
+
+
+def _gk_fused(ndraws=16, mesh=None):
+    """(prior, streamed cost, fused sweep) of ``models.g_and_k``, whose
+    marginals are all Uniform."""
+    prior, draw, reduce_cost = models.g_and_k()
+    return (prior, kt.make_streaming_moment_cost(draw, reduce_cost,
+                                                 ndraws=ndraws),
+            kt.make_fused_smc_sweep(prior, draw, reduce_cost, ndraws=ndraws,
+                                    mesh=mesh))
+
+
+def _fused_solve(key, stepped):
+    prior, cost, sweep = _gk_fused()
+    gen = torch.Generator().manual_seed(key)
+    replays = L.counts()["graph_replays"]
+    res = (kt.smc_stepped if stepped else kt.smc)(
+        prior, cost, nparticles=2048, epstol=0.4, cost_vectorized=True,
+        sweep_fused=sweep, min_r_ess=0.6, key=gen, device="cpu")
+    return (res.iterations, res.eps, res.C, [np.asarray(p) for p in res.P],
+            gen.get_state(), L.counts()["graph_replays"] - replays)
+
+
+@pytest.mark.parametrize("stepped", [False, True])
+@pytest.mark.parametrize("key", [5, 2**31 + 3])
+def test_graphed_fused_iteration_equals_the_eager_one(monkeypatch, key,
+                                                      stepped):
+    eager = _fused_solve(key, stepped)
+    monkeypatch.setattr(S, "_Captured", _Replayed)
+    monkeypatch.setattr(S._SMCProgram, "graphable", lambda self: True)
+    graphed = _fused_solve(key, stepped)
+    assert eager[0] == graphed[0] and eager[0] > 3
+    assert eager[1] == graphed[1]
+    np.testing.assert_array_equal(eager[2], graphed[2])
+    for a, b in zip(eager[3], graphed[3]):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(eager[4], graphed[4])
+    assert eager[5] == 0
+    assert graphed[5] == 2 * (graphed[0] - 1)
 
 
 @pytest.mark.parametrize("n", [5, 1000, 65536])
@@ -136,6 +184,33 @@ def test_graphable_only_where_a_capture_can_run():
                                       kt.Exponential(1.0))).graphable()
     assert SC.StreamingScanCost.graph_safe
     assert not getattr(lambda th, gen: th[0], "graph_safe", False)
+
+    # the fused sweep: asked in place of the cost, which then runs only in
+    # the init (the streamed moment cost has no graph_safe)
+    gk_prior, gk_cost, sweep = _gk_fused()
+    assert sweep.graph_safe and not hasattr(gk_cost, "graph_safe")
+
+    def fused(sweep=sweep, **over):
+        return prog(**{"prior": gk_prior, "cost": gk_cost,
+                       "sweep_fused": sweep, **over})
+
+    assert fused().graphable()
+    assert not S._program(gk_prior, gk_cost, **{
+        **kw, "device": "cpu", "sweep_fused": sweep}).graphable()
+    assert not fused(nparticles=4096).graphable()   # the sort quantile
+    assert not fused(mcmc_retrys=1).graphable()
+    assert not fused(verbose=True).graphable()
+    assert not fused(prior=kt.Factored(kt.Uniform(0, 1), kt.Uniform(0, 1),
+                                       kt.Uniform(0, 1),
+                                       kt.Exponential(1.0))).graphable()
+    assert not fused(sweep=lambda gen, *a: sweep(gen, *a)).graphable()
+    # on a mesh the sweep reads its shifts on the host
+    mesh = make_mesh(walker=2, devices=["cpu"] * 2)
+    on_mesh = _gk_fused(mesh=mesh)[2]
+    assert not on_mesh.graph_safe
+    assert not fused(sweep=on_mesh).graphable()
+    assert not fused(sweep=on_mesh, mesh=mesh,
+                     cost=kt.shard_batched_cost(gk_cost, mesh)).graphable()
 
 
 def test_add_counts_moves_the_registered_counters():
