@@ -37,13 +37,13 @@ Two cost contracts, as in the JAX package:
 host, with ``IterLog`` records and checkpoint/resume
 (``utils/checkpoint.py``).
 
-On one card, with the radix-select quantile, a prior of Uniform and
-Normal marginals and a sweep that a CUDA graph can record
-(``graph_safe``: the one-card fused sweep ``FusedSMCSweep``, or the split
-sweep with the scan cost), every iteration after the first replays as
-two CUDA graphs (``_IterGraphs``): the same kernels on the same draws,
-so the same bits, with a few host calls in place of the iteration's
-sixty to ninety PyTorch operations.
+An iteration is ``pre`` (steps 1-2), a host step (the resampling) and
+``post`` (steps 3-5). On one card, with the radix-select quantile, a
+prior of Uniform and Normal marginals and a sweep that a CUDA graph can
+record (``graph_safe``: the one-card fused sweep ``FusedSMCSweep``, or
+the split sweep with the scan cost), every iteration after the first
+replays ``pre`` and ``post`` as two CUDA graphs (``_IterGraphs``): the
+same kernels on the same draws, so the same bits.
 
 ``mesh=`` (a ``Mesh`` of ``parallel/mesh.py`` with a ``walker`` axis)
 shards the population: particles, costs, log-priors and the alive mask
@@ -70,7 +70,6 @@ shifts once a sweep).
 
 from __future__ import annotations
 
-import gc
 import math
 import os
 import warnings
@@ -83,14 +82,14 @@ from ..ops.moves import gaussian_diff_propose
 from ..ops.quantile import (masked_quantile, masked_quantile_bisect,
                             resolve_quantile_impl)
 from ..ops.resampling import replicate_alive, systematic
-from ..ops.tree import tfloat, tgather, tree_map, tselect
+from ..ops.tree import tfloat, tgather, tree_leaves, tree_map, tselect
 from ..parallel import mesh as M
 from ..particles import particles_from_tree
 from ..utils import checkpoint as ckpt
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.hostfetch import fetch
-from ..utils.logging import (add_counts, counters, counts, device_scalar,
-                             host_read, span)
+from ..utils.logging import device_scalar, host_read, span
 from ..utils.rng import as_generator, log_uniform
 from .density import per_walker_cost  # noqa: F401 (re-exported)
 
@@ -276,65 +275,75 @@ class _SMCProgram:
 
     def graphable(self) -> bool:
         """Whether the iteration runs as CUDA graphs (``_IterGraphs``):
-        on one card, with no retries, the radix select, a prior of
-        written-out marginals and a sweep that says it can be captured
-        (``graph_safe``): the fused sweep where there is one (the cost
-        then runs only in the init, outside the graphs), else the split
-        sweep's batched cost."""
+        on one card, with no retries (so no host read in ``post``), the
+        radix select, a prior of written-out marginals and a sweep that
+        says it can be captured (``graph_safe``): the fused sweep where
+        there is one (the cost then runs only in the init), else the
+        split sweep's batched cost."""
         sweep = self.cost if self.sweep_fused is None else self.sweep_fused
         return (self.mesh is None and self.device.type == "cuda"
                 and self.retry_n == 1 and not self.sort and not self.verbose
                 and getattr(sweep, "graph_safe", False)
                 and _elementwise_prior(self.prior))
 
+    def pre(self, state):
+        """Steps 1-2: the threshold, the alive mask, the evidence, the
+        count (bumped in place, one operation in a graph's buffer too) and
+        the resample test; returns the ``_Step`` and the state."""
+        eps, flag, alive, ess, logz = self.threshold(state.xs, state.alive,
+                                                     state.logz)
+        return (_Step(state.eps, flag, self.resample_test(ess)),
+                state._replace(eps=eps, alive=alive, logz=logz,
+                               it=state.it.add_(1)))
+
+    def resample_step(self, step, state):
+        """The host step (smc.jl:145-153): one read of the resample flag,
+        and the resampling when it is set."""
+        if not host_read("resample flag", bool, step.rflag):
+            return state
+        thetas, xs, lps, alive = self._resample(
+            state.key, state.thetas, state.xs, state.lps, state.alive)
+        return state._replace(thetas=thetas, xs=xs, lps=lps, alive=alive)
+
+    def post(self, step, state):
+        """Steps 3-5 (smc.jl:156-193): the retry rounds, each in its
+        ``smc.sweep`` span (a round after the first only while too few
+        were accepted: a host read), the accept count, the stop test."""
+        gen, thetas, xs, lps, alive, eps = state[:6]
+        accepted = torch.zeros((), dtype=torch.int64, device=self.device)
+        for r in range(self.retry_n):
+            with span("smc.sweep", round=r):
+                if r > 0 and not host_read("retry flag", bool,
+                                           accepted < self.tol_count):
+                    break
+                thetas, xs, lps, got = self.mcmc_sweep(
+                    gen, thetas, xs, lps, alive, eps, step.flag)
+                accepted = accepted + got
+        return state._replace(thetas=thetas, xs=xs, lps=lps, acc=accepted,
+                              done=self.stop_test(step.eps_v, eps, accepted))
+
     def body(self, state: _SMCState) -> _SMCState:
-        """One iteration, in a ``smc.iter`` span whose children are the
-        phases: ``smc.threshold``, ``smc.resample`` and one ``smc.sweep``
-        a retry round. Where ``graphable``, the first iteration runs
-        eagerly (it loads and warms every kernel) and the next ones
-        replay it as CUDA graphs (captured in a ``smc.capture`` span)."""
-        if self._graphs is not None:
-            return self._graphs.body(state)
-        if self._warm:
+        """One iteration, in a ``smc.iter`` span: ``pre`` in
+        ``smc.threshold``, the host step in ``smc.resample``, then
+        ``post``. Where ``graphable``, the first runs eagerly (it warms
+        every kernel) and the next ones replay (``smc.capture``)."""
+        if self._graphs is None and self._warm:
             with span("smc.capture"):
                 self._graphs = _IterGraphs(self, state)
+        if self._graphs is not None:
             return self._graphs.body(state)
         self._warm = self.graphable()
         with span("smc.iter"):
-            gen, thetas, xs, lps, alive, eps, logz, it = state[:8]
-            n = self.n
-            it = it + 1
-            eps_v = eps
             with span("smc.threshold"):
-                # walkers representing prior | cost < eps_v
-                eps, flag, alive, ess, logz = self.threshold(xs, alive, logz)
-
-            # Step 2 — resampling (smc.jl:145-153), only when ESS is low
+                step, state = self.pre(state)
             with span("smc.resample"):
-                if host_read("resample flag", bool, self.resample_test(ess)):
-                    thetas, xs, lps, alive = self._resample(gen, thetas, xs,
-                                                            lps, alive)
-                    ess = torch.full_like(ess, n)
-
+                state = self.resample_step(step, state)
             if self.verbose:
-                print(f"smc it={host_read('verbose', int, it)} "
-                      f"eps={host_read('verbose', float, eps)} "
+                ess = self.alive_count(state.alive)
+                print(f"smc it={host_read('verbose', int, state.it)} "
+                      f"eps={host_read('verbose', float, state.eps)} "
                       f"ESS={host_read('verbose', int, ess)}")
-
-            # Step 3 — MCMC with accept-accumulating retries (smc.jl:156-193)
-            accepted = torch.zeros((), dtype=torch.int64, device=self.device)
-            for r in range(self.retry_n):
-                with span("smc.sweep", round=r):
-                    if r > 0 and not host_read("retry flag", bool,
-                                               accepted < self.tol_count):
-                        break
-                    thetas, xs, lps, got = self.mcmc_sweep(
-                        gen, thetas, xs, lps, alive, eps, flag)
-                    accepted = accepted + got
-
-            done = self.stop_test(eps_v, eps, accepted)
-            return _SMCState(gen, thetas, xs, lps, alive, eps, logz, it,
-                             accepted, done)
+            return self.post(step, state)
 
     def cond(self, state: _SMCState) -> bool:
         """One host read per iteration: the stop flag and the count."""
@@ -380,150 +389,58 @@ def _elementwise_prior(prior) -> bool:
     return all(type(d) in (Uniform, Normal) for d in parts)
 
 
-# the memory pool of every graph of the smc loop, one a process: a graph
-# keeps nothing live between its replays and the graphs run one after
-# another on one stream, so a capture may take the blocks that earlier
-# ones freed. The last solve's graphs are kept (``_LAST``) until the next
-# capture has been made, so that their pool, and its memory, lives on: a
-# capture into a new pool would take new memory (cudaMalloc) each solve.
-# Every capture records on one side stream a device (``_STREAMS``): the
-# allocator hands a free block only to the stream that freed it, so a
-# capture on a new stream would take new memory each solve too.
-_POOL = []
-_LAST = []
-_STREAMS = {}
+class _Step(NamedTuple):
+    """What ``pre`` hands the host step and ``post`` beside the state."""
+    eps_v: object    # the eps before this iteration's threshold
+    flag: object     # the boundary flag of the new eps
+    rflag: object    # whether to resample
 
 
-def _graph_pool():
-    if not _POOL:
-        _POOL.append(torch.cuda.graph_pool_handle())
-    return _POOL[0]
-
-
-def _capture_stream(device):
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    if index not in _STREAMS:
-        _STREAMS[index] = torch.cuda.Stream(index)
-    return _STREAMS[index]
-
-
-class _Captured:
-    """The CUDA work of ``fn()`` recorded once as a CUDA graph on the
-    device's capture stream, the generators ``gens`` registered with it
-    (each replay advances them by the graph's draws, as running ``fn``
-    would), and
-    replayed on the current stream. The counters that ``fn``'s Python
-    moved while it was recorded are taken back, and added at each
-    replay; each replay also counts one ``graph_replays``."""
-
-    def __init__(self, fn, device, gens=()):
-        self.graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            self.graph.register_generator_state(g)
-        before = counts()
-        side = _capture_stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        # a collection while recording could destroy an earlier graph,
-        # which a capture does not permit
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.stream(side):
-                self.graph.capture_begin(pool=_graph_pool(),
-                                         capture_error_mode="thread_local")
-                try:
-                    fn()
-                finally:
-                    self.graph.capture_end()
-        finally:
-            if collecting:
-                gc.enable()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.delta = {k: v - before[k] for k, v in counts().items()
-                      if v != before[k]}
-        add_counts({k: -v for k, v in self.delta.items()})
-
-    def replay(self):
-        self.graph.replay()
-        add_counts(self.delta)
-        counters["graph_replays"] += 1
+def _put(dst, src):
+    """Copy the tensors of the tree ``src`` into the buffers of the tree
+    ``dst``, leaf by leaf in order, unless they are those buffers."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d is s or d.copy_(s)
 
 
 class _IterGraphs:
-    """The iteration of ``_SMCProgram.body`` as two CUDA graphs on one
-    card: ``pre`` the threshold, the alive mask, the evidence and the
-    resampling test; ``post`` the sweep (the fused kernel #3, or the
-    split sweep) and the stop test. Between them the host reads the
-    resampling flag and, when it is set, resamples in PyTorch; ``cond``
-    reads the stop flag after ``post``. Both graphs read and write one set
-    of buffers, ``state``, which is the loop's state from the first replay
-    on. A replay runs the kernels that were recorded, with their
-    arguments, on draws at the offsets the eager iteration would take:
-    the same bits, with a few host calls in place of the iteration's
-    PyTorch operations. The fused sweep writes fresh outputs and reads
-    the partners from ``state``'s pre-sweep buffers, into which ``_put``
-    then copies them."""
+    """``_SMCProgram.pre`` and ``post`` as two CUDA graphs on one card
+    (``utils/graphs.py``), each recorded on the buffers ``state`` (the
+    loop's state from the first replay on) and ``step`` and ending with
+    the copy of its outputs into them; the host step runs eagerly between
+    the replays. A replay runs the recorded kernels, on draws at the
+    offsets the eager iteration would take: the same bits."""
 
     def __init__(self, program, state):
         self.program = p = program
-        self.state = state._replace(
-            thetas=tree_map(torch.clone, state.thetas),
-            **{f: getattr(state, f).clone() for f in _BUFFERS[1:]})
-        self.eps_v = state.eps.clone()
-        self.flag = torch.zeros((), dtype=torch.bool, device=p.device)
-        self.rflag = torch.zeros((), dtype=torch.bool, device=p.device)
-        self.pre = _Captured(self._pre, p.device)
-        self.post = _Captured(self._post, p.device, (state.key,))
-        _LAST[:] = [self.pre, self.post]
+        self.state = _SMCState(state.key, *(tree_map(torch.clone, v)
+                                            for v in state[1:]))
+        false = torch.zeros((), dtype=torch.bool, device=p.device)
+        self.step = _Step(state.eps.clone(), false, false.clone())
+        self.pre, self.post = graphs._capture(
+            p.device, (self._pre, ()), (self._post, (state.key,)))
 
     def _pre(self):
-        p, s = self.program, self.state
-        eps, flag, alive, ess, logz = p.threshold(s.xs, s.alive, s.logz)
-        self.eps_v.copy_(s.eps)
-        for dst, src in ((s.eps, eps), (self.flag, flag), (s.alive, alive),
-                         (s.logz, logz), (self.rflag, p.resample_test(ess))):
-            dst.copy_(src)
-        s.it.add_(1)
+        # the step first: eps_v copies the eps buffer before it changes
+        _put((self.step, self.state), self.program.pre(self.state))
 
     def _post(self):
-        p, s = self.program, self.state
-        thetas, xs, lps, got = p.mcmc_sweep(
-            s.key, s.thetas, s.xs, s.lps, s.alive, s.eps, self.flag)
-        accepted = torch.zeros((), dtype=torch.int64, device=p.device) + got
-        self._put(thetas=thetas, xs=xs, lps=lps, acc=accepted,
-                  done=p.stop_test(self.eps_v, s.eps, accepted))
-
-    def _put(self, **fields):
-        """Copy tensors into the buffers of ``state`` (a tree field leaf by
-        leaf) unless they are those buffers."""
-        for f, v in fields.items():
-            tree_map(lambda dst, src: dst is src or dst.copy_(src),
-                     getattr(self.state, f), v)
+        _put(self.state, self.program.post(self.step, self.state))
 
     def body(self, state):
-        p, s = self.program, self.state
+        s = self.state
         if state.key is not s.key:
             raise ValueError("the smc loop's generator changed under its "
                              "CUDA graphs")
         with span("smc.iter"):
-            self._put(**{f: getattr(state, f) for f in _BUFFERS})
+            _put(s, state)
             with span("smc.threshold"):
                 self.pre.replay()
             with span("smc.resample"):
-                if host_read("resample flag", bool, self.rflag):
-                    thetas, xs, lps, alive = p._resample(
-                        s.key, s.thetas, s.xs, s.lps, s.alive)
-                    self._put(thetas=thetas, xs=xs, lps=lps, alive=alive)
+                _put(s, self.program.resample_step(self.step, s))
             with span("smc.sweep", round=0):
                 self.post.replay()
             return s
-
-
-# the fields of ``_SMCState`` that ``_IterGraphs`` keeps in its buffers
-_BUFFERS = ("thetas", "xs", "lps", "alive", "eps", "logz", "it", "acc",
-            "done")
 
 
 class _ShardedSMCProgram(_SMCProgram):

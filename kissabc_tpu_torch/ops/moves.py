@@ -57,19 +57,12 @@ def _resolve_scheme(scheme, n):
 
 def roll_shifts(words, n):
     """Two distinct rotation shifts in [1, n) from two uint32 words,
-    with the JAX package's modulo rule. ``words`` are Python ints."""
+    with the JAX package's modulo rule. ``words``: two Python ints, or
+    an int64 tensor of two words, whose shifts are two 0-dim int64
+    tensors on its device, read by nothing on the host."""
     r1 = words[0] % (n - 1) + 1
     r2 = words[1] % (n - 2) + 1
     return r1, r2 + (r2 >= r1)
-
-
-def roll_shifts_on(words, n):
-    """``roll_shifts`` of an int64 tensor of two words, on its device:
-    two 0-dim int64 tensors, the same numbers, read by nothing on the
-    host."""
-    r1 = words[0] % (n - 1) + 1
-    r2 = words[1] % (n - 2) + 1
-    return r1, r2 + (r2 >= r1).to(r2.dtype)
 
 
 def _scale(w, x):
@@ -77,17 +70,10 @@ def _scale(w, x):
 
 
 def propose_roll(ens, w, r1, r2):
-    """Partners ``(i + r1) % n`` and ``(i + r2) % n`` for every walker:
-    ``x + (roll(x, r2) - roll(x, r1)) * w``."""
-    return tree_map(
-        lambda x: x + (torch.roll(x, r2, 0) - torch.roll(x, r1, 0))
-        * _scale(w, x), ens)
-
-
-def propose_roll_on(ens, w, r1, r2):
-    """``propose_roll`` with the shifts as device tensors: each rotation
-    a gather at ``(i - r) % n``, which is what ``torch.roll`` reads, so
-    the same bits without the shifts on the host."""
+    """``x + (roll(x, r2) - roll(x, r1)) * w``, the shifts Python ints or
+    device tensors: each rotation a gather at ``(i - r) % n``, which is
+    what ``torch.roll`` reads, so its bits without the shifts on the
+    host."""
     n = w.shape[0]
     i = torch.arange(n, device=w.device)
     ia, ib = (i - r1) % n, (i - r2) % n
@@ -114,7 +100,7 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
     population and cut into shards, the rolls go through
     ``roll_walkers`` (shard-sized transfers) and a gather joins the
     population first (an all-gather, as GSPMD lowers it). An unsharded
-    roll keeps its shifts on the device (``propose_roll_on``): no host
+    roll keeps its shifts on the device (``propose_roll``): no host
     read, so a CUDA graph can record it."""
     from ..parallel.mesh import Sharded, join, place, roll_walkers
     sharded = isinstance(ens, Sharded)
@@ -130,7 +116,7 @@ def gaussian_diff_propose(gen, ens, d, max_stretch=2.0, scheme="auto",
     if scheme == "roll":
         words = uint32_words(gen, 2)
         if not sharded:
-            return propose_roll_on(ens, w, *roll_shifts_on(words, n))
+            return propose_roll(ens, w, *roll_shifts(words, n))
         r1, r2 = roll_shifts(host_read("roll shifts", torch.Tensor.tolist,
                                        words), n)
         ra, rb = roll_walkers(ens, r1, ens.mesh), roll_walkers(ens, r2,

@@ -17,7 +17,7 @@
   and ``host_syncs`` (reads of a tensor's value into Python, each a wait
   for the card on CUDA), ``host_copies`` (blocking host-to-device
   copies) and ``graph_replays`` (replays of a CUDA graph of the smc
-  iteration, ``core/smc.py`` ``_Captured``). They always count;
+  iteration, ``utils/graphs.py`` ``_Captured``). They always count;
   ``counts()`` reads them all, and each span records how much each
   counter moved inside it.
 

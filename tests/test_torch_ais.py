@@ -22,16 +22,9 @@ from kissabc_tpu.utils.diagnostics import ess
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert, models
 from kissabc_tpu_torch.core import ais as PA
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = dict(device="cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _randn(gen, shape=()):

@@ -34,6 +34,7 @@ import torch
 
 from host_cuda.build import build_program
 from kissabc_tpu_torch.ops import fused_ais as FA
+from torch_threads import one_torch_thread  # noqa: F401
 
 H = 1100             # walkers a half: no block size divides it
 RTOL, ATOL, BORDER = 2e-4, 2e-5, 1e-4

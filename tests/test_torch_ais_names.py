@@ -16,6 +16,7 @@ import torch
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.ops.moves import mixture_one
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ["make_run", "make_sweep", "make_sweep_halves", "checkpoint"]
 N, D = 32, 2

@@ -14,6 +14,7 @@ from test_api_docs import (FORMULA_DEFAULTS, HEADER_RE, _norm_default,
                            _runtime_default, _split_toplevel)
 
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 API_MD = Path(__file__).resolve().parent.parent / "docs" / "api_torch.md"
 

@@ -34,6 +34,7 @@ from battery_specs import CONTINUOUS, DISCRETE
 
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 P = inspect.Parameter
 

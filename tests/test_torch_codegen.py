@@ -21,14 +21,7 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import _build
 from kissabc_tpu_torch.ops import codegen as C
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 _, flagship_draw, flagship_reduce = models.flagship()

@@ -36,6 +36,7 @@ from kissabc_tpu_torch.ops import quantile as tq
 from kissabc_tpu_torch.ops import resampling as tres
 from kissabc_tpu_torch.ops.moves import roll_shifts
 from kissabc_tpu_torch.parallel import mesh as M
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mesh(k):

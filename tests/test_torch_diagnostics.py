@@ -13,6 +13,7 @@ import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu.utils import diagnostics as JD
 from kissabc_tpu_torch.utils import diagnostics as TD
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _ar1(rho, n, seed):

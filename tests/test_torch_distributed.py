@@ -22,6 +22,7 @@ import torch
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.parallel import distributed as dist
 from kissabc_tpu_torch.parallel.mesh import make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = ({}, {"partner_scheme": "roll"}, {"resample": "systematic"})

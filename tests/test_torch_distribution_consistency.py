@@ -38,6 +38,7 @@ from battery_specs import CONTINUOUS, DISCRETE, OTHERS, build
 
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 11
 KEY = jax.random.key(SEED)

@@ -29,6 +29,7 @@ import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch import distributions as D
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS32 = float(np.finfo(np.float32).eps)
 

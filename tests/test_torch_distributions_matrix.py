@@ -33,6 +33,7 @@ import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch import statistics as kts
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-5   # logpdf, port against JAX
 PUSH_ATOL = 1e-6

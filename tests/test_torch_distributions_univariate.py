@@ -37,16 +37,9 @@ from scipy import stats
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS32 = float(np.finfo(np.float32).eps)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _u(name, lo, hi, n=400):

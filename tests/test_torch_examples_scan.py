@@ -17,8 +17,8 @@ examples' checks; all uncut.
 """
 
 import numpy as np
-from walkthroughs import (assert_means_agree, jax_example,  # noqa: F401
-                          one_torch_thread, torch_example)
+from walkthroughs import assert_means_agree, jax_example, torch_example
+from torch_threads import one_torch_thread  # noqa: F401
 
 import kissabc_tpu as ka
 

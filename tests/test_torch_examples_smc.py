@@ -20,8 +20,8 @@ Tolerances against the JAX runs: ``tests/walkthroughs.py``.
 import numpy as np
 import pytest
 import torch
-from walkthroughs import (REPO, assert_means_agree, jax_example,  # noqa: F401
-                          one_torch_thread, torch_example)
+from walkthroughs import REPO, assert_means_agree, jax_example, torch_example
+from torch_threads import one_torch_thread  # noqa: F401
 
 import kissabc_tpu as ka
 

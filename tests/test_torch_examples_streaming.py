@@ -24,8 +24,8 @@ examples' checks.
 
 import re
 
-from walkthroughs import (jax_example, one_torch_thread,  # noqa: F401
-                          torch_example)
+from walkthroughs import jax_example, torch_example
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_example_streaming_sim(capsys, monkeypatch):

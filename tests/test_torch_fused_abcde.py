@@ -27,19 +27,12 @@ import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.ops import fused_abcde as FD
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 BAND = 1e-4
 KW = dict(ndraws=200, chunk=128, block=128, walker_tiles=2, bits="stub")
 GAMMA = float(2.38 / np.sqrt(4.0))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _models(lib):

@@ -25,20 +25,13 @@ from kissabc_tpu.ops import pallas_kernels as JP
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.ops import fused_ais as FA
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 BORDER = 1e-4
 FL = dict(scale=0.1, ndraws=200, target_mu=2.0, target_sd=0.04,
           sd_weight=50.0, a_stretch=3.0, mu_lo=1.0, mu_hi=3.0, sg_sigma=0.05,
           sg_lo=0.0, sg_hi=100.0, block=128, chunk=128)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(x):

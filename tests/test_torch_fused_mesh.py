@@ -36,17 +36,10 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.parallel import mesh as M
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 BORDER = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _mesh(k):

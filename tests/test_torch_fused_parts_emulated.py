@@ -31,6 +31,7 @@ from host_cuda.build import build_program
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.ops._build import GEN_SIGNATURES
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL, BORDER = 2e-4, 2e-5, 1e-4
 H, NDRAWS, CHUNK = 128, 64, 32

@@ -20,6 +20,7 @@ from kissabc_tpu_torch import convert, models
 from kissabc_tpu_torch.ops import fused_smc as F
 from kissabc_tpu_torch.ops.moves import roll_shifts
 from kissabc_tpu_torch.utils.rng import as_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5   # the JAX golden tolerance (test_pallas.py:104)
 BORDER = 1e-5             # commits may differ where |cost - eps| < BORDER
@@ -30,14 +31,6 @@ BORDER = 1e-5             # commits may differ where |cost - eps| < BORDER
 # (3.8e-3 measured): its costs and borderline band use this instead
 CANCEL_ATOL = 1e-2
 TILES = dict(ndraws=200, block=128, chunk=128, walker_tiles=2)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 FLAGSHIP_SPEC = ("Factored", [

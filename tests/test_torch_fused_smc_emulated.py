@@ -25,6 +25,7 @@ import kissabc_tpu_torch as kt
 from host_cuda.build import build_program
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_smc as F
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 N, NDRAWS, CHUNK, THREADS = 256, 64, 32, 64

@@ -36,6 +36,7 @@ from host_cuda.build import build_program
 from kissabc_tpu_torch.ops import kernels as K
 from kissabc_tpu_torch.ops.moves import roll_shifts
 from kissabc_tpu_torch.utils.rng import as_generator, uint32_words
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 1100             # walkers: no block size divides it
 RTOL, ATOL, BAND = 2e-4, 2e-5, 1e-5

@@ -34,6 +34,7 @@ from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.ops import codegen as C
 from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.ops import fused_tempered as FT
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 BORDER = 1e-4
@@ -41,14 +42,6 @@ Y = np.array([1.2, 0.8, 1.5, 0.9, 1.1, 1.3, 0.7, 1.0], np.float32)
 K = len(Y)
 CONST = np.float32(K / 2 * np.log(2 * np.pi))
 KW = dict(block=128, walker_tiles=2, bits="stub")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _models(lib):

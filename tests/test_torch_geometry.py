@@ -24,14 +24,7 @@ from kissabc_tpu_torch.core import abcde as AB
 from kissabc_tpu_torch.ops import fused_abcde as FD
 from kissabc_tpu_torch.ops import lane_groups as LG
 from kissabc_tpu_torch.utils.rng import as_generator
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [1, 31, 300, 1000, 4096, 16384, 16384 + 37,

@@ -19,7 +19,8 @@ bands:
 
 import numpy as np
 import torch
-from walkthroughs import jax_example, one_torch_thread, torch_example  # noqa: F401
+from walkthroughs import jax_example, torch_example
+from torch_threads import one_torch_thread  # noqa: F401
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.parallel.mesh import make_mesh

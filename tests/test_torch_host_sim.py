@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def readme_sim(thetas, seeds):

@@ -17,18 +17,9 @@ import torch
 from kissabc_tpu.ops import pallas_kernels as pk
 from kissabc_tpu_torch.ops import kernels as K
 from kissabc_tpu_torch.utils.rng import as_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5  # the JAX golden tolerance (tests/test_pallas.py)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run on small tensors, where one thread is the
-    fastest and does not contend with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(n, seed):

@@ -35,6 +35,7 @@ from host_cuda.build import emulated
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.ops import lane_groups as LG
+from torch_threads import one_torch_thread  # noqa: F401
 
 HOST = Path(__file__).parent / "host_cuda"
 GEOMETRIES = [(64, 64, 1), (64, 64, 2), (64, 64, 4), (64, 128, 8),

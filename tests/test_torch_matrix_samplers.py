@@ -32,14 +32,7 @@ import torch
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.core import ais as AI
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _corr_cost(obs):

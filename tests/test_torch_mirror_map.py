@@ -12,6 +12,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 TESTS = Path(__file__).resolve().parent
 

@@ -26,6 +26,7 @@ import torch
 
 from host_cuda.build import build_program
 from kissabc_tpu_torch.ops import kernels as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEED, STREAM = 2024, 7        # the flagship AIS simulator's stream
 TARGET = (2.0, 0.04, 50.0)    # target mean, target sd, sd weight

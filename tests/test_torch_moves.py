@@ -26,6 +26,7 @@ from kissabc_tpu.ops import moves as JM
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.core import ais as PA
 from kissabc_tpu_torch.ops import moves as PM
+from torch_threads import one_torch_thread  # noqa: F401
 
 ERFINV_ULPS = 128
 

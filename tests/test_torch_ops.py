@@ -38,18 +38,9 @@ from kissabc_tpu_torch.particles import Particles, hpdi, particles_from_tree
 from kissabc_tpu_torch.utils.device import resolve_device
 from kissabc_tpu_torch.utils.hostfetch import fetch_tree
 from kissabc_tpu_torch.utils.rng import as_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run on small tensors, where one thread is the
-    fastest and does not contend with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _f32_bits(x):

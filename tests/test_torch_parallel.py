@@ -22,6 +22,7 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.parallel import mesh as M
 from kissabc_tpu_torch.parallel.mesh import constrainer, make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mesh(k=8):

@@ -30,6 +30,7 @@ from kissabc_tpu_torch import models
 from kissabc_tpu_torch.core.ais import _halves, make_sweep_halves
 from kissabc_tpu_torch.parallel import mesh as M
 from kissabc_tpu_torch.parallel.mesh import make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mesh(k=8):

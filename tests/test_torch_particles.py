@@ -27,6 +27,7 @@ import torch
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.particles import particles_from_tree
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_sampling_constructor():

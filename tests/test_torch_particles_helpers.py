@@ -10,6 +10,7 @@ import pytest
 
 import kissabc_tpu as ka
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 HELPERS = ["chainsstack", "pmap_apply", "pmean", "pstd", "pmedian",
            "pquantile", "pcov", "pcor", "sigmapoints", "pm", "plus_minus"]

@@ -19,14 +19,7 @@ from kissabc_tpu.ops import tree as JT
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.core import abcde as AB
 from kissabc_tpu_torch.ops import moves as M
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _mixture_cost(x, gen):

@@ -16,14 +16,7 @@ import pytest
 import torch
 
 import kissabc_tpu_torch as kt
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _scalar_cost(target):

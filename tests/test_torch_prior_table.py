@@ -33,16 +33,9 @@ from kissabc_tpu_torch.ops import fused_abcde as FD
 from kissabc_tpu_torch.ops import fused_ais as FA
 from kissabc_tpu_torch.ops import fused_smc as F
 from kissabc_tpu_torch.ops import fused_tempered as FT
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS32 = float(np.finfo(np.float32).eps)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # name: (family, grid lo, hi)

@@ -32,6 +32,7 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.ops import quantile as tq
 from kissabc_tpu_torch.parallel.mesh import join, make_mesh, place
 from kissabc_tpu_torch.utils import logging as L
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

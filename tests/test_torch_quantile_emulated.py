@@ -34,6 +34,7 @@ import torch
 from host_cuda.build import build_program
 from kissabc_tpu.ops import quantile as jq
 from kissabc_tpu_torch.ops import quantile as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 NS = (1, 7, 1000, (1 << 12) + 3)
 MASKS = ("dead", "one", "most", "all")

@@ -8,20 +8,12 @@ settings, held to its bands, on the CPU (each takes a few seconds).
 """
 
 import numpy as np
-import pytest
 import torch
 from torch.func import vmap
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_socks_prior_matches_reference_parameters():

@@ -23,6 +23,7 @@ from scipy import stats
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.core import rejection as R
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _chunks(seed, nchunks, b, k=2):

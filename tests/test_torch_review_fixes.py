@@ -11,6 +11,7 @@ import scipy.stats as st
 import torch
 
 import kissabc_tpu_torch as kt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _gen(seed):

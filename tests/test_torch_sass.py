@@ -6,6 +6,7 @@ cuobjdump's format."""
 import pytest
 
 from kissabc_tpu_torch.ops import sass
+from torch_threads import one_torch_thread  # noqa: F401
 
 LISTING = """
         code for sm_90a

@@ -29,18 +29,11 @@ from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import codegen as C
 from kissabc_tpu_torch.ops import scan as S
 from kissabc_tpu_torch.utils.rng import as_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 3e-4, 3e-5   # the JAX golden tolerance (test_scan_cost.py:104)
 A = models.AR1_A
 REPO = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _load_example(name):

@@ -20,6 +20,7 @@ from host_cuda.build import build_program
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import scan as S
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 1000
 THREADS = (64, 128, 256, 512)

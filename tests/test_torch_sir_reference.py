@@ -31,17 +31,10 @@ from reference.scan_streams import scan_noise  # noqa: E402
 
 import kissabc_tpu_torch as kt  # noqa: E402
 from kissabc_tpu_torch import models  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 CELL = "sir-smc-1m"
 LIMITS = json.loads((BENCH / "limits" / f"{CELL}.json").read_text())
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config():

@@ -20,16 +20,7 @@ from kissabc_tpu.ops.pallas_kernels import (
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.core.smc import _SMCProgram
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The plain versions run on small tensors, where one thread is the
-    fastest and does not contend with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_prior():

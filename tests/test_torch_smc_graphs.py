@@ -1,8 +1,8 @@
 """The smc iteration as CUDA graphs (``core/smc.py`` ``_IterGraphs``), on
-the CPU: a capture cannot run here, so ``_Captured`` is replaced by a
-stand-in that runs the recorded function at each replay. What is held is
-everything but the recording itself: the split of the iteration into
-``pre`` and ``post``, the buffers they read and write, the host-side
+the CPU: a capture cannot run here, so ``utils/graphs.py``'s
+``_Captured`` is replaced by a stand-in that runs the recorded function
+at each replay. What is held is everything but the recording itself: the
+iteration's ``pre`` and ``post`` on the graphs' buffers, the host-side
 resampling between them, the rotation shifts kept on the device, and the
 stop test, against the eager loop bit for bit, on the same key.
 
@@ -11,13 +11,14 @@ version on the CPU) in ``post``: iterations, eps, costs, population and
 the generator's final state equal the eager loop's, and
 ``graph_replays`` counts two replays an iteration after the first.
 
-Also: ``propose_roll_on`` equals ``propose_roll`` on the same words,
-and ``gaussian_diff_propose`` a roll by shifts read on the host,
-``graphable`` holds the graphs to one card, the radix select,
+Also: ``propose_roll`` on device shifts equals ``torch.roll`` by the
+same shifts read on the host, and ``gaussian_diff_propose`` such a host
+roll, ``graphable`` holds the graphs to one card, the radix select,
 written-out marginals, no retries and a sweep that says it can be
 captured (a one-card fused sweep, or the split sweep's cost), and
-``add_counts`` moves the registered counters. Each test takes under
-10 s.
+``add_counts`` moves the registered counters. On one torch thread a
+graphed-against-eager case takes 2-3 s, alone or beside five other test
+workers; the others take under 0.1 s.
 """
 
 import types
@@ -32,11 +33,13 @@ from kissabc_tpu_torch.core import smc as S
 from kissabc_tpu_torch.ops import moves
 from kissabc_tpu_torch.ops import scan as SC
 from kissabc_tpu_torch.parallel.mesh import make_mesh
+from kissabc_tpu_torch.utils import graphs as G
 from kissabc_tpu_torch.utils import logging as L
 from kissabc_tpu_torch.utils.rng import uint32_words
+from torch_threads import one_torch_thread  # noqa: F401
 
 
-class _Replayed(S._Captured):
+class _Replayed(G._Captured):
     """``_Captured`` without a card: its "graph" runs the function at
     each replay, whose Python counts what it launches (no delta)."""
 
@@ -69,13 +72,28 @@ def _solve(prior, cost, key, n, stepped=False):
     return res.iterations, res.eps, res.C, [np.asarray(p) for p in res.P]
 
 
+def _graphed_resamples(monkeypatch):
+    """A list that gets an entry at each resampling between two replays."""
+    made = []
+    real = S._SMCProgram._resample
+
+    def resample(self, *a):
+        if self._graphs is not None:
+            made.append(1)
+        return real(self, *a)
+
+    monkeypatch.setattr(S._SMCProgram, "_resample", resample)
+    return made
+
+
 @pytest.mark.parametrize("stepped", [False, True])
 @pytest.mark.parametrize("key", [3, 2**31 + 7])
 def test_graphed_iteration_equals_the_eager_one(monkeypatch, key, stepped):
     prior, cost = _ar1()
     eager = _solve(prior, cost, key, 2048, stepped)
-    monkeypatch.setattr(S, "_Captured", _Replayed)
+    monkeypatch.setattr(G, "_Captured", _Replayed)
     monkeypatch.setattr(S._SMCProgram, "graphable", lambda self: True)
+    resampled = _graphed_resamples(monkeypatch)
     made = []
     real = S._IterGraphs.__init__
 
@@ -84,8 +102,10 @@ def test_graphed_iteration_equals_the_eager_one(monkeypatch, key, stepped):
         real(self, program, state)
 
     monkeypatch.setattr(S._IterGraphs, "__init__", init)
+    replays = L.counts()["graph_replays"]
     graphed = _solve(prior, cost, key, 2048, stepped)
-    assert len(made) == 1
+    assert len(made) == 1 and resampled
+    assert L.counts()["graph_replays"] - replays == 2 * (graphed[0] - 1)
     assert eager[0] == graphed[0] and eager[0] > 3
     assert eager[1] == graphed[1]
     np.testing.assert_array_equal(eager[2], graphed[2])
@@ -119,9 +139,11 @@ def _fused_solve(key, stepped):
 def test_graphed_fused_iteration_equals_the_eager_one(monkeypatch, key,
                                                       stepped):
     eager = _fused_solve(key, stepped)
-    monkeypatch.setattr(S, "_Captured", _Replayed)
+    monkeypatch.setattr(G, "_Captured", _Replayed)
     monkeypatch.setattr(S._SMCProgram, "graphable", lambda self: True)
+    resampled = _graphed_resamples(monkeypatch)
     graphed = _fused_solve(key, stepped)
+    assert resampled
     assert eager[0] == graphed[0] and eager[0] > 3
     assert eager[1] == graphed[1]
     np.testing.assert_array_equal(eager[2], graphed[2])
@@ -132,6 +154,12 @@ def test_graphed_fused_iteration_equals_the_eager_one(monkeypatch, key,
     assert graphed[5] == 2 * (graphed[0] - 1)
 
 
+def _torch_roll(ens, w, r1, r2):
+    """The roll proposal by ``torch.roll`` with host shifts."""
+    return tuple(x + (torch.roll(x, r2, 0) - torch.roll(x, r1, 0))
+                 * w.reshape((-1,) + (1,) * (x.dim() - 1)) for x in ens)
+
+
 @pytest.mark.parametrize("n", [5, 1000, 65536])
 def test_roll_on_the_device_equals_torch_roll(n):
     gen = torch.Generator().manual_seed(n)
@@ -140,10 +168,11 @@ def test_roll_on_the_device_equals_torch_roll(n):
     for _ in range(4):
         words = uint32_words(gen, 2)
         r1, r2 = moves.roll_shifts(words.tolist(), n)
-        d1, d2 = moves.roll_shifts_on(words, n)
+        d1, d2 = moves.roll_shifts(words, n)
+        assert isinstance(d1, torch.Tensor) and isinstance(d2, torch.Tensor)
         assert (int(d1), int(d2)) == (r1, r2)
-        want = moves.propose_roll(ens, w, r1, r2)
-        got = moves.propose_roll_on(ens, w, d1, d2)
+        want = _torch_roll(ens, w, r1, r2)
+        got = moves.propose_roll(ens, w, d1, d2)
         for a, b in zip(want, got):
             assert torch.equal(a, b)
 
@@ -156,7 +185,7 @@ def test_propose_takes_the_draws_and_shifts_of_a_host_roll():
     ref = torch.Generator().manual_seed(11)
     w = 2.0 * torch.randn(n, generator=ref) / np.sqrt(2)
     r1, r2 = moves.roll_shifts(uint32_words(ref, 2).tolist(), n)
-    want = moves.propose_roll(ens, w, r1, r2)
+    want = _torch_roll(ens, w, r1, r2)
     assert all(torch.equal(a, b) for a, b in zip(want, got))
     assert torch.equal(gen.get_state(), ref.get_state())
 

@@ -25,6 +25,7 @@ import torch
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.utils import logging as L
 from test_torch_quantile_chip import GK_SMC, _gk_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -26,16 +26,9 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu import statistics as kas
 from kissabc_tpu_torch import distributions as D
 from kissabc_tpu_torch import statistics as kts
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # (family, args, scipy twin built independently here): TWIN_CASES of

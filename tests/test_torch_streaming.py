@@ -18,17 +18,10 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import streaming as S
 from kissabc_tpu_torch.utils.rng import as_generator
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 3e-4, 3e-5   # the JAX golden tolerance (test_pallas.py:318)
 GOLDEN = dict(ndraws=700, block=256, chunk=128, walker_tiles=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_seed(key):

@@ -36,6 +36,7 @@ import kissabc_tpu_torch as kt
 from host_cuda.build import HERE, build_program
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_ais as FA
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL, BORDER = 2e-4, 2e-5, 1e-4
 H = 300              # walkers a half: 3 blocks of 128, the last partial

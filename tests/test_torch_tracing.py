@@ -21,16 +21,14 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import models
 from kissabc_tpu_torch.ops import fused_smc
 from kissabc_tpu_torch.utils import logging as L
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
 def _fresh_spans():
-    torch_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     L.reset_spans()
     yield
     L.reset_spans()
-    torch.set_num_threads(torch_threads)
 
 
 def _cost(thetas, gen):

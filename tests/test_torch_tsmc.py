@@ -25,18 +25,11 @@ import kissabc_tpu_torch as kt
 from kissabc_tpu_torch import convert
 from kissabc_tpu_torch.core import tsmc as TS
 from kissabc_tpu_torch.ops.quantile import ess_weights
+from torch_threads import one_torch_thread  # noqa: F401
 
 Y = np.array([1.2, 0.8, 1.5, 0.9, 1.1, 1.3, 0.7, 1.0], dtype=np.float32)
 K = len(Y)
 YT = torch.from_numpy(Y)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _loglike(theta):

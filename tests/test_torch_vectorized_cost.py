@@ -12,6 +12,7 @@ import torch
 
 import kissabc_tpu_torch as kt
 from kissabc_tpu_torch.utils.host_sim import host_cost
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _scalar_cost(x, gen):

@@ -1,6 +1,6 @@
 """Helpers of the ``tests/test_torch_examples_*.py`` files: the JAX and
-the torch walkthrough of one name, one torch thread, and the rule that
-holds a posterior mean to the JAX run's.
+the torch walkthrough of one name, and the rule that holds a posterior
+mean to the JAX run's.
 
 Tolerance of a posterior mean against the JAX run's: both runs sample
 the same posterior on the same data with other random streams, so the
@@ -19,8 +19,6 @@ import importlib.util
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 
 import kissabc_tpu_torch as kt
 
@@ -39,15 +37,6 @@ def jax_example(name):
 
 def torch_example(name):
     return importlib.import_module(f"examples_torch.{name}")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread: the test workers share the CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def effective_size(p, walkers=None):
